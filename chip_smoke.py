@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--rows N] [--cpu-rows N] [--reps N]
+    python3 chip_smoke.py [--rows N]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` (into ``build/kernels/``), then runs five phases, each printing
@@ -18,9 +18,8 @@ one JSON line:
      for the quickstart query, F-q1..F-q9 and a GROUP BY
      ``(origin, airline)``; every interval must cover the numpy truth,
      and every kernel must have been launched;
-  4. the port on the card against the port on the CPU on a
-     ``--cpu-rows`` scramble: equal scan decisions, intervals within
-     1e-6 relative;
+  4. the port on the card against the port on the CPU on a 2M-row
+     scramble: equal scan decisions, intervals within 1e-6 relative;
   5. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times.
 
@@ -47,6 +46,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 PAPER_ROWS = 606_000_000
+CPU_ROWS = 2_000_000     # rows of the card-vs-CPU comparison (phase 4)
+REPS = 30                # timed calls per kernel measurement
 
 
 def emit(obj) -> None:
@@ -67,15 +68,14 @@ class Timer:
     keeps the card busy while the host enqueues the call, so host
     overhead is hidden unless the call's own launches starve the card."""
 
-    def __init__(self, torch, reps: int):
+    def __init__(self, torch):
         self.torch = torch
-        self.reps = reps
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fn) -> float:
         torch = self.torch
         pairs = []
-        for _ in range(self.reps + 2):          # two warm-up calls
+        for _ in range(REPS + 2):          # two warm-up calls
             self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -276,10 +276,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
                     help="FLIGHTS rows of the main-path run")
-    ap.add_argument("--cpu-rows", type=int, default=2_000_000,
-                    help="rows of the card-vs-CPU comparison")
-    ap.add_argument("--reps", type=int, default=30,
-                    help="timed calls per kernel measurement")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -324,7 +320,7 @@ def main(argv=None) -> int:
                      if "registers" in ln or "spill" in ln]))
 
     # ---- 2. kernels against their plain versions ----------------------------
-    timer = Timer(torch, args.reps)
+    timer = Timer(torch)
     agg = [check_block_agg(torch, timer, ref, kblock, G, exact,
                            nb=8192, block_rows=1024, budget=64, seed=G)
            for G in (1, 200, 2800, 10240) for exact in (True, False)]
@@ -394,7 +390,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. the port on the card against the port on the CPU ----------------
-    ds = flights.generate(n_rows=args.cpu_rows, seed=0)
+    ds = flights.generate(n_rows=CPU_ROWS, seed=0)
     sc = T.build_scramble(ds.columns, catalog=ds.catalog, seed=1)
     f_gpu = T.FastFrame(sc, T.EngineConfig(), device="cuda")
     f_cpu = T.FastFrame(sc, T.EngineConfig(), device="cpu")
@@ -422,7 +418,7 @@ def main(argv=None) -> int:
                             ci_bitwise=bool(bitwise), ci_max_rel=rel))
         if len(same) != len(DECISION_FIELDS) or rel > 1e-6:
             mismatch.append(qname)
-    emit(dict(phase="card_vs_cpu", rows=args.cpu_rows, queries=compare,
+    emit(dict(phase="card_vs_cpu", rows=CPU_ROWS, queries=compare,
               total_s=time.perf_counter() - t_start))
     if mismatch:
         raise AssertionError(f"card and CPU runs differ: {mismatch}")

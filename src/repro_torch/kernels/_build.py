@@ -35,7 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
     "repro_block_agg": ([_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
-                         _P, _P, _P, _I, _P], _I),
+                         _I, _P, _P, _P, _P, _P, _I, _P], _I),
     "repro_bitmap_active": ([_P, _P, _I, _I, _P, _P, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }

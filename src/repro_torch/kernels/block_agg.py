@@ -4,7 +4,10 @@ The Hopper counterpart of :func:`repro.kernels.block_agg.block_agg`: per
 group, the masked count, the sums of ``v - c`` and ``(v - c)^2`` and the
 masked min / max over the rows of the selected blocks. It reads the
 ``(nb, block_rows)`` slabs where they live and gathers the blocks named
-by ``blk`` itself; ``tvalid`` zeroes the mask of padding lanes.
+by ``blk`` itself; ``tvalid`` zeroes the mask of padding lanes. Each
+group's rows are summed in row order (a per-tile sort by group, then one
+walk per group), so the result equals the plain version on the CPU bit
+for bit.
 
 This wrapper only launches: it takes CUDA tensors and raises on anything
 else. :func:`repro_torch.kernels.ops.grouped_sums` chooses between it and
@@ -17,6 +20,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+
+TILE_ROWS = 1024          # rows sorted by one CTA (kTile in the source)
+TABLE_CELLS = 1 << 22     # (group, tile) cells of the run table per chunk
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -62,14 +68,24 @@ def block_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
     _require(num_groups >= 1, f"num_groups must be >= 1, got {num_groups}")
     blk32 = blk.to(torch.int32).contiguous()
     tv32 = tvalid.to(torch.int32).contiguous()
+    budget, block_rows = blk32.shape[0], values.shape[1]
+    # lanes folded per launch pair, so the (2, G, tiles) run table stays
+    # within TABLE_CELLS; the walk carries the sums across chunks in order
+    tiles_cap = max(1, TABLE_CELLS // num_groups)
+    chunk_lanes = max(1, min(budget, tiles_cap * TILE_ROWS // block_rows))
+    tiles = -(-chunk_lanes * block_rows // TILE_ROWS)
+    part = torch.empty((tiles * TILE_ROWS, 4), dtype=torch.float32,
+                       device=dev)
+    table = torch.empty((2, num_groups, tiles), dtype=torch.int32,
+                        device=dev)
     sums = torch.empty((3, num_groups), dtype=torch.float32, device=dev)
     vmin = torch.empty((1, num_groups), dtype=torch.float32, device=dev)
     vmax = torch.empty((1, num_groups), dtype=torch.float32, device=dev)
     rc = _build.library().repro_block_agg(
         values.data_ptr(), gids.data_ptr(), mask.data_ptr(),
-        blk32.data_ptr(), tv32.data_ptr(), blk32.shape[0],
-        values.shape[1], num_groups, float(center), sums.data_ptr(),
-        vmin.data_ptr(), vmax.data_ptr(), dev.index,
+        blk32.data_ptr(), tv32.data_ptr(), budget, block_rows, num_groups,
+        float(center), chunk_lanes, part.data_ptr(), table.data_ptr(),
+        sums.data_ptr(), vmin.data_ptr(), vmax.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "block_agg launch")
     block_agg.launches += 1

@@ -128,6 +128,10 @@ def fused_round(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
     return state, ok, flags, new_pos
 
 
+# Device twins of the host loop's pack_mask / merge_moments_host. The host
+# loop does not call them; the device-resident loop (a later slice) does.
+
+
 def pack_active_device(active: torch.Tensor, n_words: int) -> torch.Tensor:
     """Device twin of :func:`repro_torch.aqp.bitmap.pack_mask`: bool
     ``(G,)`` active mask -> ``(n_words,)`` packed words (little-endian bit

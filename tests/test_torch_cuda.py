@@ -80,6 +80,21 @@ def test_block_agg_bitwise_equals_plain(cuda, G, exact):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+@pytest.mark.parametrize("cells", [1, 91])
+def test_block_agg_chunked_equals_plain(cuda, monkeypatch, cells):
+    """A small run table forces the fold into chunks of lanes (one lane
+    a chunk at ``cells=1``, ten at 91); each walk continues the last
+    one's sums, so the bits are those of one row-order pass."""
+    monkeypatch.setattr(block_agg, "TABLE_CELLS", cells)
+    nb, br, G, center = 60, 700, 13, 870.0
+    v, g, m = _slabs(cells, nb, br, G, False)
+    blk, tvalid = _lanes(cells + 1, nb, 24, 3)
+    want = ops.grouped_sums(v, g, m, G, center, blk=blk, tvalid=tvalid)
+    got = ops.grouped_sums(*(t.to(cuda) for t in (v, g, m)), G, center,
+                           blk=blk.to(cuda), tvalid=tvalid.to(cuda))
+    _same(got, want)
+
+
 def test_block_agg_all_blocks_and_launch_count(cuda):
     v, g, m = _slabs(5, 30, 64, 9, True)
     before = block_agg.block_agg.launches
