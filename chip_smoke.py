@@ -13,13 +13,19 @@ one JSON line:
      main path's shapes: bit-for-bit equality, run-to-run identical bits,
      and CUDA-event times beside the plain version's, one PyTorch library
      call's (where one computes the same function) and the bound;
-  3. the main path at full size: FLIGHTS data (``--rows``, default 100M;
-     the paper's relation has 606M rows), ``FastFrame.run`` on the card
-     for the quickstart query, F-q1..F-q9 and a GROUP BY
-     ``(origin, airline)``; every interval must cover the numpy truth,
-     and every kernel must have been launched;
+  3. the main paths at full size, on one frame of FLIGHTS data
+     (``--rows``, default 100M; the paper's relation has 606M rows):
+     ``FastFrame.run`` on the card for the quickstart query, F-q1..F-q9
+     and a GROUP BY ``(origin, airline)`` with the default bounder
+     (``block_agg`` and ``bitmap_active``), then the Anderson/DKW path
+     (``fused_fold`` and ``grouped_hist`` too): F-q1, F-q2, F-q5 and the
+     GROUP BY under ``bounder="anderson_dkw"``, and F-q2 as an exact
+     sweep. Every interval must cover the numpy truth, and each path must
+     have launched each of its kernels (the launch counts are zeroed
+     before each path and read after it);
   4. the port on the card against the port on the CPU on a 2M-row
-     scramble: equal scan decisions, intervals within 1e-6 relative;
+     scramble, for the queries of both paths: equal scan decisions,
+     intervals within 1e-6 relative;
   5. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times.
 
@@ -47,6 +53,15 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 PAPER_ROWS = 606_000_000
 CPU_ROWS = 2_000_000     # rows of the card-vs-CPU comparison (phase 4)
+HIST_BINS = 1024         # EngineConfig.hist_bins' default
+HIST_ROWS = 1024 * 1024  # one exact-sweep fold: lookahead_blocks x 1024
+# Coverage tolerance of an exact sweep's point estimates. Its folds are
+# lookahead_blocks x 1024 = 1M rows each, summed in float32 about the
+# catalog centre (870 for dep_delay, ~860 from most values), so a
+# group's mean carries rounding that grows with the rows a fold adds;
+# the sampled runs' 1e-4 is for folds of 64 blocks. Phase 3 prints the
+# measured error (exact_view_max_rel_err).
+EXACT_SWEEP_RTOL = 1e-3
 REPS = 30                # timed calls per kernel measurement
 
 
@@ -121,20 +136,21 @@ def _max_abs_diff(torch, a, b) -> float:
                              d).max())
 
 
-def check_block_agg(torch, timer, ref, kblock, G: int, exact: bool,
-                    nb: int, block_rows: int, budget: int, seed: int):
-    """The fold at one shape: kernel vs the plain version on the CPU (same
-    row order: bitwise on all data) and on the card (index_add_ with
-    atomics: bitwise where sums are exact)."""
+def fold_inputs(torch, G: int, exact: bool, nb: int, block_rows: int,
+                budget: int, seed: int):
+    """Slabs and a round's selection at one shape: exactly-representable
+    data (integers 0..16, grid [0, 16]) or general data (normal around
+    40, FLIGHTS' centre and grid [-60, 1800], with a NaN row and a masked
+    inf row). The last three lanes are padding (block 0, invalid)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shape = (nb, block_rows)
     if exact:
         values = torch.randint(0, 17, shape, generator=gen, device="cuda"
                                ).to(torch.float32)
-        center = 8.0
+        center, a, b = 8.0, 0.0, 16.0
     else:
         values = torch.randn(shape, generator=gen, device="cuda") * 25 + 40
-        center = 870.0
+        center, a, b = 870.0, -60.0, 1800.0
     gids = torch.randint(0, G, shape, generator=gen, device="cuda",
                          dtype=torch.int32)
     mask = (torch.rand(shape, generator=gen, device="cuda") < 0.8).to(
@@ -148,6 +164,16 @@ def check_block_agg(torch, timer, ref, kblock, G: int, exact: bool,
         values[blk[0], 5] = float("nan")
         values[blk[1], 7] = float("inf")
         mask[blk[1], 7] = 0.0
+    return values, gids, mask, blk, tvalid, center, a, b
+
+
+def check_block_agg(torch, timer, ref, kblock, G: int, exact: bool,
+                    nb: int, block_rows: int, budget: int, seed: int):
+    """The fold at one shape: kernel vs the plain version on the CPU (same
+    row order: bitwise on all data) and on the card (index_add_ with
+    atomics: bitwise where sums are exact)."""
+    values, gids, mask, blk, tvalid, center, _, _ = fold_inputs(
+        torch, G, exact, nb, block_rows, budget, seed)
     args = (values, gids, mask, blk, tvalid, center, G)
     got = kblock.block_agg(*args)
     again = kblock.block_agg(*args)
@@ -223,10 +249,123 @@ def check_bitmap_active(torch, timer, ref, kbit, W: int, nb: int,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def check_fused_fold(torch, timer, ref, kfused, kblock, G: int, exact: bool,
+                     nb: int, block_rows: int, budget: int, nbins: int,
+                     seed: int):
+    """The fused fold at one shape: moments bit for bit those of
+    block_agg, the histogram bit for bit the plain version's on the CPU
+    and on the card (0/1 counts are exact in any order), the same bits
+    run to run."""
+    values, gids, mask, blk, tvalid, center, a, b = fold_inputs(
+        torch, G, exact, nb, block_rows, budget, seed)
+    args = (values, gids, mask, blk, tvalid, center, a, b, G, nbins)
+    got = kfused.fused_fold(*args)
+    again = kfused.fused_fold(*args)
+    moments = kblock.block_agg(values, gids, mask, blk, tvalid, center, G)
+    torch.cuda.synchronize()
+    run_to_run = all(_bits_equal(torch, x, y) for x, y in zip(got, again))
+    moments_bitwise = all(_bits_equal(torch, x, y)
+                          for x, y in zip(got[:3], moments))
+    sel = [t[blk.long()].cpu() for t in (values, gids, mask)]
+    lanes = torch.arange(budget, dtype=torch.int32)
+    want_cpu = ref.fused_fold_ref(*sel, lanes, tvalid.cpu(), center, a, b,
+                                  num_groups=G, nbins=nbins)
+    want_dev = ref.fused_fold_ref(values, gids, mask, blk, tvalid, center,
+                                  a, b, num_groups=G, nbins=nbins)
+    cpu_bitwise = all(bool(_same(torch, x, y).all())
+                      for x, y in zip(got, want_cpu))
+    hist_dev_bitwise = _bits_equal(torch, got[3], want_dev[3])
+    max_abs = max(_max_abs_diff(torch, x, y) for x, y in zip(got, want_cpu))
+    ok = run_to_run and moments_bitwise and cpu_bitwise and hist_dev_bitwise
+    # the library yardstick: bincount of a precomputed flat (group, bin)
+    # index for the histogram plus one index_add_ for the moments
+    gv, gg, gm = (t[blk.long()].reshape(-1) for t in (values, gids, mask))
+    gm = gm * tvalid.repeat_interleave(block_rows).to(torch.float32)
+    flat = gg.long() * nbins + ref.hist_bins_ref(gv, a, b, nbins)
+    dv = gv - center
+    cols = torch.stack([gm, dv * gm, dv * dv * gm], dim=1)
+    gl = gg.long()
+    pinned = torch.empty((G, nbins), dtype=torch.float32, pin_memory=True)
+    ms = timer(lambda: kfused.fused_fold(*args))
+    plain_ms = timer(lambda: ref.fused_fold_ref(
+        values, gids, mask, blk, tvalid, center, a, b, num_groups=G,
+        nbins=nbins))
+    lib_ms = timer(lambda: (
+        torch.bincount(flat, weights=gm, minlength=G * nbins),
+        torch.zeros((G, 3), device="cuda").index_add_(0, gl, cols)))
+    d2h_ms = timer(lambda: pinned.copy_(got[3], non_blocking=True))
+    rows = budget * block_rows
+    bound_ms, bound_by = bound(rows * 12 + budget * 8 + 5 * G * 4
+                               + G * nbins * 4, rows * 14)
+    return dict(G=G, exact_data=exact, nbins=nbins, budget=budget,
+                block_rows=block_rows, ok=ok,
+                run_to_run_identical=run_to_run,
+                moments_bitwise_vs_block_agg=moments_bitwise,
+                bitwise_vs_plain_cpu=cpu_bitwise,
+                hist_bitwise_vs_plain_card=hist_dev_bitwise,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                hist_d2h_pinned_ms=d2h_ms)
+
+
+def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
+                       rows: int, nbins: int, seed: int):
+    """The histogram of ``rows`` flat rows (one exact-sweep or recovery
+    fold at the defaults): bit for bit the plain version's on the CPU and
+    on the card, the same bits run to run. General data carries NaN and
+    +-inf rows, every bin edge and its float32 neighbours."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if exact:
+        values = torch.randint(0, 17, (rows,), generator=gen,
+                               device="cuda").to(torch.float32)
+        a, b = 0.0, 16.0
+    else:
+        a, b = -60.0, 1800.0
+        values = torch.randn(rows, generator=gen, device="cuda") * 25 + 40
+        k = torch.arange(nbins + 1, device="cuda", dtype=torch.float32)
+        edges = k / (nbins / (b - a)) + a
+        special = torch.cat([
+            edges, torch.nextafter(edges, torch.tensor(float("inf"),
+                                                       device="cuda")),
+            torch.nextafter(edges, torch.tensor(float("-inf"),
+                                                device="cuda")),
+            torch.tensor([float("nan"), float("inf"), float("-inf")] * 8,
+                         device="cuda")])
+        at = torch.randperm(rows, generator=gen, device="cuda")[
+            :special.numel()]
+        values[at] = special
+    gids = torch.randint(0, G, (rows,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    mask = (torch.rand(rows, generator=gen, device="cuda") < 0.8).to(
+        torch.float32)
+    args = (values, gids, mask, a, b, G, nbins)
+    got = khist.grouped_hist(*args)
+    again = khist.grouped_hist(*args)
+    torch.cuda.synchronize()
+    want_cpu = ref.grouped_hist_ref(values.cpu(), gids.cpu(), mask.cpu(),
+                                    a, b, num_groups=G, nbins=nbins)
+    want_dev = ref.grouped_hist_ref(values, gids, mask, a, b, num_groups=G,
+                                    nbins=nbins)
+    ok = (_bits_equal(torch, got, again) and _bits_equal(torch, got, want_cpu)
+          and _bits_equal(torch, got, want_dev))
+    flat = gids.long() * nbins + ref.hist_bins_ref(values, a, b, nbins)
+    ms = timer(lambda: khist.grouped_hist(*args))
+    plain_ms = timer(lambda: ref.grouped_hist_ref(
+        values, gids, mask, a, b, num_groups=G, nbins=nbins))
+    lib_ms = timer(lambda: torch.bincount(flat, weights=mask,
+                                          minlength=G * nbins))
+    bound_ms, bound_by = bound(rows * 12 + G * nbins * 4, rows * 5)
+    return dict(G=G, exact_data=exact, rows=rows, nbins=nbins, ok=ok,
+                max_abs_err=_max_abs_diff(torch, got, want_cpu), ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 # -- phases 3 and 4 ----------------------------------------------------------
 
 
 def main_path_queries(T, fq, opt):
+    """The default bounder's path: ``(name, query, sampling)`` runs."""
     qs = {"quickstart": T.AggQuery(
         agg="avg", column="dep_delay",
         filters=(T.Filter("origin", "eq", 0),),
@@ -236,7 +375,70 @@ def main_path_queries(T, fq, opt):
     qs["groupby_origin_airline"] = T.AggQuery(
         agg="avg", column="dep_delay", group_by=("origin", "airline"),
         stop=opt.ThresholdSide(threshold=10.0))
-    return qs
+    return [(name, q, "active_peek") for name, q in qs.items()]
+
+
+def anderson_queries(T, fq, opt):
+    """The Anderson/DKW path (the paper's "correct but not tight"
+    baseline, Table 2): F-q1 (G 1), F-q2 (G 14), F-q5 (G 200) and the
+    (origin, airline) GROUP BY (G 2800) under ``active_peek``, whose
+    rounds run ``fused_fold``, and F-q2 as an exact sweep, whose every
+    round runs ``grouped_hist``."""
+    adkw = dict(bounder="anderson_dkw", rangetrim=False)
+    runs = [(f"{name}-adkw", fq.ALL[name](**adkw), "active_peek")
+            for name in ("F-q1", "F-q2", "F-q5")]
+    runs.append(("groupby_origin_airline-adkw", T.AggQuery(
+        agg="avg", column="dep_delay", group_by=("origin", "airline"),
+        stop=opt.ThresholdSide(threshold=10.0), **adkw), "active_peek"))
+    runs.append(("F-q2-adkw-exact", fq.ALL["F-q2"](**adkw), "exact"))
+    return runs
+
+
+class StepClock:
+    """Host-clock seconds inside the engine's per-round steps, summed per
+    query: ``round_s`` the fused round (launches, kernels, the
+    device-to-host copies and the round's one sync), ``merge_s`` the
+    float64 merge of its deltas, ``host_fold_s`` a fold of the exact
+    sweep or the recovery pass (materialize on the host, upload, kernels,
+    merge) and ``bound_math_s`` the CI refresh. It wraps those engine
+    methods while it is entered; the wrappers cost two clock reads."""
+
+    STEPS = (("_FusedScan", "round", "round_s"),
+             ("_ScanViews", "ingest_delta", "merge_s"),
+             ("_ScanViews", "ingest_blocks", "host_fold_s"),
+             ("_QueryIntervals", "refresh", "bound_math_s"))
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.totals = {}
+        self.saved = []
+
+    def _timed(self, fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.totals[key] = (self.totals.get(key, 0.0)
+                                    + time.perf_counter() - t0)
+        return wrapper
+
+    def __enter__(self):
+        for cls_name, meth, key in self.STEPS:
+            cls = getattr(self.engine, cls_name)
+            fn = getattr(cls, meth)
+            self.saved.append((cls, meth, fn))
+            setattr(cls, meth, self._timed(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, meth, fn in self.saved:
+            setattr(cls, meth, fn)
+        self.saved = []
+
+    def take(self):
+        out, self.totals = self.totals, {}
+        return out
 
 
 def truth_of(np, cols, q):
@@ -256,14 +458,25 @@ def truth_of(np, cols, q):
     return tot / np.maximum(cnt, 1), cnt > 0
 
 
-def uncovered(np, res, truth, exists):
-    """Groups whose interval misses the truth. f32 data path: 1e-4
-    relative (examples/quickstart.py), at least 1e-4 absolute for means
-    near zero."""
-    tol = 1e-4 * np.maximum(np.abs(truth), 1.0)
+def uncovered(np, res, truth, exists, rtol=1e-4):
+    """Groups whose interval misses the truth. f32 data path: ``rtol``
+    relative, 1e-4 by default (examples/quickstart.py), as absolute for
+    means near zero."""
+    tol = rtol * np.maximum(np.abs(truth), 1.0)
     n = len(truth)
     ok = (res.lo[:n] - tol <= truth) & (truth <= res.hi[:n] + tol)
     return np.nonzero(~ok & exists)[0]
+
+
+def exact_view_error(np, res, truth, exists):
+    """Largest relative error (floor 1 on |truth|) of the point estimates
+    of views the run made exact; 0.0 when it made none."""
+    n = len(truth)
+    sel = res.exact[:n] & exists
+    if not sel.any():
+        return 0.0
+    return float(np.max(np.abs(res.estimate[:n][sel] - truth[sel])
+                        / np.maximum(np.abs(truth[sel]), 1.0)))
 
 
 DECISION_FIELDS = ("count_seen", "exact", "tainted", "rows_covered",
@@ -298,6 +511,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitmap_active as kbit
     from repro_torch.kernels import block_agg as kblock
+    from repro_torch.kernels import fused_fold as kfused
+    from repro_torch.kernels import grouped_hist as khist
     from repro_torch.kernels import ref
 
     t_start = time.perf_counter()
@@ -327,14 +542,22 @@ def main(argv=None) -> int:
     bit = [check_bitmap_active(torch, timer, ref, kbit, W, nb=97_657,
                                window=4096, seed=W)
            for W in (1, 7, 50, 88, 320)]
+    fus = [check_fused_fold(torch, timer, ref, kfused, kblock, G, exact,
+                            nb=8192, block_rows=1024, budget=64,
+                            nbins=HIST_BINS, seed=G + 1)
+           for G in (1, 200, 2800) for exact in (True, False)]
+    hst = [check_grouped_hist(torch, timer, ref, khist, G, exact,
+                              rows=HIST_ROWS, nbins=HIST_BINS, seed=G + 2)
+           for G in (1, 200, 2800) for exact in (True, False)]
     emit(dict(phase="kernels_vs_plain", card=name, power_limit=power_limit,
-              block_agg=agg, bitmap_active=bit))
-    bad = [r for r in agg + bit if not r["ok"]]
+              block_agg=agg, bitmap_active=bit, fused_fold=fus,
+              grouped_hist=hst))
+    bad = [r for r in agg + bit + fus + hst if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
 
-    # ---- 3. the main path at full size --------------------------------------
+    # ---- 3. the main paths at full size -------------------------------------
     t0 = time.perf_counter()
     ds = flights.generate(n_rows=args.rows, seed=0)
     t_gen = time.perf_counter() - t0
@@ -342,50 +565,75 @@ def main(argv=None) -> int:
     sc = T.build_scramble(ds.columns, catalog=ds.catalog, seed=1)
     t_scr = time.perf_counter() - t0
     frame = T.FastFrame(sc, T.EngineConfig(), device="cuda")
-    queries = main_path_queries(T, fq, opt)
-    truths = {k: truth_of(np, ds.columns, q) for k, q in queries.items()}
-    kblock.block_agg.launches = 0
-    kbit.active_blocks.launches = 0
-    t_main = time.perf_counter()
-    records, failures = [], []
-    for qname, q in queries.items():
-        t0 = time.perf_counter()
-        res = frame.run(q, sampling="active_peek", seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        miss = uncovered(np, res, *truths[qname])
-        if len(miss):
-            g = int(miss[0])
-            failures.append(dict(query=qname, groups=len(miss), first=g,
-                                 truth=float(truths[qname][0][g]),
-                                 lo=float(res.lo[g]), hi=float(res.hi[g])))
-        records.append(dict(
-            query=qname, groups=len(res.lo), rounds=res.rounds,
-            blocks_fetched=res.blocks_fetched,
-            blocks_skipped_active=res.blocks_skipped_active,
-            blocks_skipped_static=res.blocks_skipped_static,
-            bitmap_probes=res.bitmap_probes,
-            stopped_early=bool(res.stopped_early),
-            exact_views=int(res.exact.sum()),
-            tainted_views=int(res.tainted.sum()),
-            covered=not len(miss), wall_s=wall,
-            rounds_per_s=res.rounds / wall if wall > 0 else None))
-    main_wall = time.perf_counter() - t_main
-    launches = {"block_agg": kblock.block_agg.launches,
-                "bitmap_active": kbit.active_blocks.launches}
-    emit(dict(phase="main_path", card=name, power_limit=power_limit,
-              rows=args.rows, blocks=sc.n_blocks,
-              reduced={"rows": f"{PAPER_ROWS / 1e6:g}M -> "
-                               f"{args.rows / 1e6:g}M"},
-              generate_s=t_gen, scramble_s=t_scr, queries_wall_s=main_wall,
-              total_rounds=sum(r["rounds"] for r in records),
-              launches=launches, peak_device_gib=torch.cuda
-              .max_memory_allocated() / 2**30, queries=records))
-    if failures:
-        raise AssertionError(f"intervals miss the truth: {failures}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
+    paths = {"bernstein": main_path_queries(T, fq, opt),
+             "anderson_dkw": anderson_queries(T, fq, opt)}
+    # the kernels each path must launch (and, for the default bounder's
+    # path, the ones it must not)
+    must = {"bernstein": ("block_agg", "bitmap_active"),
+            "anderson_dkw": ("block_agg", "bitmap_active", "fused_fold",
+                             "grouped_hist")}
+    counters = {"block_agg": kblock.block_agg,
+                "bitmap_active": kbit.active_blocks,
+                "fused_fold": kfused.fused_fold,
+                "grouped_hist": khist.grouped_hist}
+    path_launches = {}
+    for path, runs in paths.items():
+        truths = {k: truth_of(np, ds.columns, q) for k, q, _ in runs}
+        for c in counters.values():
+            c.launches = 0
+        t_main = time.perf_counter()
+        records, failures = [], []
+        with StepClock(T.engine) as clock:
+            for qname, q, sampling in runs:
+                t0 = time.perf_counter()
+                res = frame.run(q, sampling=sampling, seed=0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rtol = EXACT_SWEEP_RTOL if sampling == "exact" else 1e-4
+                miss = uncovered(np, res, *truths[qname], rtol=rtol)
+                if len(miss):
+                    g = int(miss[0])
+                    failures.append(dict(
+                        query=qname, groups=len(miss), first=g,
+                        truth=float(truths[qname][0][g]),
+                        lo=float(res.lo[g]), hi=float(res.hi[g])))
+                records.append(dict(
+                    query=qname, sampling=sampling, groups=len(res.lo),
+                    rounds=res.rounds, blocks_fetched=res.blocks_fetched,
+                    blocks_skipped_active=res.blocks_skipped_active,
+                    blocks_skipped_static=res.blocks_skipped_static,
+                    bitmap_probes=res.bitmap_probes,
+                    stopped_early=bool(res.stopped_early),
+                    exact_views=int(res.exact.sum()),
+                    tainted_views=int(res.tainted.sum()),
+                    covered=not len(miss), coverage_rtol=rtol,
+                    exact_view_max_rel_err=exact_view_error(
+                        np, res, *truths[qname]),
+                    wall_s=wall,
+                    rounds_per_s=res.rounds / wall if wall > 0 else None,
+                    steps_s=clock.take()))
+        main_wall = time.perf_counter() - t_main
+        launches = {k: c.launches for k, c in counters.items()}
+        path_launches[path] = launches
+        emit(dict(phase="main_path", path=path, card=name,
+                  power_limit=power_limit, rows=args.rows,
+                  blocks=sc.n_blocks,
+                  reduced={"rows": f"{PAPER_ROWS / 1e6:g}M -> "
+                                   f"{args.rows / 1e6:g}M"},
+                  generate_s=t_gen, scramble_s=t_scr,
+                  queries_wall_s=main_wall,
+                  total_rounds=sum(r["rounds"] for r in records),
+                  launches=launches, peak_device_gib=torch.cuda
+                  .max_memory_allocated() / 2**30, queries=records))
+        if failures:
+            raise AssertionError(f"{path}: intervals miss the truth: "
+                                 f"{failures}")
+        idle = [k for k in must[path] if launches[k] == 0]
+        stray = [k for k in launches if k not in must[path] and launches[k]]
+        if idle or stray:
+            raise AssertionError(f"{path}: kernels of the path never "
+                                 f"launched {idle}, or kernels off the "
+                                 f"path launched {stray}: {launches}")
     del frame, sc, ds
     torch.cuda.empty_cache()
 
@@ -395,9 +643,9 @@ def main(argv=None) -> int:
     f_gpu = T.FastFrame(sc, T.EngineConfig(), device="cuda")
     f_cpu = T.FastFrame(sc, T.EngineConfig(), device="cpu")
     compare, mismatch = [], []
-    for qname, q in queries.items():
-        r_g = f_gpu.run(q, sampling="active_peek", seed=0)
-        r_c = f_cpu.run(q, sampling="active_peek", seed=0)
+    for qname, q, sampling in paths["bernstein"] + paths["anderson_dkw"]:
+        r_g = f_gpu.run(q, sampling=sampling, seed=0)
+        r_c = f_cpu.run(q, sampling=sampling, seed=0)
         same = [f for f in DECISION_FIELDS
                 if np.array_equal(getattr(r_g, f), getattr(r_c, f))]
         rel = 0.0
@@ -426,6 +674,10 @@ def main(argv=None) -> int:
     # ---- 5. the kernels line ------------------------------------------------
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])
     b = next(r for r in bit if r["W"] == 88)
+    f = next(r for r in fus if r["G"] == 2800 and not r["exact_data"])
+    h = next(r for r in hst if r["G"] == 2800 and not r["exact_data"])
+    launches = path_launches["bernstein"]
+    adkw = path_launches["anderson_dkw"]
     emit({"kernels": [
         dict(name="block_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/block_agg.cu",
@@ -441,6 +693,20 @@ def main(argv=None) -> int:
              max_abs_err=max(r["max_abs_err"] for r in bit),
              ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
              bound_by=b["bound_by"], library_ms=None),
+        dict(name="fused_fold", route="cuda",
+             source="src/repro_torch/kernels/csrc/fused_fold.cu",
+             replaces="src/repro/kernels/fused_scan.py:148",
+             launches=adkw["fused_fold"],
+             max_abs_err=max(r["max_abs_err"] for r in fus),
+             ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+             bound_by=f["bound_by"], library_ms=f["library_ms"]),
+        dict(name="grouped_hist", route="cuda",
+             source="src/repro_torch/kernels/csrc/grouped_hist.cu",
+             replaces="src/repro/kernels/hist.py:73",
+             launches=adkw["grouped_hist"],
+             max_abs_err=max(r["max_abs_err"] for r in hst),
+             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
+             bound_by=h["bound_by"], library_ms=h["library_ms"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

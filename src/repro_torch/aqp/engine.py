@@ -5,7 +5,8 @@ The port of :mod:`repro.aqp.engine`, per-round host loop. Per round
   1. advance the scan cursor through the shuffled block order, using the
      static predicate bitmap and the (group-bitmap AND active-mask) probe
      to *skip* blocks that cannot help any active view;
-  2. fold the selected blocks into the per-group mergeable moment states;
+  2. fold the selected blocks into the per-group mergeable moment states
+     (+ the DKW histogram when the Anderson/DKW bounder is in play);
   3. re-evaluate per-view CIs at delta_k = (6/pi^2) delta_view / k^2 with the
      Theorem-3 ``N+`` upper bound standing in for the unknown view size;
   4. intersect with the running interval, update the active mask from the
@@ -17,9 +18,9 @@ Steps 1–2 have two implementations sharing the same semantics:
     column, predicate mask and group codes are materialized once and kept
     on the frame's device; each round is one
     :func:`repro_torch.kernels.fused_scan.fused_round` (activity probe ->
-    budgeted selection -> moment fold), and the host syncs once per round
-    to merge the emitted deltas in float64 and run the soundness
-    bookkeeping;
+    budgeted selection -> moment / histogram fold), and the host syncs
+    once per round to merge the emitted deltas in float64 and run the
+    soundness bookkeeping;
   * **per-block reference** (``fused=False``): a Python cursor loop issuing
     separate bitmap-probe and fold calls per lookahead batch with host
     materialization in between — the oracle the fused path is tested
@@ -60,8 +61,8 @@ from repro_torch.core.bounders import get_bounder
 from repro_torch.core.lru import LRUCache
 from repro_torch.core.optstop import delta_schedule
 from repro_torch.core.state import (MomentState, StatsBatch,
-                                    init_moments_host, merge_moments_host,
-                                    to_host)
+                                    init_moments_host, merge_hist_host,
+                                    merge_moments_host, to_host)
 from repro_torch.kernels import fused_scan as kfused
 from repro_torch.kernels import ops as kops
 
@@ -140,6 +141,8 @@ class EngineConfig:
         sync_lookahead_blocks: ActiveSync probe batch.
         cover_cap_factor: cap on cursor positions covered per round, as a
             multiple of ``round_blocks``.
+        hist_bins: DKW histogram resolution (Anderson/DKW bounder only):
+            bins of the uniform grid over the column's a-priori range.
         alpha: COUNT/AVG delta split for unknown-``N`` SUM/AVG queries.
         fused: drive scan rounds through
             :func:`repro_torch.kernels.fused_scan.fused_round` (one round
@@ -161,6 +164,7 @@ class EngineConfig:
     lookahead_blocks: int = 1024    # ActivePeek batch (paper §4.3)
     sync_lookahead_blocks: int = 32 # ActiveSync batch (cache-unfriendly)
     cover_cap_factor: int = 64      # max covered positions per round
+    hist_bins: int = 1024
     alpha: float = _ALPHA
     fused: bool = True              # fused scan round (vs per-block)
     device_loop: Optional[bool] = None  # device-resident loop (later slice)
@@ -202,12 +206,6 @@ class _ScanViews:
     bookkeeping, independent of any one query's stopping condition."""
 
     def __init__(self, frame: "FastFrame", q: AggQuery):
-        if q.needs_hist:
-            raise NotImplementedError(
-                "the Anderson/DKW bounder needs the per-group histogram "
-                "fold (TPU kernels repro.kernels.hist.grouped_hist and "
-                "fused_scan.fused_fold), which is not ported yet: it comes "
-                "with a later slice of the port. Use another bounder.")
         self.frame = frame
         self.rep_q = q
         sc = frame.scramble
@@ -217,6 +215,7 @@ class _ScanViews:
             self.gcol, self.G = frame._composite_group(q.group_cols)
         self.value_src, (self.a, self.b) = frame._values_and_bounds(q)
         self.center = 0.5 * (self.a + self.b)
+        self.use_hist = q.needs_hist
         self.static_ok, self.probes0 = frame._static_ok(q)
         self.group_bm = (frame.bitmap(self.gcol) if self.gcol is not None
                          else None)
@@ -226,6 +225,8 @@ class _ScanViews:
         self.presence_total = self.presence.sum(axis=0)
         self.valid = self.presence_total > 0
         self.state = init_moments_host((self.G,))
+        self.hist = (np.zeros((self.G, frame.config.hist_bins), np.float64)
+                     if self.use_hist else None)
         self.seen_presence = np.zeros(self.G, dtype=np.int64)
         self.processed = np.zeros(sc.n_blocks, dtype=bool)
         self.exact = self.presence_total == 0   # group code never occurs
@@ -236,12 +237,15 @@ class _ScanViews:
     def counts(self) -> np.ndarray:
         return self.state.count
 
-    def ingest_delta(self, idx: np.ndarray, upd) -> None:
-        """Merge one fused round's mergeable delta for the selected blocks
-        ``idx`` (float64 on the host)."""
+    def ingest_delta(self, idx: np.ndarray, upd, hupd) -> None:
+        """Merge one fused round's mergeable deltas (moments, and the
+        histogram when ``use_hist``) for the selected blocks ``idx``
+        (float64 on the host)."""
         self.processed[idx] = True
         self.blocks_fetched += len(idx)
         self.state = merge_moments_host(self.state, to_host(upd))
+        if self.use_hist:
+            self.hist = merge_hist_host(self.hist, hupd)
         self.seen_presence += self.presence[idx].sum(axis=0)
 
     def ingest_blocks(self, idx: np.ndarray,
@@ -250,9 +254,10 @@ class _ScanViews:
         sweep and the recovery pass)."""
         self.processed[idx] = True
         self.blocks_fetched += len(idx)
-        self.state = self.frame._fold_blocks(
+        self.state, self.hist = self.frame._fold_blocks(
             self.rep_q, idx, self.value_src, self.gcol, self.G, self.center,
-            self.state, pad_to=pad_to)
+            self.a, self.b, self.state, self.hist, self.use_hist,
+            pad_to=pad_to)
         self.seen_presence += self.presence[idx].sum(axis=0)
 
     def update_exact(self, pos: Optional[int] = None) -> None:
@@ -284,6 +289,7 @@ class _QueryIntervals:
         # bitmap).
         self.delta_view = q.delta / max(int(slot.valid.sum()), 1)
         self.known_n = (not q.filters) and (q.group_by is None)
+        self.use_hist = q.needs_hist
         G = slot.G
         # trivial a-priori bounds (valid before any sample is seen)
         if q.agg == "avg":
@@ -321,7 +327,8 @@ class _QueryIntervals:
                                                   | ~self.refreshed)
         gidx = np.nonzero(refresh)[0]
         if gidx.size:
-            sb = StatsBatch.from_state(slot.state).take(gidx)
+            sb = StatsBatch.from_state(
+                slot.state, slot.hist if self.use_hist else None).take(gidx)
             glo, ghi, gest = _batched_view_ci(
                 self.q, sb, slot.a, slot.b, r, self.R, dk, self.known_n,
                 self.bounder, self.cfg.alpha)
@@ -382,17 +389,27 @@ class _FusedScan:
     gathering on the device yields the same rows."""
 
     def __init__(self, frame: "FastFrame", q: AggQuery, value_src, gcol,
-                 G: int, center: float, probe: bool, lookahead: int,
-                 budget: int, cover_cap: int, static_ok: np.ndarray,
-                 group_bm, order: np.ndarray):
+                 G: int, center: float, a: float, b: float, use_hist: bool,
+                 probe: bool, lookahead: int, budget: int, cover_cap: int,
+                 static_ok: np.ndarray, group_bm, order: np.ndarray):
         sc = frame.scramble
         nb = sc.n_blocks
         self.window = _round_window(nb, lookahead, cover_cap)
         self.budget = budget
         self.nb = nb
         self.probe = probe
+        self.use_hist = use_hist
         self.center = float(center)
+        self.a = float(a)
+        self.b = float(b)
         self.G = G
+        self.nbins = frame.config.hist_bins
+        # the round's histogram delta lands here without a sync of its own
+        self._hist_host = None
+        if use_hist and frame.device.type == "cuda":
+            self._hist_host = torch.empty((G, self.nbins),
+                                          dtype=torch.float32,
+                                          pin_memory=True)
 
         self.values = frame._device_values(value_src)
         self.gids = frame._device_gids(gcol)
@@ -408,23 +425,33 @@ class _FusedScan:
 
     def round(self, pos: int, active_words):
         """One fused round from cursor ``pos``. Returns host-side
-        ``(moment_delta, ok, flags, new_pos)``.
+        ``(moment_delta, hist_delta, ok, flags, new_pos)``
+        (``hist_delta`` is None without the histogram).
 
-        The round's outputs come back in ONE device-to-host copy (the
-        round's one host sync): verdicts, cursor and the float32 delta,
-        packed as float64, which holds each of them exactly."""
+        The round syncs with the host once. Verdicts, cursor and the
+        float32 moment delta come back in one device-to-host copy,
+        packed as float64, which holds each of them exactly. The
+        histogram delta is copied as float32 into a pinned buffer
+        without a sync of its own, ahead of that copy on the same stream,
+        so the packed copy's sync covers it (packing it as float64 would
+        double the round's largest copy)."""
         aw = active_words if active_words is not None else self._dummy_active
-        state, ok, flags, new_pos = kfused.fused_round(
+        state, hist, ok, flags, new_pos = kfused.fused_round(
             self.values, self.gids, self.mask, self.words, self.order_pad,
             self.static_ok, pos, aw, nb=self.nb, window=self.window,
-            budget=self.budget, center=self.center, num_groups=self.G,
+            budget=self.budget, center=self.center, a=self.a, b=self.b,
+            num_groups=self.G, nbins=self.nbins, use_hist=self.use_hist,
             probe=self.probe)
+        if self._hist_host is not None:
+            hist = self._hist_host.copy_(hist, non_blocking=True)
         parts = (ok, flags, new_pos, *state)
         host = torch.cat([t.reshape(-1).to(torch.float64)
                           for t in parts]).cpu().numpy()
         w, G = self.window, self.G
         delta = MomentState(*host[2 * w + 1:].reshape(5, G))
-        return delta, host[:w] > 0, host[w:2 * w] > 0, int(host[2 * w])
+        hdelta = None if hist is None else hist.numpy()
+        return (delta, hdelta, host[:w] > 0, host[w:2 * w] > 0,
+                int(host[2 * w]))
 
 
 class FastFrame:
@@ -612,12 +639,13 @@ class FastFrame:
 
     # -- block folding ---------------------------------------------------------
 
-    def _fold_blocks(self, q, idx, value_src, gcol, G, center, state,
-                     pad_to: Optional[int] = None):
+    def _fold_blocks(self, q, idx, value_src, gcol, G, center, a, b,
+                     state, hist, use_hist, pad_to: Optional[int] = None):
         """Materialize blocks ``idx`` on the host, copy them to the
         frame's device and fold them into the running per-group moment
-        state: the one shared ingest path for the per-block loop, the
-        exact sweep and the recovery pass.
+        state (+ histogram): the one shared ingest path for the per-block
+        loop, the exact sweep and the recovery pass. Returns the updated
+        ``(state, hist)``.
 
         ``pad_to`` pads the fold input to a static block count (padding
         rows carry ``mask == 0`` and contribute exact zeros), as the
@@ -634,7 +662,12 @@ class FastFrame:
         gf = self._put(gids)
         mf = self._put(mask.astype(np.float32))
         upd = kops.grouped_moments(vf, gf, mf, G, center)
-        return merge_moments_host(state, to_host(upd))
+        state = merge_moments_host(state, to_host(upd))
+        if use_hist:
+            hupd = kops.grouped_hist(vf, gf, mf, G, a, b,
+                                     nbins=self.config.hist_bins)
+            hist = merge_hist_host(hist, hupd.hist)
+        return state, hist
 
     # -- cursor advance --------------------------------------------------------
 
@@ -830,21 +863,23 @@ class FastFrame:
         if cfg.fused and not exact_mode:
             probe = skipping and slot.group_bm is not None
             fscan = _FusedScan(self, q, slot.value_src, slot.gcol, slot.G,
-                               slot.center, probe, lookahead,
-                               cfg.round_blocks, cover_cap, slot.static_ok,
+                               slot.center, slot.a, slot.b, slot.use_hist,
+                               probe, lookahead, cfg.round_blocks, cover_cap,
+                               slot.static_ok,
                                slot.group_bm if probe else None, order)
 
         while pos < nb and rounds < max_rounds:
             rounds += 1
             # ---- 1+2. cursor advance + fold --------------------------------
-            upd = None
+            upd = hupd = None
             if exact_mode:
                 end = min(pos + cfg.lookahead_blocks, nb)
                 idx = order[pos:end]  # full sweep, no skipping (strawman)
                 pos = end
             elif fscan is not None:
                 # fused: one round of kernels + one host sync per round
-                upd, ok_w, flags_w, new_pos = fscan.round(pos, active_words)
+                upd, hupd, ok_w, flags_w, new_pos = fscan.round(
+                    pos, active_words)
                 idx = self._fused_accounting(
                     order, pos, new_pos, ok_w, flags_w, slot.presence,
                     slot.tainted, lookahead, cfg.round_blocks, cover_cap,
@@ -858,7 +893,7 @@ class FastFrame:
 
             if len(idx):
                 if upd is not None:
-                    slot.ingest_delta(idx, upd)
+                    slot.ingest_delta(idx, upd, hupd)
                 else:
                     slot.ingest_blocks(
                         idx, pad_to=(cfg.lookahead_blocks if exact_mode

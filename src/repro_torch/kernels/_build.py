@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
-process per source, all started together) and linked into one shared
+process per source, all started together; the ``*.cuh`` headers they
+share are part of the build's hash) and linked into one shared
 library with a plain C interface, ``librepro_torch_kernels.so``, which
 is loaded with :mod:`ctypes`. The build runs at first use and lands in
 ``build/kernels/<hash>/`` at the root of the checkout, keyed on a hash of
@@ -36,6 +37,11 @@ _SIGNATURES = {
     # name: (argtypes, restype)
     "repro_block_agg": ([_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
                          _I, _P, _P, _P, _P, _P, _I, _P], _I),
+    "repro_fused_fold": ([_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
+                          _I, _P, _P, _P, _P, _P, _P, _I, ctypes.c_float,
+                          ctypes.c_float, _I, _P], _I),
+    "repro_grouped_hist": ([_P, _P, _P, ctypes.c_longlong, _I, _I,
+                            ctypes.c_float, ctypes.c_float, _P, _I, _P], _I),
     "repro_bitmap_active": ([_P, _P, _I, _I, _P, _P, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
@@ -62,7 +68,7 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

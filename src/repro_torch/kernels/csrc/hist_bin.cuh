@@ -1,0 +1,69 @@
+// hist_bin.cuh: the DKW histogram's binning rule and integer counting,
+// shared by grouped_hist.cu and fused_fold.cu.
+//
+// A row with value v lands in bin
+//
+//   k = trunc(clip((v - a) * inv_width, 0, nbins - 1))
+//
+// computed in float32 with one rounding per operation (__fsub_rn,
+// __fmul_rn), as the reference and the plain version compute it: a, the
+// lower end of the grid, and inv_width = nbins / (b - a) over the LOGICAL
+// bin count are float32. +inf goes to bin nbins - 1, -inf to bin 0 and
+// NaN to bin 0 (the JAX package's float-to-int conversion on the CPU
+// gives 0 for NaN; the plain version maps NaN to 0 explicitly).
+//
+// Counts are uint32 and every add is an integer add, so the result does
+// not depend on the order of the adds: the same bits on every run, equal
+// to the plain version's float32 sums of 0/1 masks (whole numbers, exact
+// up to 2^24 per bin). No float atomics.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr unsigned kNoCell = 0xffffffffu;  // a row that counts nowhere
+
+__device__ __forceinline__ int hist_bin(float v, float a, float inv_width,
+                                        int nbins) {
+  const float t = __fmul_rn(__fsub_rn(v, a), inv_width);
+  if (isnan(t)) return 0;
+  const float c = fminf(fmaxf(t, 0.f), static_cast<float>(nbins - 1));
+  return __float2int_rz(c);
+}
+
+// Adds one to counts[cell] for every lane whose cell is not kNoCell. Lanes
+// with the same cell are counted by one atomic (the lowest such lane adds
+// the number of peers), so a skewed column does not serialise a warp on
+// one address. Every lane of the warp must call it.
+__device__ __forceinline__ void warp_count(unsigned* counts, unsigned cell) {
+  const unsigned peers = __match_any_sync(0xffffffffu, cell);
+  const int lane = threadIdx.x & 31;
+  if (cell != kNoCell && lane == __ffs(peers) - 1) {
+    atomicAdd(counts + cell, static_cast<unsigned>(__popc(peers)));
+  }
+}
+
+// In place: each uint32 count becomes the float32 of the same value.
+__global__ void counts_to_float_kernel(unsigned* counts,
+                                       long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i < n) {
+    reinterpret_cast<float*>(counts)[i] = __uint2float_rn(counts[i]);
+  }
+}
+
+inline cudaError_t launch_counts_to_float(unsigned* counts, long long n,
+                                          cudaStream_t s) {
+  if (n == 0) return cudaSuccess;
+  constexpr int kThreads = 256;
+  const long long grid = (n + kThreads - 1) / kThreads;
+  counts_to_float_kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+      counts, n);
+  return cudaGetLastError();
+}
+
+}  // namespace

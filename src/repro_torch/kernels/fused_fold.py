@@ -1,0 +1,59 @@
+"""Python wrapper of the CUDA fused fold ``csrc/fused_fold.cu``.
+
+The Hopper counterpart of :func:`repro.kernels.fused_scan.fused_fold`:
+the moments and extremes of :mod:`.block_agg` plus the per-group DKW
+histogram of the same rows, in one pass over the selected blocks of the
+``(nb, block_rows)`` slabs. The moments are bit for bit those of
+``block_agg`` (the same row-order walk); the histogram counts rows with
+integer atomics, so it is the same on every run and equal to the plain
+version's. Bins are on the LOGICAL ``nbins``-bin grid over ``[a, b]``
+(:func:`repro_torch.kernels.ref.hist_bins_ref`).
+
+This wrapper only launches: it takes CUDA tensors and raises on anything
+else. :func:`repro_torch.kernels.ops.grouped_fold_hist` chooses between
+it and the plain version by the tensors' device.
+``fused_fold.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.block_agg import _require, prepare
+
+
+def fused_fold(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
+               blk: torch.Tensor, tvalid: torch.Tensor, center: float,
+               a: float, b: float, num_groups: int, nbins: int):
+    """Fold the rows of blocks ``blk`` of the slabs into moments and a
+    histogram.
+
+    Args as :func:`repro_torch.kernels.block_agg.block_agg` (the mask
+    must be 0 or 1: a row with ``m != 0`` counts once in the histogram),
+    plus the histogram grid: ``nbins`` bins over ``[a, b]``.
+
+    Returns ``(sums (3, G), vmin (1, G), vmax (1, G), hist (G, nbins))``
+    float32, equal bit for bit to
+    :func:`repro_torch.kernels.ref.fused_fold_ref` on the CPU.
+    """
+    what = "fused_fold"
+    _require(nbins >= 1, f"nbins must be >= 1, got {nbins}", what)
+    _require(num_groups * nbins < 2 ** 31, f"G * nbins = "
+             f"{num_groups * nbins} does not fit the int32 cell index",
+             what)
+    fl = prepare(values, gids, mask, blk, tvalid, num_groups, what)
+    dev = values.device
+    hist = torch.empty((num_groups, nbins), dtype=torch.float32, device=dev)
+    inv_width = float(nbins) / max(float(b) - float(a), 1e-30)
+    rc = _build.library().repro_fused_fold(
+        *fl.head, float(center), fl.chunk_lanes, fl.part.data_ptr(),
+        fl.table.data_ptr(), *(t.data_ptr() for t in fl.outs),
+        hist.data_ptr(), nbins, float(a), inv_width, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "fused_fold launch")
+    fused_fold.launches += 1
+    return (*fl.outs, hist)
+
+
+fused_fold.launches = 0

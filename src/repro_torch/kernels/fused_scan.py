@@ -8,7 +8,7 @@ call of :func:`fused_round` runs, over device-resident column slabs:
                                                            │         │
                                                       new_pos   block ids
                                                                      │
-                                     MomentState delta  <──block_agg─┘
+                     MomentState delta (+ hist delta)  <──fold───────┘
 
 and the host syncs once per round, to fetch the mergeable delta and the
 per-position flags it needs for its soundness bookkeeping. Selection
@@ -19,15 +19,18 @@ end). The fold then sees exactly the rows the per-block path would fold,
 in the same order; padding lanes point at block 0 with ``tvalid`` False
 and fold with mask 0.
 
-On the card the fold is the ``block_agg`` CUDA kernel, which gathers the
-selected blocks itself, so the ``(budget, block_rows)`` gather is never
-materialised; on the CPU it is the plain version over the gathered rows.
+On the card the fold is the ``block_agg`` CUDA kernel or, when the
+round also folds the Anderson/DKW histogram, the ``fused_fold`` kernel
+(the same moments plus the histogram in one pass). Both gather the
+selected blocks themselves, so the ``(budget, block_rows)`` gather is
+never materialised; on the CPU the fold is the plain version over the
+gathered rows.
 Nothing in a round reads a device value back on the host: the cursor
 ``pos`` comes in as a host int (the host knows it from the last sync) and
 the selection is cumsum / argmax / scatter arithmetic.
 
-The device-resident loop (``build_query_loop``), the multi-query round
-and the histogram fold are later slices of the port.
+The device-resident loop (``build_query_loop``) and the multi-query
+round are later slices of the port.
 """
 
 from __future__ import annotations
@@ -38,12 +41,22 @@ from repro_torch.core.state import MomentState
 from repro_torch.kernels import ops as kops
 
 
-def _fold(values, gids, mask, blk, tvalid, center, num_groups):
-    """One round's fold of the selected blocks -> float32
-    :class:`MomentState` delta."""
-    sums, vmin, vmax = kops.grouped_sums(values, gids, mask, num_groups,
-                                         center, blk=blk, tvalid=tvalid)
-    return kops.moments_from_sums(sums, vmin, vmax, center)
+def _fold(values, gids, mask, blk, tvalid, center, a, b, num_groups,
+          nbins, use_hist):
+    """One round's fold of the selected blocks -> ``(float32
+    MomentState delta, (G, nbins) histogram delta | None)``. Without the
+    histogram it is the ``block_agg`` fold alone; with it the
+    ``fused_fold`` pass, whose moments are the same bits."""
+    hist = None
+    if use_hist:
+        sums, vmin, vmax, hist = kops.grouped_fold_hist(
+            values, gids, mask, num_groups, center, a, b, nbins, blk=blk,
+            tvalid=tvalid)
+    else:
+        sums, vmin, vmax = kops.grouped_sums(values, gids, mask,
+                                             num_groups, center, blk=blk,
+                                             tvalid=tvalid)
+    return kops.moments_from_sums(sums, vmin, vmax, center), hist
 
 
 def _budget_select(flags: torch.Tensor, pos: int, nb: int, window: int,
@@ -88,7 +101,8 @@ def fused_round(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
                 words: torch.Tensor, order_pad: torch.Tensor,
                 static_ok: torch.Tensor, pos: int,
                 active_words: torch.Tensor, *, nb: int, window: int,
-                budget: int, center: float, num_groups: int, probe: bool):
+                budget: int, center: float, a: float, b: float,
+                num_groups: int, nbins: int, use_hist: bool, probe: bool):
     """One fused scan round over device-resident column data.
 
     Args (tensors on one device unless noted):
@@ -102,14 +116,15 @@ def fused_round(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
       active_words: ``(W,)`` int32 packed active-group mask.
 
     ``window`` is the round's maximum cursor coverage and ``budget`` the
-    processed-block budget, as in the reference.
+    processed-block budget, as in the reference; with ``use_hist`` the
+    round also folds the ``(num_groups, nbins)`` histogram over
+    ``[a, b]`` (the Anderson/DKW bounder's state).
 
-    Returns ``(state, ok, flags, new_pos)``: the mergeable
-    :class:`MomentState` delta (float32) for the round, the
-    per-window-position static / activity verdicts the host needs for
-    taint and skip accounting, and the advanced cursor (a device scalar).
-    The reference's histogram outputs (Anderson/DKW) come with a later
-    slice.
+    Returns ``(state, hist, ok, flags, new_pos)``: the mergeable
+    :class:`MomentState` delta (float32) and histogram delta (float32,
+    None without ``use_hist``) for the round, the per-window-position
+    static / activity verdicts the host needs for taint and skip
+    accounting, and the advanced cursor (a device scalar).
     """
     dev = order_pad.device
     offs = torch.arange(window, dtype=torch.int64, device=dev)
@@ -124,8 +139,9 @@ def fused_round(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
 
     take, new_pos, csum = _budget_select(flags, pos, nb, window, budget)
     blk, tvalid, _ = _gather_blocks(take, csum, win, window, budget)
-    state = _fold(values, gids, mask, blk, tvalid, center, num_groups)
-    return state, ok, flags, new_pos
+    state, hist = _fold(values, gids, mask, blk, tvalid, center, a, b,
+                        num_groups, nbins, use_hist)
+    return state, hist, ok, flags, new_pos
 
 
 # Device twins of the host loop's pack_mask / merge_moments_host. The host

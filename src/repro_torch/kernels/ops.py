@@ -5,7 +5,8 @@ backend with ``impl=`` (Pallas, interpreter or oracle), the port picks by
 where the tensors live:
 
   * CUDA tensors -> the hand-written kernel (``block_agg``,
-    ``bitmap_active``), which launches or raises; there is no fallback;
+    ``fused_fold``, ``grouped_hist``, ``bitmap_active``), which launches
+    or raises; there is no fallback;
   * CPU tensors  -> the plain PyTorch version in :mod:`.ref`, the
     oracle the kernels are tested against.
 
@@ -19,9 +20,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.state import MomentState
+from repro_torch.core.state import HistState, MomentState
 from repro_torch.kernels import bitmap_active as _bitmap
 from repro_torch.kernels import block_agg as _block_agg
+from repro_torch.kernels import fused_fold as _fused_fold
+from repro_torch.kernels import grouped_hist as _hist
 from repro_torch.kernels import ref as _ref
 
 
@@ -103,13 +106,36 @@ def grouped_moments(values: torch.Tensor, gids: torch.Tensor,
     return moments_from_sums(sums, vmin, vmax, center)
 
 
-def grouped_hist(*args, **kwargs):
-    """Per-group DKW histogram (the Anderson/DKW bounder's state)."""
-    raise NotImplementedError(
-        "grouped_hist (the Anderson/DKW histogram fold, TPU kernels "
-        "repro.kernels.hist.grouped_hist and fused_scan.fused_fold) is not "
-        "ported yet: it comes with a later slice of the port. Use a "
-        "bounder other than 'anderson_dkw'.")
+def grouped_fold_hist(values: torch.Tensor, gids: torch.Tensor,
+                      mask: torch.Tensor, num_groups: int, center: float,
+                      a: float, b: float, nbins: int, *, blk: torch.Tensor,
+                      tvalid: torch.Tensor):
+    """The fused round's fold with the histogram: :func:`grouped_sums`'s
+    ``(sums, vmin, vmax)`` of blocks ``blk`` of the ``(nb, block_rows)``
+    slabs plus the ``(num_groups, nbins)`` histogram of the same rows
+    over ``[a, b]``, in one pass (the ``fused_fold`` kernel on the card).
+    The moments are bit for bit those of :func:`grouped_sums`."""
+    if _on_cuda(values, "grouped_fold_hist"):
+        return _fused_fold.fused_fold(values, gids, mask, blk, tvalid,
+                                      center, a, b, num_groups, nbins)
+    return _ref.fused_fold_ref(values, gids, mask, blk, tvalid, center, a,
+                               b, num_groups=num_groups, nbins=nbins)
+
+
+def grouped_hist(values: torch.Tensor, gids: torch.Tensor,
+                 mask: Optional[torch.Tensor], num_groups: int, a: float,
+                 b: float, nbins: int = 1024) -> HistState:
+    """Per-group DKW histogram -> :class:`HistState` ``(num_groups,
+    nbins)``: the count of masked rows in each bin of the uniform grid
+    over ``[a, b]``, rows read flat."""
+    if mask is None:
+        mask = torch.ones_like(values, dtype=torch.float32)
+    if _on_cuda(values, "grouped_hist"):
+        return HistState(_hist.grouped_hist(values, gids, mask, a, b,
+                                            num_groups, nbins))
+    return HistState(_ref.grouped_hist_ref(values, gids, mask, a, b,
+                                           num_groups=num_groups,
+                                           nbins=nbins))
 
 
 def active_blocks(words: torch.Tensor, active_words: torch.Tensor, *,

@@ -55,6 +55,59 @@ def block_agg_blocks_ref(values, gids, mask, blk, tvalid, center, *,
                          num_groups=num_groups)
 
 
+def hist_bins_ref(values, a: float, b: float, nbins: int):
+    """Bin index of each value on the uniform ``nbins``-bin grid over
+    ``[a, b]``, in float32 exactly as the reference computes it:
+    ``clip((v - f32(a)) * f32(inv_width), 0, nbins - 1)`` truncated, with
+    ``inv_width = nbins / max(b - a, 1e-30)`` over the LOGICAL bin count.
+
+    ``+inf`` lands in bin ``nbins - 1`` and ``-inf`` in bin 0. A NaN lands
+    in bin 0, as the JAX package's float-to-int conversion puts it there
+    on the CPU; torch's conversion would give ``INT32_MIN``, so NaN is
+    mapped to 0 before the cast. Returns int64 ``(N,)`` bins."""
+    inv_width = float(nbins) / max(float(b) - float(a), 1e-30)
+    # Python scalars round to float32, as in JAX; one op each, no FMA
+    t = torch.clamp((values - float(a)) * inv_width, 0.0, nbins - 1.0)
+    return torch.nan_to_num(t, nan=0.0).to(torch.int64)
+
+
+def grouped_hist_ref(values, gids, mask, a: float, b: float, *,
+                     num_groups: int, nbins: int):
+    """Plain version of :func:`repro_torch.kernels.grouped_hist.
+    grouped_hist` over flat rows: ``hist[g, k] = Σ m · 1[gid = g] ·
+    1[bin(v) = k]`` (:func:`hist_bins_ref`), the counterpart of
+    :func:`repro.kernels.ref.grouped_hist_ref`.
+
+    The mask is added as it is. The engine's masks are 0 or 1, so every
+    count is a whole number, exact in float32 up to 2**24 per bin, and
+    any order of the adds gives the same bits. Returns float32
+    ``(num_groups, nbins)``."""
+    v = values.reshape(-1).to(torch.float32)
+    m = mask.reshape(-1).to(torch.float32)
+    gid = gids.reshape(-1).to(torch.int64)
+    flat = gid * nbins + hist_bins_ref(v, a, b, nbins)
+    hist = torch.zeros(num_groups * nbins, dtype=torch.float32,
+                       device=v.device).index_add_(0, flat, m)
+    return hist.reshape(num_groups, nbins)
+
+
+def fused_fold_ref(values, gids, mask, blk, tvalid, center, a: float,
+                   b: float, *, num_groups: int, nbins: int):
+    """Plain version of :func:`repro_torch.kernels.fused_fold.fused_fold`:
+    :func:`block_agg_blocks_ref`'s sums and extremes plus
+    :func:`grouped_hist_ref` over the same selected rows (blocks ``blk``
+    of the ``(nb, block_rows)`` slabs, lanes whose ``tvalid`` is false
+    masked out). Returns ``(sums (3, G), vmin (1, G), vmax (1, G),
+    hist (G, nbins))`` float32."""
+    mask = mask[blk] * tvalid[:, None].to(torch.float32)
+    v, g = values[blk], gids[blk]
+    sums, vmin, vmax = block_agg_ref(v, g, mask, center,
+                                     num_groups=num_groups)
+    hist = grouped_hist_ref(v, g, mask, a, b, num_groups=num_groups,
+                            nbins=nbins)
+    return sums, vmin, vmax, hist
+
+
 def active_blocks_ref(words, active_words):
     """Plain version of
     :func:`repro_torch.kernels.bitmap_active.active_blocks`:

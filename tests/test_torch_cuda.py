@@ -19,7 +19,8 @@ from repro_torch.aqp import (AggQuery, EngineConfig, FastFrame, Filter,
 from repro_torch.aqp import flights_queries as fq
 from repro_torch.core.optstop import ThresholdSide
 from repro_torch.data import flights
-from repro_torch.kernels import bitmap_active, block_agg, fused_scan, ops
+from repro_torch.kernels import (bitmap_active, block_agg, fused_fold,
+                                 fused_scan, grouped_hist, ops)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +114,98 @@ def test_block_agg_rejects_bad_input(cuda):
                             blk.cpu(), 0.0, 3)
 
 
+def _hist_rows(seed, n, G, a, b, nbins):
+    """Flat rows for the histogram: uniform values 10 % beyond both ends
+    of the grid, every float32 bin edge and its two neighbours, NaN and
+    +-inf; a 0 / 1 mask (masked rows hold any of those values)."""
+    rng = np.random.default_rng(seed)
+    inv_width = np.float32(nbins / (b - a))
+    edges = (np.arange(nbins + 1, dtype=np.float32) / inv_width
+             + np.float32(a)).astype(np.float32)
+    special = np.concatenate([
+        edges, np.nextafter(edges, np.float32(np.inf)),
+        np.nextafter(edges, np.float32(-np.inf)),
+        np.array([np.nan, np.inf, -np.inf] * 8, np.float32)])
+    pad = 0.1 * (b - a)
+    v = rng.uniform(a - pad, b + pad, n).astype(np.float32)
+    v[rng.choice(n, len(special), replace=False)] = special
+    g = rng.integers(0, G, n).astype(np.int32)
+    m = (rng.random(n) < 0.8).astype(np.float32)
+    return [torch.from_numpy(x) for x in (v, g, m)]
+
+
+@pytest.mark.parametrize("nbins", [100, 1024])
+@pytest.mark.parametrize("G", [1, 7, 130, 300, 2800])
+def test_grouped_hist_bitwise_equals_plain(cuda, G, nbins):
+    """Integer counts: the kernel equals the CPU plain version bit for bit
+    (shared-memory counters at small G * nbins, device-memory counters
+    above), repeats its bits and counts each launch."""
+    a, b = -60.0, 1800.0
+    v, g, m = _hist_rows(G + nbins, 200_003, G, a, b, nbins)
+    want = ops.grouped_hist(v, g, m, G, a, b, nbins=nbins).hist
+    args = [t.to(cuda) for t in (v, g, m)]
+    before = grouped_hist.grouped_hist.launches
+    got = ops.grouped_hist(*args, G, a, b, nbins=nbins).hist
+    again = ops.grouped_hist(*args, G, a, b, nbins=nbins).hist
+    torch.cuda.synchronize()
+    assert grouped_hist.grouped_hist.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+    assert got.sum().item() == m.sum().item()
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("G", [1, 7, 300, 2800])
+def test_fused_fold_bitwise_equals_plain(cuda, G, exact):
+    """The fused fold's moments are block_agg's bits; its histogram is the
+    CPU plain version's bits, run after run."""
+    nb, br, center, nbins = 120, 700, 8.0, 1024
+    v, g, m = _slabs(G, nb, br, G, exact)
+    blk, tvalid = _lanes(G + 1, nb, 40, 5)
+    a, b = (0.0, 16.0) if exact else (-20.0, 100.0)
+    want = ops.grouped_fold_hist(v, g, m, G, center, a, b, nbins, blk=blk,
+                                 tvalid=tvalid)
+    args = [t.to(cuda) for t in (v, g, m)]
+    kw = dict(blk=blk.to(cuda), tvalid=tvalid.to(cuda))
+    before = fused_fold.fused_fold.launches
+    got = ops.grouped_fold_hist(*args, G, center, a, b, nbins, **kw)
+    again = ops.grouped_fold_hist(*args, G, center, a, b, nbins, **kw)
+    moments = ops.grouped_sums(*args, G, center, **kw)
+    torch.cuda.synchronize()
+    assert fused_fold.fused_fold.launches == before + 2
+    _same(got, want)
+    for x, y in zip(got, again):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    for x, y in zip(got[:3], moments):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_fused_fold_chunked_equals_plain(cuda, monkeypatch):
+    """Folded in chunks of lanes (a small run table), the histogram still
+    counts every row once."""
+    monkeypatch.setattr(block_agg, "TABLE_CELLS", 91)
+    nb, br, G, center, nbins = 60, 700, 13, 870.0, 100
+    v, g, m = _slabs(3, nb, br, G, False)
+    blk, tvalid = _lanes(4, nb, 24, 3)
+    want = ops.grouped_fold_hist(v, g, m, G, center, -20.0, 100.0, nbins,
+                                 blk=blk, tvalid=tvalid)
+    got = ops.grouped_fold_hist(*(t.to(cuda) for t in (v, g, m)), G,
+                                center, -20.0, 100.0, nbins,
+                                blk=blk.to(cuda), tvalid=tvalid.to(cuda))
+    _same(got, want)
+
+
+def test_histogram_kernels_reject_bad_input(cuda):
+    v, g, m = (t.to(cuda) for t in _slabs(0, 4, 8, 3, True))
+    blk = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        fused_fold.fused_fold(v, g, m, blk, blk, 0.0, 0.0, 1.0, 3, 0)
+    with pytest.raises(ValueError):
+        grouped_hist.grouped_hist(v, g.to(torch.int64), m, 0.0, 1.0, 3, 8)
+    with pytest.raises(ValueError):
+        grouped_hist.grouped_hist(v[:, :4], g, m, 0.0, 1.0, 3, 8)
+
+
 @pytest.mark.parametrize("W", [1, 7, 31, 32, 50, 88, 320])
 def test_bitmap_active_equals_plain(cuda, W):
     rng = np.random.default_rng(W)
@@ -156,30 +249,40 @@ def test_fused_round_cuda_equals_cpu(cuda):
         outs.append([fused_scan.fused_round(
             t["values"], t["gids"], t["mask"], t["words"], t["order_pad"],
             t["static_ok"], pos, torch.from_numpy(active).to(dev), nb=nb,
-            window=window, budget=budget, center=870.0, num_groups=60,
-            probe=True)
-            for pos in (0, 300, nb - 50)])
-    for (s0, ok0, f0, p0), (s1, ok1, f1, p1) in zip(*outs):
+            window=window, budget=budget, center=870.0, a=-60.0, b=1800.0,
+            num_groups=60, nbins=1024, use_hist=use_hist, probe=True)
+            for pos in (0, 300, nb - 50) for use_hist in (False, True)])
+    for (s0, h0, ok0, f0, p0), (s1, h1, ok1, f1, p1) in zip(*outs):
         assert int(p0) == int(p1)
         assert torch.equal(ok0, ok1.cpu()) and torch.equal(f0, f1.cpu())
         _same(s1, s0)
+        assert (h0 is None) == (h1 is None)
+        if h0 is not None:
+            assert torch.equal(h1.cpu(), h0)
 
 
 _ENGINE_CASES = [("F-q1", "active_peek", True), ("F-q3", "active_peek", True),
                  ("F-q5", "active_peek", True), ("F-q6", "active_peek", True),
                  ("F-q5", "active_sync", True), ("F-q6", "scan", True),
-                 ("F-q2", "exact", True), ("F-q8", "active_peek", False)]
+                 ("F-q2", "exact", True), ("F-q8", "active_peek", False),
+                 ("F-q2-adkw", "active_peek", True),
+                 ("F-q5-adkw", "active_peek", True),
+                 ("F-q2-adkw", "exact", True),
+                 ("F-q5-adkw", "active_peek", False)]
 
 
 @pytest.mark.parametrize("name,sampling,fused", _ENGINE_CASES)
 def test_engine_cuda_equals_cpu(cuda, name, sampling, fused):
     """Every sampling mode and the per-block path (host-materialized
-    folds on the card) give the CPU run's bits."""
+    folds on the card) give the CPU run's bits, with the Bernstein and
+    the Anderson/DKW (``-adkw``: histogram folds) bounders."""
     ds = flights.generate(n_rows=300_000, seed=4)
     sc = build_scramble(ds.columns, catalog=ds.catalog, seed=5)
     cfg = dict(round_blocks=16, lookahead_blocks=64,
                sync_lookahead_blocks=16, fused=fused)
-    q = fq.ALL[name]()
+    base, adkw = name.split("-adkw")[0], name.endswith("-adkw")
+    q = fq.ALL[base](**(dict(bounder="anderson_dkw", rangetrim=False)
+                        if adkw else {}))
     kw = dict(sampling=sampling, seed=1)
     r_cpu = FastFrame(sc, EngineConfig(**cfg), device="cpu").run(q, **kw)
     r_gpu = FastFrame(sc, EngineConfig(**cfg)).run(q, **kw)
@@ -202,3 +305,23 @@ def test_engine_cuda_launches_both_kernels(cuda):
     FastFrame(sc, EngineConfig(round_blocks=8, lookahead_blocks=32)).run(q)
     assert block_agg.block_agg.launches > 0
     assert bitmap_active.active_blocks.launches > 0
+
+
+def test_engine_cuda_anderson_launches_histogram_kernels(cuda):
+    """An Anderson/DKW query folds through fused_fold on its rounds and
+    grouped_hist in its exact sweep; a Bernstein query through neither."""
+    ds = flights.generate(n_rows=100_000, seed=6)
+    sc = build_scramble(ds.columns, catalog=ds.catalog, seed=7)
+    frame = FastFrame(sc, EngineConfig(round_blocks=8, lookahead_blocks=32))
+    counters = (block_agg.block_agg, fused_fold.fused_fold,
+                grouped_hist.grouped_hist)
+    for c in counters:
+        c.launches = 0
+    frame.run(fq.ALL["F-q2"]())
+    assert [c.launches > 0 for c in counters] == [True, False, False]
+    for c in counters:
+        c.launches = 0
+    q = fq.ALL["F-q2"](bounder="anderson_dkw", rangetrim=False)
+    frame.run(q)
+    frame.run(q, sampling="exact")
+    assert [c.launches > 0 for c in counters] == [True, True, True]

@@ -2,7 +2,9 @@
 its kernels are their plain versions) against the JAX package's host
 loop on one scramble, for the quickstart query, F-q1..F-q9 and a
 G=10240 ``("origin", "airline")`` GROUP BY, over the four sampling modes
-and the per-block path (``fused=False``).
+and the per-block path (``fused=False``), and for F-q2 and the GROUP BY
+under the Anderson/DKW bounder (``rangetrim=False``, 256 histogram bins),
+whose rounds fold the per-group histogram too.
 
 On exactly-representable data every scan decision and metric is equal
 and CIs agree to <= 1e-9. On FLIGHTS data scan decisions are equal, both
@@ -26,7 +28,8 @@ from tests.helpers.torch_parity import (assert_port_matches_ref,
                                         exact_flights_columns,
                                         port_scramble)
 
-CFG = dict(round_blocks=16, lookahead_blocks=64, sync_lookahead_blocks=16)
+CFG = dict(round_blocks=16, lookahead_blocks=64, sync_lookahead_blocks=16,
+           hist_bins=256)
 
 
 def _queries(mod, fq, opt):
@@ -40,6 +43,11 @@ def _queries(mod, fq, opt):
     qs["G10240"] = mod.AggQuery(
         agg="avg", column="dep_delay", group_by=("origin", "airline"),
         stop=opt.ThresholdSide(threshold=10.0), delta=1e-6)
+    adkw = dict(bounder="anderson_dkw", rangetrim=False)
+    qs["F-q2-adkw"] = fq.ALL["F-q2"](**adkw)
+    qs["G10240-adkw"] = mod.AggQuery(
+        agg="avg", column="dep_delay", group_by=("origin", "airline"),
+        stop=opt.ThresholdSide(threshold=10.0), delta=1e-6, **adkw)
     return qs
 
 
@@ -91,14 +99,22 @@ def _covered(res, truth, exists):
     return ok | ~exists[:n]
 
 
+ADKW = ("F-q2-adkw", "G10240-adkw")
 CASES = ([(d, name, "active_peek", True)
-          for d in ("exact", "flights") for name in QUERIES["T"]]
+          for d in ("exact", "flights") for name in QUERIES["T"]
+          if name not in ADKW]
          + [(d, name, s, True) for d in ("exact", "flights")
             for name in ("F-q3", "G10240")
             for s in ("active_sync", "scan", "exact")]
          + [(d, name, s, False) for d in ("exact", "flights")
             for name, s in (("quickstart", "active_peek"),
-                            ("F-q6", "active_sync"), ("G10240", "scan"))])
+                            ("F-q6", "active_sync"), ("G10240", "scan"))]
+         + [(d, name, s, fused) for d in ("exact", "flights")
+            for name, s, fused in (("F-q2-adkw", "active_peek", True),
+                                   ("G10240-adkw", "active_peek", True),
+                                   ("F-q2-adkw", "scan", True),
+                                   ("G10240-adkw", "exact", True),
+                                   ("F-q2-adkw", "active_peek", False))])
 
 
 @pytest.mark.parametrize("data,name,sampling,fused", CASES,
@@ -116,3 +132,17 @@ def test_run_matches_reference(scrambles, data, name, sampling, fused):
     np.testing.assert_array_equal(cov_port, _covered(r_ref, truth, exists))
     if data == "flights":
         assert cov_port.all()
+
+
+@pytest.mark.parametrize("data", ["exact", "flights"])
+def test_anderson_run_matches_reference_at_100_bins(scrambles, data):
+    """A bin count that is not a multiple of 128: both packages bin on
+    the logical 100-bin grid (the reference's host loop folds through its
+    ``ref`` path here), so the runs agree as at 256 bins."""
+    sc_r, sc_t, cols = scrambles[data]
+    kw = dict(CFG, hist_bins=100)
+    r_ref = R.FastFrame(sc_r, R.EngineConfig(**kw)).run(
+        QUERIES["R"]["F-q2-adkw"], sampling="active_peek", seed=3)
+    r_port = T.FastFrame(sc_t, T.EngineConfig(**kw), device="cpu").run(
+        QUERIES["T"]["F-q2-adkw"], sampling="active_peek", seed=3)
+    assert_port_matches_ref(r_port, r_ref, exact_data=(data == "exact"))

@@ -1,8 +1,9 @@
 """The port's fused scan round against the reference's
 ``fused_round(impl='ref')`` from the same cursor, over randomised starts
 and budgets: ``ok``, ``flags`` and ``new_pos`` equal, the moment delta
-bit for bit (row-order folds on both sides). Plus the device twins of
-``pack_mask`` and of the float64 merge."""
+bit for bit (row-order folds on both sides), and with ``use_hist`` the
+histogram delta bit for bit too. Plus the device twins of ``pack_mask``
+and of the float64 merge."""
 
 import numpy as np
 import pytest
@@ -55,33 +56,61 @@ def _case(inp, seed):
     return window, budget, opad, pos, Rbm.pack_mask(active)
 
 
-@pytest.mark.parametrize("data", ["exact", "flights"])
-@pytest.mark.parametrize("probe", [True, False])
-@pytest.mark.parametrize("seed", range(4))
-def test_fused_round_matches_reference(scan_inputs, data, probe, seed):
-    inp = scan_inputs
+def _rounds(inp, data, probe, seed, use_hist, nbins):
+    """One round from the same cursor through both packages: the
+    reference's and the port's ``(state, hist, ok, flags, new_pos)``."""
     window, budget, opad, pos, act = _case(inp, seed * 2 + probe)
     values = inp[data]
     center, a, b = ((8.0, 0.0, 16.0) if data == "exact"
                     else (870.0, -60.0, 1800.0))
     kw = dict(nb=inp["nb"], window=window, budget=budget, center=center,
-              num_groups=inp["G"], probe=probe)
-    st_r, _, ok_r, fl_r, np_r = Rfs.fused_round(
+              a=a, b=b, num_groups=inp["G"], nbins=nbins,
+              use_hist=use_hist, probe=probe)
+    ref = Rfs.fused_round(
         jnp.asarray(values), jnp.asarray(inp["gids"]),
         jnp.asarray(inp["mask"]), jnp.asarray(inp["words"]),
         jnp.asarray(opad), jnp.asarray(inp["static_ok"]),
-        jnp.asarray(pos, jnp.int32), jnp.asarray(act), impl="ref", a=a,
-        b=b, nbins=64, use_hist=False, **kw)
+        jnp.asarray(pos, jnp.int32), jnp.asarray(act), impl="ref", **kw)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
-    st_t, ok_t, fl_t, np_t = Tfs.fused_round(
+    port = Tfs.fused_round(
         t(values), t(inp["gids"]), t(inp["mask"]),
         t(inp["words"].view(np.int32)), t(opad), t(inp["static_ok"]), pos,
         t(act.view(np.int32)), **kw)
+    return ref, port
+
+
+def _assert_round_equal(ref, port):
+    st_r, h_r, ok_r, fl_r, np_r = ref
+    st_t, h_t, ok_t, fl_t, np_t = port
     assert int(np_t) == int(np_r)
     np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_r))
     np.testing.assert_array_equal(fl_t.numpy(), np.asarray(fl_r))
     for x, y in zip(st_t, st_r):
         np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert (h_t is None) == (h_r is None)
+    if h_t is not None:
+        np.testing.assert_array_equal(h_t.numpy(), np.asarray(h_r))
+
+
+@pytest.mark.parametrize("data", ["exact", "flights"])
+@pytest.mark.parametrize("probe", [True, False])
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_round_matches_reference(scan_inputs, data, probe, seed):
+    _assert_round_equal(*_rounds(scan_inputs, data, probe, seed,
+                                 use_hist=False, nbins=64))
+
+
+@pytest.mark.parametrize("data", ["exact", "flights"])
+@pytest.mark.parametrize("probe", [True, False])
+@pytest.mark.parametrize("seed,nbins", [(0, 64), (1, 100), (2, 1024)])
+def test_fused_round_hist_matches_reference(scan_inputs, data, probe, seed,
+                                            nbins):
+    """``use_hist=True``: the histogram delta too, bit for bit, on the
+    logical bin grid (``nbins`` = 100 is not a multiple of 128)."""
+    ref, port = _rounds(scan_inputs, data, probe, seed, use_hist=True,
+                        nbins=nbins)
+    assert port[1].shape == (scan_inputs["G"], nbins)
+    _assert_round_equal(ref, port)
 
 
 @pytest.mark.parametrize("seed", range(3))

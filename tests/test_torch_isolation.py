@@ -1,7 +1,8 @@
 """The port stands alone: importing the whole slice pulls in neither JAX
 nor the JAX package, entry points refuse to run on the CPU unless asked,
-the kernel wrappers launch or raise (no silent fallback), and the parts
-of the reference that later slices port raise NotImplementedError."""
+the kernel wrappers launch or raise (no silent fallback), the
+Anderson/DKW path runs on the CPU when asked, and the parts of the
+reference that later slices port raise NotImplementedError."""
 
 import os
 import subprocess
@@ -14,7 +15,8 @@ import torch
 
 from repro_torch.aqp import AggQuery, EngineConfig, FastFrame, build_scramble
 from repro_torch.core.optstop import AbsoluteWidth
-from repro_torch.kernels import bitmap_active, block_agg, ops
+from repro_torch.kernels import (bitmap_active, block_agg, fused_fold,
+                                 grouped_hist, ops)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -32,6 +34,7 @@ import repro_torch.data.flights
 import repro_torch.kernels.ops, repro_torch.kernels.ref
 import repro_torch.kernels.fused_scan, repro_torch.kernels.block_agg
 import repro_torch.kernels.bitmap_active, repro_torch.kernels._build
+import repro_torch.kernels.fused_fold, repro_torch.kernels.grouped_hist
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -74,16 +77,22 @@ def test_later_slices_raise_not_implemented(kw):
 
 
 def test_histogram_and_multi_probe_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ops.grouped_hist(torch.zeros(4), torch.zeros(4, dtype=torch.int32),
-                         None, 1, 0.0, 1.0)
+    """The histogram fold and the Anderson/DKW query now run on the CPU
+    (plain versions); the multi-query probe still raises until the
+    serving slice."""
+    h = ops.grouped_hist(torch.tensor([0.1, 0.6, 0.9, float("nan")]),
+                         torch.zeros(4, dtype=torch.int32), None, 1, 0.0,
+                         1.0, nbins=2)
+    np.testing.assert_array_equal(h.hist.numpy(), [[2.0, 2.0]])
     with pytest.raises(NotImplementedError, match="serving slice"):
         ops.active_blocks_multi(torch.zeros((4, 1), dtype=torch.int32),
                                 torch.zeros((2, 1), dtype=torch.int32))
     q = AggQuery(agg="avg", column="v", bounder="anderson_dkw",
                  rangetrim=False, stop=AbsoluteWidth(eps=0.1))
-    with pytest.raises(NotImplementedError):
-        FastFrame(_tiny_scramble(), device="cpu").run(q)
+    res = FastFrame(_tiny_scramble(), EngineConfig(hist_bins=100),
+                    device="cpu").run(q)
+    assert res.lo[0] <= res.estimate[0] <= res.hi[0]
+    assert res.count_seen[0] > 0
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -96,5 +105,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         block_agg.block_agg(v, g, v, blk, blk, 0.0, 1)
     with pytest.raises(ValueError, match="needs CUDA"):
         bitmap_active.active_blocks(g, g[0, :1].contiguous())
+    with pytest.raises(ValueError, match="needs CUDA"):
+        fused_fold.fused_fold(v, g, v, blk, blk, 0.0, 0.0, 1.0, 1, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        grouped_hist.grouped_hist(v, g, v, 0.0, 1.0, 1, 8)
     with pytest.raises(ValueError, match="not supported"):
         ops.grouped_sums(v.to("meta"), g.to("meta"), None, 1)
