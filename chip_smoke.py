@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--rows N]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` (into ``build/kernels/``), then runs five phases, each printing
+``nvcc`` (into ``build/kernels/``), then runs six phases, each printing
 one JSON line:
 
   1. environment and build: card name and power limit (also printed raw,
@@ -12,7 +12,9 @@ one JSON line:
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: bit-for-bit equality, run-to-run identical bits,
      and CUDA-event times beside the plain version's, one PyTorch library
-     call's (where one computes the same function) and the bound;
+     call's (where one computes the same function) and the bound; the
+     selective scan within a stated tolerance of its plain version (only
+     the order of its sum over the states differs), bitwise run to run;
   3. the main paths at full size, on one frame of FLIGHTS data
      (``--rows``, default 100M; the paper's relation has 606M rows):
      ``FastFrame.run`` on the card for the quickstart query, F-q1..F-q9
@@ -26,7 +28,14 @@ one JSON line:
   4. the port on the card against the port on the CPU on a 2M-row
      scramble, for the queries of both paths: equal scan decisions,
      intervals within 1e-6 relative;
-  5. a ``kernels`` line: each ported kernel with its main-path launches,
+  5. the Mamba1 serving path: falcon-mamba-7b at full width and depth
+     (64 layers, bf16, random weights from a seed) serves 8 requests of
+     2048 prompt tokens (one ``prefill``, the selective-scan kernel once
+     a layer) and 32 greedy ``decode`` steps, twice, with finite logits
+     and the same tokens both times; then, at full width and 4 layers in
+     float32, prefill + decode against forward (2e-3), and the reduced
+     config on the card against the CPU (1e-4);
+  6. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -38,6 +47,7 @@ with code 2 before any result. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -63,6 +73,22 @@ HIST_ROWS = 1024 * 1024  # one exact-sweep fold: lookahead_blocks x 1024
 # measured error (exact_view_max_rel_err).
 EXACT_SWEEP_RTOL = 1e-3
 REPS = 30                # timed calls per kernel measurement
+PLAIN_SCAN_REPS = 3      # the plain scan is ~2k small launches a call
+# The Mamba1 serving path (phase 5)
+SERVE_BATCH = 8          # requests
+PROMPT_LEN = 2048        # prompt tokens each
+DECODE_STEPS = 32        # greedy decode steps after the prefill
+MODEL_SEED = 0
+# Selective scan vs its plain version: max |kernel - plain| over the
+# largest |plain| of each output. Both round every product and sum alike
+# and the exponential is the accurate expf in both; only the order of the
+# sum over the n states differs, a few float32 ulps.
+SCAN_RTOL = 1e-5
+# (B, L, din, n, tc): one falcon-mamba prefill layer of the serving path,
+# then one batch row of one 128-channel tile at n = 8, over one chunk of
+# 512 steps and over three
+SCAN_SHAPES = [(SERVE_BATCH, PROMPT_LEN, 8192, 16, 512),
+               (1, 512, 128, 8, 512), (1, 1536, 128, 8, 512)]
 
 
 def emit(obj) -> None:
@@ -87,10 +113,10 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, reps: int = REPS) -> float:
         torch = self.torch
         pairs = []
-        for _ in range(REPS + 2):          # two warm-up calls
+        for _ in range(reps + 2):          # two warm-up calls
             self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -361,6 +387,59 @@ def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
                 bound_by=bound_by)
 
 
+def scan_inputs(torch, B: int, L: int, din: int, n: int, seed: int):
+    """x ~ N(0, 1), dt = softplus(N(-4.6, 0.5)) (the dt_bias init's
+    0.01), B, C ~ N(0, 1), A = -(1..n) (the S4D-real init), D ~ N(1,
+    0.1), h0 ~ N(0, 0.1); float32 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(shape, mean, std):
+        return torch.randn(shape, generator=gen, device="cuda") * std + mean
+    x = normal((B, L, din), 0.0, 1.0)
+    dt = torch.nn.functional.softplus(normal((B, L, din), -4.6, 0.5))
+    b = normal((B, L, n), 0.0, 1.0)
+    c = normal((B, L, n), 0.0, 1.0)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").repeat(
+        din, 1)
+    d = normal((din,), 1.0, 0.1)
+    h0 = normal((B, din, n), 0.0, 0.1)
+    return x, dt, b, c, a, d, h0
+
+
+def check_selective_scan(torch, timer, ref, kscan, B: int, L: int, din: int,
+                         n: int, tc: int, seed: int):
+    """The scan at one shape: y, hout and hseg within SCAN_RTOL of the
+    plain version on the card, the same bits on a second run."""
+    args = scan_inputs(torch, B, L, din, n, seed)
+    got = kscan.selective_scan(*args, time_chunk=tc)
+    again = kscan.selective_scan(*args, time_chunk=tc)
+    want = ref.selective_scan_ref(*args, time_chunk=tc)
+    torch.cuda.synchronize()
+    run_to_run = all(_bits_equal(torch, x, y) for x, y in zip(got, again))
+    errs = {}
+    for name, g, w in zip(("y", "hout", "hseg"), got, want):
+        err = float((g - w).abs().max())
+        errs[name] = dict(max_abs=err, max_rel=err / float(w.abs().max()))
+    ok = run_to_run and all(e["max_rel"] <= SCAN_RTOL for e in errs.values())
+    ms = timer(lambda: kscan.selective_scan(*args, time_chunk=tc))
+    plain_ms = timer(lambda: ref.selective_scan_ref(*args, time_chunk=tc),
+                     reps=PLAIN_SCAN_REPS)
+    # x, dt read and y written (B, L, din); b, c read (B, L, n); a, d, h0
+    # read; hout, hseg written. Per (batch, step, channel): one product
+    # dt*x, then per state dt*A, exp, decay*h, (dt x)*B, +, h*C, +, and
+    # D*x, + at the end: 7n + 3 operations (exp counted as one).
+    f32 = 4
+    bytes_moved = f32 * (3 * B * L * din + 2 * B * L * n + din * n + din
+                         + 2 * B * din * n + B * (L // tc) * din * n)
+    bound_ms, bound_by = bound(bytes_moved, B * L * din * (7 * n + 3))
+    return dict(B=B, L=L, din=din, n=n, tc=tc, ok=ok,
+                run_to_run_identical=run_to_run, tolerance_rel=SCAN_RTOL,
+                errors=errs, max_abs_err=max(e["max_abs"]
+                                             for e in errs.values()),
+                ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 # -- phases 3 and 4 ----------------------------------------------------------
 
 
@@ -485,6 +564,184 @@ DECISION_FIELDS = ("count_seen", "exact", "tainted", "rows_covered",
                    "stopped_early")
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+
+def serving_model(torch, np):
+    """falcon-mamba-7b at full width and depth, bf16, ``ssm_impl="pallas"``,
+    its weights initialised on the card from MODEL_SEED, and the
+    SERVE_BATCH x PROMPT_LEN prompt tokens. Returns (model, lm, tokens,
+    init_s)."""
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import build as build_model
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b"),
+                              ssm_impl="pallas")
+    model = build_model(cfg)
+    lm = model.init(MODEL_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(MODEL_SEED).integers(
+        0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN))).cuda()
+    return model, lm, tokens, init_s
+
+
+def prefill_once(torch, model, lm, tokens):
+    """One prefill of ``tokens`` between two syncs. Returns (last logits,
+    cache, host seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(lm, {"tokens": tokens})
+    torch.cuda.synchronize()
+    return logits, cache, time.perf_counter() - t0
+
+
+def decode_steps(torch, model, lm, cache, tok, pos: int, steps: int):
+    """``steps`` greedy decode steps from ``tok`` at position ``pos``, each
+    feeding back the argmax on the card (no host sync inside). Returns
+    (generated tokens (B, steps), every logit finite (a card tensor),
+    cache, host seconds)."""
+    out, finite = [], torch.ones((), dtype=torch.bool, device=tok.device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = model.decode(lm, cache, {"token": tok,
+                                                 "pos": pos + i})
+        finite &= torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+    torch.cuda.synchronize()
+    return torch.cat(out, dim=1), finite, cache, time.perf_counter() - t0
+
+
+def serve_once(torch, model, lm, tokens, steps: int):
+    """One prefill of ``tokens`` and ``steps`` greedy decode steps. Returns
+    the generated tokens, whether every logit was finite and the times."""
+    logits, cache, prefill_s = prefill_once(torch, model, lm, tokens)
+    prefill_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    gen, finite, _, decode_s = decode_steps(torch, model, lm, cache, tok,
+                                            tokens.shape[1], steps)
+    finite &= torch.isfinite(logits).all()
+    return dict(tokens=torch.cat([tok, gen], dim=1).cpu(),
+                finite=bool(finite), prefill_s=prefill_s, decode_s=decode_s,
+                prefill_peak_gib=prefill_peak_gib)
+
+
+def check_prefill_decode(torch, np, model, lm, B: int, T: int, seed: int):
+    """tests/test_models_smoke.py's contract on the card: prefill(T-1
+    tokens) + decode(token T-1) against forward(T) at positions T-2 and
+    T-1, ``|a - b| <= 2e-3 + 2e-3 |b|``."""
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, T))).cuda()
+    with torch.inference_mode():
+        full, _ = model.forward(lm, {"tokens": toks})
+    pre, cache = model.prefill(lm, {"tokens": toks[:, :T - 1]})
+    dec, _ = model.decode(lm, cache, {"token": toks[:, T - 1:],
+                                      "pos": T - 1})
+    pairs = ((pre[:, -1], full[:, T - 2]), (dec[:, 0], full[:, T - 1]))
+    worst = max(float(((g - w).abs() - 2e-3 * w.abs()).max())
+                for g, w in pairs)
+    return dict(B=B, T=T, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                param_dtype=cfg.param_dtype,
+                max_abs_err=max(float((g - w).abs().max()) for g, w in pairs),
+                ok=worst <= 2e-3)
+
+
+def check_card_vs_cpu_model(torch, np, model, B: int, T: int, seed: int):
+    """The same weights on the CPU and on the card: forward, prefill and
+    decode logits within 1e-4 of their largest magnitude."""
+    lm_cpu = model.init(seed, device="cpu")
+    lm_gpu = model.init(seed, device="cuda")
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab, (B, T)))
+    outs = []
+    for lm, dev in ((lm_cpu, "cpu"), (lm_gpu, "cuda")):
+        t = toks.to(dev)
+        with torch.inference_mode():
+            full, _ = model.forward(lm, {"tokens": t})
+        pre, cache = model.prefill(lm, {"tokens": t[:, :T - 1]})
+        dec, _ = model.decode(lm, cache, {"token": t[:, T - 1:],
+                                          "pos": T - 1})
+        outs.append((full, pre, dec))
+    rel = {name: float((g.cpu() - w).abs().max()) / float(w.abs().max())
+           for name, g, w in zip(("forward", "prefill", "decode"), outs[1],
+                                 outs[0])}
+    return dict(B=B, T=T, n_layers=model.cfg.n_layers,
+                d_model=model.cfg.d_model, max_rel=rel,
+                ok=all(v <= 1e-4 for v in rel.values()))
+
+
+def serve_phase(torch, np, counters):
+    """Phase 5: falcon-mamba-7b serving at full width and depth, then the
+    two consistency checks. Returns (record, launches on the serving
+    path)."""
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import build as build_model
+
+    torch.cuda.reset_peak_memory_stats()
+    model, lm, tokens, init_s = serving_model(torch, np)
+    cfg = model.cfg
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in lm.parameters())
+    for c in counters.values():
+        c.launches = 0
+    first = serve_once(torch, model, lm, tokens, DECODE_STEPS)
+    launches = {k: c.launches for k, c in counters.items()}
+    second = serve_once(torch, model, lm, tokens, DECODE_STEPS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    runs = [dict(prefill_s=r["prefill_s"],
+                 prefill_tokens_per_s=SERVE_BATCH * PROMPT_LEN
+                 / r["prefill_s"],
+                 decode_ms_per_step=r["decode_s"] / DECODE_STEPS * 1e3,
+                 decode_tokens_per_s=SERVE_BATCH * DECODE_STEPS
+                 / r["decode_s"],
+                 peak_gib_after_prefill=r["prefill_peak_gib"],
+                 finite=r["finite"]) for r in (first, second)]
+    repeatable = torch.equal(first["tokens"], second["tokens"])
+    del lm
+    torch.cuda.empty_cache()
+
+    # prefill + decode = forward at full width, 4 layers, float32
+    cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32",
+                               compute_dtype="float32")
+    model4 = build_model(cfg4)
+    lm4 = model4.init(MODEL_SEED, device="cuda")
+    consistency = check_prefill_decode(torch, np, model4, lm4, B=2, T=512,
+                                       seed=1)
+    del lm4
+    torch.cuda.empty_cache()
+    # the reduced config on the card against the CPU, float32
+    small = dataclasses.replace(get_config("falcon_mamba_7b", reduced=True),
+                                param_dtype="float32",
+                                compute_dtype="float32", ssm_impl="pallas")
+    card_vs_cpu = check_card_vs_cpu_model(torch, np, build_model(small),
+                                          B=2, T=64, seed=2)
+
+    stray = [k for k, v in launches.items()
+             if k != "selective_scan" and v]
+    ok = (all(r["finite"] for r in runs) and repeatable
+          and launches["selective_scan"] == cfg.n_layers and not stray
+          and consistency["ok"] and card_vs_cpu["ok"])
+    record = dict(
+        model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        d_inner=cfg.d_inner, ssm_state=cfg.ssm_state, vocab=cfg.vocab,
+        param_dtype=cfg.param_dtype, params=n_params, init_s=init_s,
+        requests=SERVE_BATCH, prompt_tokens=PROMPT_LEN,
+        decode_steps=DECODE_STEPS, runs=runs, tokens_repeat=repeatable,
+        launches=launches, weights_gib=weights_gib,
+        peak_device_gib=peak_gib,
+        reduced={"prefill_32k": "32 x 32768 -> 8 x 2048 (a (32, 32768, "
+                                "8192) f32 activation alone is 34 GB)",
+                 "decode_32k": "batch 128 after a 32K context -> batch 8 "
+                               "after 2048 tokens"},
+        prefill_decode_vs_forward=consistency, card_vs_cpu=card_vs_cpu,
+        ok=ok)
+    return record, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
@@ -514,6 +771,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import fused_fold as kfused
     from repro_torch.kernels import grouped_hist as khist
     from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as kscan
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -549,10 +807,14 @@ def main(argv=None) -> int:
     hst = [check_grouped_hist(torch, timer, ref, khist, G, exact,
                               rows=HIST_ROWS, nbins=HIST_BINS, seed=G + 2)
            for G in (1, 200, 2800) for exact in (True, False)]
+    # the falcon-mamba layer's shape (B 8, L 2048, d_inner 8192, n 16),
+    # then small uneven ones
+    scn = [check_selective_scan(torch, timer, ref, kscan, *shape, seed=i)
+           for i, shape in enumerate(SCAN_SHAPES)]
     emit(dict(phase="kernels_vs_plain", card=name, power_limit=power_limit,
               block_agg=agg, bitmap_active=bit, fused_fold=fus,
-              grouped_hist=hst))
-    bad = [r for r in agg + bit + fus + hst if not r["ok"]]
+              grouped_hist=hst, selective_scan=scn))
+    bad = [r for r in agg + bit + fus + hst + scn if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
@@ -575,7 +837,8 @@ def main(argv=None) -> int:
     counters = {"block_agg": kblock.block_agg,
                 "bitmap_active": kbit.active_blocks,
                 "fused_fold": kfused.fused_fold,
-                "grouped_hist": khist.grouped_hist}
+                "grouped_hist": khist.grouped_hist,
+                "selective_scan": kscan.selective_scan}
     path_launches = {}
     for path, runs in paths.items():
         truths = {k: truth_of(np, ds.columns, q) for k, q, _ in runs}
@@ -671,11 +934,23 @@ def main(argv=None) -> int:
     if mismatch:
         raise AssertionError(f"card and CPU runs differ: {mismatch}")
 
-    # ---- 5. the kernels line ------------------------------------------------
+    del f_gpu, f_cpu, sc, ds
+    torch.cuda.empty_cache()
+
+    # ---- 5. the Mamba1 serving path -----------------------------------------
+    serve, launches = serve_phase(torch, np, counters)
+    path_launches["mamba1_serve"] = launches
+    emit(dict(phase="mamba1_serve", card=name, power_limit=power_limit,
+              **serve, total_s=time.perf_counter() - t_start))
+    if not serve["ok"]:
+        raise AssertionError(f"the Mamba1 serving path failed: {serve}")
+
+    # ---- 6. the kernels line ------------------------------------------------
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])
     b = next(r for r in bit if r["W"] == 88)
     f = next(r for r in fus if r["G"] == 2800 and not r["exact_data"])
     h = next(r for r in hst if r["G"] == 2800 and not r["exact_data"])
+    sf = scn[0]  # the falcon-mamba layer's shape
     launches = path_launches["bernstein"]
     adkw = path_launches["anderson_dkw"]
     emit({"kernels": [
@@ -707,6 +982,13 @@ def main(argv=None) -> int:
              max_abs_err=max(r["max_abs_err"] for r in hst),
              ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
              bound_by=h["bound_by"], library_ms=h["library_ms"]),
+        dict(name="selective_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/selective_scan.cu",
+             replaces="src/repro/kernels/selective_scan.py:102",
+             launches=path_launches["mamba1_serve"]["selective_scan"],
+             max_abs_err=max(r["max_abs_err"] for r in scn),
+             ms=sf["ms"], plain_ms=sf["plain_ms"], bound_ms=sf["bound_ms"],
+             bound_by=sf["bound_by"], library_ms=None),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -63,6 +63,7 @@ from repro_torch.core.optstop import delta_schedule
 from repro_torch.core.state import (MomentState, StatsBatch,
                                     init_moments_host, merge_hist_host,
                                     merge_moments_host, to_host)
+from repro_torch.device import resolve_device
 from repro_torch.kernels import fused_scan as kfused
 from repro_torch.kernels import ops as kops
 
@@ -108,24 +109,6 @@ def _round_window(nb: int, lookahead: int, cover_cap: int) -> int:
     to ``nb``)."""
     window = lookahead * (-(-cover_cap // lookahead))
     return min(window, lookahead * (-(-nb // lookahead)))
-
-
-def resolve_device(device=None) -> torch.device:
-    """The frame's device: ``None`` means the card (``"cuda"``). Raises
-    when CUDA is asked for and absent — the port never falls back to the
-    CPU silently; ``device="cpu"`` runs the plain PyTorch versions."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on the card by default, but CUDA is not "
-                "available here. Pass device='cpu' to run the engine with "
-                "the plain PyTorch versions of its kernels on the host.")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev} (use 'cuda' or 'cpu')")
-    return dev
 
 
 @dataclasses.dataclass

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "repro_grouped_hist": ([_P, _P, _P, ctypes.c_longlong, _I, _I,
                             ctypes.c_float, ctypes.c_float, _P, _I, _P], _I),
     "repro_bitmap_active": ([_P, _P, _I, _I, _P, _P, _I, _P], _I),
+    "repro_selective_scan": ([_P] * 7 + [_I] * 5 + [_P] * 3 + [_I, _P],
+                             _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

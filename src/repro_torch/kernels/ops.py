@@ -5,13 +5,14 @@ backend with ``impl=`` (Pallas, interpreter or oracle), the port picks by
 where the tensors live:
 
   * CUDA tensors -> the hand-written kernel (``block_agg``,
-    ``fused_fold``, ``grouped_hist``, ``bitmap_active``), which launches
-    or raises; there is no fallback;
+    ``fused_fold``, ``grouped_hist``, ``bitmap_active``,
+    ``selective_scan``), which launches or raises; there is no fallback;
   * CPU tensors  -> the plain PyTorch version in :mod:`.ref`, the
     oracle the kernels are tested against.
 
-Anything else raises. The engine calls these once or twice per scan
-round.
+Anything else raises. The engine calls the folds and the probe once or
+twice per scan round; the Mamba1 layer's ``"pallas"`` path calls
+:func:`selective_scan` once per layer per prefill.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from repro_torch.kernels import block_agg as _block_agg
 from repro_torch.kernels import fused_fold as _fused_fold
 from repro_torch.kernels import grouped_hist as _hist
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import selective_scan as _scan
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
@@ -156,3 +158,30 @@ def active_blocks_multi(*args, **kwargs):
         "active_blocks_multi (the multi-query probe of shared-scan "
         "serving) is not ported yet: it comes with the serving slice of "
         "the port.")
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                   h0: torch.Tensor, *, din_tile: int = _scan.DIN_TILE,
+                   time_chunk: int = _scan.TIME_CHUNK):
+    """Mamba1 selective scan forward -> ``(y (B, L, din), hout (B, din,
+    n), hseg (B, L / tc, din, n))`` float32, ``tc = min(time_chunk, L)``
+    (:func:`repro_torch.kernels.ref.selective_scan_ref` says what it
+    computes). Inputs are cast to float32, as the reference's ``_forward``
+    casts them.
+
+    The shape contract is the reference's (its grid is ``din / din_tile``
+    by ``L / tc``): ``L`` must be a multiple of ``tc`` and ``din`` of
+    ``din_tile``. The CUDA kernel would take a ragged ``din``; the check
+    stays so both packages accept the same shapes."""
+    B, L, din = x.shape
+    tc = min(time_chunk, L)
+    if L % tc or din % din_tile:
+        raise ValueError(f"selective_scan: L and din must be multiples of "
+                         f"the time chunk and the din tile, got "
+                         f"(L, tc, din, din_tile) = {(L, tc, din, din_tile)}")
+    args = [t.to(torch.float32).contiguous()
+            for t in (x, dt, b, c, a, d, h0)]
+    if _on_cuda(x, "selective_scan"):
+        return _scan.selective_scan(*args, time_chunk=tc)
+    return _ref.selective_scan_ref(*args, time_chunk=tc)

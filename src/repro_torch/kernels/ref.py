@@ -5,7 +5,10 @@ outputs as the JAX package's oracles in :mod:`repro.kernels.ref`. The
 CPU tests run them, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card. Nothing on the engine's path calls them for
 tensors that live on the card: :mod:`repro_torch.kernels.ops` launches
-the kernel there.
+the kernel there. The Mamba1 model calls the plain scan on the card on
+purpose, where the reference computes it outside any kernel: decode's
+one-step recurrence (:func:`selective_scan_step`) and the ``xla``
+prefill path.
 """
 
 from __future__ import annotations
@@ -120,3 +123,52 @@ def active_blocks_ref(words, active_words):
     hit = torch.bitwise_and(words.to(torch.int32),
                             active_words.to(torch.int32)[None, :])
     return (hit != 0).any(dim=1).to(torch.int32)
+
+
+def selective_scan_ref(x, dt, b, c, a, d, h0, time_chunk: int):
+    """Plain version of :func:`repro_torch.kernels.selective_scan.
+    selective_scan`: the Mamba1 scan as the sequential recurrence of the
+    reference's Pallas body (:func:`repro.kernels.selective_scan._kernel`),
+
+        h_t = exp(dt_t · A) ⊙ h_{t-1} + (dt_t · x_t) B_t
+        y_t = Σ_n h_t[:, n] C_t[n] + D · x_t
+
+    one float32 operation at a time in that order (the CUDA kernel rounds
+    alike; only the order of the sum over ``n`` differs).
+
+    Args:
+      x, dt: ``(B, L, din)`` — post-conv activations, post-softplus dt.
+      b, c: ``(B, L, n)``; a: ``(din, n)`` (negative); d: ``(din,)``.
+      h0: ``(B, din, n)`` carry-in state.
+      time_chunk: chunk length ``tc`` (clamped to ``L``; must divide it).
+
+    Returns ``(y (B, L, din), hout (B, din, n), hseg (B, L / tc, din, n))``
+    float32, ``hseg[:, k]`` the state at the start of chunk ``k`` (what the
+    backward kernel recomputes each chunk from)."""
+    B, L, din = x.shape
+    n = b.shape[-1]
+    tc = min(time_chunk, L)
+    if L % tc:
+        raise ValueError(f"selective_scan_ref: L={L} is not a multiple of "
+                         f"the time chunk {tc}")
+    f32 = torch.float32
+    x, dt, b, c, a, d, h = (t.to(f32) for t in (x, dt, b, c, a, d, h0))
+    y = torch.empty((B, L, din), dtype=f32, device=x.device)
+    hseg = torch.empty((B, L // tc, din, n), dtype=f32, device=x.device)
+    for t in range(L):
+        if t % tc == 0:
+            hseg[:, t // tc] = h
+        y[:, t], h = selective_scan_step(x[:, t], dt[:, t], b[:, t],
+                                         c[:, t], a, d, h)
+    return y, h, hseg
+
+
+def selective_scan_step(x_t, dt_t, b_t, c_t, a, d, h):
+    """One step of :func:`selective_scan_ref`'s recurrence, in float32:
+    ``x_t, dt_t`` ``(B, din)``; ``b_t, c_t`` ``(B, n)``; ``a`` ``(din, n)``;
+    ``d`` ``(din,)``; ``h`` ``(B, din, n)``. Returns ``(y_t (B, din),
+    h_t)``."""
+    decay = torch.exp(dt_t[:, :, None] * a)                    # (B, din, n)
+    u = (dt_t * x_t)[:, :, None] * b_t[:, None, :]
+    h = decay * h + u
+    return (h * c_t[:, None, :]).sum(-1) + d * x_t, h

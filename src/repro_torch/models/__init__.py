@@ -1,0 +1,8 @@
+"""repro_torch.models — the model zoo's ported families (Mamba1 so far),
+the port of :mod:`repro.models`."""
+
+from repro_torch.models.zoo import (Model, TensorSpec, build, input_specs,
+                                    make_batch, window_for)
+
+__all__ = ["Model", "TensorSpec", "build", "input_specs", "make_batch",
+           "window_for"]

@@ -1,0 +1,194 @@
+"""Decoder-only LM, the ``ssm`` family (falcon-mamba).
+
+The port of :mod:`repro.models.lm`, its ``family == "ssm"`` branches. The
+reference scans one layer body over stacked parameters; here the layers
+are an ``nn.ModuleList`` walked in order, each a pre-norm residual
+Mamba1 block. The dense, moe, hybrid (zamba2), vlm and enc-dec families
+are not ported yet and raise ``NotImplementedError`` (ROADMAP queue 1
+item 14).
+
+Caches keep the reference's structure: ``{"layers": {"conv": (n_layers,
+B, K-1, din), "h": (n_layers, B, din, n)}}``, stacked on a leading layer
+axis. Each call returns a new cache and leaves its input as it was.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssm
+from repro_torch.models.layers import (compute_dtype, dense_init, norm_apply,
+                                       norm_init, param_dtype)
+
+_F32 = torch.float32
+
+
+def require_ported(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg``'s family is one the port runs (ssm)."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
+            "runs the ssm family (Mamba1); the others come with ROADMAP "
+            "queue 1 item 14")
+
+
+# -- modules ------------------------------------------------------------------
+
+
+class SSMLayer(nn.Module):
+    """One residual layer: ``h + mamba(norm(h))`` (the reference's
+    per-layer dict ``{"ln", "mamba"}``)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        self.ln = norm_init(cfg, device=device)
+        self.mamba = ssm.mamba1_init(cfg, generator, device)
+
+
+class LM(nn.Module):
+    """The LM's parameters: ``embed`` (vocab_padded, d), ``layers``,
+    ``final_ln`` and, unless embeddings are tied, ``lm_head`` (d,
+    vocab_padded). Built by :func:`lm_init`; run by :func:`lm_forward`,
+    :func:`lm_prefill` and :func:`lm_decode_step`."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        require_ported(cfg)
+        dt = param_dtype(cfg)
+        # draw order: embed, layers, head (each from the one generator)
+        self.embed = dense_init((cfg.vocab_padded, cfg.d_model), dt,
+                                generator, device=device)
+        self.final_ln = norm_init(cfg, device=device)
+        self.layers = nn.ModuleList(SSMLayer(cfg, generator, device)
+                                    for _ in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = dense_init((cfg.d_model, cfg.vocab_padded), dt,
+                                      generator, device=device)
+
+
+def lm_init(cfg: ArchConfig, generator: torch.Generator, device=None) -> LM:
+    return LM(cfg, generator, device)
+
+
+def _head_f32(params: LM, cfg: ArchConfig) -> torch.Tensor:
+    """The output head in float32. Where no gradient is wanted the copy is
+    kept on the module and made again only when the head's storage or
+    version changes (``load_state_dict``, ``.to``): the head of
+    falcon-mamba-7b is 1 GiB in float32, too much to convert every decode
+    step."""
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    if head.dtype == _F32 or (torch.is_grad_enabled() and head.requires_grad):
+        return head.to(_F32)
+    key = (head.device, head.data_ptr(), head._version)
+    if getattr(params, "_head_key", None) != key:
+        # a normal tensor even under inference_mode, so that a later
+        # forward outside it may use the copy
+        with torch.inference_mode(False), torch.no_grad():
+            params._head_f32 = head.to(_F32)
+        params._head_key = key
+    return params._head_f32
+
+
+def _logits(params: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """``final_ln(h) @ head`` from float32 operands: the reference takes
+    this contraction from bf16 operands straight to float32
+    (``preferred_element_type``), with no bf16 rounding of the result."""
+    h = norm_apply(params.final_ln, h, cfg.norm)
+    return h.to(_F32) @ _head_f32(params, cfg)
+
+
+def _embed(params: LM, cfg: ArchConfig, tokens, extra_embeds):
+    cdt = compute_dtype(cfg)
+    h = params.embed[tokens.long()].to(cdt)
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(cdt), h], dim=1)
+    return h
+
+
+# -- forward (train / prefill) ------------------------------------------------
+
+
+def lm_forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
+               extra_embeds: Optional[torch.Tensor] = None,
+               window: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, T_text) int; extra_embeds: (B, T_front, d) for
+    vlm/audio stubs (prepended). Returns (logits f32, aux_loss)."""
+    require_ported(cfg)
+    h = _embed(params, cfg, tokens, extra_embeds)
+    for lp in params.layers:
+        h = h + ssm.mamba1_apply(lp.mamba, cfg,
+                                 norm_apply(lp.ln, h, cfg.norm))
+    aux = torch.zeros((), dtype=_F32, device=h.device)
+    return _logits(params, cfg, h), aux
+
+
+# -- prefill (forward + emit decode caches) -----------------------------------
+
+
+def lm_prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
+               extra_embeds: Optional[torch.Tensor] = None,
+               window: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Dict]:
+    """Forward pass that also materializes the decode cache (the final
+    recurrent states and conv tails). Returns (last-position logits
+    (B, 1, V), cache)."""
+    require_ported(cfg)
+    h = _embed(params, cfg, tokens, extra_embeds)
+    convs, states = [], []
+    for lp in params.layers:
+        y, cache = _ssm_prefill_layer(lp, cfg, h, ssm.mamba1_apply)
+        h = h + y
+        convs.append(cache["conv"])
+        states.append(cache["h"])
+    new_cache = {"layers": {"conv": torch.stack(convs),
+                            "h": torch.stack(states)}}
+    return _logits(params, cfg, h[:, -1:]), new_cache
+
+
+def _ssm_prefill_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor,
+                       apply_fn):
+    """Run the ssm layer, returning (delta, decode cache) — the cache is
+    the scan's final carry (conv tail + recurrent state)."""
+    xin = norm_apply(lp.ln, h, cfg.norm)
+    return apply_fn(lp.mamba, cfg, xin, return_cache=True)
+
+
+# -- decode -------------------------------------------------------------------
+
+
+def lm_init_cache(cfg: ArchConfig, batch: int, max_len: int,
+                  device=None) -> Dict:
+    """Stacked per-layer caches (leading dim = layers)."""
+    require_ported(cfg)
+    one = ssm.mamba1_cache(cfg, batch, compute_dtype(cfg), device)
+    return {"layers": {k: v[None].expand(cfg.n_layers, *v.shape).clone()
+                       for k, v in one.items()}}
+
+
+def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
+                   cache: Dict, window: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """token: (B, 1) int; pos: scalar (unused by the ssm family). Returns
+    (logits (B, 1, V) f32, new cache)."""
+    require_ported(cfg)
+    h = params.embed[token.long()].to(compute_dtype(cfg))
+    layers = cache["layers"]
+    convs, states = [], []
+    for i, lp in enumerate(params.layers):
+        y, cl = ssm.mamba1_decode(lp.mamba, cfg,
+                                  norm_apply(lp.ln, h, cfg.norm),
+                                  {"conv": layers["conv"][i],
+                                   "h": layers["h"][i]})
+        h = h + y
+        convs.append(cl["conv"])
+        states.append(cl["h"])
+    new_cache = {"layers": {"conv": torch.stack(convs),
+                            "h": torch.stack(states)}}
+    return _logits(params, cfg, h), new_cache

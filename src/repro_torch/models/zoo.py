@@ -1,0 +1,169 @@
+"""Model zoo facade: one uniform API over the ported architectures.
+
+  model = build(cfg)
+  lm = model.init(seed)                          # the LM module, on the card
+  logits, cache = model.prefill(lm, batch)       # inference-prefill
+  logits, cache = model.decode(lm, cache, batch) # one decode step
+  logits, aux = model.forward(lm, batch)         # teacher-forced forward
+
+The port of :mod:`repro.models.zoo`: the callables keep the reference's
+names and argument order, with the LM module in place of the params
+pytree. ``init`` and ``init_cache`` take ``device=None``, meaning the card
+(:func:`repro_torch.device.resolve_device`), and raise without CUDA unless
+``device="cpu"`` is passed; the other calls run where the module lives.
+``prefill`` and ``decode`` run under ``torch.inference_mode()``.
+
+``loss`` raises ``NotImplementedError`` until the training slice (ROADMAP
+queue 1 item 8: it needs the scan's backward kernel and the per-token
+moment states of ``repro.core.state.moments_of_batch``).
+
+``input_specs(cfg, shape)`` returns ``(shape, dtype)`` stand-ins for every
+model input of a workload shape; ``make_batch`` materializes small
+concrete batches from a numpy RNG, the same numbers as the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import lm as lm_mod
+from repro_torch.models.layers import compute_dtype
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    init: Callable          # (seed, device=None) -> LM module
+    loss: Callable          # (module, batch) -> (loss, metrics)
+    forward: Callable       # (module, batch) -> (logits, aux)
+    prefill: Callable       # (module, batch) -> (logits, cache)
+    init_cache: Callable    # (batch_size, max_len, device=None) -> cache
+    decode: Callable        # (module, cache, batch) -> (logits, cache)
+
+
+def _front_len(cfg: ArchConfig, seq_len: int) -> int:
+    if cfg.frontend is None or cfg.family == "encdec":
+        return 0
+    fl = int(seq_len * cfg.frontend_len_frac) // 16 * 16
+    return int(min(max(fl, 16), seq_len // 2))
+
+
+def window_for(cfg: ArchConfig, seq_len: int) -> Optional[int]:
+    """Sub-quadratic rule: the hybrid's shared attention switches to a
+    sliding window at long-context shapes (DESIGN.md §4.1)."""
+    if cfg.family == "hybrid" and cfg.sliding_window and \
+            seq_len > 4 * cfg.sliding_window:
+        return cfg.sliding_window
+    return None
+
+
+def build(cfg: ArchConfig) -> Model:
+    lm_mod.require_ported(cfg)
+    return _build_lm(cfg)
+
+
+def _build_lm(cfg: ArchConfig) -> Model:
+    def init(seed: int = 0, device=None):
+        """The LM with weights drawn from a generator seeded with
+        ``seed`` on ``device`` (the same seed gives other numbers on the
+        card than on the CPU)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return lm_mod.lm_init(cfg, gen, dev)
+
+    def forward(params, batch, window=None):
+        return lm_mod.lm_forward(params, cfg, batch["tokens"],
+                                 extra_embeds=batch.get("extra_embeds"),
+                                 window=window)
+
+    def loss(params, batch, window=None):
+        raise NotImplementedError(
+            "Model.loss is not ported yet: it comes with the training "
+            "slice, ROADMAP queue 1 item 8 (the scan's backward kernel and "
+            "the per-token loss moment states)")
+
+    @torch.inference_mode()
+    def prefill(params, batch, window=None):
+        return lm_mod.lm_prefill(params, cfg, batch["tokens"],
+                                 extra_embeds=batch.get("extra_embeds"),
+                                 window=window)
+
+    def init_cache(batch_size, max_len, device=None):
+        return lm_mod.lm_init_cache(cfg, batch_size, max_len,
+                                    resolve_device(device))
+
+    @torch.inference_mode()
+    def decode(params, cache, batch, window=None):
+        return lm_mod.lm_decode_step(params, cfg, batch["token"],
+                                     batch["pos"], cache, window=window)
+
+    return Model(cfg, init, loss, forward, prefill, init_cache, decode)
+
+
+# -- input specs / batches ----------------------------------------------------
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one model input (the reference's
+    ``jax.ShapeDtypeStruct`` stand-in; no allocation)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, TensorSpec]:
+    """Stand-ins for the step inputs of a workload shape.
+
+    Modality frontends are stubs: the spec supplies precomputed frame /
+    patch embeddings directly."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    cdt = compute_dtype(cfg)
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            half = S // 2
+            return {"frame_embeds": TensorSpec((B, half, cfg.d_model), cdt),
+                    "tokens": TensorSpec((B, half), i32),
+                    "targets": TensorSpec((B, half), i32)}
+        fl = _front_len(cfg, S)
+        spec = {"tokens": TensorSpec((B, S - fl), i32),
+                "targets": TensorSpec((B, S), i32)}
+        if fl:
+            spec["extra_embeds"] = TensorSpec((B, fl, cfg.d_model), cdt)
+        return spec
+    # decode: one new token against a seq_len-deep cache
+    spec = {"token": TensorSpec((B, 1), i32), "pos": TensorSpec((), i32)}
+    if cfg.family == "encdec":
+        spec["memory"] = TensorSpec((B, cfg.decode_memory_len, cfg.d_model),
+                                    cdt)
+    return spec
+
+
+def make_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Concrete random batch matching :func:`input_specs`, drawn from
+    ``np.random.default_rng(seed)`` in the reference's order, so both
+    packages get the same tokens. ``device=None`` means the card."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, s in input_specs(cfg, shape).items():
+        if s.dtype == torch.int32 and k in ("tokens", "targets", "token"):
+            arr = rng.integers(0, cfg.vocab, size=s.shape).astype(np.int32)
+            fl = _front_len(cfg, shape.seq_len)
+            if k == "targets" and fl:
+                arr[:, :fl] = -1   # no loss on frontend positions
+            out[k] = torch.from_numpy(arr).to(dev)
+        elif k == "pos":
+            out[k] = torch.tensor(shape.seq_len // 2, dtype=torch.int32,
+                                  device=dev)
+        else:
+            out[k] = torch.from_numpy(
+                rng.normal(0, 0.02, size=s.shape).astype(np.float32)
+            ).to(device=dev, dtype=s.dtype)
+    return out

@@ -19,8 +19,11 @@ from repro_torch.aqp import (AggQuery, EngineConfig, FastFrame, Filter,
 from repro_torch.aqp import flights_queries as fq
 from repro_torch.core.optstop import ThresholdSide
 from repro_torch.data import flights
+from repro_torch.configs import get as get_config
 from repro_torch.kernels import (bitmap_active, block_agg, fused_fold,
-                                 fused_scan, grouped_hist, ops)
+                                 fused_scan, grouped_hist, ops, ref,
+                                 selective_scan)
+from repro_torch.models import build as build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -325,3 +328,103 @@ def test_engine_cuda_anderson_launches_histogram_kernels(cuda):
     frame.run(q)
     frame.run(q, sampling="exact")
     assert [c.launches > 0 for c in counters] == [True, True, True]
+
+
+def _scan_inputs(seed, B, L, din, n):
+    """The smoke script's scan inputs: x ~ N(0, 1), dt = softplus(N(-4.6,
+    0.5)), B, C ~ N(0, 1), A = -(1..n), D ~ N(1, 0.1), h0 ~ N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (B, L, din))
+    dt = np.log1p(np.exp(rng.normal(-4.6, 0.5, (B, L, din))))
+    b = rng.normal(0, 1, (B, L, n))
+    c = rng.normal(0, 1, (B, L, n))
+    a = -np.tile(np.arange(1, n + 1, dtype=np.float64), (din, 1))
+    d = rng.normal(1, 0.1, din)
+    h0 = rng.normal(0, 0.1, (B, din, n))
+    return [torch.from_numpy(np.asarray(t, np.float32))
+            for t in (x, dt, b, c, a, d, h0)]
+
+
+# (B, L, din, n, tc): the falcon-mamba layer at full width, then small
+# uneven ones (one batch row, chunks of 512 and three of them, a single
+# 128-channel tile, n = 8, a ragged last tile of 200 channels)
+SCAN_SHAPES = [(8, 2048, 8192, 16, 512), (1, 512, 128, 8, 512),
+               (1, 1536, 128, 8, 512), (2, 96, 200, 16, 32),
+               (3, 100, 128, 16, 25)]
+
+
+@pytest.mark.parametrize("B,L,din,n,tc", SCAN_SHAPES)
+def test_selective_scan_equals_plain(cuda, B, L, din, n, tc):
+    """y, hout and hseg against the plain version on the card within
+    1e-5 of each output's largest magnitude (only the order of the sum
+    over the n states differs), the same bits on a second run, one
+    launch counted per call."""
+    args = [t.to(cuda) for t in _scan_inputs(L + din, B, L, din, n)]
+    before = selective_scan.selective_scan.launches
+    got = selective_scan.selective_scan(*args, time_chunk=tc)
+    again = selective_scan.selective_scan(*args, time_chunk=tc)
+    want = ref.selective_scan_ref(*args, time_chunk=tc)
+    torch.cuda.synchronize()
+    assert selective_scan.selective_scan.launches == before + 2
+    assert got[2].shape == (B, L // tc, din, n)
+    for name, g, a, w in zip(("y", "hout", "hseg"), got, again, want):
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32)), name
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (name, err)
+
+
+def test_selective_scan_ops_dispatch_and_cpu_agreement(cuda):
+    args = _scan_inputs(1, 2, 256, 128, 16)
+    want = ops.selective_scan(*args, time_chunk=64)
+    got = ops.selective_scan(*(t.to(cuda) for t in args), time_chunk=64)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max())
+
+
+def test_selective_scan_rejects_bad_input(cuda):
+    args = [t.to(cuda) for t in _scan_inputs(0, 1, 32, 128, 8)]
+    with pytest.raises(ValueError, match="needs CUDA"):
+        selective_scan.selective_scan(*(t.cpu() for t in args))
+    with pytest.raises(ValueError, match="float32"):
+        selective_scan.selective_scan(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="state size"):
+        four = _scan_inputs(0, 1, 32, 128, 4)
+        selective_scan.selective_scan(*(t.to(cuda) for t in four))
+    with pytest.raises(ValueError, match="contiguous"):
+        x = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+        selective_scan.selective_scan(x, *args[1:])
+    with pytest.raises(ValueError, match="time chunk"):
+        selective_scan.selective_scan(*args, time_chunk=24)
+
+
+def test_mamba1_lm_cuda_equals_cpu(cuda):
+    """The reduced falcon-mamba in float32 with the same weights on the
+    card and on the CPU: forward, prefill and decode logits within 1e-4
+    of their largest magnitude; every prefill layer launches the scan."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b", reduced=True),
+                              param_dtype="float32", compute_dtype="float32",
+                              ssm_impl="pallas")
+    model = build_model(cfg)
+    lm_cpu = model.init(0, device="cpu")
+    lm_gpu = model.init(0, device=cuda)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)))
+    outs = []
+    for lm, dev in ((lm_cpu, "cpu"), (lm_gpu, cuda)):
+        t = toks.to(dev)
+        with torch.inference_mode():
+            full, _ = model.forward(lm, {"tokens": t})
+        selective_scan.selective_scan.launches = 0
+        pre, cache = model.prefill(lm, {"tokens": t[:, :63]})
+        launches = selective_scan.selective_scan.launches
+        dec, _ = model.decode(lm, cache, {"token": t[:, 63:], "pos": 63})
+        outs.append(([full, pre, dec], launches))
+    (want, n_cpu), (got, n_gpu) = outs
+    assert n_cpu == 0 and n_gpu == cfg.n_layers
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())

@@ -2,7 +2,8 @@
 nor the JAX package, entry points refuse to run on the CPU unless asked,
 the kernel wrappers launch or raise (no silent fallback), the
 Anderson/DKW path runs on the CPU when asked, and the parts of the
-reference that later slices port raise NotImplementedError."""
+reference that later slices port raise NotImplementedError (among them
+the model loss and the selective scan's backward)."""
 
 import os
 import subprocess
@@ -15,8 +16,10 @@ import torch
 
 from repro_torch.aqp import AggQuery, EngineConfig, FastFrame, build_scramble
 from repro_torch.core.optstop import AbsoluteWidth
+from repro_torch.configs import get as get_config
 from repro_torch.kernels import (bitmap_active, block_agg, fused_fold,
-                                 grouped_hist, ops)
+                                 grouped_hist, ops, selective_scan)
+from repro_torch.models import build as build_model
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -35,6 +38,12 @@ import repro_torch.kernels.ops, repro_torch.kernels.ref
 import repro_torch.kernels.fused_scan, repro_torch.kernels.block_agg
 import repro_torch.kernels.bitmap_active, repro_torch.kernels._build
 import repro_torch.kernels.fused_fold, repro_torch.kernels.grouped_hist
+import repro_torch.kernels.selective_scan, repro_torch.device
+import repro_torch.configs, repro_torch.configs.base
+import repro_torch.configs.registry, repro_torch.configs.falcon_mamba_7b
+import repro_torch.models, repro_torch.models.layers, repro_torch.models.ssm
+import repro_torch.models.lm, repro_torch.models.zoo
+import repro_torch.models.convert
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -111,3 +120,49 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         grouped_hist.grouped_hist(v, g, v, 0.0, 1.0, 1, 8)
     with pytest.raises(ValueError, match="not supported"):
         ops.grouped_sums(v.to("meta"), g.to("meta"), None, 1)
+    x = torch.zeros((1, 4, 8))
+    b = torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        selective_scan.selective_scan(x, x, b, b, torch.zeros((8, 8)),
+                                      torch.zeros(8), torch.zeros((1, 8, 8)))
+
+
+def _tiny_model():
+    return build_model(get_config("falcon_mamba_7b", reduced=True))
+
+
+def test_model_init_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = _tiny_model()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init(0, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_cache(2, 16)
+    lm = model.init(0, device="cpu")
+    assert {p.device.type for p in lm.parameters()} == {"cpu"}
+    assert model.init_cache(2, 16, device="cpu")["layers"]["h"].device.type \
+        == "cpu"
+
+
+def test_model_loss_and_scan_backward_raise_not_implemented():
+    """Training is the next slice: the loss and the scan's backward kernel
+    (#6) raise, while the scan's forward runs under autograd."""
+    model = _tiny_model()
+    lm = model.init(0, device="cpu")
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        model.loss(lm, {"tokens": toks, "targets": toks})
+    rng = np.random.default_rng(0)
+    B, L, din, n = 1, 16, 128, 8
+    x, dt = (torch.tensor(rng.random((B, L, din)), dtype=torch.float32,
+                          requires_grad=True) for _ in range(2))
+    b, c = (torch.tensor(rng.random((B, L, n)), dtype=torch.float32)
+            for _ in range(2))
+    a = -torch.ones((din, n))
+    y, h = selective_scan.make_trainable_scan()(
+        x, dt, b, c, a, torch.ones(din), torch.zeros((B, din, n)))
+    assert y.shape == (B, L, din) and h.shape == (B, din, n)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        y.sum().backward()
