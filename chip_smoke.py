@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--rows N]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` (into ``build/kernels/``), then runs six phases, each printing
+``nvcc`` (into ``build/kernels/``), then runs seven phases, each printing
 one JSON line:
 
   1. environment and build: card name and power limit (also printed raw,
@@ -13,8 +13,9 @@ one JSON line:
      main path's shapes: bit-for-bit equality, run-to-run identical bits,
      and CUDA-event times beside the plain version's, one PyTorch library
      call's (where one computes the same function) and the bound; the
-     selective scan within a stated tolerance of its plain version (only
-     the order of its sum over the states differs), bitwise run to run;
+     selective scan and its backward within stated tolerances of their
+     plain versions (only the order of their sums differs), bitwise run
+     to run;
   3. the main paths at full size, on one frame of FLIGHTS data
      (``--rows``, default 100M; the paper's relation has 606M rows):
      ``FastFrame.run`` on the card for the quickstart query, F-q1..F-q9
@@ -35,7 +36,14 @@ one JSON line:
      and the same tokens both times; then, at full width and 4 layers in
      float32, prefill + decode against forward (2e-3), and the reduced
      config on the card against the CPU (1e-4);
-  6. a ``kernels`` line: each ported kernel with its main-path launches,
+  6. the Mamba1 training path: falcon-mamba-7b at full width, cut to 16
+     layers, bf16, AdamW with float32 moments, remat, 2 microbatches of
+     2 x 4096 tokens: one warm-up step and 3 timed steps on the same
+     batch (``train/trainer.build_train_step``) at lr 3e-4, finite losses
+     that fall at every step, no grad norm above 3x the first, and per
+     step the scan kernel twice a layer a microbatch (the
+     forward and remat's recompute) and its backward kernel once;
+  7. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
@@ -79,16 +87,42 @@ SERVE_BATCH = 8          # requests
 PROMPT_LEN = 2048        # prompt tokens each
 DECODE_STEPS = 32        # greedy decode steps after the prefill
 MODEL_SEED = 0
+# The Mamba1 training path (phase 6): falcon-mamba-7b at full width, cut
+# to TRAIN_LAYERS layers, TRAIN_BATCH sequences of TRAIN_LEN tokens in the
+# config's TRAIN_MICROBATCHES microbatches, one warm-up step (lr 0 at
+# step 0) and TRAIN_STEPS timed steps on the same batch at OptConfig's
+# default lr (3e-4). The loss must fall at every timed step, and no
+# step's grad norm may pass TRAIN_GRAD_NORM_GROWTH times the first's: a
+# run that diverges fails.
+TRAIN_LAYERS = 16
+TRAIN_BATCH = 4
+TRAIN_LEN = 4096
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 3
+TRAIN_GRAD_NORM_GROWTH = 3.0
 # Selective scan vs its plain version: max |kernel - plain| over the
 # largest |plain| of each output. Both round every product and sum alike
 # and the exponential is the accurate expf in both; only the order of the
 # sum over the n states differs, a few float32 ulps.
 SCAN_RTOL = 1e-5
 # (B, L, din, n, tc): one falcon-mamba prefill layer of the serving path,
-# then one batch row of one 128-channel tile at n = 8, over one chunk of
-# 512 steps and over three
+# one batch row of one 128-channel tile at n = 8 over one chunk of 512
+# steps and over three, then one layer of a training microbatch
+TRAIN_SCAN_SHAPE = (TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_LEN, 8192, 16,
+                    512)
 SCAN_SHAPES = [(SERVE_BATCH, PROMPT_LEN, 8192, 16, 512),
-               (1, 512, 128, 8, 512), (1, 1536, 128, 8, 512)]
+               (1, 512, 128, 8, 512), (1, 1536, 128, 8, 512),
+               TRAIN_SCAN_SHAPE]
+# Selective-scan backward vs its plain version: max |kernel - plain| over
+# the largest |plain| of each gradient. The recompute is the forward's own
+# bits; the sums over n, over the channels (dB, dC), and over batch rows
+# and chunks (dA, dD) run in other orders.
+SCAN_BWD_RTOL = 1e-5
+# (B, L, din, n, tc): one batch row of a falcon-mamba layer over 2
+# chunks, phase 2's small shapes, then one layer of a training
+# microbatch (2 batch rows, 8 chunks: the shape the training path gives)
+SCAN_BWD_SHAPES = [(1, 1024, 8192, 16, 512), (1, 512, 128, 8, 512),
+                   (1, 1536, 128, 8, 512), TRAIN_SCAN_SHAPE]
 
 
 def emit(obj) -> None:
@@ -440,6 +474,53 @@ def check_selective_scan(torch, timer, ref, kscan, B: int, L: int, din: int,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def check_selective_scan_bwd(torch, timer, ref, kscan, B: int, L: int,
+                             din: int, n: int, tc: int, seed: int):
+    """The scan's backward at one shape, from the plain forward's hseg and
+    N(0, 1) cotangents: every gradient within SCAN_BWD_RTOL of the plain
+    version on the card, the same bits on a second run."""
+    args = scan_inputs(torch, B, L, din, n, seed)
+    _, _, hseg = ref.selective_scan_ref(*args, time_chunk=tc)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    ybar = torch.randn((B, L, din), generator=gen, device="cuda")
+    houtbar = torch.randn((B, din, n), generator=gen, device="cuda")
+    bargs = (*args[:6], hseg, ybar, houtbar)
+    got = kscan.selective_scan_bwd(*bargs, time_chunk=tc)
+    again = kscan.selective_scan_bwd(*bargs, time_chunk=tc)
+    want = ref.selective_scan_bwd_ref(*bargs, time_chunk=tc)
+    torch.cuda.synchronize()
+    run_to_run = all(_bits_equal(torch, x, y) for x, y in zip(got, again))
+    errs = {}
+    for name, g, w in zip(("dx", "ddt", "db", "dc", "da", "dd", "dh0"), got,
+                          want):
+        err = float((g - w).abs().max())
+        errs[name] = dict(max_abs=err, max_rel=err / float(w.abs().max()))
+    ok = run_to_run and all(e["max_rel"] <= SCAN_BWD_RTOL
+                            for e in errs.values())
+    ms = timer(lambda: kscan.selective_scan_bwd(*bargs, time_chunk=tc))
+    plain_ms = timer(lambda: ref.selective_scan_bwd_ref(*bargs,
+                                                        time_chunk=tc),
+                     reps=PLAIN_SCAN_REPS)
+    # read x, dt, ybar (B, L, din), b, c (B, L, n), a, d, hseg, houtbar;
+    # write dx, ddt (B, L, din), dB, dC (B, L, n), dA, dD, dh0. Per
+    # (batch, step, channel): the recompute's dt*x, then per state dt*A,
+    # exp, decay*h, (dt x)*B, + (5); the adjoint's 4 scalar products and
+    # sums, per state 15 (ybar*h, ybar*C, +, dt*A, exp, hbar*h_prev,
+    # *decay, hbar*B, +, hbar*(dt x), g*dt, +, g*A, +, hbar*decay), and
+    # the 4 of ddt and dx: 20n + 9 operations (exp counted as one).
+    f32 = 4
+    bytes_moved = f32 * (5 * B * L * din + 4 * B * L * n + 2 * din * n
+                         + 2 * din + B * (L // tc) * din * n
+                         + 2 * B * din * n)
+    bound_ms, bound_by = bound(bytes_moved, B * L * din * (20 * n + 9))
+    return dict(B=B, L=L, din=din, n=n, tc=tc, ok=ok,
+                run_to_run_identical=run_to_run,
+                tolerance_rel=SCAN_BWD_RTOL, errors=errs,
+                max_abs_err=max(e["max_abs"] for e in errs.values()),
+                ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 # -- phases 3 and 4 ----------------------------------------------------------
 
 
@@ -742,6 +823,113 @@ def serve_phase(torch, np, counters):
     return record, launches
 
 
+def training_setup(torch):
+    """Phase 6's model, optimizer, state, batch and step:
+    falcon-mamba-7b at full width, TRAIN_LAYERS layers, bf16 parameters,
+    AdamW with float32 moments (the config's own), remat and
+    TRAIN_MICROBATCHES microbatches, random weights from MODEL_SEED on the
+    card. Returns ``(cfg, ocfg, state, batch, step, init_s)``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs import get as get_config
+    from repro_torch.data.tokens import train_batch
+    from repro_torch.models import build as build_model
+    from repro_torch.train import OptConfig, build_train_step, init_state
+
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b"),
+                              ssm_impl="pallas", n_layers=TRAIN_LAYERS)
+    if not (cfg.remat and cfg.remat_policy == "nothing"
+            and cfg.microbatches == TRAIN_MICROBATCHES
+            and cfg.optimizer == "adamw" and cfg.moment_dtype == "float32"):
+        raise AssertionError(f"falcon-mamba-7b's training settings moved: "
+                             f"{cfg}")
+    model = build_model(cfg)
+    # lr_at(step 0) is 0 whatever the warmup: the warm-up step moves
+    # nothing, the timed steps train at the default lr
+    ocfg = OptConfig.for_arch(cfg, warmup_steps=1)
+    t0 = time.perf_counter()
+    state = init_state(model, MODEL_SEED, ocfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shape = ShapeConfig("train_4k", TRAIN_LEN, TRAIN_BATCH, "train")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(cfg, shape, 0, seed=MODEL_SEED).items()}
+    return cfg, ocfg, state, batch, build_train_step(model, ocfg), init_s
+
+
+def train_step_once(torch, step, state, batch):
+    """One training step between two syncs: ``(state, record)`` with its
+    host-clock seconds and metrics as floats."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ci = met["loss_ci_state"]
+    return state, dict(
+        step=int(state["step"]) - 1, loss=float(met["loss"]),
+        total_loss=float(met["total_loss"]),
+        z_loss=float(met["z_loss"]), grad_norm=float(met["grad_norm"]),
+        lr=float(met["lr"]), tokens=float(met["tokens"]),
+        loss_ci_count=float(ci.count), loss_ci_mean=float(ci.mean),
+        seconds=secs, tokens_per_s=TRAIN_BATCH * TRAIN_LEN / secs)
+
+
+def train_phase(torch, np, counters):
+    """Phase 6: :func:`training_setup`, one warm-up step, then
+    TRAIN_STEPS timed steps with the launch counts zeroed before them.
+    Returns (record, launches on the training path)."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ocfg, state, batch, step, init_s = training_setup(torch)
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    state, warm = train_step_once(torch, step, state, batch)
+    for c in counters.values():
+        c.launches = 0
+    timed = []
+    for _ in range(TRAIN_STEPS):
+        state, rec = train_step_once(torch, step, state, batch)
+        timed.append(rec)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    passes = TRAIN_STEPS * cfg.microbatches * cfg.n_layers
+    want = {"selective_scan": 2 * passes, "selective_scan_bwd": passes}
+    stray = [k for k, v in launches.items() if k not in want and v]
+    losses = [r["loss"] for r in timed]
+    norms = [r["grad_norm"] for r in timed]
+    finite = all(np.isfinite([r[k] for r in [warm] + timed
+                              for k in ("loss", "grad_norm")]))
+    falls = all(b < a for a, b in zip(losses, losses[1:]))
+    norm_bounded = max(norms) <= TRAIN_GRAD_NORM_GROWTH * norms[0]
+    ok = (finite and falls and norm_bounded and not stray
+          and all(launches[k] == v for k, v in want.items()))
+    record = dict(
+        model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        d_inner=cfg.d_inner, ssm_state=cfg.ssm_state, vocab=cfg.vocab,
+        param_dtype=cfg.param_dtype, optimizer=ocfg.name,
+        moment_dtype=ocfg.moment_dtype, lr=ocfg.lr,
+        remat=cfg.remat_policy, microbatches=cfg.microbatches,
+        params=n_params, init_s=init_s, state_gib=state_gib,
+        batch=TRAIN_BATCH, seq_len=TRAIN_LEN,
+        same_batch_every_step=True, warmup_step=warm, steps=timed,
+        mean_step_s=statistics.mean(r["seconds"] for r in timed),
+        tokens_per_s=TRAIN_BATCH * TRAIN_LEN * TRAIN_STEPS
+        / sum(r["seconds"] for r in timed),
+        loss_falls_every_step=falls, grad_norm_bounded=norm_bounded,
+        grad_norm_growth_limit=TRAIN_GRAD_NORM_GROWTH, launches=launches,
+        launches_expected=want, peak_device_gib=peak_gib,
+        reduced={"n_layers": "64 -> 16 (16 bytes a parameter: bf16 param "
+                             "and grad, f32 grad accumulator, two f32 "
+                             "moments; 7.27 G parameters need ~116 GB, "
+                             "one H100 has 80 GB)",
+                 "train_4k": "batch 256 x 4096 -> 4 x 4096 in 2 "
+                             "microbatches of 2 (time limit)"},
+        ok=ok)
+    return record, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
@@ -807,14 +995,19 @@ def main(argv=None) -> int:
     hst = [check_grouped_hist(torch, timer, ref, khist, G, exact,
                               rows=HIST_ROWS, nbins=HIST_BINS, seed=G + 2)
            for G in (1, 200, 2800) for exact in (True, False)]
-    # the falcon-mamba layer's shape (B 8, L 2048, d_inner 8192, n 16),
-    # then small uneven ones
+    # the falcon-mamba layer's serving shape (B 8, L 2048, d_inner 8192,
+    # n 16), small uneven ones, then its training shape (B 2, L 4096)
     scn = [check_selective_scan(torch, timer, ref, kscan, *shape, seed=i)
            for i, shape in enumerate(SCAN_SHAPES)]
+    # its backward at one batch row, small shapes, then the training shape
+    sbw = [check_selective_scan_bwd(torch, timer, ref, kscan, *shape,
+                                    seed=10 + i)
+           for i, shape in enumerate(SCAN_BWD_SHAPES)]
     emit(dict(phase="kernels_vs_plain", card=name, power_limit=power_limit,
               block_agg=agg, bitmap_active=bit, fused_fold=fus,
-              grouped_hist=hst, selective_scan=scn))
-    bad = [r for r in agg + bit + fus + hst + scn if not r["ok"]]
+              grouped_hist=hst, selective_scan=scn,
+              selective_scan_bwd=sbw))
+    bad = [r for r in agg + bit + fus + hst + scn + sbw if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
@@ -838,7 +1031,8 @@ def main(argv=None) -> int:
                 "bitmap_active": kbit.active_blocks,
                 "fused_fold": kfused.fused_fold,
                 "grouped_hist": khist.grouped_hist,
-                "selective_scan": kscan.selective_scan}
+                "selective_scan": kscan.selective_scan,
+                "selective_scan_bwd": kscan.selective_scan_bwd}
     path_launches = {}
     for path, runs in paths.items():
         truths = {k: truth_of(np, ds.columns, q) for k, q, _ in runs}
@@ -945,12 +1139,23 @@ def main(argv=None) -> int:
     if not serve["ok"]:
         raise AssertionError(f"the Mamba1 serving path failed: {serve}")
 
-    # ---- 6. the kernels line ------------------------------------------------
+    # ---- 6. the Mamba1 training path ----------------------------------------
+    train, launches = train_phase(torch, np, counters)
+    path_launches["mamba1_train"] = launches
+    emit(dict(phase="mamba1_train", card=name, power_limit=power_limit,
+              **train, total_s=time.perf_counter() - t_start))
+    if not train["ok"]:
+        raise AssertionError(f"the Mamba1 training path failed: {train}")
+
+    # ---- 7. the kernels line ------------------------------------------------
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])
     b = next(r for r in bit if r["W"] == 88)
     f = next(r for r in fus if r["G"] == 2800 and not r["exact_data"])
     h = next(r for r in hst if r["G"] == 2800 and not r["exact_data"])
-    sf = scn[0]  # the falcon-mamba layer's shape
+    sf = scn[0]  # the falcon-mamba layer's serving shape
+    sb = next(r for r in sbw  # the shape the training path gives it
+              if (r["B"], r["L"], r["din"], r["n"], r["tc"])
+              == TRAIN_SCAN_SHAPE)
     launches = path_launches["bernstein"]
     adkw = path_launches["anderson_dkw"]
     emit({"kernels": [
@@ -989,6 +1194,13 @@ def main(argv=None) -> int:
              max_abs_err=max(r["max_abs_err"] for r in scn),
              ms=sf["ms"], plain_ms=sf["plain_ms"], bound_ms=sf["bound_ms"],
              bound_by=sf["bound_by"], library_ms=None),
+        dict(name="selective_scan_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+             replaces="src/repro/kernels/selective_scan.py:223",
+             launches=path_launches["mamba1_train"]["selective_scan_bwd"],
+             max_abs_err=max(r["max_abs_err"] for r in sbw),
+             ms=sb["ms"], plain_ms=sb["plain_ms"], bound_ms=sb["bound_ms"],
+             bound_by=sb["bound_by"], library_ms=None),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -39,6 +39,8 @@ PROFILE_DECODE_STEPS = 8
 
 def kind_of(name: str) -> str:
     low = name.lower()
+    if "selective_scan_bwd" in low:
+        return "selective_scan_bwd"
     if "selective_scan" in low:
         return "selective_scan"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "cublas", "nvjet")):
@@ -46,11 +48,11 @@ def kind_of(name: str) -> str:
     return "elementwise"
 
 
-def summarize(prof, wall_s: float, what: str, **extra) -> dict:
-    """Kernel intervals of the trace: busy time as their union, idle
-    share against the host-clock window, time by kind and name."""
+def summarize(events, wall_s: float, what: str, **extra) -> dict:
+    """Kernel intervals of a trace's events: busy time as their union,
+    idle share against the host-clock window, time by kind and name."""
     spans, by_name = [], collections.Counter()
-    for e in prof.events():
+    for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         start, end = e.time_range.start, e.time_range.end
@@ -94,14 +96,16 @@ def main() -> int:
     with torch.profiler.profile(activities=acts) as prof:
         logits, cache, wall = smoke.prefill_once(torch, model, lm, tokens)
     layers = model.cfg.n_layers
-    print(json.dumps(summarize(prof, wall, "prefill", layers=layers,
+    print(json.dumps(summarize(prof.events(), wall, "prefill",
+                               layers=layers,
                                batch=smoke.SERVE_BATCH,
                                prompt=smoke.PROMPT_LEN)), flush=True)
     tok = logits[:, -1].argmax(-1, keepdim=True)
     with torch.profiler.profile(activities=acts) as prof:
         *_, wall = smoke.decode_steps(torch, model, lm, cache, tok,
                                       smoke.PROMPT_LEN, PROFILE_DECODE_STEPS)
-    print(json.dumps(summarize(prof, wall, "decode", layers=layers,
+    print(json.dumps(summarize(prof.events(), wall, "decode",
+                               layers=layers,
                                batch=smoke.SERVE_BATCH,
                                steps=PROFILE_DECODE_STEPS)), flush=True)
     return 0

@@ -1,10 +1,12 @@
-"""Mergeable aggregation-state algebra, host half (the paper's §2.2.2
-interface at block granularity).
+"""Mergeable aggregation-state algebra (the paper's §2.2.2 interface at
+block granularity).
 
 The port of :mod:`repro.core.state`. Kernels fold blocks of tuples into
 per-group moment states ``(count, mean, m2, vmin, vmax)`` (Welford/Chan
 form) on the card; the engine's *running* state, and all bound
-evaluation, stay float64 numpy on the host. A state whose fields have
+evaluation, stay float64 numpy on the host. The device half is
+:func:`moments_of_batch` and :func:`merge_moments` on tensors (the
+trainer's per-token loss states). A state whose fields have
 shape ``(G,)`` holds G independent aggregates (one per GROUP BY view).
 
 Key identity used by RangeTrim (:mod:`repro_torch.core.rangetrim`):
@@ -90,6 +92,57 @@ def merge_hist_host(hist: Optional[np.ndarray], delta) -> np.ndarray:
     state."""
     d = _host_f64(delta)
     return d.copy() if hist is None else hist + d
+
+
+def moments_of_batch(values: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None, axis=None,
+                     dtype: torch.dtype = torch.float32) -> MomentState:
+    """One-shot masked moments of a batch of tensors on any device (the
+    block-level ``update_state``), in ``dtype`` (float32 by default), as
+    :func:`repro.core.state.moments_of_batch` computes them: the mean
+    first, then the squared deviations from it (a guard against
+    cancellation when ``|mean| >> std``). ``axis=None`` reduces over
+    every element; an int reduces that axis. ``vmin`` / ``vmax`` are
+    ``+inf`` / ``-inf`` where nothing is masked in."""
+    values = values.to(dtype)
+    if mask is None:
+        mask = torch.ones_like(values, dtype=torch.bool)
+    mask = mask.to(torch.bool)
+    fmask = mask.to(dtype)
+    dims = tuple(range(values.dim())) if axis is None else (axis,)
+    count = fmask.sum(dim=dims)
+    safe = torch.clamp(count, min=1.0)
+    mean = (values * fmask).sum(dim=dims) / safe
+    dev = (values - (mean if axis is None else mean.unsqueeze(axis))) * fmask
+    m2 = (dev * dev).sum(dim=dims)
+    inf = torch.tensor(float("inf"), dtype=dtype, device=values.device)
+    vmin = torch.where(mask, values, inf).amin(dim=dims)
+    vmax = torch.where(mask, values, -inf).amax(dim=dims)
+    zero = count == 0
+    z = torch.zeros((), dtype=dtype, device=values.device)
+    return MomentState(count=count, mean=torch.where(zero, z, mean),
+                       m2=torch.where(zero, z, m2), vmin=vmin, vmax=vmax)
+
+
+def merge_moments(a: MomentState, b: MomentState) -> MomentState:
+    """Chan et al. pairwise merge of two tensor states (commutative and
+    associative), in their dtype on their device: the port of
+    :func:`repro.core.state.merge_moments` and the twin of
+    :func:`merge_moments_host`."""
+    n = a.count + b.count
+    safe = torch.clamp(n, min=1.0)
+    delta = b.mean - a.mean
+    mean = a.mean + delta * (b.count / safe)
+    m2 = a.m2 + b.m2 + delta * delta * (a.count * b.count / safe)
+    zero = n == 0
+    z = torch.zeros((), dtype=n.dtype, device=n.device)
+    return MomentState(
+        count=n,
+        mean=torch.where(zero, z, mean),
+        m2=torch.where(zero, z, m2),
+        vmin=torch.minimum(a.vmin, b.vmin),
+        vmax=torch.maximum(a.vmax, b.vmax),
+    )
 
 
 def merge_moments_host(a: MomentState, b: MomentState) -> MomentState:

@@ -1,2 +1,3 @@
 """repro_torch.data — the synthetic FLIGHTS generator (a numpy copy of
-:mod:`repro.data.flights`)."""
+:mod:`repro.data.flights`) and the synthetic LM training batches (of
+:mod:`repro.data.tokens`)."""

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "repro_bitmap_active": ([_P, _P, _I, _I, _P, _P, _I, _P], _I),
     "repro_selective_scan": ([_P] * 7 + [_I] * 5 + [_P] * 3 + [_I, _P],
                              _I),
+    "repro_selective_scan_bwd": ([_P] * 9 + [_I] * 6 + [_P] * 11
+                                 + [_I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

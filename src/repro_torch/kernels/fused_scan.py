@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.state import MomentState
+from repro_torch.core.state import MomentState, merge_moments
 from repro_torch.kernels import ops as kops
 
 
@@ -144,8 +144,9 @@ def fused_round(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
     return state, hist, ok, flags, new_pos
 
 
-# Device twins of the host loop's pack_mask / merge_moments_host. The host
-# loop does not call them; the device-resident loop (a later slice) does.
+# Device twins of the host loop's pack_mask / merge_moments_host (the
+# latter is core.state.merge_moments). The host loop does not call them;
+# the device-resident loop (a later slice) does.
 
 
 def pack_active_device(active: torch.Tensor, n_words: int) -> torch.Tensor:
@@ -161,26 +162,6 @@ def pack_active_device(active: torch.Tensor, n_words: int) -> torch.Tensor:
     words = (bits.reshape(n_words, 32) << shifts).sum(dim=1)
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
         torch.int32)
-
-
-def merge_moments(a: MomentState, b: MomentState) -> MomentState:
-    """Chan et al. pairwise merge of two tensor states (commutative and
-    associative): the torch twin of
-    :func:`repro_torch.core.state.merge_moments_host`."""
-    n = a.count + b.count
-    safe = torch.clamp(n, min=1.0)
-    delta = b.mean - a.mean
-    mean = a.mean + delta * (b.count / safe)
-    m2 = a.m2 + b.m2 + delta * delta * (a.count * b.count / safe)
-    zero = n == 0
-    z = torch.zeros((), dtype=n.dtype, device=n.device)
-    return MomentState(
-        count=n,
-        mean=torch.where(zero, z, mean),
-        m2=torch.where(zero, z, m2),
-        vmin=torch.minimum(a.vmin, b.vmin),
-        vmax=torch.maximum(a.vmax, b.vmax),
-    )
 
 
 def _merge_f64(state: MomentState, delta: MomentState) -> MomentState:

@@ -6,13 +6,15 @@ where the tensors live:
 
   * CUDA tensors -> the hand-written kernel (``block_agg``,
     ``fused_fold``, ``grouped_hist``, ``bitmap_active``,
-    ``selective_scan``), which launches or raises; there is no fallback;
+    ``selective_scan``, ``selective_scan_bwd``), which launches or raises;
+    there is no fallback;
   * CPU tensors  -> the plain PyTorch version in :mod:`.ref`, the
     oracle the kernels are tested against.
 
 Anything else raises. The engine calls the folds and the probe once or
 twice per scan round; the Mamba1 layer's ``"pallas"`` path calls
-:func:`selective_scan` once per layer per prefill.
+:func:`selective_scan` once per layer per forward and, in training,
+:func:`selective_scan_bwd` once per layer per backward.
 """
 
 from __future__ import annotations
@@ -185,3 +187,23 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if _on_cuda(x, "selective_scan"):
         return _scan.selective_scan(*args, time_chunk=tc)
     return _ref.selective_scan_ref(*args, time_chunk=tc)
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                       hseg: torch.Tensor, ybar: torch.Tensor,
+                       houtbar: torch.Tensor, *,
+                       time_chunk: int = _scan.TIME_CHUNK):
+    """Mamba1 selective scan backward -> ``(dx, ddt (B, L, din), dB, dC
+    (B, L, n), dA (din, n), dD (din,), dh0 (B, din, n))`` float32, from
+    the forward's inputs, its chunk-start states ``hseg`` (at the same
+    ``time_chunk``) and the cotangents of ``y`` and of the final state
+    (:func:`repro_torch.kernels.ref.selective_scan_bwd_ref` says what it
+    computes). Inputs are cast to float32, as the reference's
+    ``make_trainable_scan`` casts them before ``_backward``."""
+    tc = min(time_chunk, x.shape[1])
+    args = [t.to(torch.float32).contiguous()
+            for t in (x, dt, b, c, a, d, hseg, ybar, houtbar)]
+    if _on_cuda(x, "selective_scan_bwd"):
+        return _scan.selective_scan_bwd(*args, time_chunk=tc)
+    return _ref.selective_scan_bwd_ref(*args, time_chunk=tc)

@@ -168,7 +168,88 @@ def selective_scan_step(x_t, dt_t, b_t, c_t, a, d, h):
     ``x_t, dt_t`` ``(B, din)``; ``b_t, c_t`` ``(B, n)``; ``a`` ``(din, n)``;
     ``d`` ``(din,)``; ``h`` ``(B, din, n)``. Returns ``(y_t (B, din),
     h_t)``."""
+    h = selective_scan_state_step(x_t, dt_t, b_t, a, h)
+    return (h * c_t[:, None, :]).sum(-1) + d * x_t, h
+
+
+def selective_scan_state_step(x_t, dt_t, b_t, a, h):
+    """The state update of one step,
+    ``h_t = exp(dt_t · A) ⊙ h_{t-1} + (dt_t · x_t) B_t``, in float32."""
     decay = torch.exp(dt_t[:, :, None] * a)                    # (B, din, n)
     u = (dt_t * x_t)[:, :, None] * b_t[:, None, :]
-    h = decay * h + u
-    return (h * c_t[:, None, :]).sum(-1) + d * x_t, h
+    return decay * h + u
+
+
+def selective_scan_bwd_ref(x, dt, b, c, a, d, hseg, ybar, houtbar,
+                           time_chunk: int):
+    """Plain version of :func:`repro_torch.kernels.selective_scan.
+    selective_scan_bwd`: the scan's backward as the reference's Pallas
+    body computes it (:func:`repro.kernels.selective_scan._bwd_kernel`),
+    step for step. For each chunk ``k`` of ``tc`` steps, last first, the
+    chunk's states are recomputed from ``hseg[:, k]`` (the forward's own
+    float32 operations, so its own bits) and the adjoint ``hbar`` runs
+    backwards through the chunk:
+
+        dC_t  = Σ_i ybar_t h_t              dD += ybar_t x_t
+        hbar += ybar_t C_t                  g   = hbar h_{t-1} exp(dt_t A)
+        s     = Σ_n hbar B_t                dB_t = Σ_i hbar (dt_t x_t)
+        dA   += g dt_t                      ddt_t = Σ_n g A + s x_t
+        dx_t  = ybar_t D + s dt_t           hbar *= exp(dt_t A)
+
+    dA and dD are kept per (batch row, chunk) and summed at the end, as
+    the reference's ``_backward`` sums its partials.
+
+    Args: the forward's ``x, dt, b, c, a, d`` (shapes as
+    :func:`selective_scan_ref`), its ``hseg (B, L / tc, din, n)``, the
+    cotangents ``ybar (B, L, din)`` and ``houtbar (B, din, n)``, and the
+    forward's ``time_chunk``.
+
+    Returns ``(dx, ddt (B, L, din), dB, dC (B, L, n), dA (din, n),
+    dD (din,), dh0 (B, din, n))`` float32."""
+    B, L, din = x.shape
+    n = b.shape[-1]
+    tc = min(time_chunk, L)
+    if L % tc or hseg.shape[1] != L // tc:
+        raise ValueError(f"selective_scan_bwd_ref: L={L} and hseg's "
+                         f"{hseg.shape[1]} chunks do not fit the time chunk "
+                         f"{tc}")
+    f32 = torch.float32
+    x, dt, b, c, a, d, hseg, ybar, hbar = (
+        t.to(f32) for t in (x, dt, b, c, a, d, hseg, ybar, houtbar))
+    n_chunks = L // tc
+    kw = dict(dtype=f32, device=x.device)
+    dx = torch.empty((B, L, din), **kw)
+    ddt = torch.empty((B, L, din), **kw)
+    db = torch.empty((B, L, n), **kw)
+    dc = torch.empty((B, L, n), **kw)
+    da_p = torch.empty((B, n_chunks, din, n), **kw)
+    dd_p = torch.empty((B, n_chunks, din), **kw)
+    for k in reversed(range(n_chunks)):
+        lo = k * tc
+        hist = []
+        h = hseg[:, k]
+        for t in range(lo, lo + tc):
+            h = selective_scan_state_step(x[:, t], dt[:, t], b[:, t], a, h)
+            hist.append(h)
+        da_acc = torch.zeros((B, din, n), **kw)
+        dd_acc = torch.zeros((B, din), **kw)
+        for t in reversed(range(lo, lo + tc)):
+            x_t, dt_t, b_t, c_t, ybar_t = (x[:, t], dt[:, t], b[:, t],
+                                           c[:, t], ybar[:, t])
+            h_t = hist[t - lo]
+            h_prev = hist[t - lo - 1] if t > lo else hseg[:, k]
+            dc[:, t] = (ybar_t[:, :, None] * h_t).sum(1)
+            dd_acc = dd_acc + ybar_t * x_t
+            xbar = ybar_t * d
+            hbar = hbar + ybar_t[:, :, None] * c_t[:, None, :]
+            decay = torch.exp(dt_t[:, :, None] * a)
+            decaybar = hbar * h_prev
+            dtxbar = (hbar * b_t[:, None, :]).sum(-1)
+            db[:, t] = (hbar * (dt_t * x_t)[:, :, None]).sum(1)
+            da_acc = da_acc + decaybar * decay * dt_t[:, :, None]
+            ddt[:, t] = (decaybar * decay * a).sum(-1) + dtxbar * x_t
+            dx[:, t] = xbar + dtxbar * dt_t
+            hbar = hbar * decay
+        da_p[:, k] = da_acc
+        dd_p[:, k] = dd_acc
+    return dx, ddt, db, dc, da_p.sum(dim=(0, 1)), dd_p.sum(dim=(0, 1)), hbar

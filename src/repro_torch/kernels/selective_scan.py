@@ -1,23 +1,32 @@
-"""Python wrapper of the CUDA selective-scan kernel
-``csrc/selective_scan.cu``.
+"""Python wrappers of the CUDA selective-scan kernels
+``csrc/selective_scan.cu`` (forward) and ``csrc/selective_scan_bwd.cu``
+(backward).
 
-The Hopper counterpart of :func:`repro.kernels.selective_scan._forward`:
-the Mamba1 scan forward, ``h_t = exp(dt_t·A) ⊙ h_{t-1} + (dt_t·x_t) B_t``,
+:func:`selective_scan` is the Hopper counterpart of
+:func:`repro.kernels.selective_scan._forward`: the Mamba1 scan forward,
+``h_t = exp(dt_t·A) ⊙ h_{t-1} + (dt_t·x_t) B_t``,
 ``y_t = ⟨h_t, C_t⟩ + D·x_t``, returning ``y``, the final state and the
-state at the start of every time chunk (``hseg``, the layout the backward
-kernel will read). One thread carries one (batch, channel) state in
-registers; the sum over the ``n`` states runs in a fixed order, so the
-result is the same on every run.
+state at the start of every time chunk (``hseg``). One thread carries one
+(batch, channel) state in registers; the sum over the ``n`` states runs in
+a fixed order, so the result is the same on every run.
 
-:func:`selective_scan` only launches: it takes CUDA tensors and raises on
-anything else. :func:`repro_torch.kernels.ops.selective_scan` chooses
-between it and the plain version by the tensors' device.
-``selective_scan.launches`` counts the launches.
+:func:`selective_scan_bwd` is the counterpart of
+:func:`repro.kernels.selective_scan._backward`: the reverse-chunk adjoint,
+recomputing each chunk's states from ``hseg`` and returning the seven
+gradients. Its sums over channels, batch rows and chunks run in fixed
+orders with no float atomics, so it too gives the same bits every run.
+
+Both wrappers only launch: they take CUDA tensors and raise on anything
+else. :func:`repro_torch.kernels.ops.selective_scan` and
+:func:`~repro_torch.kernels.ops.selective_scan_bwd` choose between them
+and the plain versions by the tensors' device. ``.launches`` on each
+counts its launches.
 
 :func:`make_trainable_scan` is the port of the reference's custom-VJP
-scan as a ``torch.autograd.Function``. Its forward runs the scan and saves
-``hseg``; its backward (kernel #6, the reverse-chunk adjoint) is not
-ported yet and raises.
+scan as a ``torch.autograd.Function``: its forward runs the scan and saves
+``hseg``, its backward runs :func:`~repro_torch.kernels.ops.
+selective_scan_bwd` (the kernel on the card, the plain version on the
+CPU).
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ from repro_torch.kernels import _build
 
 DIN_TILE = 128
 TIME_CHUNK = 512
-STATE_SIZES = (8, 16)   # the kernel's instantiations of n
+STATE_SIZES = (8, 16)   # the kernels' instantiations of n
+BWD_CHANNELS_PER_BLOCK = 128  # csrc/selective_scan_bwd.cu's kThreads
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -95,8 +105,81 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
 selective_scan.launches = 0
 
 
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                       hseg: torch.Tensor, ybar: torch.Tensor,
+                       houtbar: torch.Tensor, time_chunk: int = TIME_CHUNK
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward.
+
+    Args:
+      x, dt, b, c, a, d: the forward's inputs (shapes and dtype as
+        :func:`selective_scan`), on a CUDA device.
+      hseg: ``(B, L / tc, din, n)`` the forward's chunk-start states.
+      ybar: ``(B, L, din)`` cotangent of ``y``.
+      houtbar: ``(B, din, n)`` cotangent of the final state.
+      time_chunk: the forward's chunk length ``tc`` (clamped to ``L``).
+
+    Returns ``(dx, ddt (B, L, din), dB, dC (B, L, n), dA (din, n),
+    dD (din,), dh0 (B, din, n))`` float32.
+    """
+    dev = x.device
+    _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
+    _require(x.dim() == 3, f"x must be (B, L, din), got {tuple(x.shape)}")
+    B, L, din = x.shape
+    _require(b.dim() == 3, f"b must be (B, L, n), got {tuple(b.shape)}")
+    n = b.shape[-1]
+    _require(n in STATE_SIZES, f"state size n={n} is not one of the "
+             f"kernel's instantiations {STATE_SIZES}")
+    _require(B >= 1 and L >= 1 and din >= 1, f"empty input {(B, L, din)}")
+    _require(B <= 65535, f"batch {B} exceeds the grid's 65535 rows")
+    tc = min(time_chunk, L)
+    _require(tc >= 1 and L % tc == 0, f"L={L} is not a multiple of the "
+             f"time chunk {tc}")
+    n_chunks = L // tc
+    for name, t, shape in (("x", x, (B, L, din)), ("dt", dt, (B, L, din)),
+                           ("b", b, (B, L, n)), ("c", c, (B, L, n)),
+                           ("a", a, (din, n)), ("d", d, (din,)),
+                           ("hseg", hseg, (B, n_chunks, din, n)),
+                           ("ybar", ybar, (B, L, din)),
+                           ("houtbar", houtbar, (B, din, n))):
+        _require(t.device == dev, f"{name} is on {t.device}, not {dev}")
+        _require(t.dtype == torch.float32, f"{name} must be float32, got "
+                 f"{t.dtype}")
+        _require(tuple(t.shape) == shape, f"{name} must be {shape}, got "
+                 f"{tuple(t.shape)}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    nblk = -(-din // BWD_CHANNELS_PER_BLOCK)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    # scratch: the chunk's recomputed states, the blocks' dB / dC partials
+    # and the per-(batch row, chunk) dA / dD partials
+    hist = empty(B, tc, din, n)
+    bc_part = empty(B, L, nblk, 2 * n)
+    da_part = empty(B, n_chunks, din, n)
+    dd_part = empty(B, n_chunks, din)
+    outs = (empty(B, L, din), empty(B, L, din), empty(B, L, n),
+            empty(B, L, n), empty(din, n), empty(din), empty(B, din, n))
+    rc = _build.library().repro_selective_scan_bwd(
+        *(t.data_ptr() for t in (x, dt, b, c, a, d, hseg, ybar, houtbar)),
+        B, L, din, n, tc, nblk,
+        *(t.data_ptr() for t in (hist, bc_part, da_part, dd_part)),
+        *(t.data_ptr() for t in outs), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "selective_scan_bwd launch")
+    selective_scan_bwd.launches += 1
+    return outs
+
+
+selective_scan_bwd.launches = 0
+
+
 class _TrainableScan(torch.autograd.Function):
-    """The scan with its chunk-start states saved for the backward pass."""
+    """The scan with its chunk-start states saved for the backward pass,
+    whose gradients come from :func:`repro_torch.kernels.ops.
+    selective_scan_bwd`."""
 
     @staticmethod
     def forward(ctx, x, dt, b, c, a, d, h0, din_tile, time_chunk):
@@ -107,24 +190,29 @@ class _TrainableScan(torch.autograd.Function):
                                            din_tile=din_tile,
                                            time_chunk=time_chunk)
         ctx.save_for_backward(x, dt, b, c, a, d, hseg)
+        ctx.time_chunk = time_chunk
         return y, hout
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, ybar, houtbar):
-        raise NotImplementedError(
-            "the selective-scan backward (kernel #6, "
-            "repro.kernels.selective_scan._backward) is not ported yet: it "
-            "comes with the training slice, ROADMAP queue 1 item 8")
+        from repro_torch.kernels import ops
+
+        x, dt, b, c, a, d, hseg = ctx.saved_tensors
+        grads = ops.selective_scan_bwd(x, dt, b, c, a, d, hseg, ybar,
+                                       houtbar, time_chunk=ctx.time_chunk)
+        return (*grads, None, None)
 
 
 def make_trainable_scan(din_tile: int = DIN_TILE,
                         time_chunk: int = TIME_CHUNK) -> Callable:
     """The port of :func:`repro.kernels.selective_scan.make_trainable_scan`:
     ``scan(x, dt, b, c, a, d, h0) -> (y, hout)`` through
-    :func:`repro_torch.kernels.ops.selective_scan` (the CUDA kernel on the
-    card, the plain version on the CPU). The forward saves ``hseg`` for
-    the backward, which raises ``NotImplementedError`` until the training
-    slice ports it; serving runs it under ``torch.inference_mode()``."""
+    :func:`repro_torch.kernels.ops.selective_scan`, differentiable in all
+    seven inputs. The forward saves ``hseg``; the backward recomputes each
+    chunk from it (:func:`repro_torch.kernels.ops.selective_scan_bwd`: the
+    CUDA kernel on the card, the plain version on the CPU) and returns
+    float32 gradients, which autograd casts to each input's dtype."""
 
     def scan(x, dt, b, c, a, d, h0):
         return _TrainableScan.apply(x, dt, b, c, a, d, h0, din_tile,

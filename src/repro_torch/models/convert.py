@@ -1,4 +1,4 @@
-"""Parameters of the reference into the port.
+"""Parameters and trainer states of the reference into the port.
 
 :func:`params_from_jax` turns a parameter tree of :mod:`repro.models`
 (nested dicts whose leaves are numpy arrays, e.g. ``jax.tree.map(
@@ -12,6 +12,10 @@ leading ``n_layers`` axis under ``"layers"``, split into the
 ``ModuleList``'s entries (``layers.<i>.…``). Each leaf keeps its dtype:
 a bfloat16 array (numpy's ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects) travels as its 16-bit pattern.
+
+:func:`train_state_from_jax` does the same for a whole trainer state of
+:mod:`repro.train` (parameters, optimizer moments, step), so that one
+step from the same state can run in both packages.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.train.optimizer import moment_shape
 
 
 def _to_torch(arr) -> torch.Tensor:
@@ -60,3 +66,39 @@ def params_from_jax(params: Mapping, cfg: ArchConfig
         else:
             out[name] = t
     return out
+
+
+def train_state_from_jax(state: Mapping, cfg: ArchConfig,
+                         lm: nn.Module) -> Dict:
+    """A reference trainer state (``repro.train.init_state``'s tree after
+    ``jax.tree.map(np.asarray, ...)``: ``params``, ``opt`` with AdamW's
+    ``m`` / ``v`` or Adafactor's ``vr`` / ``vc``, ``step``) as the port's
+    (:func:`repro_torch.train.init_state`'s layout): the parameters are
+    loaded into ``lm``, the moments land beside them on its device under
+    its parameter names, each in its own dtype.
+
+    Adafactor factors a scan-stacked leaf over its layer axis, which the
+    port's per-layer tensors cannot hold (a layer's vector gets an
+    ``(n_layers,)`` row moment and a ``(d,)`` column moment): such a state
+    raises ``ValueError`` (:mod:`repro_torch.train.optimizer`)."""
+    lm.load_state_dict(params_from_jax(state["params"], cfg))
+    params = dict(lm.named_parameters())
+    dev = next(iter(params.values())).device
+    opt = {}
+    for key, tree in state["opt"].items():
+        try:
+            leaves = params_from_jax(tree, cfg)
+        except ValueError as e:
+            raise ValueError(f"opt.{key}: the reference's leaf has no "
+                             f"per-layer counterpart ({e})") from None
+        for name, p in params.items():
+            want = moment_shape(key, p.shape)
+            if tuple(leaves[name].shape) != want:
+                raise ValueError(
+                    f"opt.{key}.{name}: shape {tuple(leaves[name].shape)} "
+                    f"is not the port's {want} (an Adafactor moment of a "
+                    "scan-stacked leaf, factored across layers)")
+        opt[key] = {name: leaves[name].to(dev) for name in params}
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                        device=dev)
+    return {"params": lm, "opt": opt, "step": step}

@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm
@@ -122,11 +123,38 @@ def lm_forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
     vlm/audio stubs (prepended). Returns (logits f32, aux_loss)."""
     require_ported(cfg)
     h = _embed(params, cfg, tokens, extra_embeds)
+    layer = _maybe_remat(cfg, _ssm_layer)
     for lp in params.layers:
-        h = h + ssm.mamba1_apply(lp.mamba, cfg,
-                                 norm_apply(lp.ln, h, cfg.norm))
+        h = layer(lp, cfg, h)
     aux = torch.zeros((), dtype=_F32, device=h.device)
     return _logits(params, cfg, h), aux
+
+
+def _ssm_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor
+               ) -> torch.Tensor:
+    return h + ssm.mamba1_apply(lp.mamba, cfg, norm_apply(lp.ln, h, cfg.norm))
+
+
+def _maybe_remat(cfg: ArchConfig, fn):
+    """Per-layer rematerialisation, the reference's ``jax.checkpoint`` with
+    the ``"nothing"`` policy: where a gradient is wanted, a layer keeps
+    only its input and runs again in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), so the scan kernel runs
+    twice a layer per step. The ``"dots"`` policy (keep the matmul
+    outputs) is not ported yet."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet: the port "
+            "rematerialises with the 'nothing' policy only (ROADMAP queue 1 "
+            "item 14)")
+
+    def layer(lp, cfg_, h):
+        if not torch.is_grad_enabled():
+            return fn(lp, cfg_, h)
+        return checkpoint(fn, lp, cfg_, h, use_reentrant=False)
+    return layer
 
 
 # -- prefill (forward + emit decode caches) -----------------------------------

@@ -9,10 +9,13 @@ Two prefill paths, picked by ``cfg.ssm_impl`` as in the reference:
 
   * ``"pallas"``: the scan runs as one call of the hand-written kernel
     per layer (:func:`repro_torch.kernels.ops.selective_scan`: the CUDA
-    kernel on the card, its plain version on the CPU) — the serving path;
+    kernel on the card, its plain version on the CPU), and its gradient
+    as one call of the backward kernel
+    (:func:`repro_torch.kernels.ops.selective_scan_bwd`) — the serving
+    and training path;
   * ``"xla"``: plain PyTorch, chunk by chunk, each chunk's scan the
     sequential recurrence (the reference runs an associative scan per
-    chunk). Correct but not fast.
+    chunk), differentiated by autograd. Correct but not fast.
 
 Decode is the O(1) recurrence in plain PyTorch, one step of
 :func:`_mamba1_core`, as the reference computes it outside any kernel.
@@ -143,7 +146,7 @@ def mamba1_apply(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
     + recurrent state) from the scan carry.
 
     cfg.ssm_impl == "pallas" routes the recurrence through the
-    hand-written selective-scan kernel (serving paths)."""
+    hand-written selective-scan kernels (forward and backward)."""
     if cfg.ssm_impl == "pallas":
         return _mamba1_apply_pallas(p, cfg, x, return_cache)
     B, L, d = x.shape
@@ -199,8 +202,9 @@ def mamba1_decode(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
 def _mamba1_apply_pallas(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
                          return_cache: bool = False):
     """The hand-written selective-scan path: one kernel call for the whole
-    sequence, the state carried on chip. Forward only: the scan's
-    backward is the training slice's."""
+    sequence, the state carried on chip; under autograd the scan's
+    gradient is one call of the backward kernel, which recomputes each
+    512-step chunk from the chunk-start states the forward saved."""
     B, L, d = x.shape
     din, K, n = cfg.d_inner, cfg.ssm_conv, cfg.ssm_state
     xs = x @ p.in_x

@@ -2,6 +2,7 @@
 
   model = build(cfg)
   lm = model.init(seed)                          # the LM module, on the card
+  loss, metrics = model.loss(lm, batch)          # train
   logits, cache = model.prefill(lm, batch)       # inference-prefill
   logits, cache = model.decode(lm, cache, batch) # one decode step
   logits, aux = model.forward(lm, batch)         # teacher-forced forward
@@ -13,9 +14,11 @@ pytree. ``init`` and ``init_cache`` take ``device=None``, meaning the card
 ``device="cpu"`` is passed; the other calls run where the module lives.
 ``prefill`` and ``decode`` run under ``torch.inference_mode()``.
 
-``loss`` raises ``NotImplementedError`` until the training slice (ROADMAP
-queue 1 item 8: it needs the scan's backward kernel and the per-token
-moment states of ``repro.core.state.moments_of_batch``).
+``loss`` returns the cross-entropy plus the z-loss and the aux term, and
+in its metrics the per-token loss *moment state* (count / mean / m2 /
+min / max, :func:`repro_torch.core.state.moments_of_batch`): the mergeable
+CI state the reference hands to its ``evalx`` monitors. Its gradient runs
+through the selective-scan backward kernel on the ``"pallas"`` path.
 
 ``input_specs(cfg, shape)`` returns ``(shape, dtype)`` stand-ins for every
 model input of a workload shape; ``make_batch`` materializes small
@@ -31,9 +34,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core.state import moments_of_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import compute_dtype
+
+# copies of the reference's coefficients (repro.models.zoo)
+Z_LOSS_COEF = 1e-4
+MOE_AUX_COEF = 1e-2
 
 
 @dataclasses.dataclass
@@ -63,6 +71,31 @@ def window_for(cfg: ArchConfig, seq_len: int) -> Optional[int]:
     return None
 
 
+def _ce_loss(logits: torch.Tensor, targets: torch.Tensor, aux: torch.Tensor,
+             cfg: ArchConfig):
+    """logits f32 (B, T, V); targets int (B, T), -1 = ignore. Returns
+    ``(total, metrics)``: the mean token cross-entropy plus the z-loss and
+    the aux term, as the reference computes them; the metrics (loss,
+    z_loss, aux_loss, tokens and the per-token loss state
+    ``loss_ci_state``) are detached."""
+    mask = (targets >= 0).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = targets.clamp(min=0).long()
+    picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = (logz - picked) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    z_loss = Z_LOSS_COEF * ((logz * mask) ** 2).sum() / denom
+    total = loss + z_loss + MOE_AUX_COEF * aux
+    # the paper's integration: a mergeable CI state over per-token losses
+    ci_state = moments_of_batch(nll.detach().reshape(-1),
+                                mask.reshape(-1) > 0)
+    metrics = {"loss": loss.detach(), "z_loss": z_loss.detach(),
+               "aux_loss": aux.detach(), "loss_ci_state": ci_state,
+               "tokens": denom}
+    return total, metrics
+
+
 def build(cfg: ArchConfig) -> Model:
     lm_mod.require_ported(cfg)
     return _build_lm(cfg)
@@ -83,10 +116,8 @@ def _build_lm(cfg: ArchConfig) -> Model:
                                  window=window)
 
     def loss(params, batch, window=None):
-        raise NotImplementedError(
-            "Model.loss is not ported yet: it comes with the training "
-            "slice, ROADMAP queue 1 item 8 (the scan's backward kernel and "
-            "the per-token loss moment states)")
+        logits, aux = forward(params, batch, window)
+        return _ce_loss(logits, batch["targets"], aux, cfg)
 
     @torch.inference_mode()
     def prefill(params, batch, window=None):

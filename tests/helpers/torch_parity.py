@@ -15,9 +15,24 @@ star):
 """
 
 import numpy as np
+import pytest
+import torch
 
 import repro.aqp as R
 import repro_torch.aqp as T
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Import into a test module to run it on one torch thread, the
+    previous count restored after it. The plain scans are thousands of
+    small ops; on a host whose cores other test processes share, torch's
+    intra-op threads cost ~1000x (13 ms for one 8,192-element exp under
+    load, 0.01 ms on one thread)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 EXACT_FIELDS = [
     "group_codes", "count_seen", "nonempty", "exact", "tainted",

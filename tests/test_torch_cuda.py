@@ -428,3 +428,131 @@ def test_mamba1_lm_cuda_equals_cpu(cuda):
     for g, w in zip(got, want):
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
             w.abs().max())
+
+
+# -- the scan's backward ------------------------------------------------------
+
+# (B, L, din, n, tc): one channel block at n 8 over two chunks; a ragged
+# last block of 200 channels at n 16; chunks of 25 steps (not a multiple of
+# the kernel's 64-step stage) at B 4; one long chunk; three blocks, B 3
+BWD_SHAPES = [(1, 128, 128, 8, 64), (2, 96, 200, 16, 32),
+              (4, 100, 128, 16, 25), (1, 512, 256, 8, 512),
+              (3, 192, 384, 16, 64)]
+BWD_RTOL = 1e-5
+
+
+def _bwd_args(seed, B, L, din, n, tc, cuda):
+    """The forward's inputs, its hseg at ``tc`` (plain version) and
+    N(0, 1) cotangents, on the card."""
+    args = [t.to(cuda) for t in _scan_inputs(seed, B, L, din, n)]
+    _, _, hseg = ref.selective_scan_ref(*args, time_chunk=tc)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ybar = torch.randn((B, L, din), generator=gen, device=cuda)
+    houtbar = torch.randn((B, din, n), generator=gen, device=cuda)
+    return args[:6] + [hseg, ybar, houtbar]
+
+
+@pytest.mark.parametrize("B,L,din,n,tc", BWD_SHAPES)
+def test_selective_scan_bwd_equals_plain(cuda, B, L, din, n, tc):
+    """Every gradient within 1e-5 of its largest plain magnitude (the
+    recompute is the forward's own bits; only the sums over n, channels,
+    batch rows and chunks run in other orders), the same bits on a second
+    run, one launch counted per call."""
+    args = _bwd_args(B + L + din, B, L, din, n, tc, cuda)
+    before = selective_scan.selective_scan_bwd.launches
+    got = selective_scan.selective_scan_bwd(*args, time_chunk=tc)
+    again = selective_scan.selective_scan_bwd(*args, time_chunk=tc)
+    want = ref.selective_scan_bwd_ref(*args, time_chunk=tc)
+    torch.cuda.synchronize()
+    assert selective_scan.selective_scan_bwd.launches == before + 2
+    for name, g, a, w in zip(("dx", "ddt", "db", "dc", "da", "dd", "dh0"),
+                             got, again, want):
+        assert g.shape == w.shape, name
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32)), name
+        err = float((g - w).abs().max())
+        assert err <= BWD_RTOL * float(w.abs().max()), (name, err)
+
+
+def test_trainable_scan_on_the_card_equals_cpu(cuda):
+    """Autograd through make_trainable_scan: the CUDA forward and backward
+    against the plain versions on the CPU, one launch of each."""
+    B, L, din, n = 2, 256, 256, 16
+    cpu_args = _scan_inputs(5, B, L, din, n)
+    grads = []
+    for dev in ("cpu", cuda):
+        ts = [t.detach().clone().to(dev).requires_grad_()
+              for t in cpu_args]
+        f0 = selective_scan.selective_scan.launches
+        b0 = selective_scan.selective_scan_bwd.launches
+        y, h = selective_scan.make_trainable_scan(time_chunk=64)(*ts)
+        ((y ** 2).sum() * 0.5 + (h * h).sum()).backward()
+        n_launch = (selective_scan.selective_scan.launches - f0,
+                    selective_scan.selective_scan_bwd.launches - b0)
+        assert n_launch == ((0, 0) if dev == "cpu" else (1, 1))
+        grads.append([t.grad.cpu() for t in ts])
+    for w, g in zip(*grads):
+        assert float((g - w).abs().max()) <= BWD_RTOL * float(w.abs().max())
+
+
+def test_selective_scan_bwd_rejects_bad_input(cuda):
+    args = _bwd_args(0, 1, 32, 128, 8, 16, cuda)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        selective_scan.selective_scan_bwd(*(t.cpu() for t in args),
+                                          time_chunk=16)
+    with pytest.raises(ValueError, match="float32"):
+        selective_scan.selective_scan_bwd(args[0].double(), *args[1:],
+                                          time_chunk=16)
+    with pytest.raises(ValueError, match="state size"):
+        four = _bwd_args(0, 1, 32, 128, 4, 16, cuda)
+        selective_scan.selective_scan_bwd(*four, time_chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        x = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+        selective_scan.selective_scan_bwd(x, *args[1:], time_chunk=16)
+    with pytest.raises(ValueError, match="time chunk"):
+        selective_scan.selective_scan_bwd(*args, time_chunk=24)
+    with pytest.raises(ValueError, match="hseg must be"):
+        selective_scan.selective_scan_bwd(*args, time_chunk=8)
+
+
+def test_mamba1_train_step_cuda_equals_cpu(cuda):
+    """One train step of the reduced falcon-mamba in float32 on the card
+    and on the CPU from the same weights: loss, grad norm and both AdamW
+    moments, which at step 0 are the clipped gradient and its square
+    scaled (lr is 0 there: Adam's first real update is ~lr · sign(g), which
+    flips on gradients that are ~0 on either device, so the moments, not
+    the moved parameters, are the comparison); each layer's scan runs
+    forward twice (remat) and backward once on the card."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import train_batch
+    from repro_torch.train import OptConfig, build_train_step, init_state
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b", reduced=True),
+                              param_dtype="float32", compute_dtype="float32",
+                              ssm_impl="pallas")
+    model = build_model(cfg)
+    ocfg = OptConfig.for_arch(cfg, lr=5e-3, warmup_steps=1)
+    batch = train_batch(cfg, ShapeConfig("t", 128, 2, "train"), 0)
+    out = []
+    for dev in ("cpu", cuda):
+        st = init_state(model, 0, ocfg, device="cpu")
+        st["params"].to(dev)
+        st = {"params": st["params"],
+              "opt": {k: {n: t.to(dev) for n, t in v.items()}
+                      for k, v in st["opt"].items()},
+              "step": st["step"].to(dev)}
+        f0 = selective_scan.selective_scan.launches
+        b0 = selective_scan.selective_scan_bwd.launches
+        st, met = build_train_step(model, ocfg)(
+            st, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        launches = (selective_scan.selective_scan.launches - f0,
+                    selective_scan.selective_scan_bwd.launches - b0)
+        out.append((st, met, launches))
+    (s_cpu, m_cpu, n_cpu), (s_gpu, m_gpu, n_gpu) = out
+    assert n_cpu == (0, 0) and n_gpu == (2 * cfg.n_layers, cfg.n_layers)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_gpu[k]) - float(m_cpu[k])) <= 1e-5 * abs(
+            float(m_cpu[k])), k
+    for part in ("m", "v"):
+        for name, w in s_cpu["opt"][part].items():
+            err = float((s_gpu["opt"][part][name].cpu() - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), (part, name, err)

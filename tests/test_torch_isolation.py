@@ -1,9 +1,9 @@
 """The port stands alone: importing the whole slice pulls in neither JAX
 nor the JAX package, entry points refuse to run on the CPU unless asked,
 the kernel wrappers launch or raise (no silent fallback), the
-Anderson/DKW path runs on the CPU when asked, and the parts of the
-reference that later slices port raise NotImplementedError (among them
-the model loss and the selective scan's backward)."""
+Anderson/DKW path and the training path run on the CPU when asked, and
+the parts of the reference that later slices port raise
+NotImplementedError (among them the ``"dots"`` remat policy)."""
 
 import os
 import subprocess
@@ -44,6 +44,8 @@ import repro_torch.configs.registry, repro_torch.configs.falcon_mamba_7b
 import repro_torch.models, repro_torch.models.layers, repro_torch.models.ssm
 import repro_torch.models.lm, repro_torch.models.zoo
 import repro_torch.models.convert
+import repro_torch.train, repro_torch.train.optimizer
+import repro_torch.train.trainer, repro_torch.data.tokens
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -125,6 +127,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="needs CUDA"):
         selective_scan.selective_scan(x, x, b, b, torch.zeros((8, 8)),
                                       torch.zeros(8), torch.zeros((1, 8, 8)))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        selective_scan.selective_scan_bwd(
+            x, x, b, b, torch.zeros((8, 8)), torch.zeros(8),
+            torch.zeros((1, 1, 8, 8)), x, torch.zeros((1, 8, 8)))
 
 
 def _tiny_model():
@@ -147,13 +153,18 @@ def test_model_init_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_model_loss_and_scan_backward_raise_not_implemented():
-    """Training is the next slice: the loss and the scan's backward kernel
-    (#6) raise, while the scan's forward runs under autograd."""
+    """Training is ported: the loss and the scan's backward (kernel #6)
+    run on the CPU with their plain versions and never touch the card's
+    counters; the reference's ``"dots"`` remat policy still raises."""
+    import dataclasses
     model = _tiny_model()
     lm = model.init(0, device="cpu")
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        model.loss(lm, {"tokens": toks, "targets": toks})
+    before = (selective_scan.selective_scan.launches,
+              selective_scan.selective_scan_bwd.launches)
+    loss, metrics = model.loss(lm, {"tokens": toks, "targets": toks})
+    loss.backward()
+    assert torch.isfinite(loss) and float(metrics["tokens"]) == 8.0
     rng = np.random.default_rng(0)
     B, L, din, n = 1, 16, 128, 8
     x, dt = (torch.tensor(rng.random((B, L, din)), dtype=torch.float32,
@@ -164,5 +175,12 @@ def test_model_loss_and_scan_backward_raise_not_implemented():
     y, h = selective_scan.make_trainable_scan()(
         x, dt, b, c, a, torch.ones(din), torch.zeros((B, din, n)))
     assert y.shape == (B, L, din) and h.shape == (B, din, n)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        y.sum().backward()
+    y.sum().backward()
+    assert x.grad.shape == (B, L, din) and torch.isfinite(dt.grad).all()
+    assert (selective_scan.selective_scan.launches,
+            selective_scan.selective_scan_bwd.launches) == before
+    dots = build_model(dataclasses.replace(
+        get_config("falcon_mamba_7b", reduced=True), remat_policy="dots"))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        dots.loss(dots.init(0, device="cpu"),
+                  {"tokens": toks, "targets": toks})

@@ -4,12 +4,22 @@
 the card) against the reference's Pallas kernel in interpret mode and
 against the reference recurrence of ``tests/test_kernels.py``, at that
 file's shapes; ``ops.selective_scan`` dispatch and shape contract; the
-autograd wrapper's forward.
+autograd wrapper's forward. The backward: ``selective_scan_bwd_ref`` and
+the autograd wrapper's gradients against the VJP of the reference's
+``make_trainable_scan`` (its Pallas backward in interpret mode) and
+against ``jax.grad`` of the reference recurrence.
 
-Tolerance: 1e-5 absolute and relative. Both sides run the same
-sequential float32 recurrence; only the order of the sum over the ``n``
-states and the ``exp`` implementation differ, so the differences are a
-few float32 ulps (measured ~1e-6 here).
+Tolerances:
+  * forward, 1e-5 absolute and relative. Both sides run the same
+    sequential float32 recurrence; only the order of the sum over the
+    ``n`` states and the ``exp`` implementation differ, so the
+    differences are a few float32 ulps (measured ~1e-6 here);
+  * backward against the Pallas VJP, ``max |port - ref| <= 1e-5 *
+    max |ref|`` per gradient: the same float32 operations, with the sums
+    over ``n``, over channels and over chunks taken in other orders
+    (measured <= 3.1e-7);
+  * against autodiff of the recurrence, ``tests/test_kernels.py``'s own
+    2e-3 (autodiff differentiates another sequence of operations).
 """
 
 import jax
@@ -21,8 +31,11 @@ import torch
 from repro.kernels import selective_scan as jscan
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.selective_scan import make_trainable_scan
+from tests.helpers.torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+BWD_TOL = 1e-5
+GRADS = ("dx", "ddt", "db", "dc", "da", "dd", "dh0")
 
 # (B, L, din, n, tc): tests/test_kernels.py's scan shapes, a ragged-free
 # multi-chunk case and the falcon-mamba state size at a small width
@@ -141,3 +154,90 @@ def test_inputs_are_cast_to_float32():
     assert y.dtype == h.dtype == torch.float32
     want = ops.selective_scan(*(torch.from_numpy(t) for t in args))
     assert torch.equal(y, want[0]) and torch.equal(h, want[1])
+
+
+# -- the backward -------------------------------------------------------------
+
+# (B, L, din, n, tc): tests/test_kernels.py's custom-VJP shape (4 chunks),
+# two din tiles over 3 chunks at n 16, and 5 chunks of 8 steps at B 3
+BWD_SHAPES = [(2, 64, 128, 8, 16), (1, 96, 256, 16, 32), (3, 40, 128, 8, 8)]
+
+
+def _vjp_inputs(seed, B, L, din, n):
+    """test_selective_scan_custom_vjp's inputs: dt = |N(0.05, 0.02)| and
+    A = -exp(N(0, 0.5)), so every decay rate differs."""
+    rng = np.random.default_rng(seed)
+    args = [rng.normal(0, 1, (B, L, din)),
+            np.abs(rng.normal(0.05, 0.02, (B, L, din))),
+            rng.normal(0, 1, (B, L, n)), rng.normal(0, 1, (B, L, n)),
+            -np.exp(rng.normal(0, 0.5, (din, n))),
+            rng.normal(1, 0.1, din), rng.normal(0, 0.1, (B, din, n))]
+    return [np.asarray(a, np.float32) for a in args]
+
+
+def _loss(y, h):
+    """test_selective_scan_custom_vjp's loss."""
+    return (y ** 2).sum() * 0.5 + (h * h).sum()
+
+
+def _port_grads(args, tc):
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, h = make_trainable_scan(din_tile=128, time_chunk=tc)(*ts)
+    _loss(y, h).backward()
+    return [t.grad for t in ts]
+
+
+def _assert_grads_close(got, want, tol):
+    for name, g, w in zip(GRADS, got, want):
+        w = np.asarray(w)
+        g = g.detach().numpy() if isinstance(g, torch.Tensor) else g
+        assert g.shape == w.shape and g.dtype == np.float32, name
+        err = float(np.abs(g - w).max())
+        assert err <= tol * float(np.abs(w).max()), (name, err)
+
+
+@pytest.mark.parametrize("B,L,din,n,tc", BWD_SHAPES)
+def test_bwd_matches_pallas_vjp(B, L, din, n, tc):
+    """The plain backward, fed the reference forward's own residuals and
+    cotangents, and the autograd wrapper's gradients, against the VJP of
+    the reference's ``make_trainable_scan`` (interpret mode)."""
+    args = _vjp_inputs(B * L + n, B, L, din, n)
+    scan = jscan.make_trainable_scan(din_tile=128, time_chunk=tc,
+                                     interpret=True)
+    jargs = [jnp.asarray(a) for a in args]
+    (y, h), vjp = jax.vjp(scan, *jargs)
+    want = vjp((y, 2 * h))             # the cotangents of _loss
+    _, _, hseg = jscan._forward(*jargs, din_tile=128, time_chunk=tc,
+                                interpret=True)
+    ts = [torch.from_numpy(a) for a in args]
+    got = ref.selective_scan_bwd_ref(
+        *ts[:6], *(torch.from_numpy(np.array(t)) for t in (hseg, y, 2 * h)),
+        time_chunk=tc)
+    _assert_grads_close(got, want, BWD_TOL)
+    _assert_grads_close(_port_grads(args, tc), want, BWD_TOL)
+
+
+def test_trainable_scan_grads_match_autodiff_of_recurrence():
+    """test_selective_scan_custom_vjp on the port: the wrapper's gradients
+    against jax.grad of the reference recurrence, at that test's 2e-3."""
+    B, L, din, n = 2, 64, 128, 8
+    args = _vjp_inputs(0, B, L, din, n)
+    want = jax.grad(lambda *a: _loss(*_jax_recurrence(*a)),
+                    argnums=tuple(range(7)))(*map(jnp.asarray, args))
+    for name, g, w in zip(GRADS, _port_grads(args, 16), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-3,
+                                   atol=2e-3, err_msg=name)
+
+
+def test_ops_bwd_casts_and_dispatches_to_the_plain_version():
+    """ops.selective_scan_bwd on CPU tensors is the plain version, with
+    its inputs cast to float32; the time chunk is clamped to L."""
+    B, L, din, n = 1, 24, 128, 8
+    args = [torch.from_numpy(a) for a in _vjp_inputs(4, B, L, din, n)]
+    y, h, hseg = ops.selective_scan(*args, time_chunk=512)
+    cot = (torch.ones_like(y), torch.zeros_like(h))
+    got = ops.selective_scan_bwd(*(t.double() for t in args[:6]), hseg,
+                                 *cot, time_chunk=512)
+    want = ref.selective_scan_bwd_ref(*args[:6], hseg, *cot, time_chunk=L)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
