@@ -267,7 +267,13 @@ def check_block_agg(torch, timer, ref, kblock, G: int, exact: bool,
         0, gl, cols))
     rows = budget * block_rows
     bound_ms, bound_by = bound(rows * 12 + budget * 8 + 5 * G * 4, rows * 9)
+    # the scratch one call touches, against the rows' own 12 bytes each
+    _, lane_mode, buckets, tiles = kblock.plan(budget, block_rows, G)
+    scratch = kblock.scratch_bytes(buckets, tiles)
+    ok = ok and scratch < rows * 12
     return dict(G=G, exact_data=exact, budget=budget, block_rows=block_rows,
+                walk="lane" if lane_mode else "warp", scratch_bytes=scratch,
+                rows_bytes=rows * 12,
                 ok=ok, run_to_run_identical=run_to_run,
                 bitwise_vs_plain_cpu=cpu_bitwise, max_abs_err=max_abs,
                 max_rel_vs_plain_card_atomics=dev_rel, ms=ms,
@@ -495,8 +501,10 @@ def check_selective_scan_bwd(torch, timer, ref, kscan, B: int, L: int,
                           want):
         err = float((g - w).abs().max())
         errs[name] = dict(max_abs=err, max_rel=err / float(w.abs().max()))
-    ok = run_to_run and all(e["max_rel"] <= SCAN_BWD_RTOL
-                            for e in errs.values())
+    # the recompute is the forward's own bits, so dh0 is the plain one's
+    dh0_bitwise = _bits_equal(torch, got[6], want[6])
+    ok = run_to_run and dh0_bitwise and all(e["max_rel"] <= SCAN_BWD_RTOL
+                                            for e in errs.values())
     ms = timer(lambda: kscan.selective_scan_bwd(*bargs, time_chunk=tc))
     plain_ms = timer(lambda: ref.selective_scan_bwd_ref(*bargs,
                                                         time_chunk=tc),
@@ -513,8 +521,15 @@ def check_selective_scan_bwd(torch, timer, ref, kscan, B: int, L: int,
                          + 2 * din + B * (L // tc) * din * n
                          + 2 * B * din * n)
     bound_ms, bound_by = bound(bytes_moved, B * L * din * (20 * n + 9))
+    # the wrapper's scratch: the dB / dC partials of 128-channel clusters
+    # and the (batch row, chunk) dA / dD partials; no state history
+    nblk = -(-din // kscan.BWD_CHANNELS_PER_BLOCK)
+    scratch = f32 * (B * L * nblk * 2 * n + B * (L // tc) * din * (n + 1))
     return dict(B=B, L=L, din=din, n=n, tc=tc, ok=ok,
                 run_to_run_identical=run_to_run,
+                dh0_bitwise=dh0_bitwise,
+                bc_part_bytes=f32 * B * L * nblk * 2 * n,
+                scratch_bytes=scratch,
                 tolerance_rel=SCAN_BWD_RTOL, errors=errs,
                 max_abs_err=max(e["max_abs"] for e in errs.values()),
                 ms=ms, plain_ms=plain_ms, library_ms=None,

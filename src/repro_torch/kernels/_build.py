@@ -36,16 +36,16 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
     "repro_block_agg": ([_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
-                         _I, _P, _P, _P, _P, _P, _I, _P], _I),
+                         _I, _I, _P, _P, _P, _P, _I, _P], _I),
     "repro_fused_fold": ([_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
-                          _I, _P, _P, _P, _P, _P, _P, _I, ctypes.c_float,
+                          _I, _I, _P, _P, _P, _P, _P, _I, ctypes.c_float,
                           ctypes.c_float, _I, _P], _I),
     "repro_grouped_hist": ([_P, _P, _P, ctypes.c_longlong, _I, _I,
                             ctypes.c_float, ctypes.c_float, _P, _I, _P], _I),
     "repro_bitmap_active": ([_P, _P, _I, _I, _P, _P, _I, _P], _I),
     "repro_selective_scan": ([_P] * 7 + [_I] * 5 + [_P] * 3 + [_I, _P],
                              _I),
-    "repro_selective_scan_bwd": ([_P] * 9 + [_I] * 6 + [_P] * 11
+    "repro_selective_scan_bwd": ([_P] * 9 + [_I] * 6 + [_P] * 10
                                  + [_I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }

@@ -6,27 +6,28 @@
 // the rows of the selected blocks, each group's rows added in row order
 // so the result equals the plain version on the CPU bit for bit.
 //
-// The kernels (a per-tile sort of the rows by group, then one warp walk
-// per group), the order of summation and what bounds them on an H100 are
+// The kernels (a per-tile stable radix sort of the rows by bucket of
+// groups, then a walk with one lane a group, or one warp a group where
+// groups are large), the order of summation and what bounds them on an H100 are
 // described in block_agg.cuh, which fused_fold.cu shares. This file is
 // the fold without the histogram: the round of every bounder but
 // Anderson/DKW.
 
 #include "block_agg.cuh"
 
-// sums is (3, G) row-major; vmin and vmax are (G,). Scratch: `part` holds
-// ceil(chunk_lanes * block_rows / 1024) * 1024 float4 rows and `table`
-// 2 * G * that many tiles ints. Returns cudaGetLastError() after the
-// launches (0 on success).
+// sums is (3, G) row-major; vmin and vmax are (G,). `lane_mode` picks
+// the walk (one lane, or one warp, a group). `scratch` is laid out as
+// launch_fold in block_agg.cuh says. Returns cudaGetLastError() after
+// the launches (0 on success).
 extern "C" int repro_block_agg(const float* values, const int* gids,
                                const float* mask, const int* blk,
                                const int* tvalid, int budget,
                                int block_rows, int num_groups, float center,
-                               int chunk_lanes, void* part, int* table,
+                               int chunk_lanes, int lane_mode, void* scratch,
                                float* sums, float* vmin, float* vmax,
                                int device, void* stream) {
   return launch_fold<false>(values, gids, mask, blk, tvalid, budget,
-                            block_rows, num_groups, center, chunk_lanes, part,
-                            table, sums, vmin, vmax, nullptr, 0, 0.f, 0.f,
-                            device, stream);
+                            block_rows, num_groups, center, chunk_lanes,
+                            lane_mode, scratch, sums, vmin, vmax, nullptr, 0,
+                            0.f, 0.f, device, stream);
 }

@@ -13,10 +13,10 @@
 // MXU; on Hopper that would be O(rows * G) wasted tensor-core work, so it
 // is not carried over.
 //
-// Interface: the kernel reads the device-resident (nb, block_rows) slabs
-// directly and gathers the selected blocks itself (`blk`, with `tvalid`
-// marking padding lanes), so the (budget, block_rows) gather of the fused
-// round is never materialised in device memory.
+// Interface: the kernels read the device-resident (nb, block_rows) slabs
+// directly and gather the selected blocks themselves (`blk`, with
+// `tvalid` marking padding lanes), so the (budget, block_rows) gather of
+// the fused round is never materialised in device memory.
 //
 // Order of summation, fixed on purpose: each group's sums are accumulated
 // in row order, one add after the other, exactly as the plain version's
@@ -26,36 +26,57 @@
 // (no float atomics, no data-dependent order). A fold that sums per-block
 // partials instead keeps the scan decisions but moves the engine's
 // intervals by up to ~1e-3 relative against the CPU run on FLIGHTS data.
+// The extremes are exact in any order (a NaN-propagating max is
+// associative), so they are reduced in parallel.
 //
-// Design: a stable sort of the rows by group, then one walk per group.
-//   1. tile_sort: one CTA per tile of 1024 rows. It gathers its rows,
-//      computes the fold terms (m, (v-c)m, (v-c)^2 m, v) in the plain
-//      version's arithmetic, and sorts the rows that change a sum or an
-//      extreme by (group, row) with a bitonic sort in shared memory. It
-//      writes the sorted terms and, per group present, where the group's
-//      run starts and ends in the tile: a (G, tiles) table.
-//   2. group_walk: one warp per group. It reads the group's runs of 32
-//      tiles at a time, concatenated in tile order, and stages 256 of
-//      their rows at a time in shared memory (the loads of the next 256
-//      in flight while it folds). Lanes 0..4 each carry one accumulator
-//      and fold the staged rows one after the other. Each row is visited
-//      once, in row order for its group.
+// Design: two launches, no memset; scratch of 4 bytes a row plus a
+// (tiles, buckets + 1) table of 16-bit offsets. A bucket is one group
+// (warp mode) or 32 consecutive groups (lane mode); the wrapper picks the
+// mode: lane mode when the rows average at most 64 a group.
+//   1. tile_sort: one CTA of 128 threads per tile of 1,024 rows, over 64
+//      SMs at the main path's 64 blocks. It gathers its rows, decides
+//      which change a sum or an extreme, and sorts them stably by bucket
+//      with a block radix sort over only the bits the bucket count needs
+//      (cub::BlockRadixSort, a block-level building block: at G 2,800 in
+//      lane mode 89 buckets, 7 bits, 2 passes). It writes each row's slab
+//      offset (with a padding-lane flag) in sorted order, and
+//      start[t][k] = the first sorted position of a bucket >= k for every
+//      k in 0..buckets, so bucket k's run in tile t is
+//      [start[t][k], start[t][k + 1]). Every entry is written, so the
+//      table needs no zeroing.
+//   2. group_walk: one warp a CTA, one bucket a warp, over every SM. The
+//      warp concatenates its bucket's runs of up to 32 tiles (a prefix
+//      sum over lanes) and stages their rows in shared memory with
+//      coalesced loads: three round trips to memory (table, entries,
+//      rows) for a bucket's rows in a window of 32 tiles.
+//      - Lane mode: lane l owns group 32 k + l. The warp sorts each
+//        512 staged rows stably by group in shared memory (ranks from
+//        __match_any_sync 32 rows at a time, offsets from a scan), and
+//        each lane folds its own group's rows, in row order, into five
+//        accumulators in its registers.
+//      - Warp mode: two warps a group. Warp 1 stages 512 of the group's
+//        rows at a time into one of two buffers of three planes (m,
+//        (v - c) m, (v - c)^2 m), with the next batch's loads in flight,
+//        and takes the extremes of the rows it staged (reduced across
+//        the warp at the end); meanwhile lanes 0..2 of warp 0 each run
+//        one sum's add chain over the other buffer, so a row costs the
+//        chain one dependent add (~4 cycles) and no select.
+//   Each row is visited once, in row order for its group.
 // A row whose terms are all zero (m == 0 and v - c finite) changes no
 // accumulator's bits (adding +-0 to a sum that starts at +0 is the
 // identity) and takes no part in the extremes, so the sort drops it; a
 // masked row with an inf or NaN value is kept and poisons its group's
-// sums exactly as in the plain version. When (G x tiles) would outgrow
-// the scratch table, the wrapper folds the lanes in consecutive chunks
-// and each walk continues the previous chunk's accumulators: the order
-// of the adds is the same.
+// sums exactly as in the plain version. When (tiles x (buckets + 1))
+// would outgrow the scratch table, the wrapper folds the lanes in
+// consecutive chunks and each walk continues the previous chunk's
+// accumulators: the order of the adds is the same.
 //
 // What bounds it on an H100: the bytes are small (12 B a row: at the main
-// path's 64 blocks of 1024 rows, 0.8 MB, about 0.25 us at 3.35 TB/s). The
-// walk is bound by the dependent chain of each group's adds: a group
-// with n rows takes n steps of (add or max, then a select) one after the
-// other, so the round with the fewest groups is the slowest (G = 1: one
-// chain over every live row). PERF.md has the measured times. The
-// arithmetic is IEEE round-to-nearest with no FMA contraction
+// path's 64 blocks of 1024 rows, 0.8 MB, about 0.25 us at 3.35 TB/s), so
+// a call is latency: two launches, the sort's passes and a few dependent
+// round trips to memory. At G = 1 the walk is one chain of dependent adds
+// over every live row (~52,000 x 4 cycles). PERF.md has the measured
+// times. The arithmetic is IEEE round-to-nearest with no FMA contraction
 // (__fmul_rn / __fadd_rn / __fsub_rn).
 
 #pragma once
@@ -63,15 +84,19 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cub/block/block_radix_sort.cuh>
+
 #include "hist_bin.cuh"
 
 namespace {
 
-constexpr int kTile = 1024;        // rows sorted by one CTA
-constexpr int kSortThreads = 512;  // one compare-exchange pair each
-constexpr int kWalkWarps = 4;      // groups walked by one CTA
-constexpr int kBatch = 256;        // rows staged by a warp per step
-constexpr unsigned long long kDead = ~0ull;  // sort key of a dropped row
+constexpr int kItems = 8;             // rows a sorting thread holds
+constexpr int kSortThreads = 256;
+constexpr int kTile = kSortThreads * kItems;  // rows a sort CTA takes
+constexpr int kLaneShift = 5;         // lane mode: 32 groups a bucket
+constexpr int kBatch = 512;           // rows a warp stages per step
+constexpr int kPer = kBatch / 32;     // ... per lane
+constexpr int kPlane = kBatch + 1;    // plane stride: 3 planes, 3 banks
 
 // NaN-propagating max (PTX max.NaN, sm_80+), as the plain version's
 // scatter-min propagates NaN.
@@ -81,12 +106,43 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return d;
 }
 
-// Tile `blockIdx.x` of the chunk's rows (lane-major, then row in block).
-// Writes the tile's kept rows, sorted by (group, row), to part[tile] and
-// each group's run [first, end) in the tile to first/end[g * tiles + t].
-// first/end are zeroed beforehand, so an absent group has an empty run.
-// With kHist it also counts each row with m != 0 into the uint32
-// histogram hist[g * nbins + bin(v)] (hist_bin.cuh), while the row is in
+// Programmatic dependent launch (sm_90): the sort lets the walk's CTAs be
+// scheduled early; the walk waits for the sort's writes before it reads.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The scratch of one chunk of `n` rows (a multiple of kTile): the sorted
+// rows' (value, effective mask) pairs, their groups' low 5 bits (lane
+// mode), then the (tiles, buckets + 1) start table.
+struct Scratch {
+  float2* xm;
+  unsigned char* lg;
+  unsigned short* start;
+};
+
+__host__ __device__ inline size_t start_offset(long long n) {
+  return (static_cast<size_t>(n) * 9 + 15) & ~static_cast<size_t>(15);
+}
+
+__host__ __device__ inline Scratch carve(void* base, long long n) {
+  char* p = static_cast<char*>(base);
+  return {reinterpret_cast<float2*>(p),
+          reinterpret_cast<unsigned char*>(p + n * 8),
+          reinterpret_cast<unsigned short*>(p + start_offset(n))};
+}
+
+// Tile `blockIdx.x` of the chunk's rows (lane-major, then row in block):
+// thread i holds rows i * kItems .. + kItems - 1. Sorts the kept rows
+// stably by bucket g >> shift (dropped rows and rows past the chunk take
+// key `buckets`, last) and writes, in sorted order, each row's value and
+// effective mask m = mask * valid and its group's low bits, and the
+// tile's (buckets + 1)-entry start table (see the header). With kHist it
+// also counts each row with m != 0 into the uint32 histogram
+// hist[g * nbins + bin(v)] (hist_bin.cuh), while the row is in
 // registers: the histogram costs no second pass over the rows.
 template <bool kHist>
 __global__ void __launch_bounds__(kSortThreads)
@@ -96,200 +152,384 @@ tile_sort_kernel(const float* __restrict__ values,
                  const int* __restrict__ blk,
                  const int* __restrict__ tvalid,
                  long long chunk_rows, int block_rows, int num_groups,
-                 float center, int tiles, float4* __restrict__ part,
-                 int* __restrict__ first, int* __restrict__ end,
-                 unsigned* __restrict__ hist, int nbins, float hist_a,
-                 float inv_width) {
-  __shared__ unsigned long long s_key[kTile];
-  __shared__ float4 s_terms[kTile];
-  const int t = blockIdx.x;
-  const long long base = static_cast<long long>(t) * kTile;
+                 float center, int shift, int buckets, int key_bits,
+                 Scratch out, unsigned* __restrict__ hist, int nbins,
+                 float hist_a, float inv_width) {
+  using Sort = cub::BlockRadixSort<unsigned, kSortThreads, kItems, unsigned>;
+  __shared__ typename Sort::TempStorage s_sort;
+  __shared__ float s_x[kTile], s_m[kTile];
+  __shared__ unsigned char s_g[kTile];
+  __shared__ unsigned s_last[kSortThreads];
+  launch_dependents();
+  const long long base = static_cast<long long>(blockIdx.x) * kTile;
+  const unsigned dropped = static_cast<unsigned>(buckets);
 
-  // every thread runs kTile / kSortThreads iterations, so whole warps
-  // reach warp_count together
-  for (int r = threadIdx.x; r < kTile; r += kSortThreads) {
-    unsigned long long key = kDead;
+  unsigned key[kItems], idx[kItems];
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int local = threadIdx.x * kItems + u;
+    const long long row = base + local;
+    key[u] = dropped;
+    idx[u] = static_cast<unsigned>(local);
     unsigned cell = kNoCell;
-    if (base + r < chunk_rows) {
-      const long long row = base + r;
-      const int lane = static_cast<int>(row / block_rows);
-      const long long src = static_cast<long long>(blk[lane]) * block_rows +
-                            row % block_rows;
-      const float x = values[src];
-      const float m = __fmul_rn(mask[src], tvalid[lane] ? 1.f : 0.f);
+    float x = 0.f, m = 0.f;
+    int g = 0;
+    if (row < chunk_rows) {
+      const int r = static_cast<int>(row);
+      const int lane = r / block_rows;
+      const size_t src = static_cast<size_t>(blk[lane]) * block_rows +
+                         (r - lane * block_rows);
+      g = gids[src];
+      x = values[src];
+      m = __fmul_rn(mask[src], tvalid[lane] != 0 ? 1.f : 0.f);
       const float dv = __fsub_rn(x, center);
-      const float a = m, b = __fmul_rn(dv, m);
-      const float q = __fmul_rn(__fmul_rn(dv, dv), m);
-      const int g = gids[src];
+      const float b = __fmul_rn(dv, m), q = __fmul_rn(__fmul_rn(dv, dv), m);
       // NaN != 0: a NaN term keeps its row
-      const bool kept = !(a == 0.f && b == 0.f && q == 0.f);
-      if (kept && g >= 0 && g < num_groups) {
-        key = (static_cast<unsigned long long>(g) << 32) |
-              static_cast<unsigned int>(r);
-      }
+      const bool kept = !(m == 0.f && b == 0.f && q == 0.f);
+      const bool in_range = g >= 0 && g < num_groups;
+      if (kept && in_range) key[u] = static_cast<unsigned>(g) >> shift;
       if constexpr (kHist) {
-        if (m != 0.f && g >= 0 && g < num_groups) {
+        if (m != 0.f && in_range) {
           cell = static_cast<unsigned>(g) * static_cast<unsigned>(nbins) +
                  static_cast<unsigned>(hist_bin(x, hist_a, inv_width,
                                                 nbins));
         }
       }
-      s_terms[r] = make_float4(a, b, q, x);
     }
-    if constexpr (kHist) warp_count(hist, cell);
-    s_key[r] = key;
-  }
-  __syncthreads();
-
-  // bitonic sort, ascending; keys are unique except kDead
-  for (int k = 2; k <= kTile; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int i = 2 * j * (threadIdx.x / j) + threadIdx.x % j;
-      const unsigned long long a = s_key[i], b = s_key[i + j];
-      if ((a > b) == ((i & k) == 0)) {
-        s_key[i] = b;
-        s_key[i + j] = a;
-      }
-      __syncthreads();
-    }
+    s_x[local] = x;
+    s_m[local] = m;
+    s_g[local] = static_cast<unsigned char>(g & 31);
+    if constexpr (kHist) warp_count(hist, cell);  // every lane calls it
   }
 
-  for (int k = threadIdx.x; k < kTile; k += kSortThreads) {
-    const unsigned long long key = s_key[k];
-    if (key == kDead) continue;
-    const unsigned int g = static_cast<unsigned int>(key >> 32);
-    part[base + k] = s_terms[key & 0xffffffffu];
-    const size_t cell = static_cast<size_t>(g) * tiles + t;
-    if (k == 0 || static_cast<unsigned int>(s_key[k - 1] >> 32) != g) {
-      first[cell] = k;
+  Sort(s_sort).Sort(key, idx, 0, key_bits);  // blocked: stable, in place
+  s_last[threadIdx.x] = key[kItems - 1];
+  __syncthreads();  // s_x, s_m, s_g and s_last are written
+
+  const int p0 = threadIdx.x * kItems;
+  float4* xm = reinterpret_cast<float4*>(out.xm + base + p0);
+#pragma unroll
+  for (int u = 0; u < kItems; u += 2) {
+    xm[u / 2] = make_float4(s_x[idx[u]], s_m[idx[u]], s_x[idx[u + 1]],
+                            s_m[idx[u + 1]]);
+  }
+  unsigned lg[2] = {0u, 0u};  // the 8 groups' low bits, one byte each
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    lg[u / 4] |= static_cast<unsigned>(s_g[idx[u]]) << (8 * (u % 4));
+  }
+  *reinterpret_cast<uint2*>(out.lg + base + p0) = make_uint2(lg[0], lg[1]);
+
+  unsigned short* st = out.start + static_cast<size_t>(blockIdx.x) *
+                                       (static_cast<size_t>(buckets) + 1);
+  // buckets (prev, key] start at this position; prev = -1 before the first
+  long long prev = threadIdx.x == 0
+                       ? -1LL
+                       : static_cast<long long>(s_last[threadIdx.x - 1]);
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    for (long long k = prev + 1; k <= key[u]; ++k) {
+      st[k] = static_cast<unsigned short>(p0 + u);
     }
-    if (k + 1 == kTile || s_key[k + 1] == kDead ||
-        static_cast<unsigned int>(s_key[k + 1] >> 32) != g) {
-      end[cell] = k + 1;
+    prev = key[u];
+  }
+  if (threadIdx.x == kSortThreads - 1) {
+    for (long long k = prev + 1; k <= buckets; ++k) {
+      st[k] = static_cast<unsigned short>(kTile);
     }
   }
 }
 
-// The group's rows in one window of 32 tiles, concatenated in tile order
-// (run of tile t0 + j = lane j's [f, f + len)): load rows o + u*32 + lane
-// of that sequence into `cur`, zero rows past `total`. `incl` is the
-// inclusive scan of the runs' lengths over the lanes.
-__device__ __forceinline__ void load_batch(const float4* __restrict__ part,
-                                           int t0, int f, int len, int incl,
-                                           int total, int o,
-                                           float4 (&cur)[kBatch / 32]) {
+// A window's runs: lane j describes the run [f, f + len) of tile t0 + j;
+// `incl` is the inclusive sum of the lengths over the lanes and `total`
+// the window's rows.
+struct Runs {
+  int t0, f, len, incl, total;
+};
+
+__device__ __forceinline__ Runs window_runs(
+    const unsigned short* __restrict__ start, int tiles, int buckets, int t0,
+    int k) {
+  const int lane = threadIdx.x & 31;
+  Runs w{t0, 0, 0, 0, 0};
+  if (t0 + lane < tiles) {
+    const unsigned short* st =
+        start + static_cast<size_t>(t0 + lane) * (buckets + 1) + k;
+    w.f = st[0];
+    w.len = st[1] - w.f;
+  }
+  w.incl = w.len;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, w.incl, d);
+    if (lane >= d) w.incl += y;
+  }
+  w.total = __shfl_sync(0xffffffffu, w.incl, 31);
+  return w;
+}
+
+// Rows o + u*32 + lane (u < kPer) of a window's runs: their (value,
+// effective mask), zeros past the total, and with kGroups their groups'
+// low bits (32 past the total). Every lane must call it.
+template <bool kGroups>
+__device__ __forceinline__ void load_batch(const Scratch& sc, const Runs& w,
+                                           int o, float2 (&xm)[kPer],
+                                           int (&lg)[kPer]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int u = 0; u < kBatch / 32; ++u) {
+  for (int u = 0; u < kPer; ++u) {
     const int r = o + u * 32 + lane;
     int j = 0;  // the run holding row r: lanes whose incl <= r
 #pragma unroll
     for (int step = 16; step >= 1; step >>= 1) {
-      if (__shfl_sync(0xffffffffu, incl, j + step - 1) <= r) j += step;
+      if (__shfl_sync(0xffffffffu, w.incl, j + step - 1) <= r) j += step;
     }
-    const int fj = __shfl_sync(0xffffffffu, f, j);
-    const int excl = __shfl_sync(0xffffffffu, incl, j) -
-                     __shfl_sync(0xffffffffu, len, j);
-    cur[u] = r < total
-                 ? part[static_cast<size_t>(t0 + j) * kTile + fj + (r - excl)]
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int fj = __shfl_sync(0xffffffffu, w.f, j);
+    const int excl = __shfl_sync(0xffffffffu, w.incl, j) -
+                     __shfl_sync(0xffffffffu, w.len, j);
+    const size_t at = static_cast<size_t>(w.t0 + j) * kTile + fj + (r - excl);
+    const bool on = r < w.total;
+    xm[u] = on ? sc.xm[at] : make_float2(0.f, 0.f);
+    if constexpr (kGroups) lg[u] = on ? sc.lg[at] : 32;
   }
 }
 
-// One warp per group: fold the group's rows, tile after tile and each
-// tile's run in order, into its accumulators (continued from the outputs
-// when `accumulate`, else started at +0 / +inf / -inf). Lanes 0..4 carry
-// one accumulator each (count, dsum, dsq, -vmin, vmax), so every lane
-// runs the same instructions: an add and a NaN-propagating max, one of
-// them kept. The minimum is the negated maximum of -v. The warp stages
-// 256 rows at a time in shared memory, one plane per accumulator, and
-// loads the next 256 while it folds.
-__global__ void __launch_bounds__(kWalkWarps * 32)
-group_walk_kernel(const float4* __restrict__ part,
-                  const int* __restrict__ first,
-                  const int* __restrict__ end, int tiles, int num_groups,
-                  int accumulate, float* __restrict__ sums,
-                  float* __restrict__ vmin_out,
-                  float* __restrict__ vmax_out) {
-  __shared__ float s_plane[kWalkWarps][5][kBatch];
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int g = blockIdx.x * kWalkWarps + w;
-  if (g >= num_groups) return;  // whole warp
-  float (*plane)[kBatch] = s_plane[w];
-  const int role = lane < 5 ? lane : 4;
-  const bool is_add = role < 3;
+// Named barriers between the two warps of a warp-mode CTA (0 is
+// __syncthreads'), one pair per plane buffer: buffer b is full (barrier
+// 1 + b) or empty again (3 + b). The ids are immediates, so the kernel
+// reserves only the barriers it uses.
+template <int kId>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, 64;" ::"n"(kId) : "memory");
+}
+template <int kId>
+__device__ __forceinline__ void named_arrive() {
+  __threadfence_block();  // this warp's shared-memory accesses come first
+  asm volatile("bar.arrive %0, 64;" ::"n"(kId) : "memory");
+}
+__device__ __forceinline__ void sync_full(int b) {
+  if (b) named_sync<2>(); else named_sync<1>();
+}
+__device__ __forceinline__ void arrive_full(int b) {
+  if (b) named_arrive<2>(); else named_arrive<1>();
+}
+__device__ __forceinline__ void sync_empty(int b) {
+  if (b) named_sync<4>(); else named_sync<3>();
+}
+__device__ __forceinline__ void arrive_empty(int b) {
+  if (b) named_arrive<4>(); else named_arrive<3>();
+}
 
-  float acc = is_add ? 0.f : -INFINITY;
-  if (accumulate) {
-    acc = role < 3 ? sums[role * num_groups + g]
-                   : role == 3 ? -vmin_out[g] : vmax_out[g];
-  }
-  const int* fg = first + static_cast<size_t>(g) * tiles;
-  const int* eg = end + static_cast<size_t>(g) * tiles;
+// Warp mode, two warps a group (bucket = group): warp 1 stages the
+// group's rows kBatch at a time into one of two buffers of three planes
+// (m, (v - c) m, (v - c)^2 m) and takes the extremes of the rows it
+// staged; meanwhile warp 0's lanes 0..2 run the add chains of count,
+// dsum and dsq over the other buffer, so a row costs the chain one
+// dependent add. Folds continue from `acc`; writes the outputs.
+__device__ void warp_fold(const Scratch& sc, float center, int tiles,
+                          int buckets, int g, int num_groups,
+                          float* __restrict__ planes, const float (&acc)[5],
+                          float* __restrict__ sums,
+                          float* __restrict__ vmin_out,
+                          float* __restrict__ vmax_out) {
+  const int lane = threadIdx.x & 31;
+  const bool producer = threadIdx.x >= 32;
+  const int role = lane < 3 ? lane : 2;
+  float sum = acc[role];
+  float nmin = acc[3], vmax = acc[4];  // over the rows this lane staged
+  int unused[kPer];
+  int i = 0;  // batches so far
   for (int t0 = 0; t0 < tiles; t0 += 32) {
-    const int f = t0 + lane < tiles ? fg[t0 + lane] : 0;
-    const int len = t0 + lane < tiles ? eg[t0 + lane] - f : 0;
-    int incl = len;
+    const Runs w = window_runs(sc.start, tiles, buckets, t0, g);
+    if (w.total == 0) continue;
+    if (producer) {
+      float2 xm[kPer];
+      load_batch<false>(sc, w, 0, xm, unused);
+      for (int o = 0; o < w.total; o += kBatch, ++i) {
+        float* pl = planes + (i & 1) * 3 * kPlane;
+        if (i >= 2) sync_empty(i & 1);
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += y;
+        for (int u = 0; u < kPer; ++u) {
+          const float x = xm[u].x, m = xm[u].y;
+          const float dv = __fsub_rn(x, center);
+          const int r = u * 32 + lane;
+          pl[0 * kPlane + r] = m;
+          pl[1 * kPlane + r] = __fmul_rn(dv, m);
+          pl[2 * kPlane + r] = __fmul_rn(__fmul_rn(dv, dv), m);
+          const bool hit = m > 0.f;  // a zero row: adds +0, no extreme
+          nmin = max_nan(nmin, hit ? -x : -INFINITY);
+          vmax = max_nan(vmax, hit ? x : -INFINITY);
+        }
+        arrive_full(i & 1);
+        if (o + kBatch < w.total) {
+          load_batch<false>(sc, w, o + kBatch, xm, unused);
+        }
+      }
+    } else {
+      for (int o = 0; o < w.total; o += kBatch, ++i) {
+        const float* mine = planes + (i & 1) * 3 * kPlane + role * kPlane;
+        sync_full(i & 1);
+        // 64 loads, then 64 dependent adds: one shared-memory latency
+        // per 64 rows (loads software-pipelined into the adds measured
+        // slower on an H100: the compiler waits on them as a group)
+        const int n64 = (min(kBatch, w.total - o) + 63) & ~63;
+        for (int r = 0; r < n64; r += 64) {
+          float x[64];
+#pragma unroll
+          for (int u = 0; u < 64; ++u) x[u] = mine[r + u];
+#pragma unroll
+          for (int u = 0; u < 64; ++u) sum = __fadd_rn(sum, x[u]);
+        }
+        arrive_empty(i & 1);
+      }
     }
-    const int total = __shfl_sync(0xffffffffu, incl, 31);
-    float4 cur[kBatch / 32];
-    if (total > 0) load_batch(part, t0, f, len, incl, total, 0, cur);
-    for (int o = 0; o < total; o += kBatch) {
+  }
+  if (producer) {
+    for (int k = i < 2 ? 0 : i - 2; k < i; ++k) {
+      sync_empty(k & 1);  // the last buffers' chains are done
+    }
 #pragma unroll
-      for (int u = 0; u < kBatch / 32; ++u) {
-        const int i = u * 32 + lane;
-        const bool live = cur[u].x > 0.f;  // a zero row: adds +0, no extreme
-        plane[0][i] = cur[u].x;
-        plane[1][i] = cur[u].y;
-        plane[2][i] = cur[u].z;
-        plane[3][i] = live ? -cur[u].w : -INFINITY;
-        plane[4][i] = live ? cur[u].w : -INFINITY;
-      }
+    for (int d = 16; d >= 1; d >>= 1) {
+      nmin = max_nan(nmin, __shfl_xor_sync(0xffffffffu, nmin, d));
+      vmax = max_nan(vmax, __shfl_xor_sync(0xffffffffu, vmax, d));
+    }
+    if (lane == 0) {
+      vmin_out[g] = -nmin;
+      vmax_out[g] = vmax;
+    }
+  } else if (lane < 3) {
+    sums[lane * num_groups + g] = sum;
+  }
+}
+
+// Lane mode: lane l folds group 32 k + l of bucket k. The warp loads
+// the bucket's rows kBatch at a time and sorts them stably by group in
+// shared memory (a counting sort: each row's rank among its group's rows,
+// 32 rows at a time in row order with __match_any_sync, then the groups'
+// offsets from a scan of their counts); then each lane folds its own
+// group's rows, in row order, into five accumulators in its registers.
+__device__ void lane_fold(const Scratch& sc, float center, int tiles,
+                          int buckets, int k, float4* __restrict__ s_sorted,
+                          int* __restrict__ s_cnt, float (&acc)[5]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  for (int t0 = 0; t0 < tiles; t0 += 32) {
+    const Runs w = window_runs(sc.start, tiles, buckets, t0, k);
+    for (int o = 0; o < w.total; o += kBatch) {
+      float2 xm[kPer];
+      int lg[kPer], pos[kPer];
+      load_batch<true>(sc, w, o, xm, lg);  // lg 32 past the rows
+      s_cnt[lane] = 0;
       __syncwarp();
-      if (o + kBatch < total) {  // in flight while the warp folds
-        load_batch(part, t0, f, len, incl, total, o + kBatch, cur);
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {  // rows u*32 + lane, in row order
+        const unsigned peers = __match_any_sync(0xffffffffu, lg[u]);
+        const int base = lg[u] < 32 ? s_cnt[lg[u]] : 0;
+        pos[u] = base + __popc(peers & below);
+        __syncwarp();
+        if (lg[u] < 32 && (peers & below) == 0) {
+          s_cnt[lg[u]] = base + __popc(peers);
+        }
+        __syncwarp();
       }
-      const int n8 = (min(kBatch, total - o) + 7) & ~7;
-      for (int i = 0; i < n8; i += 8) {
-        float x[8];
+      const int cnt = s_cnt[lane];
+      int incl = cnt;
 #pragma unroll
-        for (int u = 0; u < 8; ++u) x[u] = plane[role][i + u];
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += y;
+      }
+      const int off = incl - cnt;
+      __syncwarp();
+      s_cnt[lane] = off;
+      __syncwarp();
 #pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const float added = __fadd_rn(acc, x[u]);
-          const float maxed = max_nan(acc, x[u]);
-          acc = is_add ? added : maxed;
+      for (int u = 0; u < kPer; ++u) {
+        if (lg[u] < 32) {
+          const float x = xm[u].x, m = xm[u].y;
+          const float dv = __fsub_rn(x, center);
+          s_sorted[s_cnt[lg[u]] + pos[u]] = make_float4(
+              m, __fmul_rn(dv, m), __fmul_rn(__fmul_rn(dv, dv), m), x);
         }
       }
       __syncwarp();
+      for (int p = off; p < off + cnt; ++p) {  // this lane's group
+        const float4 t = s_sorted[p];
+        const bool hit = t.x > 0.f;  // a = m
+        acc[0] = __fadd_rn(acc[0], t.x);
+        acc[1] = __fadd_rn(acc[1], t.y);
+        acc[2] = __fadd_rn(acc[2], t.z);
+        acc[3] = max_nan(acc[3], hit ? -t.w : -INFINITY);
+        acc[4] = max_nan(acc[4], hit ? t.w : -INFINITY);
+      }
+      __syncwarp();
     }
-  }
-  if (lane < 3) {
-    sums[lane * num_groups + g] = acc;
-  } else if (lane == 3) {
-    vmin_out[g] = -acc;
-  } else if (lane == 4) {
-    vmax_out[g] = acc;
   }
 }
 
-// Launches the fold on `stream`: for each chunk of `chunk_lanes` lanes, a
-// zeroing of the run table, tile_sort and group_walk. sums is (3, G)
-// row-major; vmin and vmax are (G,). Scratch: `part` holds
-// ceil(chunk_lanes * block_rows / 1024) * 1024 float4 rows and `table`
-// 2 * G * that many tiles ints. With kHist, `hist` is the zeroed uint32
-// (G, nbins) histogram the tile passes count into. Returns
-// cudaGetLastError() after the launches (0 on success).
+// One warp a CTA, one bucket a warp: bucket blockIdx.x. Warp mode folds
+// group blockIdx.x with the whole warp; lane mode folds groups
+// 32 * blockIdx.x + lane, one a lane. Folds continue from the outputs
+// when `accumulate`, else start at +0 / +inf / -inf.
+__global__ void __launch_bounds__(64)
+group_walk_kernel(Scratch sc, float center, int tiles, int num_groups,
+                  int buckets, int lane_mode, int accumulate,
+                  float* __restrict__ sums, float* __restrict__ vmin_out,
+                  float* __restrict__ vmax_out) {
+  // lane mode: kBatch staged rows' terms; warp mode: two buffers of planes
+  __shared__ float4 s_terms[(6 * kPlane + 3) / 4];
+  __shared__ int s_cnt[32];
+  static_assert(6 * kPlane >= 4 * kBatch, "the terms fit the buffer");
+  const int lane = threadIdx.x;
+  const int k = blockIdx.x;
+  const int g = lane_mode ? (k << kLaneShift) + lane : k;
+  const bool has = g < num_groups;
+  wait_for_primary();  // the sort's writes (and a previous chunk's sums)
+  float acc[5] = {0.f, 0.f, 0.f, -INFINITY, -INFINITY};
+  if (accumulate && has) {
+    acc[0] = sums[g];
+    acc[1] = sums[num_groups + g];
+    acc[2] = sums[2 * num_groups + g];
+    acc[3] = -vmin_out[g];
+    acc[4] = vmax_out[g];
+  }
+  if (!lane_mode) {
+    warp_fold(sc, center, tiles, buckets, k, num_groups,
+              reinterpret_cast<float*>(s_terms), acc, sums, vmin_out,
+              vmax_out);
+    return;
+  }
+  lane_fold(sc, center, tiles, buckets, k, s_terms, s_cnt, acc);
+  if (has) {
+    sums[g] = acc[0];
+    sums[num_groups + g] = acc[1];
+    sums[2 * num_groups + g] = acc[2];
+    vmin_out[g] = -acc[3];
+    vmax_out[g] = acc[4];
+  }
+}
+
+inline int bits_for(int v) {  // bits of the largest key, v
+  int bits = 0;
+  while (bits < 31 && (v >> bits) != 0) ++bits;
+  return bits;
+}
+
+// Launches the fold on `stream`: for each chunk of `chunk_lanes` lanes,
+// tile_sort and group_walk (two launches a chunk, no memset; the walk is
+// a programmatic dependent launch, so its CTAs are resident before the
+// sort ends). sums is (3, G) row-major; vmin and vmax are (G,).
+// `lane_mode` picks the bucket: 32 groups (lane mode) or one. `scratch`
+// holds, for n = ceil(chunk_lanes * block_rows / kTile) * kTile rows,
+// start_offset(n) bytes of rows then n / kTile * (buckets + 1) uint16
+// offsets (buckets = ceil(G / 32) in lane mode, else G). With kHist,
+// `hist` is the zeroed uint32 (G, nbins) histogram the tile passes count
+// into. Returns cudaGetLastError() after the launches (0 on success).
 template <bool kHist>
 int launch_fold(const float* values, const int* gids, const float* mask,
                 const int* blk, const int* tvalid, int budget, int block_rows,
-                int num_groups, float center, int chunk_lanes, void* part,
-                int* table, float* sums, float* vmin, float* vmax,
+                int num_groups, float center, int chunk_lanes, int lane_mode,
+                void* scratch, float* sums, float* vmin, float* vmax,
                 unsigned* hist, int nbins, float hist_a, float inv_width,
                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -298,27 +538,37 @@ int launch_fold(const float* values, const int* gids, const float* mask,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int walk_grid = (num_groups + kWalkWarps - 1) / kWalkWarps;
+  const int shift = lane_mode ? kLaneShift : 0;
+  const int buckets = ((num_groups - 1) >> shift) + 1;
+  const int key_bits = bits_for(buckets);
+  const long long chunk_n =
+      (static_cast<long long>(chunk_lanes) * block_rows + kTile - 1) /
+      kTile * kTile;
+  const Scratch sc = carve(scratch, chunk_n);
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t walk{};
+  walk.gridDim = dim3(static_cast<unsigned>(buckets));
+  walk.blockDim = dim3(lane_mode ? 32 : 64);  // warp mode: two warps
+  walk.stream = s;
   int l0 = 0;
   do {  // at least one walk, so an empty fold still writes its outputs
     const int lanes = budget - l0 < chunk_lanes ? budget - l0 : chunk_lanes;
     const long long rows = static_cast<long long>(lanes) * block_rows;
     const int tiles = static_cast<int>((rows + kTile - 1) / kTile);
-    int* first = table;
-    int* end = table + static_cast<size_t>(num_groups) * tiles;
     if (tiles > 0) {
-      err = cudaMemsetAsync(table, 0,
-                            2 * static_cast<size_t>(num_groups) * tiles *
-                                sizeof(int), s);
-      if (err != cudaSuccess) return static_cast<int>(err);
       tile_sort_kernel<kHist><<<tiles, kSortThreads, 0, s>>>(
           values, gids, mask, blk + l0, tvalid + l0, rows, block_rows,
-          num_groups, center, tiles, static_cast<float4*>(part), first, end,
-          hist, nbins, hist_a, inv_width);
+          num_groups, center, shift, buckets, key_bits, sc, hist, nbins,
+          hist_a, inv_width);
     }
-    group_walk_kernel<<<walk_grid, kWalkWarps * 32, 0, s>>>(
-        static_cast<const float4*>(part), first, end, tiles, num_groups,
-        l0 > 0, sums, vmin, vmax);
+    walk.attrs = tiles > 0 ? pdl : nullptr;
+    walk.numAttrs = tiles > 0 ? 1 : 0;
+    err = cudaLaunchKernelEx(&walk, group_walk_kernel, sc, center, tiles,
+                             num_groups, buckets, lane_mode,
+                             static_cast<int>(l0 > 0), sums, vmin, vmax);
+    if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     l0 += lanes;

@@ -7,10 +7,10 @@
 // `block_agg` and the (G, nbins) histogram of `grouped_hist`. On Hopper
 // neither is a matmul (block_agg.cuh says why), so the fused pass is the
 // fold of block_agg.cuh with one more thing done while each row sits in
-// registers: tile_sort<true> gathers the row, computes its fold terms
-// and, when m != 0, its bin (hist_bin.cuh), and counts it into a uint32
-// (G, nbins) histogram with one warp-aggregated integer atomic. The
-// group walk is unchanged, so the moments are bit for bit those of
+// registers: tile_sort<.., true> gathers the row, computes its fold
+// terms and, when m != 0, its bin (hist_bin.cuh), and counts it into a
+// uint32 (G, nbins) histogram with one warp-aggregated integer atomic.
+// The group walk is block_agg's, so the moments are bit for bit those of
 // block_agg; the histogram's integer adds commute, so it is the same on
 // every run and equal to the plain version's.
 //
@@ -43,7 +43,7 @@ extern "C" int repro_fused_fold(const float* values, const int* gids,
                                 const float* mask, const int* blk,
                                 const int* tvalid, int budget,
                                 int block_rows, int num_groups, float center,
-                                int chunk_lanes, void* part, int* table,
+                                int chunk_lanes, int lane_mode, void* scratch,
                                 float* sums, float* vmin, float* vmax,
                                 float* hist, int nbins, float hist_a,
                                 float inv_width, int device, void* stream) {
@@ -57,9 +57,9 @@ extern "C" int repro_fused_fold(const float* values, const int* gids,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rc = launch_fold<true>(values, gids, mask, blk, tvalid, budget,
                                    block_rows, num_groups, center,
-                                   chunk_lanes, part, table, sums, vmin, vmax,
-                                   counts, nbins, hist_a, inv_width, device,
-                                   stream);
+                                   chunk_lanes, lane_mode, scratch, sums,
+                                   vmin, vmax, counts, nbins, hist_a,
+                                   inv_width, device, stream);
   if (rc != 0) return rc;
   return static_cast<int>(launch_counts_to_float(counts, cells, s));
 }

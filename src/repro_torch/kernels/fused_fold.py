@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_agg import _require, prepare
+from repro_torch.kernels.block_agg import _fail, prepare
 
 
 def fused_fold(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
@@ -38,19 +38,18 @@ def fused_fold(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
     :func:`repro_torch.kernels.ref.fused_fold_ref` on the CPU.
     """
     what = "fused_fold"
-    _require(nbins >= 1, f"nbins must be >= 1, got {nbins}", what)
-    _require(num_groups * nbins < 2 ** 31, f"G * nbins = "
-             f"{num_groups * nbins} does not fit the int32 cell index",
-             what)
+    if nbins < 1:
+        _fail(f"nbins must be >= 1, got {nbins}", what)
+    if num_groups * nbins >= 2 ** 31:
+        _fail(f"G * nbins = {num_groups * nbins} does not fit the int32 "
+              "cell index", what)
     fl = prepare(values, gids, mask, blk, tvalid, num_groups, what)
     dev = values.device
     hist = torch.empty((num_groups, nbins), dtype=torch.float32, device=dev)
     inv_width = float(nbins) / max(float(b) - float(a), 1e-30)
     rc = _build.library().repro_fused_fold(
-        *fl.head, float(center), fl.chunk_lanes, fl.part.data_ptr(),
-        fl.table.data_ptr(), *(t.data_ptr() for t in fl.outs),
-        hist.data_ptr(), nbins, float(a), inv_width, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *fl.args(center), hist.data_ptr(), nbins, float(a), inv_width,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_fold launch")
     fused_fold.launches += 1
     return (*fl.outs, hist)

@@ -12,9 +12,11 @@ a fixed order, so the result is the same on every run.
 
 :func:`selective_scan_bwd` is the counterpart of
 :func:`repro.kernels.selective_scan._backward`: the reverse-chunk adjoint,
-recomputing each chunk's states from ``hseg`` and returning the seven
-gradients. Its sums over channels, batch rows and chunks run in fixed
-orders with no float atomics, so it too gives the same bits every run.
+recomputing each chunk's states from ``hseg`` (two states a lane, the
+history by sub-chunk in shared memory and registers) and returning the
+seven gradients. Its sums over channels, batch rows and chunks run in
+fixed orders with no float atomics, so it too gives the same bits every
+run.
 
 Both wrappers only launch: they take CUDA tensors and raise on anything
 else. :func:`repro_torch.kernels.ops.selective_scan` and
@@ -40,7 +42,8 @@ from repro_torch.kernels import _build
 DIN_TILE = 128
 TIME_CHUNK = 512
 STATE_SIZES = (8, 16)   # the kernels' instantiations of n
-BWD_CHANNELS_PER_BLOCK = 128  # csrc/selective_scan_bwd.cu's kThreads
+BWD_CHANNELS_PER_BLOCK = 128  # channels a cluster sums dB / dC over
+BWD_MAX_TIME_CHUNK = 512      # kSub * kMaxCheckpoints in the source
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -149,14 +152,16 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         _require(tuple(t.shape) == shape, f"{name} must be {shape}, got "
                  f"{tuple(t.shape)}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(tc <= BWD_MAX_TIME_CHUNK, f"time chunk {tc} exceeds the "
+             f"backward's {BWD_MAX_TIME_CHUNK} (its checkpoints live in "
+             "shared memory)")
     nblk = -(-din // BWD_CHANNELS_PER_BLOCK)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    # scratch: the chunk's recomputed states, the blocks' dB / dC partials
-    # and the per-(batch row, chunk) dA / dD partials
-    hist = empty(B, tc, din, n)
+    # scratch: the clusters' dB / dC partials and the per-(batch row,
+    # chunk) dA / dD partials; the recomputed states never leave the SM
     bc_part = empty(B, L, nblk, 2 * n)
     da_part = empty(B, n_chunks, din, n)
     dd_part = empty(B, n_chunks, din)
@@ -165,7 +170,7 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     rc = _build.library().repro_selective_scan_bwd(
         *(t.data_ptr() for t in (x, dt, b, c, a, d, hseg, ybar, houtbar)),
         B, L, din, n, tc, nblk,
-        *(t.data_ptr() for t in (hist, bc_part, da_part, dd_part)),
+        *(t.data_ptr() for t in (bc_part, da_part, dd_part)),
         *(t.data_ptr() for t in outs), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "selective_scan_bwd launch")

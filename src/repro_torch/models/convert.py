@@ -27,15 +27,16 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.train.optimizer import moment_shape
+from repro_torch.train.optimizer import leaf_shape, leaves, moment_shape
 
 
 def _to_torch(arr) -> torch.Tensor:
-    """One numpy leaf as a CPU tensor of the same dtype and bits."""
-    a = np.ascontiguousarray(np.asarray(arr))
+    """One numpy leaf as a CPU tensor of the same dtype, shape (0-d
+    included) and bits."""
+    a = np.array(arr, order="C", copy=True)
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -75,30 +76,34 @@ def train_state_from_jax(state: Mapping, cfg: ArchConfig,
     ``m`` / ``v`` or Adafactor's ``vr`` / ``vc``, ``step``) as the port's
     (:func:`repro_torch.train.init_state`'s layout): the parameters are
     loaded into ``lm``, the moments land beside them on its device under
-    its parameter names, each in its own dtype.
-
-    Adafactor factors a scan-stacked leaf over its layer axis, which the
-    port's per-layer tensors cannot hold (a layer's vector gets an
-    ``(n_layers,)`` row moment and a ``(d,)`` column moment): such a state
-    raises ``ValueError`` (:mod:`repro_torch.train.optimizer`)."""
+    its parameter names (AdamW), or under the reference's own leaf names
+    in its stacked shapes (Adafactor: ``layers.<rest>`` of shape
+    ``moment_shape(key, (n_layers, ...))``, as
+    :func:`repro_torch.train.optimizer.init` keeps them), each in its own
+    dtype. A moment whose name or shape is not the port's raises
+    ``ValueError``."""
     lm.load_state_dict(params_from_jax(state["params"], cfg))
     params = dict(lm.named_parameters())
     dev = next(iter(params.values())).device
     opt = {}
     for key, tree in state["opt"].items():
-        try:
-            leaves = params_from_jax(tree, cfg)
-        except ValueError as e:
-            raise ValueError(f"opt.{key}: the reference's leaf has no "
-                             f"per-layer counterpart ({e})") from None
-        for name, p in params.items():
-            want = moment_shape(key, p.shape)
-            if tuple(leaves[name].shape) != want:
-                raise ValueError(
-                    f"opt.{key}.{name}: shape {tuple(leaves[name].shape)} "
-                    f"is not the port's {want} (an Adafactor moment of a "
-                    "scan-stacked leaf, factored across layers)")
-        opt[key] = {name: leaves[name].to(dev) for name in params}
+        if key in ("vr", "vc"):
+            got = {name: _to_torch(leaf) for name, leaf in _flatten(tree)}
+            want = {leaf: moment_shape(key, leaf_shape(ms, params))
+                    for leaf, ms in leaves(params).items()}
+        else:
+            got = params_from_jax(tree, cfg)
+            want = {name: moment_shape(key, p.shape)
+                    for name, p in params.items()}
+        if got.keys() != want.keys():
+            raise ValueError(f"opt.{key}: leaves {sorted(got)} are not the "
+                             f"port's {sorted(want)}")
+        for name, shape in want.items():
+            if tuple(got[name].shape) != shape:
+                raise ValueError(f"opt.{key}.{name}: shape "
+                                 f"{tuple(got[name].shape)} is not the "
+                                 f"port's {shape}")
+        opt[key] = {name: got[name].to(dev) for name in want}
     step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
                         device=dev)
     return {"params": lm, "opt": opt, "step": step}

@@ -12,19 +12,25 @@ update is the reference's per-leaf formula, operation for operation.
 The optimizer-state sharding of the reference (``state_specs``) is not
 ported (ROADMAP queue 1 item 14).
 
-Adafactor factors each tensor it is given. The reference's scan-stacked
-layers hand it one ``(n_layers, ...)`` leaf per layer parameter, so there
-a layer's vectors (``D``, ``dt_bias``, norm scales) get factored across
-the layer axis and the update clip spans all layers; the port's layers
-are separate tensors, and each is treated as the reference treats an
-unstacked leaf. AdamW is elementwise and the same either way.
+Adafactor sees the leaves the reference sees. The reference stacks a
+layer parameter of every layer into one ``(n_layers, ...)`` leaf; the
+port's layers are separate tensors (``layers.<i>.<rest>``), so
+:func:`leaves` groups them back under the stacked name
+``layers.<rest>``. :func:`init` keeps Adafactor's moments in the stacked
+shapes under those names, and :func:`apply` computes each leaf's update
+on the stack (a layer's vector is factored across the layer axis, and
+the update clip spans all layers), then writes each layer's slice back.
+The stack and the update's float32 temporaries are one leaf's size at
+a time, never the whole model's. Parameters outside the layers stay single
+leaves. AdamW is elementwise and works per tensor.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Tuple
+import re
+from typing import Dict, List, Mapping, Tuple
 
 import torch
 
@@ -75,11 +81,12 @@ def _factored(shape) -> bool:
 
 def moment_shape(key: str, shape) -> Tuple[int, ...]:
     """Shape of optimizer leaf ``key`` (``m``, ``v``, ``vr`` or ``vc``)
-    for a parameter of ``shape``: AdamW's moments are the parameter's
-    shape; Adafactor factors a matrix into a row moment (``vr``, the last
+    for a leaf of ``shape``: AdamW's moments are the parameter's shape;
+    Adafactor (given the stacked shape of :func:`leaf_shape`) factors a matrix into a row moment (``vr``, the last
     axis dropped) and a column moment (``vc``, the second last dropped)
     and keeps a vector's whole second moment in ``vr`` beside a 0-d
-    ``vc``."""
+    ``vc``. So a layer vector, stacked to ``(n_layers, d)``, gets an
+    ``(n_layers,)`` row and a ``(d,)`` column moment."""
     shape = tuple(shape)
     if key in ("m", "v"):
         return shape
@@ -90,15 +97,56 @@ def moment_shape(key: str, shape) -> Tuple[int, ...]:
     raise KeyError(f"no optimizer leaf {key!r}")
 
 
+_LAYER = re.compile(r"layers\.(\d+)\.(.+)")
+
+
+def leaves(names) -> Dict[str, List[str]]:
+    """The reference's optimizer leaves over the port's parameter names:
+    ``layers.<rest>`` -> ``[layers.0.<rest>, layers.1.<rest>, ...]`` (in
+    layer order) for a scan-stacked layer parameter, ``name -> [name]``
+    for any other. Raises ``ValueError`` if a stacked name misses a
+    layer."""
+    out: Dict[str, List[str]] = {}
+    layer_of: Dict[str, Dict[int, str]] = {}
+    for n in names:
+        m = _LAYER.fullmatch(n)
+        if m is None:
+            out[n] = [n]
+            continue
+        leaf = f"layers.{m.group(2)}"
+        out.setdefault(leaf, [])
+        layer_of.setdefault(leaf, {})[int(m.group(1))] = n
+    for leaf, by_layer in layer_of.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{leaf}: layers {sorted(by_layer)} are not "
+                             f"0..{len(by_layer) - 1}")
+        out[leaf] = [by_layer[i] for i in range(len(by_layer))]
+    return out
+
+
+def leaf_shape(members, params: Mapping[str, torch.Tensor]
+               ) -> Tuple[int, ...]:
+    """Shape of the leaf of :func:`leaves`' ``members``: the reference's
+    stacked ``(n_layers, ...)`` for layer parameters, else the
+    parameter's own."""
+    shape = tuple(params[members[0]].shape)
+    return (len(members),) + shape if _LAYER.fullmatch(members[0]) \
+        else shape
+
+
 def init(params: Mapping[str, torch.Tensor], ocfg: OptConfig) -> Dict:
-    """Zero state beside each parameter, on its device: AdamW's ``m`` and
-    ``v`` in the moment dtype; Adafactor's float32 row / column second
-    moments (:func:`moment_shape`)."""
-    keys, dt = (("m", "v"), _mdt(ocfg)) if ocfg.name == "adamw" \
-        else (("vr", "vc"), _F32)
-    return {k: {n: torch.zeros(moment_shape(k, p.shape), dtype=dt,
-                               device=p.device)
-                for n, p in params.items()} for k in keys}
+    """Zero state on the parameters' device: AdamW's ``m`` and ``v``
+    beside each parameter, in the moment dtype; Adafactor's float32 row
+    / column second moments of each leaf of :func:`leaves`, in the
+    reference's stacked shapes (:func:`moment_shape`)."""
+    if ocfg.name == "adamw":
+        return {k: {n: torch.zeros(p.shape, dtype=_mdt(ocfg),
+                                   device=p.device)
+                    for n, p in params.items()} for k in ("m", "v")}
+    groups = leaves(params)
+    return {k: {leaf: torch.zeros(moment_shape(k, leaf_shape(ms, params)),
+                                  dtype=_F32, device=params[ms[0]].device)
+                for leaf, ms in groups.items()} for k in ("vr", "vc")}
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -137,11 +185,19 @@ def apply(params: Mapping[str, torch.Tensor],
 
     # -- adafactor (factored 2nd moments, no 1st moment) ----------------------
     b2 = 0.999
-    for n, p in params.items():
-        vr, vc = opt_state["vr"][n], opt_state["vc"][n]
-        g = grads[n].to(_F32) * scale
+    for leaf, members in leaves(params).items():
+        vr, vc = opt_state["vr"][leaf], opt_state["vc"][leaf]
+        ps = [params[n] for n in members]
+        shape = leaf_shape(members, params)
+        if len(shape) > ps[0].dim():      # stacked: one f32 buffer
+            g = torch.empty(shape, dtype=_F32, device=ps[0].device)
+            for i, n in enumerate(members):
+                g[i].copy_(grads[n])
+            g.mul_(scale)
+        else:
+            g = grads[members[0]].to(_F32) * scale
         g2 = g * g + 1e-30
-        if _factored(p.shape):
+        if _factored(shape):
             vr2 = b2 * vr + (1 - b2) * g2.mean(dim=-1)
             vc2 = b2 * vc + (1 - b2) * g2.mean(dim=-2)
             denom = torch.clamp(vr2.mean(dim=-1, keepdim=True), min=1e-30)
@@ -150,11 +206,15 @@ def apply(params: Mapping[str, torch.Tensor],
         else:
             vr2 = b2 * vr + (1 - b2) * g2
             vhat = vr2
+        del g2
         u = g / (torch.sqrt(vhat) + 1e-30)
-        # update clipping (Adafactor d=1.0)
+        del g, vhat
+        # update clipping (Adafactor d=1.0), over the whole leaf
         rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
         u = u / torch.clamp(rms_u, min=1.0)
-        u = u + ocfg.weight_decay * p.to(_F32)
-        p.copy_(p.to(_F32) - lr * u)
+        us = u.unbind(0) if len(shape) > ps[0].dim() else (u,)
+        for p, ui in zip(ps, us):
+            ui = ui + ocfg.weight_decay * p.to(_F32)
+            p.copy_(p.to(_F32) - lr * ui)
         vr.copy_(vr2)
     return params, opt_state, metrics

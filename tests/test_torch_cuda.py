@@ -65,7 +65,7 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("G", [1, 7, 130, 300, 10240])
+@pytest.mark.parametrize("G", [1, 7, 130, 300, 2800, 10240])
 def test_block_agg_bitwise_equals_plain(cuda, G, exact):
     """Row-order folding: the kernel equals the CPU plain version bit for
     bit on all data (NaN / inf rows included), and repeats its bits."""
@@ -84,13 +84,15 @@ def test_block_agg_bitwise_equals_plain(cuda, G, exact):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
-@pytest.mark.parametrize("cells", [1, 91])
-def test_block_agg_chunked_equals_plain(cuda, monkeypatch, cells):
-    """A small run table forces the fold into chunks of lanes (one lane
-    a chunk at ``cells=1``, ten at 91); each walk continues the last
-    one's sums, so the bits are those of one row-order pass."""
+@pytest.mark.parametrize("cells,G", [(1, 13), (91, 13), (130, 2000)])
+def test_block_agg_chunked_equals_plain(cuda, monkeypatch, cells, G):
+    """A small start table forces the fold into chunks of lanes (warp
+    mode at G 13: two lanes a chunk at ``cells=1``, 17 at 91; lane mode
+    at G 2000: five); each walk continues the last one's sums, so the
+    bits are those of one row-order pass."""
     monkeypatch.setattr(block_agg, "TABLE_CELLS", cells)
-    nb, br, G, center = 60, 700, 13, 870.0
+    nb, br, center = 60, 700, 870.0
+    assert block_agg.plan(24, br, G)[0] < 24
     v, g, m = _slabs(cells, nb, br, G, False)
     blk, tvalid = _lanes(cells + 1, nb, 24, 3)
     want = ops.grouped_sums(v, g, m, G, center, blk=blk, tvalid=tvalid)
@@ -115,6 +117,65 @@ def test_block_agg_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         block_agg.block_agg(v.cpu(), g.cpu(), m.cpu(), blk.cpu(),
                             blk.cpu(), 0.0, 3)
+
+
+def _skewed_slabs(seed, nb, br, G):
+    """General data (NaN, inf and masked inf rows) whose groups follow a
+    Zipf law: at G 2800 over 64 x 1024 rows a few groups hold hundreds
+    of rows and most a handful, so both of the walk's modes run."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(40.0, 25.0, (nb, br)).astype(np.float32)
+    g = ((rng.zipf(1.3, (nb, br)) - 1) % G).astype(np.int32)
+    m = (rng.random((nb, br)) < 0.8).astype(np.float32)
+    return [torch.from_numpy(x) for x in (v, g, m)]
+
+
+def _poison_block0(v, m):
+    """NaN, +-inf and huge rows at the head of block 0; a masked inf
+    poisons its group's sums as in the plain version."""
+    v[0, :7] = torch.tensor([np.nan, np.inf, -np.inf, np.nan, np.inf, 1e30,
+                             -1e30])
+    m[0, 1] = 0.0
+
+
+@pytest.mark.parametrize("kernel", ["block_agg", "fused_fold"])
+@pytest.mark.parametrize("G,skewed", [(1, False), (200, True),
+                                      (2800, False), (2800, True)])
+def test_fold_walk_modes_bitwise_equal_plain(cuda, kernel, G, skewed):
+    """At the main path's 64 blocks of 1024 rows: warp mode (G 1, G 200)
+    and lane mode (G 2800), with groups on both sides of the lane /
+    warp threshold when skewed; bit for bit the CPU plain version, the
+    same bits run to run, and fused_fold's moments block_agg's."""
+    nb, br, budget, center = 96, 1024, 64, 40.0
+    v, g, m = (_skewed_slabs(G, nb, br, G) if skewed
+               else _slabs(G, nb, br, G, False))
+    _poison_block0(v, m)
+    blk, tvalid = _lanes(G + 2, nb, budget, 3)
+    blk[0] = 0                          # the poisoned block is selected
+    sizes = np.bincount(g[blk.long()].reshape(-1).numpy(), minlength=G)
+    lane_mode = block_agg.plan(budget, br, G)[1]
+    assert lane_mode == (G == 2800)
+    if skewed and lane_mode:
+        assert sizes.max() > 64 >= sizes.min()
+    args = [t.to(cuda) for t in (v, g, m)]
+    kw = dict(blk=blk.to(cuda), tvalid=tvalid.to(cuda))
+    if kernel == "block_agg":
+        want = ops.grouped_sums(v, g, m, G, center, blk=blk, tvalid=tvalid)
+        run = lambda: ops.grouped_sums(*args, G, center, **kw)  # noqa: E731
+    else:
+        want = ops.grouped_fold_hist(v, g, m, G, center, -20.0, 100.0, 1024,
+                                     blk=blk, tvalid=tvalid)
+        run = lambda: ops.grouped_fold_hist(  # noqa: E731
+            *args, G, center, -20.0, 100.0, 1024, **kw)
+    got, again = run(), run()
+    moments = ops.grouped_sums(*args, G, center, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want[0]).any())
+    _same(got, want)
+    for x, y in zip(got, again):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    for x, y in zip(got[:3], moments):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def _hist_rows(seed, n, G, a, b, nbins):
@@ -158,7 +219,7 @@ def test_grouped_hist_bitwise_equals_plain(cuda, G, nbins):
 
 
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("G", [1, 7, 300, 2800])
+@pytest.mark.parametrize("G", [1, 7, 300, 2800, 10240])
 def test_fused_fold_bitwise_equals_plain(cuda, G, exact):
     """The fused fold's moments are block_agg's bits; its histogram is the
     CPU plain version's bits, run after run."""
@@ -432,12 +493,15 @@ def test_mamba1_lm_cuda_equals_cpu(cuda):
 
 # -- the scan's backward ------------------------------------------------------
 
-# (B, L, din, n, tc): one channel block at n 8 over two chunks; a ragged
-# last block of 200 channels at n 16; chunks of 25 steps (not a multiple of
-# the kernel's 64-step stage) at B 4; one long chunk; three blocks, B 3
+# (B, L, din, n, tc): one channel cluster at n 8 over two chunks; a
+# ragged last cluster of 200 channels at n 16; chunks of 25 steps (shorter
+# than the kernel's 32-step sub-chunk) at B 4; one long chunk; three
+# clusters, B 3; chunks of 100 steps (three sub-chunks and a tail of 4)
+# at n 8 and of 48 at n 16, ragged din
 BWD_SHAPES = [(1, 128, 128, 8, 64), (2, 96, 200, 16, 32),
               (4, 100, 128, 16, 25), (1, 512, 256, 8, 512),
-              (3, 192, 384, 16, 64)]
+              (3, 192, 384, 16, 64), (2, 200, 300, 8, 100),
+              (1, 96, 136, 16, 48)]
 BWD_RTOL = 1e-5
 
 
@@ -512,6 +576,9 @@ def test_selective_scan_bwd_rejects_bad_input(cuda):
         selective_scan.selective_scan_bwd(*args, time_chunk=24)
     with pytest.raises(ValueError, match="hseg must be"):
         selective_scan.selective_scan_bwd(*args, time_chunk=8)
+    with pytest.raises(ValueError, match="exceeds the backward"):
+        long = _bwd_args(0, 1, 4096, 128, 8, 4096, cuda)
+        selective_scan.selective_scan_bwd(*long, time_chunk=4096)
 
 
 def test_mamba1_train_step_cuda_equals_cpu(cuda):

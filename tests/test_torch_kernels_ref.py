@@ -175,3 +175,23 @@ def test_active_blocks_window_rows():
     want = Rops.active_blocks(jnp.asarray(words[win]), jnp.asarray(act),
                               impl="interpret", block_tile=128)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("G", [1, 200, 2800, 10240])
+def test_block_agg_plan_scratch_below_the_rows(G):
+    """The fold's variant at the main path's 64 blocks of 1024 rows: warp
+    mode (a bucket a group) at G 1 and 200, lane mode (32 groups a
+    bucket) at G 2800 and 10240; one chunk (two launches), and scratch (9
+    bytes a row plus the int16 (tiles, buckets + 1) start table) below
+    the 12 bytes a row the fold reads."""
+    from repro_torch.kernels import block_agg
+    budget, block_rows = 64, 1024
+    chunk_lanes, lane_mode, buckets, tiles = block_agg.plan(
+        budget, block_rows, G)
+    assert lane_mode == (G >= 2800)
+    assert buckets == (-(-G // 32) if lane_mode else G)
+    assert chunk_lanes == budget
+    assert tiles * block_agg.TILE_ROWS == budget * block_rows
+    scratch = block_agg.scratch_bytes(buckets, tiles)
+    assert scratch == tiles * 2048 * 9 + tiles * (buckets + 1) * 2
+    assert scratch < budget * block_rows * 12

@@ -84,8 +84,27 @@ def test_ref_matches_pallas_forward(B, L, din, n, tc):
                                  time_chunk=tc)
     assert got[2].shape == (B, L // tc, din, n)
     for name, g, w in zip(("y", "hout", "hseg"), got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
-                                   **TOL)
+        g, w = g.numpy(), np.asarray(w)
+        np.testing.assert_allclose(g, w, err_msg=_worst(name, g, w), **TOL)
+
+
+def _worst(name, got, want):
+    """What a failure of this comparison should name: the element that
+    most exceeds the tolerance, its index, both values, the tolerance
+    there, how many elements exceed it, non-finite counts, and torch's
+    thread count (a numerical cause names values; a killed worker never
+    reaches this line)."""
+    err = np.abs(got.astype(np.float64) - want)
+    allowed = TOL["atol"] + TOL["rtol"] * np.abs(want.astype(np.float64))
+    excess = np.nan_to_num(err - allowed, nan=np.inf)
+    i = np.unravel_index(int(np.argmax(excess)), excess.shape)
+    return (f"{name}: worst index {tuple(int(k) for k in i)}, got "
+            f"{got[i]!r}, want {want[i]!r}, |diff| {err[i]!r} against "
+            f"tolerance {allowed[i]!r} (rtol {TOL['rtol']}, atol "
+            f"{TOL['atol']}); {int((excess > 0).sum())} of {excess.size} "
+            f"over; non-finite got {int((~np.isfinite(got)).sum())}, want "
+            f"{int((~np.isfinite(want)).sum())}; torch threads "
+            f"{torch.get_num_threads()}")
 
 
 @pytest.mark.parametrize("B,L,din,n,tc", SHAPES[:2])

@@ -281,27 +281,36 @@ def test_microbatches_match_full():
 
 
 def test_adafactor_one_step_matches_reference():
-    """One Adafactor update of the port against the reference's
-    ``optimizer.apply`` on the same per-tensor leaves (the port's
-    parameters by name), from a state one step old: parameters, the
-    factored and unfactored second moments, grad norm and lr."""
+    """Two Adafactor updates of the port against the reference's
+    ``optimizer.apply`` on the reference's leaves: each scan-stacked layer
+    parameter as one ``(n_layers, ...)`` leaf (``optimizer.leaves``),
+    the rest as they are. Parameters, the factored and unfactored second
+    moments (a layer vector factored across layers), grad norm and lr."""
     cfg = _port(_jcfg(optimizer="adafactor"))
     lm = build(cfg).init(0, device="cpu")
     rng = np.random.default_rng(0)
     params = {k: p.detach().numpy().copy() for k, p in lm.named_parameters()}
     grads = [{k: rng.normal(0, s, p.shape).astype(np.float32)
               for k, p in params.items()} for s in (1e-2, 3e-2)]
+    groups = topt.leaves(params)
+    assert any(len(ms) == cfg.n_layers > 1 for ms in groups.values())
+
+    def stacked(tree):
+        return {leaf: jnp.asarray(np.stack([tree[n] for n in ms])
+                                  if len(ms) > 1 or ms[0] != leaf
+                                  else tree[ms[0]])
+                for leaf, ms in groups.items()}
     ocfg = dict(name="adafactor", **OPT)
-    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jp = stacked(params)
     js = jopt.init(jp, JOptConfig(**ocfg))
     tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     ts = topt.init(tp, OptConfig(**ocfg))
-    assert {k: tuple(v.shape) for k, v in ts["vc"].items()} == \
-        {k: tuple(v.shape) for k, v in js["vc"].items()}
+    for part in ("vr", "vc"):
+        assert {k: tuple(v.shape) for k, v in ts[part].items()} == \
+            {k: tuple(v.shape) for k, v in js[part].items()}
     japply = jax.jit(jopt.apply, static_argnames="ocfg")
     for step, g in enumerate(grads):
-        jp, js, wmet = japply(jp, {k: jnp.asarray(v) for k, v in
-                                   g.items()}, js,
+        jp, js, wmet = japply(jp, stacked(g), js,
                               jnp.asarray(step, jnp.int32),
                               ocfg=JOptConfig(**ocfg))
         tp, ts, gmet = topt.apply(tp, {k: torch.from_numpy(v) for k, v in
@@ -310,23 +319,83 @@ def test_adafactor_one_step_matches_reference():
         for k in ("grad_norm", "lr"):
             np.testing.assert_allclose(float(gmet[k]), float(wmet[k]),
                                        rtol=SCALARS)
-    for name in params:
-        _close(tp[name], jp[name], PARAMS, name)
-        _close(ts["vr"][name], js["vr"][name], PARAMS, f"vr.{name}")
-        _close(ts["vc"][name], js["vc"][name], PARAMS, f"vc.{name}")
+    for leaf, ms in groups.items():
+        got = torch.stack([tp[n] for n in ms]) if ms[0] != leaf else tp[leaf]
+        _close(got, jp[leaf], PARAMS, leaf)
+        _close(ts["vr"][leaf], js["vr"][leaf], PARAMS, f"vr.{leaf}")
+        _close(ts["vc"][leaf], js["vc"][leaf], PARAMS, f"vc.{leaf}")
 
 
-def test_adafactor_state_of_stacked_layers_is_refused():
-    """The reference factors a scan-stacked layer vector across layers; that
-    state has no per-layer counterpart and does not convert."""
+def _adafactor_pair():
+    """The reduced config (4 scan-stacked layers) under Adafactor: the
+    reference's model and fresh state, and the port's model."""
     jcfg = _jcfg(optimizer="adafactor")
+    jocfg = JOptConfig.for_arch(jcfg, **OPT)
     jm = jax_build(jcfg)
-    js = jax_init_state(jm, jax.random.PRNGKey(0),
-                        JOptConfig.for_arch(jcfg, **OPT))
-    cfg = _port(jcfg)
-    with pytest.raises(ValueError, match="per-layer|scan-stacked"):
-        convert.train_state_from_jax(jax.tree.map(np.asarray, js), cfg,
-                                     build(cfg).init(0, device="cpu"))
+    js = jax_init_state(jm, jax.random.PRNGKey(0), jocfg)
+    return jcfg, jocfg, jm, js, _port(jcfg)
+
+
+def _check_adafactor_state(st, js, cfg):
+    """Every stacked ``vr`` / ``vc`` of the port's state against the
+    reference's tree, by leaf name."""
+    want = jax.tree.map(np.asarray, js)["opt"]
+    for part in ("vr", "vc"):
+        ref = dict(convert._flatten(want[part]))
+        assert st["opt"][part].keys() == ref.keys(), part
+        for leaf, w in ref.items():
+            _close(st["opt"][part][leaf], w, PARAMS, f"{part}.{leaf}")
+
+
+@pytest.mark.parametrize("moved", [False, True])
+def test_adafactor_stacked_state_converts(moved):
+    """The reference's stacked Adafactor state (fresh from ``init_state``,
+    and after one step, when the moments are no longer zero) converts:
+    a layer vector's moments keep their ``(n_layers,)`` / ``(d,)``
+    shapes, and every ``vr`` / ``vc`` equals the reference's."""
+    jcfg, jocfg, jm, js, cfg = _adafactor_pair()
+    assert cfg.n_layers >= 2
+    if moved:
+        js, _ = jax.jit(jax_build_train_step(jm, jocfg))(
+            js, _batches(jcfg, 0)[0])
+    st = convert.train_state_from_jax(jax.tree.map(np.asarray, js), cfg,
+                                      build(cfg).init(0, device="cpu"))
+    assert tuple(st["opt"]["vr"]["layers.mamba.D"].shape) == \
+        (cfg.n_layers,)
+    assert tuple(st["opt"]["vc"]["layers.mamba.D"].shape) == \
+        (cfg.d_inner,)
+    _check_adafactor_state(st, js, cfg)
+    if moved:
+        assert float(st["opt"]["vr"]["layers.mamba.D"].abs().max()) > 0
+
+
+def test_adafactor_train_steps_match_reference():
+    """Two reference ``train_step``s against two port steps from the
+    reference's stacked Adafactor ``init_state`` and the same batches:
+    loss, grad norm and lr at each step, then every parameter and every
+    stacked ``vr`` / ``vc``."""
+    jcfg, jocfg, jm, js, cfg = _adafactor_pair()
+    m = build(cfg)
+    st = convert.train_state_from_jax(jax.tree.map(np.asarray, js), cfg,
+                                      m.init(0, device="cpu"))
+    jstep = jax.jit(jax_build_train_step(jm, jocfg))
+    step = build_train_step(m, OptConfig.for_arch(cfg, **OPT))
+    for i in range(2):
+        jb, tb = _batches(jcfg, i)
+        js, wmet = jstep(js, jb)
+        st, gmet = step(st, tb)
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(gmet[k]), float(wmet[k]),
+                                       rtol=SCALARS, atol=1e-12,
+                                       err_msg=f"{k} @ {i}")
+    assert int(st["step"]) == int(js["step"]) == 2
+    ref = convert.params_from_jax(jax.tree.map(np.asarray, js)["params"],
+                                  cfg)
+    got = dict(st["params"].named_parameters())
+    assert got.keys() == ref.keys()
+    for name, t in got.items():
+        _close(t, ref[name].numpy(), PARAMS, name)
+    _check_adafactor_state(st, js, cfg)
 
 
 def test_abstract_state_allocates_nothing_and_matches_init():
