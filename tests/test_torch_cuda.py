@@ -520,8 +520,9 @@ def _bwd_args(seed, B, L, din, n, tc, cuda):
 def test_selective_scan_bwd_equals_plain(cuda, B, L, din, n, tc):
     """Every gradient within 1e-5 of its largest plain magnitude (the
     recompute is the forward's own bits; only the sums over n, channels,
-    batch rows and chunks run in other orders), the same bits on a second
-    run, one launch counted per call."""
+    batch rows and chunks run in other orders), dh0 bit for bit the plain
+    version's (its adjoint recurrence has no sum), the same bits on a
+    second run, one launch counted per call."""
     args = _bwd_args(B + L + din, B, L, din, n, tc, cuda)
     before = selective_scan.selective_scan_bwd.launches
     got = selective_scan.selective_scan_bwd(*args, time_chunk=tc)
@@ -535,6 +536,7 @@ def test_selective_scan_bwd_equals_plain(cuda, B, L, din, n, tc):
         assert torch.equal(g.view(torch.int32), a.view(torch.int32)), name
         err = float((g - w).abs().max())
         assert err <= BWD_RTOL * float(w.abs().max()), (name, err)
+    assert torch.equal(got[6].view(torch.int32), want[6].view(torch.int32))
 
 
 def test_trainable_scan_on_the_card_equals_cpu(cuda):
