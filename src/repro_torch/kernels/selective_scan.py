@@ -6,9 +6,14 @@
 :func:`repro.kernels.selective_scan._forward`: the Mamba1 scan forward,
 ``h_t = exp(dt_t·A) ⊙ h_{t-1} + (dt_t·x_t) B_t``,
 ``y_t = ⟨h_t, C_t⟩ + D·x_t``, returning ``y``, the final state and the
-state at the start of every time chunk (``hseg``). One thread carries one
-(batch, channel) state in registers; the sum over the ``n`` states runs in
-a fixed order, so the result is the same on every run.
+state at the start of every time chunk (``hseg``). A lane carries four of
+a channel's ``n`` states in registers (``n / 4`` lanes a channel, 256
+threads a CTA, two CTAs an SM); x, dt, B and C reach shared memory through
+a double-buffered ``cp.async`` ring of :data:`SCAN_STAGE_STEPS` steps. Each
+lane sums ``h·C`` over its own four states in state order, and the CTA
+adds a channel's lane partials in lane order, then ``D·x``: a fixed order,
+so ``y`` is the same on every run. ``hseg`` and ``hout`` are the plain
+version's bits. :func:`plan` mirrors the source's launch constants.
 
 :func:`selective_scan_bwd` is the counterpart of
 :func:`repro.kernels.selective_scan._backward`: the reverse-chunk adjoint,
@@ -33,7 +38,7 @@ CPU).
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -44,6 +49,51 @@ TIME_CHUNK = 512
 STATE_SIZES = (8, 16)   # the kernels' instantiations of n
 BWD_CHANNELS_PER_BLOCK = 128  # channels a cluster sums dB / dC over
 BWD_MAX_TIME_CHUNK = 512      # kSub * kMaxCheckpoints in the source
+# the forward's launch constants (kStates, kThreads, kMinCtas, kSeg in
+# csrc/selective_scan.cu) and the H100 limits its plan is checked against
+SCAN_STATES_PER_LANE = 4
+SCAN_THREADS = 256
+SCAN_CTAS_PER_SM = 2
+SCAN_STAGE_STEPS = 32
+H100_SMS = 132
+SMEM_PER_SM = 233_472       # 228 KB of shared memory an SM
+SMEM_PER_CTA = 232_448      # 227 KB a CTA can take
+SMEM_RESERVED_PER_CTA = 1024
+
+
+class ScanPlan(NamedTuple):
+    lanes_per_channel: int
+    channels_per_cta: int
+    threads: int
+    ctas: int
+    smem_bytes: int
+    ctas_per_sm: int
+    waves: int          # rounds of resident CTAs on H100_SMS SMs
+    fill: float         # share of the waves' CTA slots the grid fills
+    segments: int       # staged segments a CTA walks
+
+
+def plan(B: int, L: int, din: int, n: int, tc: int) -> ScanPlan:
+    """The forward kernel's launch for ``(B, L, din, n, tc)``, as the
+    source computes it: a grid of ``ceil(din / channels_per_cta)`` by
+    ``B`` CTAs, each with two stages of x, dt (``(steps, channels)``) and
+    B, C (``(steps, n)``) and the ``(steps, threads)`` y partials in
+    shared memory; ``ctas_per_sm`` is the launch bounds' two unless shared
+    memory allows fewer."""
+    lanes = n // SCAN_STATES_PER_LANE
+    ch = SCAN_THREADS // lanes
+    stage = SCAN_STAGE_STEPS * (2 * ch + 2 * n)
+    smem = 4 * (2 * stage + SCAN_STAGE_STEPS * SCAN_THREADS)
+    per_sm = min(SCAN_CTAS_PER_SM,
+                 SMEM_PER_SM // (smem + SMEM_RESERVED_PER_CTA))
+    ctas = -(-din // ch) * B
+    slots = H100_SMS * per_sm
+    waves = -(-ctas // slots)
+    fill = ctas / (waves * slots)
+    tcl = min(tc, L)
+    segments = L // tcl * -(-tcl // SCAN_STAGE_STEPS)
+    return ScanPlan(lanes, ch, SCAN_THREADS, ctas, smem, per_sm, waves,
+                    fill, segments)
 
 
 def _require(cond: bool, msg: str) -> None:

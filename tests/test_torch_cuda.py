@@ -406,20 +406,32 @@ def _scan_inputs(seed, B, L, din, n):
             for t in (x, dt, b, c, a, d, h0)]
 
 
-# (B, L, din, n, tc): the falcon-mamba layer at full width, then small
-# uneven ones (one batch row, chunks of 512 and three of them, a single
-# 128-channel tile, n = 8, a ragged last tile of 200 channels)
+# (B, L, din, n, tc): the falcon-mamba layer at full width (serving),
+# then small uneven ones (one batch row, chunks of 512 and three of them,
+# a single 128-channel tile, n = 8, a ragged last CTA of 200 channels,
+# chunks of 25 steps: shorter than the kernel's 32-step stage), the
+# training shape, a din that is not a multiple of 4 (the 4-byte copy
+# path) nor of the CTA's 64 channels, n = 8 (two lanes a channel, 128
+# channels a CTA) with a ragged CTA, and chunks of 48 steps (a full stage
+# and a 16-step tail)
 SCAN_SHAPES = [(8, 2048, 8192, 16, 512), (1, 512, 128, 8, 512),
                (1, 1536, 128, 8, 512), (2, 96, 200, 16, 32),
-               (3, 100, 128, 16, 25)]
+               (3, 100, 128, 16, 25), (2, 4096, 8192, 16, 512),
+               (1, 64, 130, 16, 32), (2, 96, 200, 8, 32),
+               (2, 240, 192, 16, 48)]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
 
 
 @pytest.mark.parametrize("B,L,din,n,tc", SCAN_SHAPES)
 def test_selective_scan_equals_plain(cuda, B, L, din, n, tc):
-    """y, hout and hseg against the plain version on the card within
-    1e-5 of each output's largest magnitude (only the order of the sum
-    over the n states differs), the same bits on a second run, one
-    launch counted per call."""
+    """hout and hseg bit for bit the plain version's on the card (every
+    product and sum of the state update rounds alike, the exponential is
+    the accurate expf on both sides); y within 1e-5 of its largest
+    magnitude (only the order of the sum over the n states differs); the
+    same bits on a second run, one launch counted per call."""
     args = [t.to(cuda) for t in _scan_inputs(L + din, B, L, din, n)]
     before = selective_scan.selective_scan.launches
     got = selective_scan.selective_scan(*args, time_chunk=tc)
@@ -429,9 +441,25 @@ def test_selective_scan_equals_plain(cuda, B, L, din, n, tc):
     assert selective_scan.selective_scan.launches == before + 2
     assert got[2].shape == (B, L // tc, din, n)
     for name, g, a, w in zip(("y", "hout", "hseg"), got, again, want):
-        assert torch.equal(g.view(torch.int32), a.view(torch.int32)), name
+        assert torch.equal(_bits(g), _bits(a)), name
         err = float((g - w).abs().max())
         assert err <= 1e-5 * float(w.abs().max()), (name, err)
+    for name, g, w in zip(("hout", "hseg"), got[1:], want[1:]):
+        assert torch.equal(_bits(g), _bits(w)), name
+
+
+def test_selective_scan_misaligned_inputs_same_bits(cuda):
+    """x at an address that is not 16-byte aligned takes the kernel's
+    4-byte copy path: the same bits as the aligned call."""
+    args = [t.to(cuda) for t in _scan_inputs(3, 2, 96, 256, 16)]
+    store = torch.empty(args[0].numel() + 1, device=cuda)
+    shifted = store[1:].view(args[0].shape)
+    shifted.copy_(args[0])
+    want = selective_scan.selective_scan(*args, time_chunk=32)
+    got = selective_scan.selective_scan(shifted, *args[1:], time_chunk=32)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("y", "hout", "hseg"), got, want):
+        assert torch.equal(_bits(g), _bits(w)), name
 
 
 def test_selective_scan_ops_dispatch_and_cpu_agreement(cuda):
@@ -537,6 +565,29 @@ def test_selective_scan_bwd_equals_plain(cuda, B, L, din, n, tc):
         err = float((g - w).abs().max())
         assert err <= BWD_RTOL * float(w.abs().max()), (name, err)
     assert torch.equal(got[6].view(torch.int32), want[6].view(torch.int32))
+
+
+@pytest.mark.parametrize("B,L,din,n,tc", [(2, 1024, 1024, 16, 512),
+                                           (2, 96, 200, 16, 32),
+                                           (3, 100, 128, 8, 25)])
+def test_selective_scan_bwd_from_kernel_hseg(cuda, B, L, din, n, tc):
+    """The training path's pairing: the forward kernel's own hseg fed to
+    the backward kernel gives bit for bit the gradients of the plain
+    forward's hseg."""
+    args = [t.to(cuda) for t in _scan_inputs(B + L + din, B, L, din, n)]
+    _, _, hseg_kernel = selective_scan.selective_scan(*args, time_chunk=tc)
+    _, _, hseg_plain = ref.selective_scan_ref(*args, time_chunk=tc)
+    gen = torch.Generator(device=cuda).manual_seed(B + L)
+    ybar = torch.randn((B, L, din), generator=gen, device=cuda)
+    houtbar = torch.randn((B, din, n), generator=gen, device=cuda)
+    got = selective_scan.selective_scan_bwd(*args[:6], hseg_kernel, ybar,
+                                            houtbar, time_chunk=tc)
+    want = selective_scan.selective_scan_bwd(*args[:6], hseg_plain, ybar,
+                                             houtbar, time_chunk=tc)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dx", "ddt", "db", "dc", "da", "dd", "dh0"),
+                          got, want):
+        assert torch.equal(_bits(g), _bits(w)), name
 
 
 def test_trainable_scan_on_the_card_equals_cpu(cuda):
