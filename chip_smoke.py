@@ -10,7 +10,9 @@ one JSON line:
   1. environment and build: card name and power limit (also printed raw,
      as ``nvidia-smi`` gives them), library versions, build time;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: bit-for-bit equality, run-to-run identical bits,
+     main path's shapes (the round head also against the unfused head it
+     replaced, the probe kernel plus plain selection, timed beside it):
+     bit-for-bit equality, run-to-run identical bits,
      and CUDA-event times beside the plain version's, one PyTorch library
      call's (where one computes the same function) and the bound; the
      selective scan's states (hout, hseg) bit for bit, its y and its
@@ -20,13 +22,16 @@ one JSON line:
   3. the main paths at full size, on one frame of FLIGHTS data
      (``--rows``, default 100M; the paper's relation has 606M rows):
      ``FastFrame.run`` on the card for the quickstart query, F-q1..F-q9
-     and a GROUP BY ``(origin, airline)`` with the default bounder
-     (``block_agg`` and ``bitmap_active``), then the Anderson/DKW path
-     (``fused_fold`` and ``grouped_hist`` too): F-q1, F-q2, F-q5 and the
-     GROUP BY under ``bounder="anderson_dkw"``, and F-q2 as an exact
-     sweep. Every interval must cover the numpy truth, and each path must
-     have launched each of its kernels (the launch counts are zeroed
-     before each path and read after it);
+     and a GROUP BY ``(origin, airline)`` with the default bounder (the
+     round head ``round_select`` and ``block_agg`` every round, the
+     ``bitmap_active`` probe for static prefilters), then the
+     Anderson/DKW path (``fused_fold`` and ``grouped_hist`` too): F-q1,
+     F-q2, F-q5 and the GROUP BY under ``bounder="anderson_dkw"``, and
+     F-q2 as an exact sweep. Every interval must cover the numpy truth,
+     and each path must have launched each of its kernels and no other
+     (the launch counts are zeroed before each path and read after it);
+     the host seconds of the rounds (``round_s``) are printed per query
+     and summed per path;
   4. the port on the card against the port on the CPU on a 2M-row
      scramble, for the queries of both paths: equal scan decisions,
      intervals within 1e-6 relative;
@@ -73,6 +78,10 @@ FP32_OPS_PER_S = 67e12
 PAPER_ROWS = 606_000_000
 CPU_ROWS = 2_000_000     # rows of the card-vs-CPU comparison (phase 4)
 HIST_BINS = 1024         # EngineConfig.hist_bins' default
+# The bitmap_active probe on the main path: the static prefilter of a
+# categorical filter, over every block in order. Its widest is origin's
+# (200 airports: 7 words); airline's (14) is one word.
+PREFILTER_WORDS = 7
 HIST_ROWS = 1024 * 1024  # one exact-sweep fold: lookahead_blocks x 1024
 # Coverage tolerance of an exact sweep's point estimates. Its folds are
 # lookahead_blocks x 1024 = 1M rows each, summed in float32 about the
@@ -143,11 +152,13 @@ class Timer:
     """Median CUDA-event time of one call, with L2 flushed before each
     call (the main path reads fresh blocks every round). The flush also
     keeps the card busy while the host enqueues the call, so host
-    overhead is hidden unless the call's own launches starve the card."""
+    overhead is hidden unless the call's own launches starve the card:
+    1 GiB (~0.3 ms to zero) outlasts a wrapper's host time, where a
+    256 MB flush (~0.08 ms) let it into a 0.01-0.02 ms kernel's time."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fn, reps: int = REPS) -> float:
         torch = self.torch
@@ -308,14 +319,117 @@ def check_bitmap_active(torch, timer, ref, kbit, W: int, nb: int,
             ok &= bool(torch.equal(got, want) and torch.equal(got, again)
                        and torch.equal(got.cpu(), want_cpu))
     act = actives[0]
-    ms = timer(lambda: kbit.active_blocks(words, act, win))
-    plain_ms = timer(lambda: ref.active_blocks_ref(words[win.long()], act))
-    bound_ms, bound_by = bound(window * W * 4 + window * 8 + W * 4,
+    # the main path's shape: a static prefilter probes every row in order
+    ms = timer(lambda: kbit.active_blocks(words, act))
+    plain_ms = timer(lambda: ref.active_blocks_ref(words, act))
+    bound_ms, bound_by = bound(nb * W * 4 + nb * 4 + W * 4, nb * W * 2)
+    # the rows of one window, read through win (the per-block path's
+    # lookahead; the probe the round head replaced)
+    window_ms = timer(lambda: kbit.active_blocks(words, act, win))
+    window_plain_ms = timer(lambda: ref.active_blocks_ref(words[win.long()],
+                                                          act))
+    window_bound_ms, _ = bound(window * W * 4 + window * 8 + W * 4,
                                window * W * 2)
-    return dict(W=W, window=window, ok=ok, max_abs_err=0.0 if ok else None,
-                ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(W=W, rows=nb, window=window, ok=ok,
+                max_abs_err=0.0 if ok else None, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                window_ms=window_ms, window_plain_ms=window_plain_ms,
+                window_bound_ms=window_bound_ms)
 
+
+
+def head_inputs(torch, W: int, nb: int, window: int, seed: int):
+    """The round head's inputs on the card: a scan order (a permutation,
+    zero-padded by ``window``), a static prefilter passing 90 % of the
+    blocks, bitmap words with a bit set in 5 % of the words, and three
+    active masks (random bits, all ones, all zeros)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    order_pad = torch.zeros(nb + window, dtype=torch.int32, device="cuda")
+    order_pad[:nb] = torch.randperm(nb, generator=gen, device="cuda").to(
+        torch.int32)
+    static_ok = torch.rand(nb, generator=gen, device="cuda") < 0.9
+    bits = torch.randint(0, 32, (nb, W), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    on = torch.rand((nb, W), generator=gen, device="cuda") < 0.05
+    words = torch.where(on, torch.bitwise_left_shift(
+        torch.ones_like(bits), bits), torch.zeros_like(bits))
+    actives = [torch.randint(-2**31, 2**31 - 1, (W,), generator=gen,
+                             device="cuda", dtype=torch.int32),
+               torch.full((W,), -1, dtype=torch.int32, device="cuda"),
+               torch.zeros(W, dtype=torch.int32, device="cuda")]
+    return order_pad, static_ok, words, actives
+
+
+def unfused_head(torch, ref, kbit, order_pad, static_ok, words, act, pos,
+                 nb, window, budget):
+    """The round head as the fused round ran it before it had a kernel of
+    its own: the window and prefilter in eager ops, the ``bitmap_active``
+    probe, then the plain selection (cumsum / argmax) and lane scatter."""
+    offs = torch.arange(window, dtype=torch.int64, device=order_pad.device)
+    win = order_pad[pos:pos + window]
+    ok = static_ok[win] & ((pos + offs) < nb)
+    flags = ok & (kbit.active_blocks(words, act, win) > 0)
+    take, new_pos, csum = ref.budget_select_ref(flags, pos, nb, window,
+                                                budget)
+    blk, tvalid, _ = ref.gather_blocks_ref(take, csum, win, window, budget)
+    return ok, flags, new_pos, blk, tvalid
+
+
+def check_round_select(torch, timer, ref, kbit, W: int, nb: int,
+                       window: int, budget: int, seed: int):
+    """The fused round's head (one launch) against the plain sequence on
+    the card and on the CPU, bit for bit, and run to run: mid-scan with
+    random, all-ones and all-zeros masks, at the end of the scan (the
+    window cut by nb), without the probe, and with a budget of one.
+    Times: the kernel, the plain sequence, and the unfused head (the
+    probe kernel plus the plain selection: what the round ran before)."""
+    order_pad, static_ok, words, actives = head_inputs(torch, W, nb, window,
+                                                       seed)
+    pos = nb // 3
+    cases = [(pos, act, budget, True) for act in actives]
+    cases += [(nb - window // 3, actives[0], budget, True),
+              (pos, actives[0], budget, False), (pos, actives[0], 1, True)]
+    ok = True
+    for p, act, bud, probe in cases:
+        kw = dict(nb=nb, window=window, budget=bud, probe=probe)
+        got = kbit.round_select(order_pad, static_ok, words, act, p, **kw)
+        again = kbit.round_select(order_pad, static_ok, words, act, p, **kw)
+        want = ref.round_select_ref(order_pad, static_ok, words, act, p,
+                                    **kw)
+        want_cpu = ref.round_select_ref(order_pad.cpu(), static_ok.cpu(),
+                                        words.cpu(), act.cpu(), p, **kw)
+        ok &= all(x.dtype == y.dtype and torch.equal(x, y)
+                  and torch.equal(x, z) and torch.equal(x.cpu(), c)
+                  for x, y, z, c in zip(got, want, again, want_cpu))
+        if probe:
+            old = unfused_head(torch, ref, kbit, order_pad, static_ok,
+                               words, act, p, nb, window, bud)
+            ok &= all(torch.equal(x, y) for x, y in zip(got, old))
+    act = actives[0]
+    kw = dict(nb=nb, window=window, budget=budget, probe=True)
+    got = kbit.round_select(order_pad, static_ok, words, act, pos, **kw)
+    torch.cuda.synchronize()
+    flagged, covered = int(got[1].sum()), int(got[2]) - pos
+    ms = timer(lambda: kbit.round_select(order_pad, static_ok, words, act,
+                                         pos, **kw))
+    plain_ms = timer(lambda: ref.round_select_ref(order_pad, static_ok,
+                                                  words, act, pos, **kw))
+    unfused_ms = timer(lambda: unfused_head(torch, ref, kbit, order_pad,
+                                            static_ok, words, act, pos, nb,
+                                            window, budget))
+    win = order_pad[pos:pos + window]
+    probe_ms = timer(lambda: kbit.active_blocks(words, act, win))
+    # read: the window's order_pad entries, static_ok bytes and words (all
+    # positions in range), the mask; written: ok, flags, the lanes' block
+    # ids and flags, new_pos. One AND and one OR a word.
+    bound_ms, bound_by = bound(window * (4 + 1 + W * 4) + W * 4
+                               + 2 * window + budget * 5 + 8,
+                               window * W * 2)
+    return dict(W=W, window=window, budget=budget, nb=nb, ok=ok,
+                max_abs_err=0.0 if ok else None, flagged=flagged,
+                covered=covered, ms=ms, plain_ms=plain_ms,
+                unfused_ms=unfused_ms, probe_ms=probe_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 def check_fused_fold(torch, timer, ref, kfused, kblock, G: int, exact: bool,
                      nb: int, block_rows: int, budget: int, nbins: int,
@@ -1011,6 +1125,11 @@ def main(argv=None) -> int:
     bit = [check_bitmap_active(torch, timer, ref, kbit, W, nb=97_657,
                                window=4096, seed=W)
            for W in (1, 7, 50, 88, 320)]
+    # the fused round's head at the engine's defaults: window 4096 (the
+    # cover cap), budget 64 (round_blocks)
+    head = [check_round_select(torch, timer, ref, kbit, W, nb=97_657,
+                               window=4096, budget=64, seed=W + 3)
+            for W in (1, 7, 50, 88, 320)]
     fus = [check_fused_fold(torch, timer, ref, kfused, kblock, G, exact,
                             nb=8192, block_rows=1024, budget=64,
                             nbins=HIST_BINS, seed=G + 1)
@@ -1027,13 +1146,16 @@ def main(argv=None) -> int:
                                     seed=10 + i)
            for i, shape in enumerate(SCAN_BWD_SHAPES)]
     emit(dict(phase="kernels_vs_plain", card=name, power_limit=power_limit,
-              block_agg=agg, bitmap_active=bit, fused_fold=fus,
-              grouped_hist=hst, selective_scan=scn,
+              block_agg=agg, bitmap_active=bit, round_select=head,
+              fused_fold=fus, grouped_hist=hst, selective_scan=scn,
               selective_scan_bwd=sbw))
-    bad = [r for r in agg + bit + fus + hst + scn + sbw if not r["ok"]]
+    bad = [r for r in agg + bit + head + fus + hst + scn + sbw
+           if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
+    del timer  # its 1 GiB flush buffer: not part of any later peak
+    torch.cuda.empty_cache()
 
     # ---- 3. the main paths at full size -------------------------------------
     t0 = time.perf_counter()
@@ -1045,13 +1167,17 @@ def main(argv=None) -> int:
     frame = T.FastFrame(sc, T.EngineConfig(), device="cuda")
     paths = {"bernstein": main_path_queries(T, fq, opt),
              "anderson_dkw": anderson_queries(T, fq, opt)}
-    # the kernels each path must launch (and, for the default bounder's
-    # path, the ones it must not)
-    must = {"bernstein": ("block_agg", "bitmap_active"),
-            "anderson_dkw": ("block_agg", "bitmap_active", "fused_fold",
+    # the kernels each path must launch, and no others: every fused round
+    # runs the round head and a fold; the standalone probe runs for the
+    # static prefilter of a categorical filter the frame has not seen
+    # (F-q1's, F-q3's and F-q9's on the default bounder's path; the
+    # Anderson/DKW path's only one, F-q1's, is cached on the frame by then)
+    must = {"bernstein": ("block_agg", "round_select", "bitmap_active"),
+            "anderson_dkw": ("block_agg", "round_select", "fused_fold",
                              "grouped_hist")}
     counters = {"block_agg": kblock.block_agg,
                 "bitmap_active": kbit.active_blocks,
+                "round_select": kbit.round_select,
                 "fused_fold": kfused.fused_fold,
                 "grouped_hist": khist.grouped_hist,
                 "selective_scan": kscan.selective_scan,
@@ -1103,6 +1229,8 @@ def main(argv=None) -> int:
                   generate_s=t_gen, scramble_s=t_scr,
                   queries_wall_s=main_wall,
                   total_rounds=sum(r["rounds"] for r in records),
+                  total_round_s=sum(r["steps_s"].get("round_s", 0.0)
+                                    for r in records),
                   launches=launches, peak_device_gib=torch.cuda
                   .max_memory_allocated() / 2**30, queries=records))
         if failures:
@@ -1172,7 +1300,8 @@ def main(argv=None) -> int:
 
     # ---- 7. the kernels line ------------------------------------------------
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])
-    b = next(r for r in bit if r["W"] == 88)
+    b = next(r for r in bit if r["W"] == PREFILTER_WORDS)
+    rs = next(r for r in head if r["W"] == 88)
     f = next(r for r in fus if r["G"] == 2800 and not r["exact_data"])
     h = next(r for r in hst if r["G"] == 2800 and not r["exact_data"])
     sf = scn[0]  # the falcon-mamba layer's serving shape
@@ -1196,6 +1325,14 @@ def main(argv=None) -> int:
              max_abs_err=max(r["max_abs_err"] for r in bit),
              ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
              bound_by=b["bound_by"], library_ms=None),
+        dict(name="round_select", route="cuda",
+             source="src/repro_torch/kernels/csrc/bitmap_active.cu",
+             replaces="src/repro/kernels/bitmap_active.py:40",
+             launches=launches["round_select"],
+             max_abs_err=max(r["max_abs_err"] for r in head),
+             ms=rs["ms"], plain_ms=rs["plain_ms"], bound_ms=rs["bound_ms"],
+             bound_by=rs["bound_by"], library_ms=None,
+             unfused_ms=rs["unfused_ms"], probe_ms=rs["probe_ms"]),
         dict(name="fused_fold", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_fold.cu",
              replaces="src/repro/kernels/fused_scan.py:148",

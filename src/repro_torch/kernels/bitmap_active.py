@@ -1,22 +1,26 @@
-"""Python wrapper of the CUDA activity-probe kernel
+"""Python wrappers of the CUDA activity-probe kernels
 ``csrc/bitmap_active.cu``.
 
-The Hopper counterpart of :func:`repro.kernels.bitmap_active.
-active_blocks`: ``flag[i] = any_w(words[row_i, w] & active[w]) != 0``
-over packed block-by-group bitmaps, where ``row_i`` is ``win[i]`` (the
-fused round's cursor window, read in place) or ``i`` (every block, for
-the static prefilter). Words are uint32 bit patterns carried in int32
-tensors.
+:func:`active_blocks` is the Hopper counterpart of
+:func:`repro.kernels.bitmap_active.active_blocks`: ``flag[i] =
+any_w(words[row_i, w] & active[w]) != 0`` over packed block-by-group
+bitmaps, where ``row_i`` is ``win[i]`` (rows read in place) or ``i``
+(every row: the static prefilter, the per-block path). Words are uint32
+bit patterns carried in int32 tensors.
 
-This wrapper only launches: it takes CUDA tensors and raises on anything
-else. :func:`repro_torch.kernels.ops.active_blocks` chooses between it
-and the plain version by the tensors' device.
-``active_blocks.launches`` counts the launches.
+:func:`round_select` is the fused scan round's head: the same probe over
+the cursor window, with the static prefilter, the budgeted selection and
+the fold's lane table, in one launch (the source's header says how).
+
+These wrappers only launch: they take CUDA tensors and raise on anything
+else. :mod:`repro_torch.kernels.ops` chooses between them and the plain
+versions by the tensors' device. ``active_blocks.launches`` and
+``round_select.launches`` count the launches.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -66,3 +70,85 @@ def active_blocks(words: torch.Tensor, active_words: torch.Tensor,
 
 
 active_blocks.launches = 0
+
+
+# The round head's look-back words per (device, stream): an int64 buffer
+# (the epoch, then a word a CTA), zeroed once. The kernel keeps the epoch
+# in the buffer and tags each call's words with a new one, so the buffer
+# is never reset and no host value changes between calls (a captured
+# CUDA graph replays right). A larger buffer replaces a too small one.
+_lookback: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _lookback_words(dev: torch.device, stream: int,
+                    ctas: int) -> torch.Tensor:
+    """The look-back buffer for a call on ``stream`` with ``ctas`` CTAs."""
+    buf = _lookback.get((dev.index, stream))
+    if buf is None or buf.numel() < 1 + ctas:
+        buf = torch.zeros(max(1 + ctas, 129), dtype=torch.int64, device=dev)
+        _lookback[(dev.index, stream)] = buf
+    return buf
+
+
+def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
+                 words: torch.Tensor, active_words: torch.Tensor, pos: int,
+                 *, nb: int, window: int, budget: int, probe: bool):
+    """The fused round's head in one launch, as
+    :func:`repro_torch.kernels.ops.round_select` describes it.
+
+    Args: ``order_pad`` int32 with at least ``pos + window`` entries (the
+    scan order, padded); ``static_ok`` ``(nb,)`` bool; ``words`` ``(nb,
+    W)`` and ``active_words`` ``(W,)`` int32 (read only with ``probe``);
+    ``pos`` a host int in ``[0, nb]``. Returns ``(ok, flags, new_pos,
+    blk, tvalid)``, views of one allocation, equal bit for bit to
+    :func:`repro_torch.kernels.ref.round_select_ref`."""
+    dev = order_pad.device
+    _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
+    _require(window >= 1 and budget >= 1, f"window and budget must be >= 1, "
+             f"got {window}, {budget}")
+    _require(0 <= pos <= nb, f"pos must be in [0, nb = {nb}], got {pos}")
+    _require(order_pad.dim() == 1 and order_pad.dtype == torch.int32
+             and order_pad.is_contiguous()
+             and order_pad.shape[0] >= pos + window,
+             "order_pad must be contiguous 1-D int32 with pos + window "
+             "entries")
+    _require(static_ok.dim() == 1 and static_ok.dtype == torch.bool
+             and static_ok.is_contiguous() and static_ok.shape[0] >= nb,
+             "static_ok must be contiguous 1-D bool with nb entries")
+    tensors = [order_pad, static_ok]
+    words_ptr, active_ptr, n_words = None, None, 0
+    if probe:
+        n_words = words.shape[1] if words.dim() == 2 else -1
+        _require(n_words > 0 and words.shape[0] >= nb
+                 and active_words.shape == (n_words,),
+                 "words must be (nb, W) and active_words (W,)")
+        for name, t in (("words", words), ("active_words", active_words)):
+            _require(t.dtype == torch.int32 and t.is_contiguous(),
+                     f"{name} must be contiguous int32 (uint32 bits)")
+        tensors += [words, active_words]
+        words_ptr, active_ptr = words.data_ptr(), active_words.data_ptr()
+    _require(all(t.device == dev for t in tensors),
+             "inputs must be on one device")
+    # one allocation: new_pos (int64) | blk (int32) | ok | flags | tvalid
+    o_blk = 8
+    o_ok = o_blk + 4 * budget
+    o_flags = o_ok + window
+    o_tvalid = o_flags + window
+    buf = torch.empty(o_tvalid + budget, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = _lookback_words(dev, stream, -(-window // 32))
+    rc = _build.library().repro_round_select(
+        order_pad.data_ptr(), static_ok.data_ptr(), words_ptr, n_words,
+        active_ptr, pos, nb, window, budget, buf.data_ptr() + o_ok,
+        buf.data_ptr() + o_flags, buf.data_ptr(), buf.data_ptr() + o_blk,
+        buf.data_ptr() + o_tvalid, status.data_ptr(), dev.index, stream)
+    _build.check(rc, "round_select launch")
+    round_select.launches += 1
+    return (buf[o_ok:o_ok + window].view(torch.bool),
+            buf[o_flags:o_flags + window].view(torch.bool),
+            buf[:8].view(torch.int64).reshape(()),
+            buf[o_blk:o_blk + 4 * budget].view(torch.int32),
+            buf[o_tvalid:o_tvalid + budget].view(torch.bool))
+
+
+round_select.launches = 0

@@ -28,6 +28,6 @@ extern "C" int repro_block_agg(const float* values, const int* gids,
                                int device, void* stream) {
   return launch_fold<false>(values, gids, mask, blk, tvalid, budget,
                             block_rows, num_groups, center, chunk_lanes,
-                            lane_mode, scratch, sums, vmin, vmax, nullptr, 0,
-                            0.f, 0.f, device, stream);
+                            lane_mode, scratch, sums, vmin, vmax, HistOut{},
+                            device, stream);
 }

@@ -29,12 +29,12 @@
 // The extremes are exact in any order (a NaN-propagating max is
 // associative), so they are reduced in parallel.
 //
-// Design: two launches, no memset; scratch of 4 bytes a row plus a
+// Design: two launches, no memset; scratch of 9 bytes a row plus a
 // (tiles, buckets + 1) table of 16-bit offsets. A bucket is one group
 // (warp mode) or 32 consecutive groups (lane mode); the wrapper picks the
 // mode: lane mode when the rows average at most 64 a group.
-//   1. tile_sort: one CTA of 128 threads per tile of 1,024 rows, over 64
-//      SMs at the main path's 64 blocks. It gathers its rows, decides
+//   1. tile_sort: one CTA of 256 threads per tile of 2,048 rows, 32 CTAs
+//      at the main path's 64 blocks. It gathers its rows, decides
 //      which change a sum or an extreme, and sorts them stably by bucket
 //      with a block radix sort over only the bits the bucket count needs
 //      (cub::BlockRadixSort, a block-level building block: at G 2,800 in
@@ -61,7 +61,14 @@
 //        the warp at the end); meanwhile lanes 0..2 of warp 0 each run
 //        one sum's add chain over the other buffer, so a row costs the
 //        chain one dependent add (~4 cycles) and no select.
-//   Each row is visited once, in row order for its group.
+//      - fused_fold's walk (kHist) also owns its groups' histogram rows:
+//        the CTA has two or three more warps, which read the bucket's
+//        rows from the scratch beside the fold and count each with
+//        m != 0 into uint32 counters in shared memory (shared atomics),
+//        and writes every cell of those rows once, as float32. Where the
+//        32 rows of a lane-mode bucket do not fit in shared memory, the
+//        bins are cut into slices, one CTA a (bucket, slice).
+//   Each row is visited once (once a slice), in row order for its group.
 // A row whose terms are all zero (m == 0 and v - c finite) changes no
 // accumulator's bits (adding +-0 to a sum that starts at +0 is the
 // identity) and takes no part in the extremes, so the sort drops it; a
@@ -140,11 +147,8 @@ __host__ __device__ inline Scratch carve(void* base, long long n) {
 // stably by bucket g >> shift (dropped rows and rows past the chunk take
 // key `buckets`, last) and writes, in sorted order, each row's value and
 // effective mask m = mask * valid and its group's low bits, and the
-// tile's (buckets + 1)-entry start table (see the header). With kHist it
-// also counts each row with m != 0 into the uint32 histogram
-// hist[g * nbins + bin(v)] (hist_bin.cuh), while the row is in
-// registers: the histogram costs no second pass over the rows.
-template <bool kHist>
+// tile's (buckets + 1)-entry start table (see the header). Every row with
+// m != 0 is kept, so the walk sees every row the histogram counts.
 __global__ void __launch_bounds__(kSortThreads)
 tile_sort_kernel(const float* __restrict__ values,
                  const int* __restrict__ gids,
@@ -153,8 +157,7 @@ tile_sort_kernel(const float* __restrict__ values,
                  const int* __restrict__ tvalid,
                  long long chunk_rows, int block_rows, int num_groups,
                  float center, int shift, int buckets, int key_bits,
-                 Scratch out, unsigned* __restrict__ hist, int nbins,
-                 float hist_a, float inv_width) {
+                 Scratch out) {
   using Sort = cub::BlockRadixSort<unsigned, kSortThreads, kItems, unsigned>;
   __shared__ typename Sort::TempStorage s_sort;
   __shared__ float s_x[kTile], s_m[kTile];
@@ -171,7 +174,6 @@ tile_sort_kernel(const float* __restrict__ values,
     const long long row = base + local;
     key[u] = dropped;
     idx[u] = static_cast<unsigned>(local);
-    unsigned cell = kNoCell;
     float x = 0.f, m = 0.f;
     int g = 0;
     if (row < chunk_rows) {
@@ -186,20 +188,13 @@ tile_sort_kernel(const float* __restrict__ values,
       const float b = __fmul_rn(dv, m), q = __fmul_rn(__fmul_rn(dv, dv), m);
       // NaN != 0: a NaN term keeps its row
       const bool kept = !(m == 0.f && b == 0.f && q == 0.f);
-      const bool in_range = g >= 0 && g < num_groups;
-      if (kept && in_range) key[u] = static_cast<unsigned>(g) >> shift;
-      if constexpr (kHist) {
-        if (m != 0.f && in_range) {
-          cell = static_cast<unsigned>(g) * static_cast<unsigned>(nbins) +
-                 static_cast<unsigned>(hist_bin(x, hist_a, inv_width,
-                                                nbins));
-        }
+      if (kept && g >= 0 && g < num_groups) {
+        key[u] = static_cast<unsigned>(g) >> shift;
       }
     }
     s_x[local] = x;
     s_m[local] = m;
     s_g[local] = static_cast<unsigned char>(g & 31);
-    if constexpr (kHist) warp_count(hist, cell);  // every lane calls it
   }
 
   Sort(s_sort).Sort(key, idx, 0, key_bits);  // blocked: stable, in place
@@ -320,16 +315,36 @@ __device__ __forceinline__ void arrive_empty(int b) {
   if (b) named_arrive<4>(); else named_arrive<3>();
 }
 
+// The histogram a fused walk CTA owns: the counts of its bucket's groups
+// (one group in warp mode, 32 in lane mode) over its slice of the bins,
+// [s0, s0 + len), as uint32 counters in shared memory, `stride` counters
+// a group (a multiple of 4: the write-back reads them as uint4).
+struct HistSlice {
+  unsigned* counts;  // shared memory
+  int stride, s0, len;
+  float a, inv_width;
+  int nbins;
+};
+
+// The slice-local bin of a row with value x, or kNoCell when its bin is
+// outside the slice.
+__device__ __forceinline__ unsigned slice_bin(const HistSlice& hs, float x) {
+  const unsigned k = static_cast<unsigned>(hist_bin(x, hs.a, hs.inv_width,
+                                                    hs.nbins) - hs.s0);
+  return k < static_cast<unsigned>(hs.len) ? k : kNoCell;
+}
+
 // Warp mode, two warps a group (bucket = group): warp 1 stages the
 // group's rows kBatch at a time into one of two buffers of three planes
 // (m, (v - c) m, (v - c)^2 m) and takes the extremes of the rows it
 // staged; meanwhile warp 0's lanes 0..2 run the add chains of count,
 // dsum and dsq over the other buffer, so a row costs the chain one
-// dependent add. Folds continue from `acc`; writes the outputs.
+// dependent add. Folds continue from `acc`; writes the outputs when
+// `out`.
 __device__ void warp_fold(const Scratch& sc, float center, int tiles,
                           int buckets, int g, int num_groups,
                           float* __restrict__ planes, const float (&acc)[5],
-                          float* __restrict__ sums,
+                          bool out, float* __restrict__ sums,
                           float* __restrict__ vmin_out,
                           float* __restrict__ vmax_out) {
   const int lane = threadIdx.x & 31;
@@ -393,12 +408,37 @@ __device__ void warp_fold(const Scratch& sc, float center, int tiles,
       nmin = max_nan(nmin, __shfl_xor_sync(0xffffffffu, nmin, d));
       vmax = max_nan(vmax, __shfl_xor_sync(0xffffffffu, vmax, d));
     }
-    if (lane == 0) {
+    if (lane == 0 && out) {
       vmin_out[g] = -nmin;
       vmax_out[g] = vmax;
     }
-  } else if (lane < 3) {
+  } else if (lane < 3 && out) {
     sums[lane * num_groups + g] = sum;
+  }
+}
+
+// The fused walk's histogram: counting warp `part` of `parts` takes every
+// parts-th batch of bucket k's rows from the scratch and counts each row
+// with m != 0 into its group's row of the slice's counters (the group's
+// low bits pick the row in lane mode) with a shared-memory atomic,
+// beside the fold's warps and off their add chains.
+template <bool kLane>
+__device__ void count_rows(const Scratch& sc, int tiles, int buckets, int k,
+                           const HistSlice& hs, int part, int parts) {
+  for (int t0 = 0; t0 < tiles; t0 += 32) {
+    const Runs w = window_runs(sc.start, tiles, buckets, t0, k);
+    for (int o = part * kBatch; o < w.total; o += parts * kBatch) {
+      float2 xm[kPer];
+      int lg[kPer];
+      load_batch<kLane>(sc, w, o, xm, lg);  // m = 0 past the rows
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const unsigned b = xm[u].y != 0.f ? slice_bin(hs, xm[u].x) : kNoCell;
+        if (b != kNoCell) {
+          atomicAdd(hs.counts + (kLane ? lg[u] * hs.stride : 0) + b, 1u);
+        }
+      }
+    }
   }
 }
 
@@ -467,45 +507,150 @@ __device__ void lane_fold(const Scratch& sc, float center, int tiles,
   }
 }
 
-// One warp a CTA, one bucket a warp: bucket blockIdx.x. Warp mode folds
-// group blockIdx.x with the whole warp; lane mode folds groups
-// 32 * blockIdx.x + lane, one a lane. Folds continue from the outputs
-// when `accumulate`, else start at +0 / +inf / -inf.
-__global__ void __launch_bounds__(64)
+// The fused walk's CTA: the fold's warps and two or three more that count
+// the histogram slice, and all of them zero and write it.
+constexpr int kHistWalkThreads = 128;
+// The walk's static shared memory (s_terms, s_cnt) and the most a CTA may
+// take in all (227 KB): the histogram's counters get the difference.
+constexpr int kWalkStaticSmem = (6 * kPlane + 3) / 4 * 16 + 32 * 4;
+constexpr int kSmemPerCta = 232448;
+
+// How the fused walk's CTAs split the histogram: a bucket's rows of
+// counters (32 groups in lane mode, one in warp mode), `stride` uint32
+// counters each, in the shared memory the walk leaves (kSmemPerCta -
+// kWalkStaticSmem). Where all nbins bins do not fit, they are cut into
+// the fewest equal slices of a multiple of 4 bins, and each (bucket,
+// slice) gets a CTA of its own. A stride is a whole number of 16-byte
+// words (the write-back reads the counters 4 at a time).
+struct HistPlan {
+  int slice_bins, slices, stride, smem_bytes;
+};
+
+inline HistPlan hist_plan(int nbins, bool lane_mode) {
+  const int rows = lane_mode ? 32 : 1;
+  const int max_bins = (kSmemPerCta - kWalkStaticSmem) / (4 * rows) / 4 * 4;
+  const int slices = (nbins + max_bins - 1) / max_bins;  // the fewest
+  const int slice_bins =
+      slices > 1 ? ((nbins + slices - 1) / slices + 3) / 4 * 4 : nbins;
+  const int stride = (slice_bins + 3) / 4 * 4;
+  return HistPlan{slice_bins, (nbins + slice_bins - 1) / slice_bins, stride,
+                  rows * stride * 4};
+}
+
+// The histogram's place in the fused walk: the (G, nbins) float32 output
+// and its grid; launch_fold fills in each CTA's slice width and counter
+// stride from hist_plan.
+struct HistOut {
+  float* hist;
+  int nbins;
+  float a, inv_width;
+  int slice_bins, stride;
+};
+
+// One bucket a CTA: bucket blockIdx.x. Warp mode folds group blockIdx.x
+// with two warps; lane mode folds groups 32 * blockIdx.x + lane, one a
+// lane of warp 0. Folds continue from the outputs when `accumulate`,
+// else start at +0 / +inf / -inf.
+// With kHist the CTA also owns bins [s0, s0 + slice_bins) of its groups'
+// histogram rows, s0 = blockIdx.y * slice_bins: it zeroes its counters
+// in shared memory while the sort still runs, counts while it folds
+// (the warps past the fold's, count_rows; only slice 0's CTA writes the
+// moments, the others walk the same rows for their bins), and at the
+// end writes every cell of its slice of its groups' rows once, as
+// float32, with coalesced stores (added to what an earlier chunk wrote
+// when `accumulate`; counts are whole numbers below 2^24, so the float
+// add is exact). Every cell of (G, nbins) is written by exactly one
+// CTA, zeros included: no memset, no float pass.
+template <bool kHist>
+__global__ void __launch_bounds__(kHist ? kHistWalkThreads : 64)
 group_walk_kernel(Scratch sc, float center, int tiles, int num_groups,
                   int buckets, int lane_mode, int accumulate,
                   float* __restrict__ sums, float* __restrict__ vmin_out,
-                  float* __restrict__ vmax_out) {
+                  float* __restrict__ vmax_out, HistOut ho) {
   // lane mode: kBatch staged rows' terms; warp mode: two buffers of planes
   __shared__ float4 s_terms[(6 * kPlane + 3) / 4];
   __shared__ int s_cnt[32];
+  extern __shared__ uint4 s_counts[];  // kHist: rows x stride uint32
   static_assert(6 * kPlane >= 4 * kBatch, "the terms fit the buffer");
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const int k = blockIdx.x;
-  const int g = lane_mode ? (k << kLaneShift) + lane : k;
+  const int g0 = lane_mode ? k << kLaneShift : k;
+  const int g = lane_mode ? g0 + lane : k;
   const bool has = g < num_groups;
+  const bool out = !kHist || blockIdx.y == 0;  // writes the moments
+  HistSlice hs{};
+  int rows = 0;
+  if constexpr (kHist) {
+    rows = lane_mode ? min(32, num_groups - g0) : 1;
+    hs = HistSlice{reinterpret_cast<unsigned*>(s_counts), ho.stride,
+                   static_cast<int>(blockIdx.y) * ho.slice_bins, 0, ho.a,
+                   ho.inv_width, ho.nbins};
+    hs.len = min(ho.slice_bins, ho.nbins - hs.s0);
+    for (int i = threadIdx.x; i < rows * ho.stride / 4; i += blockDim.x) {
+      s_counts[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+  }
   wait_for_primary();  // the sort's writes (and a previous chunk's sums)
-  float acc[5] = {0.f, 0.f, 0.f, -INFINITY, -INFINITY};
-  if (accumulate && has) {
-    acc[0] = sums[g];
-    acc[1] = sums[num_groups + g];
-    acc[2] = sums[2 * num_groups + g];
-    acc[3] = -vmin_out[g];
-    acc[4] = vmax_out[g];
+  if (threadIdx.x < (lane_mode ? 32 : 64)) {  // the fold's warps
+    float acc[5] = {0.f, 0.f, 0.f, -INFINITY, -INFINITY};
+    if (accumulate && has && out) {
+      acc[0] = sums[g];
+      acc[1] = sums[num_groups + g];
+      acc[2] = sums[2 * num_groups + g];
+      acc[3] = -vmin_out[g];
+      acc[4] = vmax_out[g];
+    }
+    if (!lane_mode) {
+      warp_fold(sc, center, tiles, buckets, k, num_groups,
+                reinterpret_cast<float*>(s_terms), acc, out, sums, vmin_out,
+                vmax_out);
+    } else {
+      lane_fold(sc, center, tiles, buckets, k, s_terms, s_cnt, acc);
+      if (has && out) {
+        sums[g] = acc[0];
+        sums[num_groups + g] = acc[1];
+        sums[2 * num_groups + g] = acc[2];
+        vmin_out[g] = -acc[3];
+        vmax_out[g] = acc[4];
+      }
+    }
   }
-  if (!lane_mode) {
-    warp_fold(sc, center, tiles, buckets, k, num_groups,
-              reinterpret_cast<float*>(s_terms), acc, sums, vmin_out,
-              vmax_out);
-    return;
-  }
-  lane_fold(sc, center, tiles, buckets, k, s_terms, s_cnt, acc);
-  if (has) {
-    sums[g] = acc[0];
-    sums[num_groups + g] = acc[1];
-    sums[2 * num_groups + g] = acc[2];
-    vmin_out[g] = -acc[3];
-    vmax_out[g] = acc[4];
+  if constexpr (kHist) {
+    const int fold_warps = lane_mode ? 1 : 2, warp = threadIdx.x >> 5;
+    if (warp >= fold_warps) {
+      const int parts = kHistWalkThreads / 32 - fold_warps;
+      if (lane_mode) {
+        count_rows<true>(sc, tiles, buckets, k, hs, warp - fold_warps, parts);
+      } else {
+        count_rows<false>(sc, tiles, buckets, k, hs, warp - fold_warps, parts);
+      }
+    }
+    __syncthreads();  // every count is in
+    for (int j = 0; j < rows; ++j) {
+      const unsigned* src = hs.counts + j * ho.stride;
+      float* dst = ho.hist + static_cast<size_t>(g0 + j) * ho.nbins + hs.s0;
+      if ((ho.nbins & 3) == 0) {  // rows and slices are whole float4s
+        const uint4* s4 = reinterpret_cast<const uint4*>(src);
+        float4* d4 = reinterpret_cast<float4*>(dst);
+        for (int c = threadIdx.x; c < hs.len / 4; c += blockDim.x) {
+          const uint4 n = s4[c];
+          float4 v = make_float4(__uint2float_rn(n.x), __uint2float_rn(n.y),
+                                 __uint2float_rn(n.z), __uint2float_rn(n.w));
+          if (accumulate) {
+            const float4 o = d4[c];
+            v = make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y),
+                            __fadd_rn(o.z, v.z), __fadd_rn(o.w, v.w));
+          }
+          d4[c] = v;
+        }
+      } else {
+        for (int c = threadIdx.x; c < hs.len; c += blockDim.x) {
+          const float v = __uint2float_rn(src[c]);
+          dst[c] = accumulate ? __fadd_rn(dst[c], v) : v;
+        }
+      }
+    }
   }
 }
 
@@ -513,6 +658,24 @@ inline int bits_for(int v) {  // bits of the largest key, v
   int bits = 0;
   while (bits < 31 && (v >> bits) != 0) ++bits;
   return bits;
+}
+
+// Lets the fused walk take `bytes` of dynamic shared memory on `device`
+// (above 48 KB a kernel must ask; once per device and size).
+inline cudaError_t allow_walk_smem(int device, int bytes) {
+  constexpr int kMaxDevices = 64;
+  static int allowed[kMaxDevices] = {};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (device >= 0 && device < kMaxDevices && allowed[device] >= bytes) {
+    return cudaSuccess;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      group_walk_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err == cudaSuccess && device >= 0 && device < kMaxDevices) {
+    allowed[device] = bytes;
+  }
+  return err;
 }
 
 // Launches the fold on `stream`: for each chunk of `chunk_lanes` lanes,
@@ -523,15 +686,15 @@ inline int bits_for(int v) {  // bits of the largest key, v
 // holds, for n = ceil(chunk_lanes * block_rows / kTile) * kTile rows,
 // start_offset(n) bytes of rows then n / kTile * (buckets + 1) uint16
 // offsets (buckets = ceil(G / 32) in lane mode, else G). With kHist,
-// `hist` is the zeroed uint32 (G, nbins) histogram the tile passes count
-// into. Returns cudaGetLastError() after the launches (0 on success).
+// `ho` names the (G, nbins) float32 histogram the walk writes, in the
+// slices of bins hist_plan gives, a CTA each. Returns
+// cudaGetLastError() after the launches (0 on success).
 template <bool kHist>
 int launch_fold(const float* values, const int* gids, const float* mask,
                 const int* blk, const int* tvalid, int budget, int block_rows,
                 int num_groups, float center, int chunk_lanes, int lane_mode,
                 void* scratch, float* sums, float* vmin, float* vmax,
-                unsigned* hist, int nbins, float hist_a, float inv_width,
-                int device, void* stream) {
+                HistOut ho, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunk_lanes < 1 || block_rows < 1 || num_groups < 1) {
@@ -552,22 +715,35 @@ int launch_fold(const float* values, const int* gids, const float* mask,
   walk.gridDim = dim3(static_cast<unsigned>(buckets));
   walk.blockDim = dim3(lane_mode ? 32 : 64);  // warp mode: two warps
   walk.stream = s;
+  if constexpr (kHist) {
+    if (ho.nbins < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const HistPlan hp = hist_plan(ho.nbins, lane_mode != 0);
+    if (hp.smem_bytes + kWalkStaticSmem > kSmemPerCta) {  // never: the plan
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    ho.slice_bins = hp.slice_bins;
+    ho.stride = hp.stride;
+    walk.gridDim.y = static_cast<unsigned>(hp.slices);
+    walk.blockDim = dim3(kHistWalkThreads);
+    walk.dynamicSmemBytes = static_cast<size_t>(hp.smem_bytes);
+    err = allow_walk_smem(device, hp.smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   int l0 = 0;
   do {  // at least one walk, so an empty fold still writes its outputs
     const int lanes = budget - l0 < chunk_lanes ? budget - l0 : chunk_lanes;
     const long long rows = static_cast<long long>(lanes) * block_rows;
     const int tiles = static_cast<int>((rows + kTile - 1) / kTile);
     if (tiles > 0) {
-      tile_sort_kernel<kHist><<<tiles, kSortThreads, 0, s>>>(
+      tile_sort_kernel<<<tiles, kSortThreads, 0, s>>>(
           values, gids, mask, blk + l0, tvalid + l0, rows, block_rows,
-          num_groups, center, shift, buckets, key_bits, sc, hist, nbins,
-          hist_a, inv_width);
+          num_groups, center, shift, buckets, key_bits, sc);
     }
     walk.attrs = tiles > 0 ? pdl : nullptr;
     walk.numAttrs = tiles > 0 ? 1 : 0;
-    err = cudaLaunchKernelEx(&walk, group_walk_kernel, sc, center, tiles,
-                             num_groups, buckets, lane_mode,
-                             static_cast<int>(l0 > 0), sums, vmin, vmax);
+    err = cudaLaunchKernelEx(&walk, group_walk_kernel<kHist>, sc, center,
+                             tiles, num_groups, buckets, lane_mode,
+                             static_cast<int>(l0 > 0), sums, vmin, vmax, ho);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -6,13 +6,13 @@
 // one-hot per tile and feeds it to two MXU matmuls: the moment sums of
 // `block_agg` and the (G, nbins) histogram of `grouped_hist`. On Hopper
 // neither is a matmul (block_agg.cuh says why), so the fused pass is the
-// fold of block_agg.cuh with one more thing done while each row sits in
-// registers: tile_sort<.., true> gathers the row, computes its fold
-// terms and, when m != 0, its bin (hist_bin.cuh), and counts it into a
-// uint32 (G, nbins) histogram with one warp-aggregated integer atomic.
-// The group walk is block_agg's, so the moments are bit for bit those of
-// block_agg; the histogram's integer adds commute, so it is the same on
-// every run and equal to the plain version's.
+// fold of block_agg.cuh with one more thing done in its group walk, which
+// visits each group's rows with their values at hand: it computes each
+// row's bin (hist_bin.cuh) and counts it into its group's row of counters
+// in shared memory. The sort and the
+// fold's arithmetic are block_agg's, so the moments are bit for bit those
+// of block_agg; the histogram's integer adds commute, so it is the same
+// on every run and equal to the plain version's.
 //
 // The histogram bins on the LOGICAL grid: inv_width = nbins / (b - a)
 // over the nbins the caller asked for. (The TPU kernel is called with
@@ -24,21 +24,25 @@
 // What bounds it on an H100: bytes. Per row 12 B are read once (value,
 // group, mask) and the histogram is written once (4 B a cell: at the
 // main path's G = 2800 and 1024 bins, 11.5 MB, about 3.4 us at
-// 3.35 TB/s, against 0.8 MB of rows). The kernel writes that histogram
-// three times (zeroing, atomics, the in-place pass to float32); at small
-// G the fold's add chains dominate, as in block_agg.
+// 3.35 TB/s, against 0.8 MB of rows). The walk owns the histogram
+// (block_agg.cuh, group_walk_kernel<true>): each CTA counts its groups'
+// rows in shared memory and writes its cells once, as float32, so the
+// histogram is written once, with no memset before it and no pass after
+// it: two launches a call, like block_agg. At small G the fold's add
+// chains dominate, as in block_agg.
 //
 // Counts are exact: a bin of one call holds at most budget * block_rows
 // rows, far below 2^24.
 
 #include "block_agg.cuh"
-#include "hist_bin.cuh"
 
-// As repro_block_agg, plus `hist`: (G, nbins) float32, written as uint32
-// counts during the pass and turned into float32 in place at the end.
-// `hist_a` and `inv_width` are the grid's lower end and nbins / (b - a),
-// both float32. Returns cudaGetLastError() after the launches (0 on
-// success).
+// As repro_block_agg, plus the histogram: `hist` is (G, nbins) float32,
+// every cell written by the call (added to when the lanes are folded in
+// chunks: the first chunk writes). `hist_a` and `inv_width` are the
+// grid's lower end and nbins / (b - a), both float32. A walk CTA counts
+// a slice of the bins of its groups in shared memory, as hist_plan
+// (block_agg.cuh) cuts them. Returns cudaGetLastError() after the
+// launches (0 on success).
 extern "C" int repro_fused_fold(const float* values, const int* gids,
                                 const float* mask, const int* blk,
                                 const int* tvalid, int budget,
@@ -47,19 +51,22 @@ extern "C" int repro_fused_fold(const float* values, const int* gids,
                                 float* sums, float* vmin, float* vmax,
                                 float* hist, int nbins, float hist_a,
                                 float inv_width, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (nbins < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long cells = static_cast<long long>(num_groups) * nbins;
-  unsigned* counts = reinterpret_cast<unsigned*>(hist);
-  err = cudaMemsetAsync(counts, 0, cells * sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = launch_fold<true>(values, gids, mask, blk, tvalid, budget,
-                                   block_rows, num_groups, center,
-                                   chunk_lanes, lane_mode, scratch, sums,
-                                   vmin, vmax, counts, nbins, hist_a,
-                                   inv_width, device, stream);
-  if (rc != 0) return rc;
-  return static_cast<int>(launch_counts_to_float(counts, cells, s));
+  return launch_fold<true>(values, gids, mask, blk, tvalid, budget,
+                           block_rows, num_groups, center, chunk_lanes,
+                           lane_mode, scratch, sums, vmin, vmax,
+                           HistOut{hist, nbins, hist_a, inv_width, 0, 0},
+                           device, stream);
+}
+
+// The walk's histogram plan at `nbins` bins in lane or warp mode, for
+// tests: out = {slice_bins, slices, stride, counter bytes a CTA, the
+// walk's static shared bytes, the shared bytes a CTA may take}.
+extern "C" void repro_fused_fold_plan(int nbins, int lane_mode, int* out) {
+  const HistPlan hp = hist_plan(nbins, lane_mode != 0);
+  out[0] = hp.slice_bins;
+  out[1] = hp.slices;
+  out[2] = hp.stride;
+  out[3] = hp.smem_bytes;
+  out[4] = kWalkStaticSmem;
+  out[5] = kSmemPerCta;
 }

@@ -1,5 +1,6 @@
 // hist_bin.cuh: the DKW histogram's binning rule and integer counting,
-// shared by grouped_hist.cu and fused_fold.cu.
+// shared by grouped_hist.cu and fused_fold.cu (whose walk, in
+// block_agg.cuh, counts in shared memory and writes float32 itself).
 //
 // A row with value v lands in bin
 //
@@ -46,7 +47,8 @@ __device__ __forceinline__ void warp_count(unsigned* counts, unsigned cell) {
   }
 }
 
-// In place: each uint32 count becomes the float32 of the same value.
+// In place: each uint32 count becomes the float32 of the same value
+// (grouped_hist's last pass).
 __global__ void counts_to_float_kernel(unsigned* counts,
                                        long long n) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +

@@ -4,9 +4,12 @@ The Hopper counterpart of :func:`repro.kernels.fused_scan.fused_fold`:
 the moments and extremes of :mod:`.block_agg` plus the per-group DKW
 histogram of the same rows, in one pass over the selected blocks of the
 ``(nb, block_rows)`` slabs. The moments are bit for bit those of
-``block_agg`` (the same row-order walk); the histogram counts rows with
-integer atomics, so it is the same on every run and equal to the plain
-version's. Bins are on the LOGICAL ``nbins``-bin grid over ``[a, b]``
+``block_agg`` (the same row-order walk); the walk's CTAs count their
+groups' rows with integer adds in shared memory and write each
+histogram cell once (the source sizes their counters from ``nbins``,
+cutting the bins into slices where they do not fit), so the
+histogram is the same on every run and equal to the plain version's.
+Bins are on the LOGICAL ``nbins``-bin grid over ``[a, b]``
 (:func:`repro_torch.kernels.ref.hist_bins_ref`).
 
 This wrapper only launches: it takes CUDA tensors and raises on anything
@@ -49,7 +52,8 @@ def fused_fold(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
     inv_width = float(nbins) / max(float(b) - float(a), 1e-30)
     rc = _build.library().repro_fused_fold(
         *fl.args(center), hist.data_ptr(), nbins, float(a), inv_width,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_fold launch")
     fused_fold.launches += 1
     return (*fl.outs, hist)

@@ -4,9 +4,8 @@ The port of the per-round part of :mod:`repro.kernels.fused_scan`. One
 call of :func:`fused_round` runs, over device-resident column slabs:
 
     order[pos : pos+window] ──> static_ok ──┐
-    bitmap.words[window]  ──bitmap_active───┴─> flags ──cumsum──> take mask
-                                                           │         │
-                                                      new_pos   block ids
+    bitmap.words[window]  ──────probe───────┴─> flags ──rank──> new_pos,
+                                                         lanes' block ids
                                                                      │
                      MomentState delta (+ hist delta)  <──fold───────┘
 
@@ -19,15 +18,18 @@ end). The fold then sees exactly the rows the per-block path would fold,
 in the same order; padding lanes point at block 0 with ``tvalid`` False
 and fold with mask 0.
 
-On the card the fold is the ``block_agg`` CUDA kernel or, when the
-round also folds the Anderson/DKW histogram, the ``fused_fold`` kernel
-(the same moments plus the histogram in one pass). Both gather the
-selected blocks themselves, so the ``(budget, block_rows)`` gather is
-never materialised; on the CPU the fold is the plain version over the
-gathered rows.
-Nothing in a round reads a device value back on the host: the cursor
-``pos`` comes in as a host int (the host knows it from the last sync) and
-the selection is cumsum / argmax / scatter arithmetic.
+On the card the round is two kernels: the round head
+(:func:`repro_torch.kernels.ops.round_select`: window, prefilter, probe,
+selection and the lanes' block ids in one launch) and the fold, the
+``block_agg`` CUDA kernel or, when the round also folds the Anderson/DKW
+histogram, the ``fused_fold`` kernel (the same moments plus the
+histogram in one pass). Both folds gather the selected blocks
+themselves, so the ``(budget, block_rows)`` gather is never
+materialised. On the CPU the head is the plain sequence (probe, cumsum
+/ argmax selection, scatter of the lanes) and the fold the plain version
+over the gathered rows. Nothing in a round reads a device value back on
+the host: the cursor ``pos`` comes in as a host int (the host knows it
+from the last sync).
 
 The device-resident loop (``build_query_loop``) and the multi-query
 round are later slices of the port.
@@ -59,44 +61,6 @@ def _fold(values, gids, mask, blk, tvalid, center, a, b, num_groups,
     return kops.moments_from_sums(sums, vmin, vmax, center), hist
 
 
-def _budget_select(flags: torch.Tensor, pos: int, nb: int, window: int,
-                   budget: int):
-    """Budgeted selection, replicating the reference cursor bit for bit:
-    take the first ``budget`` flagged blocks; the cursor cut is one past
-    the budget-th selected block, else the (limit-clamped) window end.
-    Returns ``(take mask over the window, new_pos (device scalar),
-    inclusive flag count per position)``."""
-    csum = torch.cumsum(flags.to(torch.int32), 0)
-    take = flags & (csum <= budget)
-    n_sel = csum[window - 1]
-    # argmax over an int tensor: the first maximal index, like jnp.argmax
-    # over the bool mask in the reference
-    cut = torch.argmax(((csum == budget) & flags).to(torch.int32))
-    covered = torch.where(n_sel >= budget, cut + 1, min(window, nb - pos))
-    return take, pos + covered, csum
-
-
-def _gather_blocks(take: torch.Tensor, csum: torch.Tensor, win: torch.Tensor,
-                   window: int, budget: int):
-    """Selected window positions -> padded block ids + padding-lane mask
-    + window position per lane, with no host sync (the reference's
-    ``jnp.nonzero(take, size=budget, fill_value=window)``): the k-th taken
-    position scatters to lane k, every other position to a spare lane
-    that is dropped. Padding lanes point at block 0 with ``tvalid`` False
-    and ``take_idx`` = window."""
-    dev = take.device
-    lane = torch.where(take, csum - 1, budget).to(torch.int64)
-    take_idx = torch.full((budget + 1,), window, dtype=torch.int64,
-                          device=dev)
-    take_idx.scatter_(0, lane, torch.arange(window, dtype=torch.int64,
-                                            device=dev))
-    take_idx = take_idx[:budget]
-    tvalid = take_idx < window
-    blk = torch.where(tvalid, win[torch.clamp(take_idx, max=window - 1)],
-                      torch.zeros((), dtype=win.dtype, device=dev))
-    return blk, tvalid, take_idx
-
-
 def fused_round(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
                 words: torch.Tensor, order_pad: torch.Tensor,
                 static_ok: torch.Tensor, pos: int,
@@ -126,19 +90,9 @@ def fused_round(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
     static / activity verdicts the host needs for taint and skip
     accounting, and the advanced cursor (a device scalar).
     """
-    dev = order_pad.device
-    offs = torch.arange(window, dtype=torch.int64, device=dev)
-    in_range = (pos + offs) < nb
-    win = order_pad[pos:pos + window]
-    ok = static_ok[win] & in_range
-    if probe:
-        act = kops.active_blocks(words, active_words, win=win) > 0
-        flags = ok & act
-    else:
-        flags = ok
-
-    take, new_pos, csum = _budget_select(flags, pos, nb, window, budget)
-    blk, tvalid, _ = _gather_blocks(take, csum, win, window, budget)
+    ok, flags, new_pos, blk, tvalid = kops.round_select(
+        order_pad, static_ok, words, active_words, pos, nb=nb,
+        window=window, budget=budget, probe=probe)
     state, hist = _fold(values, gids, mask, blk, tvalid, center, a, b,
                         num_groups, nbins, use_hist)
     return state, hist, ok, flags, new_pos

@@ -5,14 +5,14 @@ backend with ``impl=`` (Pallas, interpreter or oracle), the port picks by
 where the tensors live:
 
   * CUDA tensors -> the hand-written kernel (``block_agg``,
-    ``fused_fold``, ``grouped_hist``, ``bitmap_active``,
-    ``selective_scan``, ``selective_scan_bwd``), which launches or raises;
-    there is no fallback;
+    ``fused_fold``, ``grouped_hist``, ``bitmap_active`` and its round
+    head ``round_select``, ``selective_scan``, ``selective_scan_bwd``),
+    which launches or raises; there is no fallback;
   * CPU tensors  -> the plain PyTorch version in :mod:`.ref`, the
     oracle the kernels are tested against.
 
-Anything else raises. The engine calls the folds and the probe once or
-twice per scan round; the Mamba1 layer's ``"pallas"`` path calls
+Anything else raises. The engine calls the round head and a fold once
+per fused scan round; the Mamba1 layer's ``"pallas"`` path calls
 :func:`selective_scan` once per layer per forward and, in training,
 :func:`selective_scan_bwd` once per layer per backward.
 """
@@ -153,6 +153,26 @@ def active_blocks(words: torch.Tensor, active_words: torch.Tensor, *,
         words = words[win]
     return _ref.active_blocks_ref(words, active_words)
 
+
+def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
+                 words: torch.Tensor, active_words: torch.Tensor, pos: int,
+                 *, nb: int, window: int, budget: int, probe: bool):
+    """The fused round's head: the cursor window of ``order_pad`` from
+    ``pos`` (a host int), its static-prefilter verdicts ``ok``, the
+    activity ``flags`` (``ok`` AND the bitmap probe of ``words`` against
+    ``active_words``; ``ok`` itself without ``probe``), the budgeted cut
+    ``new_pos`` and the fold's lanes: ``blk`` (the k-th flagged position's
+    block) and ``tvalid`` (False on padding lanes, whose ``blk`` is 0).
+    Returns ``(ok, flags, new_pos, blk, tvalid)``: bool ``(window,)``
+    twice, an int64 device scalar, int32 and bool ``(budget,)``. One
+    launch on the card; the plain sequence
+    (:func:`repro_torch.kernels.ref.round_select_ref`) on the CPU."""
+    kw = dict(nb=nb, window=window, budget=budget, probe=probe)
+    if _on_cuda(order_pad, "round_select"):
+        return _bitmap.round_select(order_pad, static_ok, words,
+                                    active_words, pos, **kw)
+    return _ref.round_select_ref(order_pad, static_ok, words, active_words,
+                                 pos, **kw)
 
 def active_blocks_multi(*args, **kwargs):
     """Per-query activity probe over a ``(Q, W)`` stack of masks."""

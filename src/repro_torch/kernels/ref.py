@@ -125,6 +125,68 @@ def active_blocks_ref(words, active_words):
     return (hit != 0).any(dim=1).to(torch.int32)
 
 
+def budget_select_ref(flags: torch.Tensor, pos: int, nb: int, window: int,
+                      budget: int):
+    """Budgeted selection, replicating the reference cursor bit for bit
+    (:func:`repro.kernels.fused_scan._budget_select`): take the first
+    ``budget`` flagged blocks; the cursor cut is one past the budget-th
+    selected block, else the (limit-clamped) window end. Returns
+    ``(take mask over the window, new_pos (device scalar), inclusive flag
+    count per position)``."""
+    csum = torch.cumsum(flags.to(torch.int32), 0)
+    take = flags & (csum <= budget)
+    n_sel = csum[window - 1]
+    # argmax over an int tensor: the first maximal index, like jnp.argmax
+    # over the bool mask in the reference
+    cut = torch.argmax(((csum == budget) & flags).to(torch.int32))
+    covered = torch.where(n_sel >= budget, cut + 1, min(window, nb - pos))
+    return take, pos + covered, csum
+
+
+def gather_blocks_ref(take: torch.Tensor, csum: torch.Tensor,
+                      win: torch.Tensor, window: int, budget: int):
+    """Selected window positions -> padded block ids + padding-lane mask
+    + window position per lane, with no host sync (the reference's
+    ``jnp.nonzero(take, size=budget, fill_value=window)``): the k-th taken
+    position scatters to lane k, every other position to a spare lane
+    that is dropped. Padding lanes point at block 0 with ``tvalid`` False
+    and ``take_idx`` = window."""
+    dev = take.device
+    lane = torch.where(take, csum - 1, budget).to(torch.int64)
+    take_idx = torch.full((budget + 1,), window, dtype=torch.int64,
+                          device=dev)
+    take_idx.scatter_(0, lane, torch.arange(window, dtype=torch.int64,
+                                            device=dev))
+    take_idx = take_idx[:budget]
+    tvalid = take_idx < window
+    blk = torch.where(tvalid, win[torch.clamp(take_idx, max=window - 1)],
+                      torch.zeros((), dtype=win.dtype, device=dev))
+    return blk, tvalid, take_idx
+
+
+def round_select_ref(order_pad, static_ok, words, active_words, pos: int, *,
+                     nb: int, window: int, budget: int, probe: bool):
+    """Plain version of :func:`repro_torch.kernels.bitmap_active.
+    round_select`, the fused round's head: the cursor window of
+    ``order_pad`` from ``pos``, its static prefilter and (with ``probe``)
+    activity verdicts, :func:`budget_select_ref` and
+    :func:`gather_blocks_ref`, as the reference's ``fused_round`` computes
+    them before its fold. Returns ``(ok (window,) bool, flags (window,)
+    bool, new_pos () int64, blk (budget,) int32, tvalid (budget,)
+    bool)``."""
+    dev = order_pad.device
+    offs = torch.arange(window, dtype=torch.int64, device=dev)
+    in_range = (pos + offs) < nb
+    win = order_pad[pos:pos + window]
+    ok = static_ok[win] & in_range
+    flags = ok
+    if probe:
+        flags = ok & (active_blocks_ref(words[win], active_words) > 0)
+    take, new_pos, csum = budget_select_ref(flags, pos, nb, window, budget)
+    blk, tvalid, _ = gather_blocks_ref(take, csum, win, window, budget)
+    return ok, flags, new_pos, blk, tvalid
+
+
 def selective_scan_ref(x, dt, b, c, a, d, h0, time_chunk: int):
     """Plain version of :func:`repro_torch.kernels.selective_scan.
     selective_scan`: the Mamba1 scan as the sequential recurrence of the

@@ -10,6 +10,8 @@ installed:
 (``--noconftest``: the suite's conftest imports JAX.)
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -20,9 +22,9 @@ from repro_torch.aqp import flights_queries as fq
 from repro_torch.core.optstop import ThresholdSide
 from repro_torch.data import flights
 from repro_torch.configs import get as get_config
-from repro_torch.kernels import (bitmap_active, block_agg, fused_fold,
-                                 fused_scan, grouped_hist, ops, ref,
-                                 selective_scan)
+from repro_torch.kernels import (_build, bitmap_active, block_agg,
+                                 fused_fold, fused_scan, grouped_hist, ops,
+                                 ref, selective_scan)
 from repro_torch.models import build as build_model
 
 pytestmark = pytest.mark.cuda
@@ -259,6 +261,127 @@ def test_fused_fold_chunked_equals_plain(cuda, monkeypatch):
     _same(got, want)
 
 
+
+def _cuda_events(fn):
+    """Run ``fn`` under ``torch.profiler`` and return the names of the
+    device activities it launched (kernels, memsets, copies)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _hist_plan(nbins, lane_mode):
+    """The fused walk's histogram plan from the kernel library:
+    ``(slice_bins, slices, stride, counter bytes a CTA, the walk's static
+    shared bytes, the shared bytes a CTA may take)``."""
+    out = (ctypes.c_int * 6)()
+    _build.library().repro_fused_fold_plan(nbins, int(lane_mode), out)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("lane_mode", [True, False], ids=["lane", "warp"])
+@pytest.mark.parametrize("nbins", [64, 100, 1024, 4096, 16384])
+def test_fused_fold_plan_fits_and_covers_every_bin(cuda, nbins, lane_mode):
+    """No walk CTA asks for more than 227 KB of shared memory; the slices
+    cover every bin once; strides are whole 16-byte words (the write-back
+    reads them as uint4); sliced bins are whole float4s of the output."""
+    slice_bins, slices, stride, smem, static, per_cta = _hist_plan(
+        nbins, lane_mode)
+    assert per_cta == 227 * 1024
+    assert smem == (32 if lane_mode else 1) * stride * 4
+    assert smem + static <= per_cta
+    assert slices * slice_bins >= nbins > (slices - 1) * slice_bins
+    assert stride >= slice_bins and stride % 4 == 0
+    if slices > 1:
+        assert slice_bins % 4 == 0
+    else:
+        assert slice_bins == nbins
+
+
+def test_fused_fold_plan_main_path_and_slicing(cuda):
+    """The engine's default 1024 bins: one slice in both modes, 128 KB of
+    counters in lane mode (one CTA an SM), 4 KB in warp mode. At 4096
+    bins a lane-mode bucket's 32 rows need three slices; a warp-mode
+    group's one row fits whole up to 55,000 bins."""
+    assert _hist_plan(1024, True)[1:4:2] == (1, 131_072)
+    assert _hist_plan(1024, False)[1:4:2] == (1, 4_096)
+    assert _hist_plan(4096, True)[1] == 3
+    assert _hist_plan(4096, False)[1] == 1
+    assert _hist_plan(55_000, False)[1] == 1
+    assert _hist_plan(55_001, False)[1] == 2
+
+
+@pytest.mark.parametrize("nbins", [64, 100, 1024, 4096])
+@pytest.mark.parametrize("G", [1, 200, 2800, 10240])
+def test_fused_fold_hist_written_once_bitwise(cuda, G, nbins):
+    """The walk owns the histogram: at the main path's 64 blocks of 1024
+    rows on skewed data (warp mode at G 1 and 200, lane mode above; at
+    4096 bins a lane-mode bucket's rows are cut into bin slices), the
+    histogram is the CPU plain version's bits, the same bits run to run,
+    and the moments block_agg's."""
+    nb, br, budget, center, a, b = 96, 1024, 64, 40.0, -20.0, 100.0
+    v, g, m = _skewed_slabs(G + nbins, nb, br, G)
+    _poison_block0(v, m)
+    blk, tvalid = _lanes(G + 3, nb, budget, 3)
+    blk[0] = 0
+    lane_mode = bool(block_agg.plan(budget, br, G)[1])
+    assert lane_mode == (G >= 2800)
+    assert (_hist_plan(nbins, lane_mode)[1] > 1) == (
+        lane_mode and nbins == 4096)
+    want = ops.grouped_fold_hist(v, g, m, G, center, a, b, nbins, blk=blk,
+                                 tvalid=tvalid)
+    args = [t.to(cuda) for t in (v, g, m)]
+    kw = dict(blk=blk.to(cuda), tvalid=tvalid.to(cuda))
+    got = ops.grouped_fold_hist(*args, G, center, a, b, nbins, **kw)
+    again = ops.grouped_fold_hist(*args, G, center, a, b, nbins, **kw)
+    moments = ops.grouped_sums(*args, G, center, **kw)
+    torch.cuda.synchronize()
+    _same(got, want)
+    assert got[3].sum().item() == want[3].sum().item()
+    for x, y in zip(got, again):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    for x, y in zip(got[:3], moments):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("cells,G,nbins", [(91, 13, 4096), (130, 2000, 100),
+                                           (130, 2000, 4096)])
+def test_fused_fold_chunked_sliced_equals_plain(cuda, monkeypatch, cells, G,
+                                                nbins):
+    """Lanes folded in chunks (a small run table) in both walk modes, with
+    the bins of a lane-mode bucket cut into slices at 4096 bins: each
+    later chunk adds its counts to the cells the first wrote."""
+    monkeypatch.setattr(block_agg, "TABLE_CELLS", cells)
+    nb, br, center = 60, 700, 870.0
+    assert block_agg.plan(24, br, G)[0] < 24
+    v, g, m = _slabs(cells + nbins, nb, br, G, False)
+    blk, tvalid = _lanes(cells + 2, nb, 24, 3)
+    want = ops.grouped_fold_hist(v, g, m, G, center, -20.0, 100.0, nbins,
+                                 blk=blk, tvalid=tvalid)
+    got = ops.grouped_fold_hist(*(t.to(cuda) for t in (v, g, m)), G,
+                                center, -20.0, 100.0, nbins,
+                                blk=blk.to(cuda), tvalid=tvalid.to(cuda))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("G", [1, 2800])
+def test_fused_fold_is_two_launches(cuda, G):
+    """One call is the sort and the walk: no memset before it, no float
+    pass after it."""
+    v, g, m = (t.to(cuda) for t in _slabs(G, 96, 1024, G, False))
+    blk, tvalid = (t.to(cuda) for t in _lanes(G + 1, 96, 64, 3))
+    run = lambda: fused_fold.fused_fold(  # noqa: E731
+        v, g, m, blk, tvalid, 40.0, -20.0, 100.0, G, 1024)
+    run()
+    names = _cuda_events(run)
+    assert len(names) == 2, names
+    assert "tile_sort_kernel" in names[0] and "group_walk_kernel" in names[1]
+
+
 def test_histogram_kernels_reject_bad_input(cuda):
     v, g, m = (t.to(cuda) for t in _slabs(0, 4, 8, 3, True))
     blk = torch.zeros(2, dtype=torch.int32, device=cuda)
@@ -287,6 +410,127 @@ def test_bitmap_active_equals_plain(cuda, W):
             got = ops.active_blocks(words.to(cuda), act.to(cuda),
                                     win=None if w is None else w.to(cuda))
             assert torch.equal(got.cpu(), want)
+
+
+
+def _head_inputs(seed, nb, W, window, scenario):
+    """Scan order (padded), static prefilter and bitmap words for the
+    round head: ``(order_pad, static_ok, words, active, pos, probe)``."""
+    rng = np.random.default_rng(seed)
+    opad = np.zeros(nb + window, np.int32)
+    opad[:nb] = rng.permutation(nb)
+    static_ok = rng.random(nb) < 0.85
+    one_bit = (np.uint64(1) << rng.integers(0, 32, (nb, W)).astype(
+        np.uint64)).astype(np.uint32)
+    words = np.where(rng.random((nb, W)) < 0.02, one_bit,
+                     np.uint32(0)).view(np.int32)
+    active = {"random": rng.integers(-2**31, 2**31, W),
+              "ones": np.full(W, -1), "zeros": np.zeros(W)}[
+        "random" if scenario in ("random", "near_end", "no_probe")
+        else scenario].astype(np.int32)
+    pos = nb - window // 3 if scenario == "near_end" else int(
+        rng.integers(0, nb - window))
+    return opad, static_ok, words, active, pos, scenario != "no_probe"
+
+
+_HEAD_CASES = ([(W, 4096, 64, "random") for W in (1, 7, 31, 32, 50, 88, 320)]
+               + [(88, 4096, 64, s) for s in ("near_end", "no_probe",
+                                              "ones", "zeros")]
+               + [(7, 4096, 1, "random"), (50, 100, 64, "random"),
+                  (32, 5000, 2000, "ones"), (320, 9000, 64, "near_end")])
+
+
+@pytest.mark.parametrize("W,window,budget,scenario", _HEAD_CASES)
+def test_round_select_equals_plain(cuda, W, window, budget, scenario):
+    """The round head's one launch equals the plain sequence on the CPU
+    bit for bit (ok, flags, new_pos, the lanes' blocks and validity),
+    and repeats its bits: windows that are not a multiple of 16 or that
+    take two passes of the last CTA's scan, a budget of one and a budget
+    the window cannot fill, the end of the scan, no probe, and all-ones /
+    all-zeros masks."""
+    nb = 20_000
+    host = _head_inputs(W * 7 + budget, nb, W, window, scenario)
+    opad, static_ok, words, active, pos, probe = host
+    kw = dict(nb=nb, window=window, budget=budget, probe=probe)
+    t = [torch.from_numpy(x) for x in (opad, static_ok, words, active)]
+    want = ops.round_select(*t, pos, **kw)
+    before = bitmap_active.round_select.launches
+    got = ops.round_select(*(x.to(cuda) for x in t), pos, **kw)
+    again = ops.round_select(*(x.to(cuda) for x in t), pos, **kw)
+    torch.cuda.synchronize()
+    assert bitmap_active.round_select.launches == before + 2
+    for x, y, z in zip(got, want, again):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x.cpu(), y) and torch.equal(x, z)
+
+
+def test_round_select_replays_in_a_cuda_graph(cuda):
+    """Captured once in a CUDA graph and replayed with the active mask
+    changed in place: the look-back's epoch lives on the card, so every
+    replay's lanes and cut are those of its own mask (a tag baked into
+    the capture would let a replay read the previous replay's counts)."""
+    nb, W, window, budget = 20_000, 88, 4096, 64
+    opad, static_ok, words, _, pos, _ = _head_inputs(5, nb, W, window,
+                                                     "random")
+    rng = np.random.default_rng(6)
+    masks = [rng.integers(-2**31, 2**31, W).astype(np.int32),
+             np.full(W, -1, np.int32),
+             np.where(rng.random(W) < 0.1, -1, 0).astype(np.int32)]
+    t = [torch.from_numpy(x) for x in (opad, static_ok, words)]
+    d = [x.to(cuda) for x in t]
+    act = torch.from_numpy(masks[0]).to(cuda)
+    kw = dict(nb=nb, window=window, budget=budget, probe=True)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):  # the look-back buffer, before capture
+        ops.round_select(*d, act, pos, **kw)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = ops.round_select(*d, act, pos, **kw)
+    for m in masks + masks[::-1]:
+        act.copy_(torch.from_numpy(m))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.round_select(*t, torch.from_numpy(m), pos, **kw)
+        for x, y in zip(out, want):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_round_select_on_a_scramble_is_one_launch(cuda):
+    """On a FLIGHTS scramble's bitmap, at the start, the middle and the
+    end of the scan: the head equals the plain sequence, makes one device
+    launch, and none of the plain sequence's cumsum / argmax / scatter
+    kernels."""
+    ds = flights.generate(n_rows=300_000, n_airports=200, n_airlines=14,
+                          seed=9)
+    sc = build_scramble(ds.columns, catalog=ds.catalog, seed=3)
+    from repro_torch.aqp.bitmap import build_bitmap, pack_mask
+    nb, window, budget = sc.n_blocks, 192, 16
+    opad = np.zeros(nb + window, np.int32)
+    opad[:nb] = np.random.default_rng(1).permutation(nb)
+    words = build_bitmap(sc, "origin").words.view(np.int32)
+    rng = np.random.default_rng(2)
+    host = [opad, rng.random(nb) < 0.9, words,
+            pack_mask(rng.random(200) < 0.05).view(np.int32)]
+    t = [torch.from_numpy(np.ascontiguousarray(x)) for x in host]
+    d = [x.to(cuda) for x in t]
+    for pos in (0, nb // 2, nb - 40, nb):
+        kw = dict(nb=nb, window=window, budget=budget, probe=True)
+        want = ops.round_select(*t, pos, **kw)
+        got = ops.round_select(*d, pos, **kw)
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y)
+    names = _cuda_events(lambda: ops.round_select(*d, 5, **kw))
+    assert len(names) == 1 and "round_head_kernel" in names[0], names
+    names = _cuda_events(lambda: fused_scan.fused_round(
+        torch.zeros((nb, 8), device=cuda),
+        torch.zeros((nb, 8), dtype=torch.int32, device=cuda),
+        torch.ones((nb, 8), device=cuda), d[2], d[0], d[1], 5, d[3], nb=nb,
+        window=window, budget=budget, center=0.0, a=0.0, b=1.0,
+        num_groups=200, nbins=64, use_hist=False, probe=True))
+    low = " ".join(names).lower()
+    assert not any(k in low for k in ("cumsum", "scan", "argmax",
+                                      "scatter")), names
 
 
 def test_fused_round_cuda_equals_cpu(cuda):
@@ -366,9 +610,11 @@ def test_engine_cuda_launches_both_kernels(cuda):
                  stop=ThresholdSide(threshold=10.0), delta=1e-6)
     block_agg.block_agg.launches = 0
     bitmap_active.active_blocks.launches = 0
+    bitmap_active.round_select.launches = 0
     FastFrame(sc, EngineConfig(round_blocks=8, lookahead_blocks=32)).run(q)
     assert block_agg.block_agg.launches > 0
     assert bitmap_active.active_blocks.launches > 0
+    assert bitmap_active.round_select.launches > 0
 
 
 def test_engine_cuda_anderson_launches_histogram_kernels(cuda):
