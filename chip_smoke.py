@@ -14,7 +14,10 @@ one JSON line:
      replaced, the probe kernel plus plain selection, timed beside it):
      bit-for-bit equality, run-to-run identical bits,
      and CUDA-event times beside the plain version's, one PyTorch library
-     call's (where one computes the same function) and the bound; the
+     call's (where one computes the same function) and the bound
+     (``grouped_hist`` also at most two CUDA launches a call and no
+     memset, read from a profiler trace, at G 1, 14 (the main path's),
+     56, 57, 200 and 2800); the
      selective scan's states (hout, hseg) bit for bit, its y and its
      backward's gradients within stated tolerances of their plain
      versions (only the order of their sums differs), bitwise run to
@@ -50,7 +53,8 @@ one JSON line:
      step the scan kernel twice a layer a microbatch (the
      forward and remat's recompute) and its backward kernel once;
   7. a ``kernels`` line: each ported kernel with its main-path launches,
-     worst difference from its plain version and times.
+     worst difference from its plain version and times (``grouped_hist``
+     at the main path's G 14, with G 2800 beside it).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and that line is not printed. Without
@@ -83,6 +87,12 @@ HIST_BINS = 1024         # EngineConfig.hist_bins' default
 # (200 airports: 7 words); airline's (14) is one word.
 PREFILTER_WORDS = 7
 HIST_ROWS = 1024 * 1024  # one exact-sweep fold: lookahead_blocks x 1024
+# grouped_hist's phase-2 groups: G 14 is the main path's (F-q2's exact
+# sweep groups by airline), 56 and 57 the last private and the first
+# bucketed cell space at 1024 bins (grouped_hist.plan), 200 and 2800 the
+# origin and (origin, airline) GROUP BYs'
+HIST_GROUPS = (1, 14, 56, 57, 200, 2800)
+HIST_PATH_GROUPS = 14
 # Coverage tolerance of an exact sweep's point estimates. Its folds are
 # lookahead_blocks x 1024 = 1M rows each, summed in float32 about the
 # catalog centre (870 for dep_delay, ~860 from most values), so a
@@ -490,12 +500,25 @@ def check_fused_fold(torch, timer, ref, kfused, kblock, G: int, exact: bool,
                 hist_d2h_pinned_ms=d2h_ms)
 
 
-def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
-                       rows: int, nbins: int, seed: int):
-    """The histogram of ``rows`` flat rows (one exact-sweep or recovery
-    fold at the defaults): bit for bit the plain version's on the CPU and
-    on the card, the same bits run to run. General data carries NaN and
-    +-inf rows, every bin edge and its float32 neighbours."""
+def cuda_activities(torch, fn):
+    """Names of the device activities (kernels, memsets, copies) that one
+    call of ``fn`` makes, from a ``torch.profiler`` trace."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def hist_inputs(torch, G: int, exact: bool, rows: int, nbins: int,
+                seed: int):
+    """``rows`` flat rows for the histogram and its grid: ``(values,
+    gids, mask, a, b)``. Exact data: integers 0..16 on [0, 16]; general
+    data: normal around 40 on FLIGHTS' [-60, 1800] with NaN and +-inf
+    rows, every bin edge and its float32 neighbours. Groups uniform, 80
+    % of the rows unmasked."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if exact:
         values = torch.randint(0, 17, (rows,), generator=gen,
@@ -520,6 +543,18 @@ def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
                          dtype=torch.int32)
     mask = (torch.rand(rows, generator=gen, device="cuda") < 0.8).to(
         torch.float32)
+    return values, gids, mask, a, b
+
+
+def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
+                       rows: int, nbins: int, seed: int):
+    """The histogram of ``rows`` flat rows (one exact-sweep or recovery
+    fold at the defaults; :func:`hist_inputs`): bit for bit the plain
+    version's on the CPU and on the card, the same bits run to run, in
+    one or two kernel launches with no memset (read from a profiler
+    trace of one call)."""
+    values, gids, mask, a, b = hist_inputs(torch, G, exact, rows, nbins,
+                                           seed)
     args = (values, gids, mask, a, b, G, nbins)
     got = khist.grouped_hist(*args)
     again = khist.grouped_hist(*args)
@@ -528,8 +563,12 @@ def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
                                     a, b, num_groups=G, nbins=nbins)
     want_dev = ref.grouped_hist_ref(values, gids, mask, a, b, num_groups=G,
                                     nbins=nbins)
-    ok = (_bits_equal(torch, got, again) and _bits_equal(torch, got, want_cpu)
-          and _bits_equal(torch, got, want_dev))
+    names = cuda_activities(torch, lambda: khist.grouped_hist(*args))
+    bitwise = (_bits_equal(torch, got, again)
+               and _bits_equal(torch, got, want_cpu)
+               and _bits_equal(torch, got, want_dev))
+    launches_ok = 1 <= len(names) <= 2 and not any(
+        "memset" in x.lower() for x in names)
     flat = gids.long() * nbins + ref.hist_bins_ref(values, a, b, nbins)
     ms = timer(lambda: khist.grouped_hist(*args))
     plain_ms = timer(lambda: ref.grouped_hist_ref(
@@ -537,7 +576,11 @@ def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
     lib_ms = timer(lambda: torch.bincount(flat, weights=mask,
                                           minlength=G * nbins))
     bound_ms, bound_by = bound(rows * 12 + G * nbins * 4, rows * 5)
-    return dict(G=G, exact_data=exact, rows=rows, nbins=nbins, ok=ok,
+    plan = khist.plan(rows, G, nbins) if hasattr(khist, "plan") else None
+    return dict(G=G, exact_data=exact, rows=rows, nbins=nbins,
+                ok=bitwise and launches_ok, bitwise=bitwise,
+                launches_ok=launches_ok, regime=plan.regime if plan else None,
+                cuda_launches=len(names), cuda_activities=names,
                 max_abs_err=_max_abs_diff(torch, got, want_cpu), ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -1136,7 +1179,7 @@ def main(argv=None) -> int:
            for G in (1, 200, 2800) for exact in (True, False)]
     hst = [check_grouped_hist(torch, timer, ref, khist, G, exact,
                               rows=HIST_ROWS, nbins=HIST_BINS, seed=G + 2)
-           for G in (1, 200, 2800) for exact in (True, False)]
+           for G in HIST_GROUPS for exact in (True, False)]
     # the falcon-mamba layer's serving shape (B 8, L 2048, d_inner 8192,
     # n 16), small uneven ones, then its training shape (B 2, L 4096)
     scn = [check_selective_scan(torch, timer, ref, kscan, *shape, seed=i)
@@ -1303,7 +1346,9 @@ def main(argv=None) -> int:
     b = next(r for r in bit if r["W"] == PREFILTER_WORDS)
     rs = next(r for r in head if r["W"] == 88)
     f = next(r for r in fus if r["G"] == 2800 and not r["exact_data"])
-    h = next(r for r in hst if r["G"] == 2800 and not r["exact_data"])
+    h = next(r for r in hst
+             if r["G"] == HIST_PATH_GROUPS and not r["exact_data"])
+    h2800 = next(r for r in hst if r["G"] == 2800 and not r["exact_data"])
     sf = scn[0]  # the falcon-mamba layer's serving shape
     sb = next(r for r in sbw  # the shape the training path gives it
               if (r["B"], r["L"], r["din"], r["n"], r["tc"])
@@ -1346,7 +1391,11 @@ def main(argv=None) -> int:
              launches=adkw["grouped_hist"],
              max_abs_err=max(r["max_abs_err"] for r in hst),
              ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
-             bound_by=h["bound_by"], library_ms=h["library_ms"]),
+             bound_by=h["bound_by"], library_ms=h["library_ms"],
+             G=h["G"], cuda_launches_per_call=h["cuda_launches"],
+             g2800=dict((k, h2800[k]) for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "cuda_launches"))),
         dict(name="selective_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/selective_scan.cu",
              replaces="src/repro/kernels/selective_scan.py:102",

@@ -2,7 +2,8 @@
 """The AQP round's kernels as they are and in variants, timed on the
 card by CUDA events and by the profiler's device spans.
 
-    python3 scripts/aqp_kernel_variants.py [--reps N]
+    python3 scripts/aqp_kernel_variants.py [--reps N] [--src DIR]
+        [--builds current,NAME,...] [--parts head,fold,flights,hist]
 
 Builds the port's kernel library from ``src/repro_torch/kernels/csrc``
 as it is (``current``) and once per variant below (one source edit
@@ -21,7 +22,19 @@ at ``chip_smoke.py``'s phase-2 shapes:
   * both folds at G 2800 on the main path's groups: 64 random blocks of
     a 2M-row FLIGHTS scramble grouped by (origin, airline), whose Zipf
     skew puts a third of the rows in one lane-mode bucket, in lane mode
-    (the plan) and forced into warp mode.
+    (the plan) and forced into warp mode;
+  * ``grouped_hist`` (1,048,576 rows, 1024 bins) at phase 2's G on its
+    general data, bit for bit against the plain version, and on the
+    first 1,048,576 rows of that scramble grouped by airline (G 14: the
+    exact sweep's F-q2) and by (origin, airline) (G 2800), dep_delay
+    over [-60, 1800] (the ``hist_bucketed_all`` build counts every cell
+    space in buckets, where the plan keeps private copies up to 57,344
+    cells).
+
+``--src`` names another source tree whose ``repro_torch`` runs (its own
+kernels, built from its ``csrc``; another commit unpacked beside this
+one, as for ``compare_aqp_trees.py``); ``--builds`` and ``--parts`` pick
+the builds and the measurements.
 
 Each time is given twice: ``chip_smoke.Timer``'s CUDA-event median (L2
 flushed before each call; it counts the launch, and the wrapper's host
@@ -83,8 +96,46 @@ DROPS = {
                      "      s_counts[i] = make_uint4(0u, 0u, 0u, 0u);", ""),
 }
 VARIANTS.update(DROPS)
+# grouped_hist counting every cell space in buckets; the wrapper's plan
+# is swapped for its bucketed regime with it
+VARIANTS["hist_bucketed_all"] = ("grouped_hist.cu",
+                                 "  if (cells <= kMaxCells) {",
+                                 "  if (false) {")
+# the wrapper's attributes that a build changes with it
+PATCHES = {"hist_bucketed_all": lambda k: {"plan": k.bucketed_plan}}
+# grouped_hist without a part, to time it (wrong results, as DROPS)
+_PRIV_COUNT = ("      if (cell[u] != kNoCell) atomicAdd(s_counts + cell[u], "
+               "1u);")
+_PRIV_REDS = "    unsigned* d = counters + 4 * i;"
+_PRIV_TAIL = "  grid_barrier(counters + kMaxCells);  // every CTA's adds are in"
+HIST_DROPS = {
+    # the private regime without its shared-memory counting
+    "hist_priv_no_count": ("grouped_hist.cu", _PRIV_COUNT,
+                           _PRIV_COUNT.replace("!=", "== 1u +")),
+    # ... without the reductions of the pooled copies into the device
+    # copy
+    "hist_priv_no_reds": ("grouped_hist.cu", _PRIV_REDS,
+                          _PRIV_REDS + "\n    c = make_uint4(0u, 0u, 0u, 0u);"),
+    # ... without the grid barrier and the float32 writes (the cluster
+    # waits for its peers' reads of its copies before it leaves)
+    "hist_priv_no_tail": ("grouped_hist.cu", _PRIV_TAIL,
+                          "  cluster.sync();\n  return;"),
+}
+VARIANTS.update(HIST_DROPS)
+# grouped_hist's row loads without the streaming hint; 1024 buckets
+VARIANTS["hist_ldg"] = ("grouped_hist.cu", "__ldcs(", "__ldg(")
+VARIANTS["hist_buckets1024"] = ("grouped_hist.cu",
+                                "constexpr int kTargetBuckets = 256;",
+                                "constexpr int kTargetBuckets = 1024;")
+PATCHES["hist_buckets1024"] = lambda k: {"TARGET_BUCKETS": 1024}
+for _k in (1, 4):  # private CTAs pooling their copies in other clusters
+    VARIANTS[f"hist_cluster{_k}"] = ("grouped_hist.cu",
+                                     "constexpr int kCluster = 2;",
+                                     f"constexpr int kCluster = {_k};")
+    PATCHES[f"hist_cluster{_k}"] = lambda k, c=_k: {"CLUSTER": c}
 HEAD_W = (1, 7, 88, 320)
 FOLD_G = (1, 200, 2800)
+PARTS = ("head", "fold", "flights", "hist")
 
 
 def build_variant(_build, name: str):
@@ -145,10 +196,12 @@ def device_spans(torch, timer, fn, reps: int):
             {k: statistics.median(v) for k, v in by_name.items()})
 
 
-def flights_fold_inputs(torch):
-    """The fused round's fold inputs for the (origin, airline) GROUP BY
-    (G 2800) on a 2M-row FLIGHTS scramble: dep_delay, the group codes,
-    the valid mask and 64 random blocks, on the card."""
+def flights_inputs(torch):
+    """On a 2M-row FLIGHTS scramble: the fused round's fold inputs for the
+    (origin, airline) GROUP BY (G 2800: dep_delay, the group codes, the
+    valid mask and 64 random blocks), and the histogram's flat inputs of
+    its first 1,048,576 rows grouped by airline (G 14) and by (origin,
+    airline) (G 2800), on the card."""
     import numpy as np
     import repro_torch.aqp as T
     from repro_torch.data import flights
@@ -158,17 +211,47 @@ def flights_fold_inputs(torch):
     gids = cols["origin"].astype(np.int64) * sc.categorical["airline"] \
         + cols["airline"]
     blk = np.random.default_rng(0).choice(sc.n_blocks, 64, replace=False)
-    host = (cols["dep_delay"].astype(np.float32), gids.astype(np.int32),
-            sc.valid.astype(np.float32), blk.astype(np.int32),
-            np.ones(64, np.int32))
-    return [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in host]
+    dev = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x)).cuda()
+    values = cols["dep_delay"].astype(np.float32)
+    valid = sc.valid.astype(np.float32)
+    fold = [dev(x) for x in (values, gids.astype(np.int32), valid,
+                             blk.astype(np.int32), np.ones(64, np.int32))]
+    rows = smoke.HIST_ROWS
+    hist = {G: [dev(x.reshape(-1)[:rows]) for x in (values, g, valid)]
+            for G, g in ((14, cols["airline"].astype(np.int32)),
+                         (2800, gids.astype(np.int32)))}
+    return fold, hist
 
 
-def measure(torch, timer, ref, kbit, kblock, kfused, reps: int,
-            flights_in) -> dict:
+def measure_hist(torch, timer, ref, khist, reps: int, flights_hist) -> dict:
     out = {}
+    nbins = smoke.HIST_BINS
+    cases = [(f"hist_G{G}", G) + smoke.hist_inputs(
+        torch, G, False, smoke.HIST_ROWS, nbins, G + 2)
+        for G in smoke.HIST_GROUPS]
+    cases += [(f"flights_hist_G{G}", G, *rows, -60.0, 1800.0)
+              for G, rows in flights_hist.items()]
+    for key, G, values, gids, mask, a, b in cases:
+        run = lambda: khist.grouped_hist(  # noqa: E731
+            values, gids, mask, a, b, G, nbins)
+        want = ref.grouped_hist_ref(values.cpu(), gids.cpu(), mask.cpu(), a,
+                                    b, num_groups=G, nbins=nbins)
+        ok = torch.equal(run().cpu(), want)
+        span, kernels = device_spans(torch, timer, run, reps)
+        out[key] = dict(ok=ok, ms=timer(run, reps), span_ms=span,
+                        kernels_ms=kernels)
+    return out
+
+
+def measure(torch, timer, ref, kbit, kblock, kfused, khist, reps: int,
+            flights_in, parts) -> dict:
+    out = {}
+    if "hist" in parts:
+        out.update(measure_hist(torch, timer, ref, khist, reps,
+                                flights_in[1]))
     nb = 97_657
-    for W in HEAD_W:
+    for W in HEAD_W if "head" in parts else ():
         order_pad, static_ok, words, actives = smoke.head_inputs(
             torch, W, nb, 4096, W + 3)
         kw = dict(nb=nb, window=4096, budget=64, probe=True)
@@ -187,7 +270,7 @@ def measure(torch, timer, ref, kbit, kblock, kfused, reps: int,
             span, kernels = device_spans(torch, timer, probe, reps)
             out["probe_W88"] = dict(ms=timer(probe, reps), span_ms=span,
                                     kernels_ms=kernels)
-    for G in FOLD_G:
+    for G in FOLD_G if "fold" in parts else ():
         values, gids, mask, blk, tvalid, center, a, b = smoke.fold_inputs(
             torch, G, False, 8192, 1024, 64, G + 1)
         args = (values, gids, mask, blk, tvalid, center, a, b, G, 1024)
@@ -208,14 +291,15 @@ def measure(torch, timer, ref, kbit, kblock, kfused, reps: int,
             out["block_agg_G2800"] = dict(ms=timer(agg, reps), span_ms=span,
                                           kernels_ms=kernels)
     lane_rows = kblock.LANE_MODE_ROWS
-    for mode, rows in (("lane", lane_rows), ("warp", 0)):
+    modes = (("lane", lane_rows), ("warp", 0)) if "flights" in parts else ()
+    for mode, rows in modes:
         kblock.LANE_MODE_ROWS = rows  # 0: warp mode at any G
         try:
             for name, fn in (
                     ("block_agg", lambda: kblock.block_agg(
-                        *flights_in, 870.0, 2800)),
+                        *flights_in[0], 870.0, 2800)),
                     ("fused_fold", lambda: kfused.fused_fold(
-                        *flights_in, 870.0, -60.0, 1800.0, 2800, 1024))):
+                        *flights_in[0], 870.0, -60.0, 1800.0, 2800, 1024))):
                 span, kernels = device_spans(torch, timer, fn, reps)
                 out[f"flights_{name}_{mode}"] = dict(
                     ms=timer(fn, reps), span_ms=span, kernels_ms=kernels)
@@ -227,20 +311,29 @@ def measure(torch, timer, ref, kbit, kblock, kfused, reps: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="source tree whose repro_torch runs")
+    ap.add_argument("--builds", default=",".join(["current", *VARIANTS]),
+                    help="comma-separated builds (default: all)")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated measurements (default: all)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("aqp_kernel_variants: needs an NVIDIA card", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(args.src.resolve()))
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitmap_active as kbit
     from repro_torch.kernels import block_agg as kblock
     from repro_torch.kernels import fused_fold as kfused
+    from repro_torch.kernels import grouped_hist as khist
     from repro_torch.kernels import ref
 
     print(smoke.nvidia_smi_line(), flush=True)
+    parts = args.parts.split(",")
     libs = {}
-    for n in ["current", *VARIANTS]:
+    for n in args.builds.split(","):
         try:
             libs[n] = build_variant(_build, n)
         except RuntimeError as err:  # a variant that does not build
@@ -250,15 +343,24 @@ def main(argv=None) -> int:
                   flush=True)
     names = list(libs)
     timer = smoke.Timer(torch)
-    flights_in = flights_fold_inputs(torch)
-    results = {n: [] for n in names}
+    flights_in = flights_inputs(torch)
     for n in names + names[::-1]:
         _build._lib = libs[n][0]
-        results[n].append(measure(torch, timer, ref, kbit, kblock, kfused,
-                                  args.reps, flights_in))
-    for n in names:
-        print(json.dumps(dict(build=n, ptxas=libs[n][1], runs=results[n])),
-              flush=True)
+        # a drop can leave the private counters dirty: each build starts
+        # from zeroed ones
+        getattr(khist, "_counters", {}).clear()
+        patch = PATCHES[n](khist) if n in PATCHES else {}
+        saved = {a: getattr(khist, a) for a in patch}
+        for a, v in patch.items():
+            setattr(khist, a, v)
+        try:
+            run = measure(torch, timer, ref, kbit, kblock, kfused, khist,
+                          args.reps, flights_in, parts)
+        finally:
+            for a, v in saved.items():
+                setattr(khist, a, v)
+        print(json.dumps(dict(build=n, src=str(args.src), ptxas=libs[n][1],
+                              runs=[run])), flush=True)
     return 0
 
 

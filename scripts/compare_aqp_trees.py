@@ -14,7 +14,9 @@ For that tree it prints the card's name and power limit as
 
   * ``kernels``: ``chip_smoke.py``'s phase-2 checks of this checkout
     (its ``Timer``: CUDA events, L2 flushed before each call) at the
-    phase-2 shapes and seeds: ``block_agg`` and ``fused_fold`` at G 1,
+    phase-2 shapes and seeds: ``grouped_hist`` at 1,048,576 rows and
+    phase 2's G (with its CUDA launches a call), ``block_agg`` and
+    ``fused_fold`` at G 1,
     200 and 2800 on general data, the ``bitmap_active`` probe at W 7
     and 88 (over the 4096-row window and over all 97,657 rows), and the
     fused round's head at W 88: the tree's ``round_select`` where it
@@ -24,7 +26,7 @@ For that tree it prints the card's name and power limit as
     F-q1..F-q9 and the G 2800 GROUP BY on one frame of ``--rows``
     FLIGHTS rows) with its rounds, wall seconds and ``StepClock``
     seconds per query and summed. Every interval must cover the numpy
-    truth, as in phase 3.
+    truth, as in phase 3 (``--kernels-only`` skips it).
 
 Needs CUDA and ``nvcc``; imports nothing of JAX.
 """
@@ -40,16 +42,23 @@ from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[1]
 KEEP = ("ok", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-        "window_ms", "window_bound_ms", "unfused_ms", "probe_ms")
+        "window_ms", "window_bound_ms", "unfused_ms", "probe_ms", "bitwise",
+        "regime", "cuda_launches")
 
 
 def pick(r: dict) -> dict:
     return {k: r[k] for k in KEEP if k in r}
 
 
-def kernel_times(torch, smoke, timer, ref, kbit, kblock, kfused,
+def kernel_times(torch, smoke, timer, ref, kbit, kblock, kfused, khist,
                  fused_scan):
     out = {}
+    for G in smoke.HIST_GROUPS:  # general data; the path's G on both
+        for exact in (False, True)[:1 + (G == smoke.HIST_PATH_GROUPS)]:
+            out[f"grouped_hist_G{G}" + "_exact" * exact] = pick(
+                smoke.check_grouped_hist(
+                    torch, timer, ref, khist, G, exact, rows=smoke.HIST_ROWS,
+                    nbins=smoke.HIST_BINS, seed=G + 2))
     for G in (1, 200, 2800):
         out[f"block_agg_G{G}"] = pick(smoke.check_block_agg(
             torch, timer, ref, kblock, G, False, nb=8192,
@@ -115,6 +124,8 @@ def main(argv=None) -> int:
                     help="source tree whose repro_torch runs")
     ap.add_argument("--rows", type=int, default=100_000_000,
                     help="FLIGHTS rows of the path (phase 3's default)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="time the kernels, skip the default-bounder path")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -133,6 +144,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import bitmap_active as kbit
     from repro_torch.kernels import block_agg as kblock
     from repro_torch.kernels import fused_fold as kfused
+    from repro_torch.kernels import grouped_hist as khist
 
     print(smoke.nvidia_smi_line(), flush=True)
     t0 = time.perf_counter()
@@ -140,15 +152,18 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     timer = smoke.Timer(torch)
     kernels = kernel_times(torch, smoke, timer, ref, kbit, kblock, kfused,
-                           fused_scan)
+                           khist, fused_scan)
     del timer
     torch.cuda.empty_cache()
-    path = bernstein_path(torch, np, smoke, T, fq, opt, flights, args.rows)
+    path = None if args.kernels_only else bernstein_path(
+        torch, np, smoke, T, fq, opt, flights, args.rows)
     print(json.dumps(dict(
         src=str(Path(repro_torch.__file__).resolve().parents[1]),
         build_s=build_s, kernels=kernels, bernstein=path)), flush=True)
-    return 0 if path["covered"] and all(
-        k.get("ok", True) for k in kernels.values()) else 1
+    # a histogram row's ok also holds the launch contract, which a tree
+    # from before it does not meet: its bits decide here
+    return 0 if (path is None or path["covered"]) and all(
+        k.get("bitwise", k.get("ok", True)) for k in kernels.values()) else 1
 
 
 if __name__ == "__main__":

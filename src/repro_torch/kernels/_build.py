@@ -42,7 +42,10 @@ _SIGNATURES = {
                           ctypes.c_float, _I, _P], _I),
     "repro_fused_fold_plan": ([_I, _I, _P], None),
     "repro_grouped_hist": ([_P, _P, _P, ctypes.c_longlong, _I, _I,
-                            ctypes.c_float, ctypes.c_float, _P, _I, _P], _I),
+                            ctypes.c_float, ctypes.c_float, _P, _P,
+                            ctypes.c_longlong, _I, _P], _I),
+    "repro_grouped_hist_plan": ([ctypes.c_longlong, _I, _I, _I, _P], None),
+    "repro_grouped_hist_resident": ([_I], _I),
     "repro_bitmap_active": ([_P, _P, _I, _I, _P, _P, _I, _P], _I),
     "repro_round_select": ([_P, _P, _P, _I, _P, ctypes.c_longlong,
                             ctypes.c_longlong, _I, _I] + [_P] * 6

@@ -1,6 +1,6 @@
-// hist_bin.cuh: the DKW histogram's binning rule and integer counting,
-// shared by grouped_hist.cu and fused_fold.cu (whose walk, in
-// block_agg.cuh, counts in shared memory and writes float32 itself).
+// hist_bin.cuh: the DKW histogram's binning rule, shared by
+// grouped_hist.cu and fused_fold.cu (whose walk, in block_agg.cuh, counts
+// in shared memory and writes float32 itself).
 //
 // A row with value v lands in bin
 //
@@ -33,39 +33,6 @@ __device__ __forceinline__ int hist_bin(float v, float a, float inv_width,
   if (isnan(t)) return 0;
   const float c = fminf(fmaxf(t, 0.f), static_cast<float>(nbins - 1));
   return __float2int_rz(c);
-}
-
-// Adds one to counts[cell] for every lane whose cell is not kNoCell. Lanes
-// with the same cell are counted by one atomic (the lowest such lane adds
-// the number of peers), so a skewed column does not serialise a warp on
-// one address. Every lane of the warp must call it.
-__device__ __forceinline__ void warp_count(unsigned* counts, unsigned cell) {
-  const unsigned peers = __match_any_sync(0xffffffffu, cell);
-  const int lane = threadIdx.x & 31;
-  if (cell != kNoCell && lane == __ffs(peers) - 1) {
-    atomicAdd(counts + cell, static_cast<unsigned>(__popc(peers)));
-  }
-}
-
-// In place: each uint32 count becomes the float32 of the same value
-// (grouped_hist's last pass).
-__global__ void counts_to_float_kernel(unsigned* counts,
-                                       long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i < n) {
-    reinterpret_cast<float*>(counts)[i] = __uint2float_rn(counts[i]);
-  }
-}
-
-inline cudaError_t launch_counts_to_float(unsigned* counts, long long n,
-                                          cudaStream_t s) {
-  if (n == 0) return cudaSuccess;
-  constexpr int kThreads = 256;
-  const long long grid = (n + kThreads - 1) / kThreads;
-  counts_to_float_kernel<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-      counts, n);
-  return cudaGetLastError();
 }
 
 }  // namespace

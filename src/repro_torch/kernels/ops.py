@@ -131,7 +131,12 @@ def grouped_hist(values: torch.Tensor, gids: torch.Tensor,
                  b: float, nbins: int = 1024) -> HistState:
     """Per-group DKW histogram -> :class:`HistState` ``(num_groups,
     nbins)``: the count of masked rows in each bin of the uniform grid
-    over ``[a, b]``, rows read flat."""
+    over ``[a, b]``, rows read flat.
+
+    The mask contract: the CUDA kernel counts a row with ``m != 0`` once,
+    while the plain version (and the JAX package's reference) adds ``m``
+    itself. The two agree on 0 / 1 masks, which is what every caller
+    passes (the engine's predicate times validity)."""
     if mask is None:
         mask = torch.ones_like(values, dtype=torch.float32)
     if _on_cuda(values, "grouped_hist"):

@@ -200,12 +200,15 @@ def _hist_rows(seed, n, G, a, b, nbins):
     return [torch.from_numpy(x) for x in (v, g, m)]
 
 
-@pytest.mark.parametrize("nbins", [100, 1024])
-@pytest.mark.parametrize("G", [1, 7, 130, 300, 2800])
+@pytest.mark.parametrize("nbins", [100, 1024, 4096])
+@pytest.mark.parametrize("G", [1, 7, 14, 56, 57, 130, 200, 300, 800, 2800,
+                               10240])
 def test_grouped_hist_bitwise_equals_plain(cuda, G, nbins):
     """Integer counts: the kernel equals the CPU plain version bit for bit
-    (shared-memory counters at small G * nbins, device-memory counters
-    above), repeats its bits and counts each launch."""
+    (private copies of every cell up to 57,344 cells, buckets of cells
+    above: each side of that threshold at every bin count, and buckets of
+    partial, whole and many histogram rows), repeats its bits and counts
+    each launch."""
     a, b = -60.0, 1800.0
     v, g, m = _hist_rows(G + nbins, 200_003, G, a, b, nbins)
     want = ops.grouped_hist(v, g, m, G, a, b, nbins=nbins).hist
@@ -218,6 +221,163 @@ def test_grouped_hist_bitwise_equals_plain(cuda, G, nbins):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got, again)
     assert got.sum().item() == m.sum().item()
+    assert grouped_hist.plan(len(v), G, nbins).regime == (
+        "private" if G * nbins <= grouped_hist.MAX_CELLS else "bucketed")
+
+
+def _grouped_hist_plan(n, G, nbins):
+    """The kernel library's plan of a call on this card (with the private
+    CTAs it holds at once), as :class:`grouped_hist.HistPlan`."""
+    out = (ctypes.c_longlong * 8)()
+    resident = _build.library().repro_grouped_hist_resident(0)
+    _build.library().repro_grouped_hist_plan(n, G, nbins, resident, out)
+    return grouped_hist.HistPlan(
+        ("private", "bucketed")[out[0]], *out[1:]), resident
+
+
+def _hist_check(v, g, m, G, nbins, a=-60.0, b=1800.0, cuda="cuda"):
+    """The kernel on the card against the plain version on the CPU (bit
+    for bit), twice (the same bits), counting every row with m != 0 and
+    a group in [0, G) (the plain version is given those rows alone: its
+    index_add_ refuses a group outside the histogram)."""
+    inside = (g >= 0) & (g < G)
+    want = ops.grouped_hist(v[inside], g[inside], m[inside], G, a, b,
+                            nbins=nbins).hist
+    args = [t.to(cuda) for t in (v, g, m)]
+    got = ops.grouped_hist(*args, G, a, b, nbins=nbins).hist
+    again = ops.grouped_hist(*args, G, a, b, nbins=nbins).hist
+    torch.cuda.synchronize()
+    assert got.shape == (G, nbins) and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert got.sum().item() == (inside & (m != 0)).sum().item()
+    return got
+
+
+@pytest.mark.parametrize("n,G,nbins", [
+    (n, G, nbins) for n in (0, 1, 200_003, 1 << 20)
+    for G in (1, 14, 56, 57, 200, 2800, 10240) for nbins in (100, 1024,
+                                                            4096)])
+def test_grouped_hist_plan_mirror(cuda, n, G, nbins):
+    """The compiled plan is grouped_hist.plan, at the private CTAs this
+    card holds at once: one an SM, 132 on an H100 (the grid barrier
+    needs them all resident)."""
+    got, resident = _grouped_hist_plan(n, G, nbins)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 0 < resident <= sms
+    if "H100" in torch.cuda.get_device_name(0):
+        assert resident == grouped_hist.H100_SMS
+    assert got == grouped_hist.plan(n, G, nbins, resident=resident)
+
+
+@pytest.mark.parametrize("G", [14, 2800])
+@pytest.mark.parametrize("n", [0, 1, 4097, 200_003, 1 << 20])
+def test_grouped_hist_row_counts(cuda, n, G):
+    """No rows (every cell written as 0), one row, a ragged stage, and
+    the engine's largest call (1,048,576 rows), in both regimes."""
+    rng = np.random.default_rng(n + G)
+    v = rng.normal(40.0, 25.0, n).astype(np.float32)
+    g = rng.integers(0, G, n).astype(np.int32)
+    m = (rng.random(n) < 0.8).astype(np.float32)
+    got = _hist_check(*(torch.from_numpy(x) for x in (v, g, m)), G, 1024)
+    if n == 0:
+        assert not got.any()
+
+
+def _flights_rows(n, G):
+    """dep_delay of synthetic FLIGHTS rows, grouped by airline (G 14, the
+    exact sweep's F-q2) or by (origin, airline) (G 2800): most rows in a
+    few dozen bins of [-60, 1800] and Zipf-skewed groups."""
+    from repro_torch.data import flights as fl
+    ds = fl.generate(n_rows=n, seed=3)
+    c = ds.columns
+    gid = c["airline"] if G == 14 else (c["origin"].astype(np.int64) * 14
+                                        + c["airline"])
+    return c["dep_delay"].astype(np.float32), gid.astype(np.int32)
+
+
+@pytest.mark.parametrize("G", [14, 2800])
+@pytest.mark.parametrize("scenario", ["all_masked", "one_cell", "flights",
+                                      "groups_out_of_range"])
+def test_grouped_hist_skewed_data(cuda, scenario, G):
+    """Every row masked (an all-zero histogram); every row in one cell
+    (one counter takes 200,003 adds); dep_delay-like skew; gids outside
+    [0, G), which count nowhere: bit for bit the CPU plain version."""
+    n = 200_003
+    rng = np.random.default_rng(len(scenario) + G)
+    v = rng.normal(40.0, 25.0, n).astype(np.float32)
+    g = rng.integers(0, G, n).astype(np.int32)
+    m = np.ones(n, np.float32)
+    if scenario == "all_masked":
+        m[:] = 0.0
+    elif scenario == "one_cell":
+        v[:], g[:] = 12.5, G // 2
+    elif scenario == "flights":
+        v, g = _flights_rows(n, G)
+        m = (rng.random(n) < 0.9).astype(np.float32)
+    else:  # outside [0, G): counted nowhere
+        g[::7] = -1
+        g[3::7] = G
+    got = _hist_check(*(torch.from_numpy(x) for x in (v, g, m)), G, 1024)
+    if scenario == "one_cell":
+        assert got[G // 2].max().item() == n
+
+
+def test_grouped_hist_misaligned_inputs(cuda):
+    """Inputs that start 4 bytes past a 16-byte boundary take the scalar
+    loads: the same bits as aligned copies of the same rows."""
+    G, nbins, n = 14, 1024, 200_003
+    v, g, m = _hist_rows(9, n + 1, G, -60.0, 1800.0, nbins)
+    dv, dg, dm = (t.to(cuda) for t in (v, g, m))
+    off = [t[1:] for t in (dv, dg, dm)]
+    assert all(t.data_ptr() % 16 == 4 for t in off)
+    got = ops.grouped_hist(*off, G, -60.0, 1800.0, nbins=nbins).hist
+    want = ops.grouped_hist(*(t[1:].clone() for t in (v, g, m)), G, -60.0,
+                            1800.0, nbins=nbins).hist
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("G,kernels", [
+    (14, ["hist_private_kernel"]), (56, ["hist_private_kernel"]),
+    (57, ["hist_sort_kernel", "hist_bucket_kernel"]),
+    (2800, ["hist_sort_kernel", "hist_bucket_kernel"])])
+def test_grouped_hist_launches(cuda, G, kernels):
+    """One call is one launch (private) or two (bucketed): no memset
+    before it, no float pass after it."""
+    v, g, m = (t.to(cuda) for t in _hist_rows(G, 1 << 20, G, -60.0, 1800.0,
+                                               1024))
+    run = lambda: grouped_hist.grouped_hist(  # noqa: E731
+        v, g, m, -60.0, 1800.0, G, 1024)
+    run()
+    names = _cuda_events(run)
+    assert len(names) == len(kernels) <= 2, names
+    for name, kernel in zip(names, kernels):
+        assert kernel in name, names
+
+
+@pytest.mark.parametrize("G", [14, 2800])
+def test_grouped_hist_replays_in_a_cuda_graph(cuda, G):
+    """Captured once in a CUDA graph and replayed with the rows changed in
+    place: each replay is the plain version of its own rows (the private
+    regime's counters and ticket return to zero on the card, the
+    bucketed regime's scratch is rewritten every call)."""
+    n, nbins = 200_003, 1024
+    rows = [_hist_rows(G + i, n, G, -60.0, 1800.0, nbins) for i in range(3)]
+    d = [t.to(cuda) for t in rows[0]]
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):  # the counters' buffer, before capture
+        ops.grouped_hist(*d, G, -60.0, 1800.0, nbins=nbins)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = ops.grouped_hist(*d, G, -60.0, 1800.0, nbins=nbins).hist
+    for r in rows + rows[::-1]:
+        for x, y in zip(d, r):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ops.grouped_hist(*r, G, -60.0, 1800.0, nbins=nbins).hist
+        assert torch.equal(out.cpu(), want)
 
 
 @pytest.mark.parametrize("exact", [True, False])

@@ -58,7 +58,7 @@ def _t(x):
 
 
 @pytest.mark.parametrize("nbins", [100, 256, 1024])
-@pytest.mark.parametrize("G", [1, 7, 130, 300])
+@pytest.mark.parametrize("G", [1, 7, 14, 130, 300])
 def test_grouped_hist_ref_bitwise_equals_reference(G, nbins):
     v, g, m = _rows(G * 7 + nbins, G, nbins)
     want = np.asarray(Rref.grouped_hist_ref(
