@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--rows N]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` (into ``build/kernels/``), then runs seven phases, each printing
+``nvcc`` (into ``build/kernels/``), then runs eight phases, each printing
 one JSON line:
 
   1. environment and build: card name and power limit (also printed raw,
@@ -34,10 +34,23 @@ one JSON line:
      and each path must have launched each of its kernels and no other
      (the launch counts are zeroed before each path and read after it);
      the host seconds of the rounds (``round_s``) are printed per query
-     and summed per path;
+     and summed per path. These run the per-round host loop
+     (``EngineConfig(device_loop=False)``), the one-sync-a-round path
+     that the device loop is held against;
+  3b. the device-resident round loop (``device_loop=True``, the
+     default) on the same frame, for the queries of both paths but the
+     exact sweep: each chunk of rounds one CUDA graph replay, captured
+     once per query after an eager chunk run under
+     ``torch.cuda.set_sync_debug_mode("error")``; scan decisions equal
+     to phase 3's host loop, CIs within atol 1e-9 / rtol 1e-12, every
+     interval covering, every chunk a replay, the round head and the
+     folds launched; rounds/s of both loops per query, host syncs, graph
+     replays, rounds a chunk, and the card's idle share a round for the
+     G 2800 GROUP BY of both bounders through both loops (a
+     ``torch.profiler`` window, ``scripts/profile_aqp_round.py``);
   4. the port on the card against the port on the CPU on a 2M-row
-     scramble, for the queries of both paths: equal scan decisions,
-     intervals within 1e-6 relative;
+     scramble, for the queries of both paths through the host loop:
+     equal scan decisions, intervals within 1e-6 relative;
   5. the Mamba1 serving path: falcon-mamba-7b at full width and depth
      (64 layers, bf16, random weights from a seed) serves 8 requests of
      2048 prompt tokens (one ``prefill``, the selective-scan kernel once
@@ -374,12 +387,16 @@ def unfused_head(torch, ref, kbit, order_pad, static_ok, words, act, pos,
                  nb, window, budget):
     """The round head as the fused round ran it before it had a kernel of
     its own: the window and prefilter in eager ops, the ``bitmap_active``
-    probe, then the plain selection (cumsum / argmax) and lane scatter."""
-    offs = torch.arange(window, dtype=torch.int64, device=order_pad.device)
-    win = order_pad[pos:pos + window]
-    ok = static_ok[win] & ((pos + offs) < nb)
-    flags = ok & (kbit.active_blocks(words, act, win) > 0)
-    take, new_pos, csum = ref.budget_select_ref(flags, pos, nb, window,
+    probe, then the plain selection (cumsum / argmax) and lane scatter,
+    from the device cursor ``pos``."""
+    dev = order_pad.device
+    win, left = ref.round_window_ref(order_pad, pos, torch.ones(
+        (), dtype=torch.bool, device=dev), nb=nb, window=window)
+    offs = torch.arange(window, dtype=torch.int64, device=dev)
+    ok = static_ok[win] & (offs < left)
+    flags = ok & (kbit.active_blocks(words, act,
+                                     win.to(torch.int32)) > 0)
+    take, new_pos, csum = ref.budget_select_ref(flags, pos, left, window,
                                                 budget)
     blk, tvalid, _ = ref.gather_blocks_ref(take, csum, win, window, budget)
     return ok, flags, new_pos, blk, tvalid
@@ -390,43 +407,59 @@ def check_round_select(torch, timer, ref, kbit, W: int, nb: int,
     """The fused round's head (one launch) against the plain sequence on
     the card and on the CPU, bit for bit, and run to run: mid-scan with
     random, all-ones and all-zeros masks, at the end of the scan (the
-    window cut by nb), without the probe, and with a budget of one.
-    Times: the kernel, the plain sequence, and the unfused head (the
-    probe kernel plus the plain selection: what the round ran before)."""
+    window cut by nb), without the probe, with a budget of one, and the
+    rounds that do not run (``go`` false; a cursor past nb), each from
+    the device cursor and ``go`` flag. Times: the kernel, the plain
+    sequence, and the unfused head (the probe kernel plus the plain
+    selection: what the round ran before)."""
     order_pad, static_ok, words, actives = head_inputs(torch, W, nb, window,
                                                        seed)
     pos = nb // 3
-    cases = [(pos, act, budget, True) for act in actives]
-    cases += [(nb - window // 3, actives[0], budget, True),
-              (pos, actives[0], budget, False), (pos, actives[0], 1, True)]
+
+    def cur(p, go=True, dev="cuda"):
+        return (torch.tensor(p, dtype=torch.int64, device=dev),
+                torch.tensor(go, device=dev))
+
+    cases = [(pos, act, budget, True, True) for act in actives]
+    cases += [(nb - window // 3, actives[0], budget, True, True),
+              (pos, actives[0], budget, False, True),
+              (pos, actives[0], 1, True, True),
+              (pos, actives[0], budget, True, False),
+              (nb + 7, actives[0], budget, True, True)]
     ok = True
-    for p, act, bud, probe in cases:
+    for p, act, bud, probe, go in cases:
         kw = dict(nb=nb, window=window, budget=bud, probe=probe)
-        got = kbit.round_select(order_pad, static_ok, words, act, p, **kw)
-        again = kbit.round_select(order_pad, static_ok, words, act, p, **kw)
-        want = ref.round_select_ref(order_pad, static_ok, words, act, p,
-                                    **kw)
+        got = kbit.round_select(order_pad, static_ok, words, act,
+                                *cur(p, go), **kw)
+        again = kbit.round_select(order_pad, static_ok, words, act,
+                                  *cur(p, go), **kw)
+        want = ref.round_select_ref(order_pad, static_ok, words, act,
+                                    *cur(p, go), **kw)
         want_cpu = ref.round_select_ref(order_pad.cpu(), static_ok.cpu(),
-                                        words.cpu(), act.cpu(), p, **kw)
+                                        words.cpu(), act.cpu(),
+                                        *cur(p, go, "cpu"), **kw)
         ok &= all(x.dtype == y.dtype and torch.equal(x, y)
                   and torch.equal(x, z) and torch.equal(x.cpu(), c)
                   for x, y, z, c in zip(got, want, again, want_cpu))
-        if probe:
+        if probe and go and p <= nb:
             old = unfused_head(torch, ref, kbit, order_pad, static_ok,
-                               words, act, p, nb, window, bud)
+                               words, act, cur(p)[0], nb, window, bud)
             ok &= all(torch.equal(x, y) for x, y in zip(got, old))
     act = actives[0]
     kw = dict(nb=nb, window=window, budget=budget, probe=True)
-    got = kbit.round_select(order_pad, static_ok, words, act, pos, **kw)
+    pos_t, go_t = cur(pos)
+    got = kbit.round_select(order_pad, static_ok, words, act, pos_t, go_t,
+                            **kw)
     torch.cuda.synchronize()
     flagged, covered = int(got[1].sum()), int(got[2]) - pos
     ms = timer(lambda: kbit.round_select(order_pad, static_ok, words, act,
-                                         pos, **kw))
+                                         pos_t, go_t, **kw))
     plain_ms = timer(lambda: ref.round_select_ref(order_pad, static_ok,
-                                                  words, act, pos, **kw))
+                                                  words, act, pos_t, go_t,
+                                                  **kw))
     unfused_ms = timer(lambda: unfused_head(torch, ref, kbit, order_pad,
-                                            static_ok, words, act, pos, nb,
-                                            window, budget))
+                                            static_ok, words, act, pos_t,
+                                            nb, window, budget))
     win = order_pad[pos:pos + window]
     probe_ms = timer(lambda: kbit.active_blocks(words, act, win))
     # read: the window's order_pad entries, static_ok bytes and words (all
@@ -823,6 +856,129 @@ DECISION_FIELDS = ("count_seen", "exact", "tainted", "rows_covered",
                    "blocks_fetched", "blocks_skipped_active",
                    "blocks_skipped_static", "bitmap_probes", "rounds",
                    "stopped_early")
+# The device loop against the host loop (the reference's contract):
+# decisions exact, CI endpoints and estimates within these
+LOOP_ATOL, LOOP_RTOL = 1e-9, 1e-12
+# the profiler window over the G 2800 GROUP BY (phase 3b): rounds traced
+# after untraced ones, through each loop
+IDLE_WARMUP_ROUNDS, IDLE_ROUNDS = 32, 64
+
+
+def _last_loop(frame):
+    """The device loop the frame's last run used (its cache's most
+    recently used entry)."""
+    return frame.device_loops[list(frame.device_loops.keys())[-1]]
+
+
+def _ci_diff(np, a_res, b_res):
+    """Largest |a - b| of the finite CI endpoints and estimates, whether
+    all are within ``LOOP_ATOL + LOOP_RTOL * |b|``, and whether the
+    finite patterns agree."""
+    worst, within, same_fin = 0.0, True, True
+    for f in ("estimate", "lo", "hi"):
+        a, b = getattr(a_res, f), getattr(b_res, f)
+        fa, fb = np.isfinite(a), np.isfinite(b)
+        same_fin &= bool(np.array_equal(fa, fb))
+        fin = fa & fb
+        if fin.any():
+            d = np.abs(a[fin] - b[fin])
+            worst = max(worst, float(d.max()))
+            within &= bool(np.all(d <= LOOP_ATOL + LOOP_RTOL
+                                  * np.abs(b[fin])))
+    return worst, within and same_fin
+
+
+def device_loop_phase(torch, np, T, sc, runs, truths, host, counters):
+    """Phase 3b: every run of ``runs`` (``(path, name, query,
+    sampling)``) through the device loop on a frame of scramble ``sc``,
+    twice (the first builds the loop and captures its graph; the second
+    only replays), held against the host loop's results ``host`` from
+    phase 3. The frame is new, as phase 3's was, so each first run finds
+    the static prefilters cached where phase 3's run did and counts the
+    same probes; the second run finds its own cached (the one field it
+    may differ from the first in). Returns ``(records, failures,
+    launches, idle, captures)``, ``captures`` the loops whose chunk was
+    captured as a graph (each after an eager chunk run under
+    ``torch.cuda.set_sync_debug_mode("error")``)."""
+    import profile_aqp_round as prof  # scripts/, on sys.path
+    frame = T.FastFrame(sc, T.EngineConfig(device_loop=True), device="cuda")
+    for c in counters.values():
+        c.launches = 0
+    records, failures = [], []
+    for path, qname, q, sampling in runs:
+        rec = dict(query=qname, path=path)
+        results = []
+        for attempt in ("first", "replay"):
+            seen = {id(v): (v.replays, v.chunks, v.syncs)
+                    for v in (frame.device_loops[k]
+                              for k in frame.device_loops.keys())}
+            t0 = time.perf_counter()
+            res = frame.run(q, sampling=sampling, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            dl = _last_loop(frame)
+            r0, c0, s0 = seen.get(id(dl), (0, 0, 0))
+            replays, chunks = dl.replays - r0, dl.chunks - c0
+            results.append(res)
+            rec[f"{attempt}_wall_s"] = wall
+            rec[f"{attempt}_rounds_per_s"] = (res.rounds / wall if wall > 0
+                                              else None)
+            rec[f"{attempt}_graph_replays"] = replays
+            rec[f"{attempt}_loop_host_syncs"] = dl.syncs - s0
+            if (dl.graph is None or chunks != replays
+                    or replays * dl.chunk < dl.last_rounds):
+                failures.append(dict(query=qname, attempt=attempt,
+                                     why="a chunk not replayed from a "
+                                         "captured graph",
+                                     chunks=chunks, replays=replays))
+        res, again = results
+        ref = host[(path, qname)]
+        diff, within = _ci_diff(np, res, ref)
+        same = [f for f in DECISION_FIELDS
+                if np.array_equal(getattr(res, f), getattr(ref, f))]
+        repeat = all(np.array_equal(getattr(res, f), getattr(again, f))
+                     for f in DECISION_FIELDS + ("estimate", "lo", "hi")
+                     if f != "bitmap_probes")
+        miss = uncovered(np, res, *truths[qname])
+        rec.update(groups=len(res.lo), rounds=res.rounds,
+                   loop_rounds=dl.last_rounds, rounds_per_chunk=dl.chunk,
+                   host_wall_s=host[(path, qname, "wall")],
+                   host_rounds_per_s=(ref.rounds / host[(path, qname, "wall")]
+                                      if host[(path, qname, "wall")] > 0
+                                      else None),
+                   host_syncs=ref.rounds,  # one packed copy a round
+                   decisions_equal=len(same) == len(DECISION_FIELDS),
+                   ci_max_abs_diff=diff, ci_within=within,
+                   replay_repeats_bits=repeat, covered=not len(miss))
+        records.append(rec)
+        if not (rec["decisions_equal"] and within and repeat
+                and not len(miss)):
+            failures.append(dict(query=qname, decisions=same,
+                                 ci_max_abs_diff=diff, repeat=repeat,
+                                 uncovered=len(miss)))
+    launches = {k: c.launches for k, c in counters.items()}
+    # the card's idle share a round, G 2800 GROUP BY, both loops
+    idle = {}
+    for path, qname, q, sampling in runs:
+        if not qname.startswith("groupby"):
+            continue
+        for loop in ("host", "device"):
+            frame.config = T.EngineConfig(device_loop=loop == "device")
+            trace = prof.trace_rounds if loop == "host" else prof.trace_chunks
+            p, wall, in_round, n = trace(torch, T.engine, frame, q,
+                                         IDLE_WARMUP_ROUNDS, IDLE_ROUNDS)
+            if n < 1:  # the query ended before the window
+                idle[f"{path}-{loop}"] = "not measured"
+                continue
+            summary = prof.summarize(torch, p, wall, in_round, n)
+            idle[f"{path}-{loop}"] = {k: summary[k] for k in (
+                "rounds_traced", "wall_ms_per_round",
+                "device_busy_ms_per_round", "device_idle_share",
+                "kernels_per_round", "memsets_per_round",
+                "copies_per_round")}
+    captures = sum(frame.device_loops[k].graph is not None
+                   for k in frame.device_loops.keys())
+    return records, failures, launches, idle, captures
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1128,7 +1284,7 @@ def main(argv=None) -> int:
               "the script from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "scripts")]
     import repro_torch.aqp as T
     from repro_torch.aqp import flights_queries as fq
     from repro_torch.core import optstop as opt
@@ -1207,7 +1363,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sc = T.build_scramble(ds.columns, catalog=ds.catalog, seed=1)
     t_scr = time.perf_counter() - t0
-    frame = T.FastFrame(sc, T.EngineConfig(), device="cuda")
+    # the per-round host loop; phase 3b runs the device loop on this frame
+    frame = T.FastFrame(sc, T.EngineConfig(device_loop=False),
+                        device="cuda")
     paths = {"bernstein": main_path_queries(T, fq, opt),
              "anderson_dkw": anderson_queries(T, fq, opt)}
     # the kernels each path must launch, and no others: every fused round
@@ -1226,8 +1384,9 @@ def main(argv=None) -> int:
                 "selective_scan": kscan.selective_scan,
                 "selective_scan_bwd": kscan.selective_scan_bwd}
     path_launches = {}
+    truths, host_results = {}, {}
     for path, runs in paths.items():
-        truths = {k: truth_of(np, ds.columns, q) for k, q, _ in runs}
+        truths.update({k: truth_of(np, ds.columns, q) for k, q, _ in runs})
         for c in counters.values():
             c.launches = 0
         t_main = time.perf_counter()
@@ -1238,6 +1397,8 @@ def main(argv=None) -> int:
                 res = frame.run(q, sampling=sampling, seed=0)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+                host_results[(path, qname)] = res
+                host_results[(path, qname, "wall")] = wall
                 rtol = EXACT_SWEEP_RTOL if sampling == "exact" else 1e-4
                 miss = uncovered(np, res, *truths[qname], rtol=rtol)
                 if len(miss):
@@ -1285,14 +1446,42 @@ def main(argv=None) -> int:
             raise AssertionError(f"{path}: kernels of the path never "
                                  f"launched {idle}, or kernels off the "
                                  f"path launched {stray}: {launches}")
-    del frame, sc, ds
+
+    # ---- 3b. the device-resident round loop on the same frame -------------
+    t0 = time.perf_counter()
+    loop_runs = [(path, qname, q, sampling)
+                 for path, runs in paths.items()
+                 for qname, q, sampling in runs if sampling != "exact"]
+    del frame  # phase 3b builds its own, from the same scramble
+    torch.cuda.empty_cache()
+    records, failures, launches, idle, captures = device_loop_phase(
+        torch, np, T, sc, loop_runs, truths, host_results, counters)
+    path_launches["device_loop"] = launches
+    emit(dict(phase="device_loop", card=name, power_limit=power_limit,
+              rows=args.rows, blocks=sc.n_blocks,
+              rounds_per_chunk=T.engine.GRAPH_CHUNK_ROUNDS,
+              sync_checked_captures=captures,
+              launches=launches, idle_share_g2800=idle,
+              host_loop_rounds=sum(r["rounds"] for r in records),
+              graph_replays=sum(r["first_graph_replays"]
+                                + r["replay_graph_replays"]
+                                for r in records),
+              phase_s=time.perf_counter() - t0, queries=records))
+    if failures:
+        raise AssertionError(f"device loop: {failures}")
+    idle_k = [k for k in ("round_select", "block_agg", "fused_fold")
+              if launches[k] == 0]
+    if idle_k:
+        raise AssertionError(f"device loop: kernels never launched "
+                             f"{idle_k}: {launches}")
+    del sc, ds
     torch.cuda.empty_cache()
 
     # ---- 4. the port on the card against the port on the CPU ----------------
     ds = flights.generate(n_rows=CPU_ROWS, seed=0)
     sc = T.build_scramble(ds.columns, catalog=ds.catalog, seed=1)
-    f_gpu = T.FastFrame(sc, T.EngineConfig(), device="cuda")
-    f_cpu = T.FastFrame(sc, T.EngineConfig(), device="cpu")
+    f_gpu = T.FastFrame(sc, T.EngineConfig(device_loop=False), device="cuda")
+    f_cpu = T.FastFrame(sc, T.EngineConfig(device_loop=False), device="cpu")
     compare, mismatch = [], []
     for qname, q, sampling in paths["bernstein"] + paths["anderson_dkw"]:
         r_g = f_gpu.run(q, sampling=sampling, seed=0)
@@ -1360,6 +1549,7 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/block_agg.cu",
              replaces="src/repro/kernels/block_agg.py:92",
              launches=launches["block_agg"],
+             device_loop_launches=path_launches["device_loop"]["block_agg"],
              max_abs_err=max(r["max_abs_err"] for r in agg),
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
              bound_by=a["bound_by"], library_ms=a["library_ms"]),
@@ -1374,6 +1564,7 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/bitmap_active.cu",
              replaces="src/repro/kernels/bitmap_active.py:40",
              launches=launches["round_select"],
+             device_loop_launches=path_launches["device_loop"]["round_select"],
              max_abs_err=max(r["max_abs_err"] for r in head),
              ms=rs["ms"], plain_ms=rs["plain_ms"], bound_ms=rs["bound_ms"],
              bound_by=rs["bound_by"], library_ms=None,
@@ -1382,6 +1573,7 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/fused_fold.cu",
              replaces="src/repro/kernels/fused_scan.py:148",
              launches=adkw["fused_fold"],
+             device_loop_launches=path_launches["device_loop"]["fused_fold"],
              max_abs_err=max(r["max_abs_err"] for r in fus),
              ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
              bound_by=f["bound_by"], library_ms=f["library_ms"]),

@@ -256,10 +256,14 @@ def measure(torch, timer, ref, kbit, kblock, kfused, khist, reps: int,
             torch, W, nb, 4096, W + 3)
         kw = dict(nb=nb, window=4096, budget=64, probe=True)
         pos = nb // 3
+        # the device cursor and go flag where the tree's head takes them
+        cursor = ((torch.tensor(pos, dtype=torch.int64, device="cuda"),
+                   torch.ones((), dtype=torch.bool, device="cuda"))
+                  if hasattr(ref, "round_window_ref") else (pos,))
         run = lambda: kbit.round_select(  # noqa: E731
-            order_pad, static_ok, words, actives[0], pos, **kw)
+            order_pad, static_ok, words, actives[0], *cursor, **kw)
         want = ref.round_select_ref(order_pad, static_ok, words, actives[0],
-                                    pos, **kw)
+                                    *cursor, **kw)
         ok = all(torch.equal(x, y) for x, y in zip(run(), want))
         span, kernels = device_spans(torch, timer, run, reps)
         out[f"head_W{W}"] = dict(ok=ok, ms=timer(run, reps), span_ms=span,

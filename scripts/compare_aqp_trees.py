@@ -78,12 +78,18 @@ def kernel_times(torch, smoke, timer, ref, kbit, kblock, kfused, khist,
     order_pad, static_ok, words, actives = smoke.head_inputs(
         torch, 88, nb, window, 88 + 3)
     act, pos = actives[0], nb // 3
-    head = dict(unfused_ms=timer(lambda: smoke.unfused_head(
-        torch, sel, kbit, order_pad, static_ok, words, act, pos, nb, window,
-        budget)))
+    head = {}
+    if hasattr(sel, "round_window_ref"):  # a tree with the device cursor
+        cursor = (torch.tensor(pos, dtype=torch.int64, device="cuda"),
+                  torch.ones((), dtype=torch.bool, device="cuda"))
+        head["unfused_ms"] = timer(lambda: smoke.unfused_head(
+            torch, sel, kbit, order_pad, static_ok, words, act, cursor[0],
+            nb, window, budget))
+    else:
+        cursor = (pos,)
     if hasattr(kbit, "round_select"):
         head["ms"] = timer(lambda: kbit.round_select(
-            order_pad, static_ok, words, act, pos, nb=nb, window=window,
+            order_pad, static_ok, words, act, *cursor, nb=nb, window=window,
             budget=budget, probe=True))
     out["round_head_W88"] = head
     return out
@@ -92,7 +98,8 @@ def kernel_times(torch, smoke, timer, ref, kbit, kblock, kfused, khist,
 def bernstein_path(torch, np, smoke, T, fq, opt, flights, rows: int):
     ds = flights.generate(n_rows=rows, seed=0)
     sc = T.build_scramble(ds.columns, catalog=ds.catalog, seed=1)
-    frame = T.FastFrame(sc, T.EngineConfig(), device="cuda")
+    # the per-round host loop in every tree (StepClock times its steps)
+    frame = T.FastFrame(sc, T.EngineConfig(device_loop=False), device="cuda")
     runs = smoke.main_path_queries(T, fq, opt)
     truths = {k: smoke.truth_of(np, ds.columns, q) for k, q, _ in runs}
     queries, misses = [], []

@@ -3,18 +3,24 @@
 
     python3 scripts/profile_aqp_round.py [--rows N] [--src DIR]
                                          [--warmup W] [--rounds K]
+                                         [--loop host|device|both]
 
 Runs the G = 2800 GROUP BY of ``chip_smoke.py``'s phase 3 (AVG dep_delay
-by (origin, airline) over FLIGHTS, ``ThresholdSide(10)``, default
-``EngineConfig``, ``active_peek``) on the card, once with the default
-bounder and once with Anderson/DKW, and traces ``K`` rounds of each with
-``torch.profiler`` after ``W`` untraced ones: from the start of round
-``W`` to the start of round ``W + K``, so the window holds whole round
-cycles (the fused round, the host's merge and bound math). The query is
-then cut short. For each bounder it prints one JSON line: host-clock
-milliseconds a round (all of it, and inside the fused round), the card's
-busy time a round (the union of its activities' intervals) and its idle
-share, and device activities a round: kernel launches, memsets and
+by (origin, airline) over FLIGHTS, ``ThresholdSide(10)``, ``active_peek``)
+on the card, with the default bounder and with Anderson/DKW, through the
+per-round host loop (``EngineConfig(device_loop=False)``) and through
+the device-resident loop (``device_loop=True``, a CUDA graph replay a
+chunk of rounds), and traces each with ``torch.profiler``. The host loop:
+``K`` rounds after ``W`` untraced ones, from the start of round ``W`` to
+the start of round ``W + K``, so the window holds whole round cycles (the
+fused round, the host's merge and bound math); the query is then cut
+short. The device loop: from the end of chunk ``ceil(W / chunk)`` to the
+end of ``ceil(K / chunk)`` chunks later (each chunk a replay and the
+host's one read after it), after which the query runs to its end. For
+each bounder and loop it prints one JSON line: host-clock milliseconds a
+round (all of it, and inside the fused round for the host loop), the
+card's busy time a round (the union of its activities' intervals) and its
+idle share, and device activities a round: kernel launches, memsets and
 copies, with the kernels counted and their device time summed by name.
 
 ``--src`` names the source tree whose ``repro_torch`` runs (default:
@@ -105,6 +111,45 @@ def trace_rounds(torch, engine, frame, query, warmup: int, rounds: int):
     return (prof, state["t1"] - state["t0"], state["in_round"], traced_n)
 
 
+def trace_chunks(torch, engine, frame, query, warmup: int, rounds: int):
+    """Run ``query`` through the device-resident loop and trace whole
+    chunks (graph replays and the host read after each) from the end of
+    chunk ``ceil(warmup / chunk)`` on, over ``ceil(rounds / chunk)``
+    chunks; the graph is captured by a first, untraced run. Returns
+    (profiler, host seconds of the window, None, rounds traced)."""
+    frame.run(query, sampling="active_peek", seed=0)  # build and capture
+    chunk = (frame.config.sync_every or frame.config.chunk_rounds
+             or engine.GRAPH_CHUNK_ROUNDS)
+    first = -(-warmup // chunk)
+    last = first + -(-rounds // chunk)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    state = dict(n=0, t0=None, t1=None, r0=0, r1=0)
+
+    def on_sync(snap):
+        state["n"] += 1
+        if state["n"] == first:
+            torch.cuda.synchronize()
+            prof.start()
+            state["t0"], state["r0"] = time.perf_counter(), snap["rounds"]
+        elif state["n"] == last:
+            torch.cuda.synchronize()
+            state["t1"], state["r1"] = time.perf_counter(), snap["rounds"]
+            prof.stop()
+
+    res = frame.run(query, sampling="active_peek", seed=0, on_sync=on_sync)
+    if state["t0"] is None:
+        raise RuntimeError(f"the query ran {state['n']} chunks, fewer than "
+                           f"the {first} untraced ones")
+    if state["t1"] is None:  # the query ended inside the window
+        torch.cuda.synchronize()
+        state["t1"], state["r1"] = time.perf_counter(), res.rounds
+        prof.stop()
+    return (prof, state["t1"] - state["t0"], None,
+            state["r1"] - state["r0"])
+
+
 def summarize(torch, prof, wall_s: float, in_round_s: float, n: int,
               **extra) -> dict:
     spans, kinds = [], collections.Counter()
@@ -123,9 +168,12 @@ def summarize(torch, prof, wall_s: float, in_round_s: float, n: int,
     busy_ms = busy_us(spans) / 1e3
     wall_ms = wall_s * 1e3
     return dict(rounds_traced=n, wall_ms_per_round=wall_ms / n,
-                fused_round_host_ms_per_round=in_round_s * 1e3 / n,
+                fused_round_host_ms_per_round=(
+                    None if in_round_s is None else in_round_s * 1e3 / n),
                 device_busy_ms_per_round=busy_ms / n,
-                device_idle_share=1.0 - busy_ms / wall_ms,
+                # no device activity in the trace: not measured
+                device_idle_share=(1.0 - busy_ms / wall_ms if spans
+                                   else None),
                 kernels_per_round=kinds["kernel"] / n,
                 memsets_per_round=kinds["memset"] / n,
                 copies_per_round=kinds["copy"] / n,
@@ -145,6 +193,8 @@ def main(argv=None) -> int:
                     help="source tree whose repro_torch runs")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--loop", choices=("host", "device", "both"),
+                    default="both")
     args = ap.parse_args(argv)
 
     import torch
@@ -162,20 +212,25 @@ def main(argv=None) -> int:
     print(smoke.nvidia_smi_line(), flush=True)
     ds = flights.generate(n_rows=args.rows, seed=0)
     sc = T.build_scramble(ds.columns, catalog=ds.catalog, seed=1)
-    frame = T.FastFrame(sc, T.EngineConfig(), device="cuda")
+    frame = T.FastFrame(sc, T.EngineConfig(device_loop=False),
+                        device="cuda")
+    loops = ("host", "device") if args.loop == "both" else (args.loop,)
     for bounder in ("bernstein", "anderson_dkw"):
         kw = ({} if bounder == "bernstein"
               else dict(bounder="anderson_dkw", rangetrim=False))
         q = T.AggQuery(agg="avg", column="dep_delay",
                        group_by=("origin", "airline"),
                        stop=opt.ThresholdSide(threshold=10.0), **kw)
-        prof, wall, in_round, n = trace_rounds(torch, engine, frame, q,
-                                               args.warmup, args.rounds)
-        print(json.dumps(summarize(
-            torch, prof, wall, in_round, n, bounder=bounder, groups=2800,
-            rows=args.rows, blocks=sc.n_blocks,
-            src=str(Path(repro_torch.__file__).resolve().parents[1]))),
-            flush=True)
+        for loop in loops:
+            frame.config = T.EngineConfig(device_loop=loop == "device")
+            trace = trace_rounds if loop == "host" else trace_chunks
+            prof, wall, in_round, n = trace(torch, engine, frame, q,
+                                            args.warmup, args.rounds)
+            print(json.dumps(summarize(
+                torch, prof, wall, in_round, n, bounder=bounder, loop=loop,
+                groups=2800, rows=args.rows, blocks=sc.n_blocks,
+                src=str(Path(repro_torch.__file__).resolve().parents[1]))),
+                flush=True)
     return 0
 
 

@@ -1,7 +1,7 @@
 """FastFrame query engine: OptStop rounds + active scanning over a scramble.
 
-The port of :mod:`repro.aqp.engine`, per-round host loop. Per round
-(Algorithm 5 at block granularity, §4.2/§4.3):
+The port of :mod:`repro.aqp.engine`. Per round (Algorithm 5 at block
+granularity, §4.2/§4.3):
   1. advance the scan cursor through the shuffled block order, using the
      static predicate bitmap and the (group-bitmap AND active-mask) probe
      to *skip* blocks that cannot help any active view;
@@ -26,11 +26,24 @@ Steps 1–2 have two implementations sharing the same semantics:
     materialization in between — the oracle the fused path is tested
     against.
 
+Steps 1–4 run in one of two loops:
+
+  * **device-resident** (default, ``EngineConfig.device_loop``): the
+    whole round — scan, fold, float64 merge, accounting, CI refresh
+    (the ``*_device`` bound twins) and stop test — is enqueued on the
+    device with no host sync (:func:`repro_torch.kernels.fused_scan.
+    build_query_loop`); on the card each chunk of rounds is one captured
+    CUDA graph, replayed, and the host reads one scalar a chunk
+    (:class:`_DeviceLoop`);
+  * **per-round host loop** (``device_loop=False``): the host syncs once
+    per round and runs the float64 merge and bound math in numpy — the
+    tolerance oracle of the device loop.
+
 The frame's device is explicit: ``FastFrame(scramble, device=None)`` runs
 on the card (``"cuda"``) and raises when there is none, unless the caller
-asks for ``device="cpu"``, where every kernel is its plain PyTorch version.
-All bound math is float64 numpy on the host, exactly as the reference's
-host loop does it, so the port needs no 64-bit switch.
+asks for ``device="cpu"``, where every kernel is its plain PyTorch version
+(and the device loop's chunks run eagerly). Torch always has float64, so
+the port needs no 64-bit switch.
 
 Soundness bookkeeping beyond the paper's prose (as in the reference):
   * ``tainted`` views: a view that occurred in an *activity-skipped* block
@@ -47,7 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,11 +72,15 @@ from repro_torch.aqp.scramble import Scramble
 from repro_torch.core import count_sum
 from repro_torch.core.bounders import get_bounder
 from repro_torch.core.lru import LRUCache
-from repro_torch.core.optstop import delta_schedule
-from repro_torch.core.state import (MomentState, StatsBatch,
+from repro_torch.core.optstop import delta_schedule, delta_schedule_device
+from repro_torch.core.state import (DevStatsBatch, MomentState, StatsBatch,
                                     init_moments_host, merge_hist_host,
-                                    merge_moments_host, to_host)
+                                    merge_moments_host, require_x64, to_host,
+                                    x64_enabled)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import bitmap_active as kbitmap
+from repro_torch.kernels import block_agg as kblock
+from repro_torch.kernels import fused_fold as kfold
 from repro_torch.kernels import fused_scan as kfused
 from repro_torch.kernels import ops as kops
 
@@ -94,8 +111,33 @@ def _batched_view_ci(q: AggQuery, sb: StatsBatch, a, b, r, R, dk,
     return slo, shi, sb.mean * (sb.count / max(r, 1)) * R
 
 
+def _view_ci_device(q: AggQuery, sb: DevStatsBatch, a, b, r, R, dk,
+                    known_n, bounder, alpha):
+    """Tensor twin of :func:`_batched_view_ci`: the same CI refresh in
+    device float64, with ``r`` (clean-prefix rows) and ``dk`` (the
+    round's delta) as device scalars — the per-round bound evaluation of
+    the device-resident loop."""
+    if q.agg == "count":
+        clo, chi = count_sum.count_ci_device(sb.count, r, R, dk)
+        return clo, chi, sb.count / torch.clamp(r, min=1.0) * R
+    if known_n:
+        alo, ahi = bounder.interval_batch_device(sb, a, b, R, dk)
+    else:
+        budget = dk if q.agg == "avg" else dk / 2.0
+        npl = count_sum.n_plus_device(sb.count, r, R, (1 - alpha) * budget)
+        alo, ahi = bounder.interval_batch_device(sb, a, b, npl,
+                                                 alpha * budget)
+    if q.agg == "avg":
+        return alo, ahi, sb.mean
+    # SUM = COUNT x AVG (paper §4.1)
+    cci = count_sum.count_ci_device(sb.count, r, R, dk / 2.0)
+    slo, shi = count_sum.sum_ci_device(cci, (alo, ahi))
+    return slo, shi, sb.mean * (sb.count / torch.clamp(r, min=1.0)) * R
+
+
 def _exact_estimate(q: AggQuery, counts, means, R):
-    """Vectorized point estimate over fully-covered views."""
+    """Vectorized point estimate over fully-covered views (elementwise:
+    numpy arrays or tensors)."""
     if q.agg == "avg":
         return means
     if q.agg == "count":
@@ -131,9 +173,28 @@ class EngineConfig:
             :func:`repro_torch.kernels.fused_scan.fused_round` (one round
             of kernels + one host sync per round); ``False`` runs the
             per-block reference path. Results are identical either way.
-        device_loop: the device-resident round loop. Not ported yet:
-            ``None`` and ``False`` run the per-round host loop, ``True``
-            raises ``NotImplementedError``.
+        device_loop: keep the *whole* round loop device-resident — fold,
+            float64 state merge, CI refresh (the ``*_device`` bound twins)
+            and stop test are enqueued with no host sync; on the card a
+            chunk of rounds is one captured CUDA graph, replayed, and the
+            host reads one scalar a chunk (:class:`_DeviceLoop`). Requires
+            ``fused=True``. ``None`` (default) resolves to ``fused``
+            (torch always has float64, where the reference also needs its
+            64-bit switch); ``False`` forces the per-round host loop (the
+            tolerance oracle). Scan decisions, folds, coverage, soundness
+            flags and scan metrics match the host loop exactly; CI
+            endpoints and estimates agree to <= 1e-9 (libm against the
+            device's transcendentals and reduction orders).
+        chunk_rounds: OptStop rounds a chunk enqueues (one CUDA graph
+            replay on the card). ``None`` takes
+            :data:`GRAPH_CHUNK_ROUNDS`, where the reference runs until
+            the stop in one dispatch: a replay cannot branch on a device
+            value, so a chunk always holds a fixed number of rounds, and
+            rounds after the stop inside it change nothing. Chunking
+            changes dispatch granularity only, never results.
+        sync_every: host-sync (and ``on_sync`` streaming callback)
+            cadence in rounds for the device loop; takes precedence over
+            ``chunk_rounds`` as the chunk size.
         mat_cache_entries: LRU capacity of EACH of the frame's three
             device materialization caches (value columns, predicate
             masks, group-code columns). Every entry pins one full
@@ -150,7 +211,10 @@ class EngineConfig:
     hist_bins: int = 1024
     alpha: float = _ALPHA
     fused: bool = True              # fused scan round (vs per-block)
-    device_loop: Optional[bool] = None  # device-resident loop (later slice)
+    device_loop: Optional[bool] = None  # device-resident round loop
+                                    # (None = on iff fused)
+    chunk_rounds: Optional[int] = None  # rounds per device-loop chunk
+    sync_every: Optional[int] = None    # host-sync / streaming cadence
     mat_cache_entries: int = 32     # LRU cap per device materialization
                                     # cache (each entry pins one full
                                     # (n_blocks, block_rows) buffer)
@@ -169,18 +233,22 @@ class EngineConfig:
                 "the mesh-sharded scan (shard_rows / mesh_shape / "
                 "merge_every > 1) is not ported yet: it comes with the "
                 "sharded-scan slice of the port (torch.distributed)")
-        self.resolve_device_loop()
+        for name in ("chunk_rounds", "sync_every"):
+            v = getattr(self, name)
+            if v is not None and v < 1:
+                raise ValueError(f"EngineConfig({name}={v}) must be >= 1 "
+                                 "(or None)")
 
     def resolve_device_loop(self) -> bool:
-        """Whether the device-resident round loop is in effect: never, in
-        this slice of the port."""
-        if self.device_loop:
-            raise NotImplementedError(
-                "EngineConfig(device_loop=True): the device-resident round "
-                "loop is not ported yet (it comes with the device-loop "
-                "slice of the port); device_loop=None or False runs the "
-                "per-round host loop")
-        return False
+        """Whether the device-resident round loop is in effect, with the
+        guard applied for an explicit ``device_loop=True``."""
+        if self.device_loop is None:
+            return self.fused and x64_enabled()
+        if self.device_loop and not self.fused:
+            raise ValueError(
+                "EngineConfig(device_loop=True) requires fused=True: the "
+                "device-resident loop is built on the fused scan round")
+        return bool(self.device_loop)
 
 
 class _ScanViews:
@@ -405,9 +473,14 @@ class _FusedScan:
         self.order_pad = frame._put(opad)
         self.static_ok = frame._put(static_ok)
         self._dummy_active = frame._put(np.zeros(words.shape[1], np.int32))
+        # the cursor on the device: each round's new_pos is the next
+        # round's pos, so nothing is uploaded for it
+        self._pos = torch.zeros((), dtype=torch.int64, device=frame.device)
+        self._go = torch.ones((), dtype=torch.bool, device=frame.device)
 
-    def round(self, pos: int, active_words):
-        """One fused round from cursor ``pos``. Returns host-side
+    def round(self, active_words):
+        """One fused round from the device cursor (the last round's
+        ``new_pos``; 0 at the start). Returns host-side
         ``(moment_delta, hist_delta, ok, flags, new_pos)``
         (``hist_delta`` is None without the histogram).
 
@@ -421,10 +494,11 @@ class _FusedScan:
         aw = active_words if active_words is not None else self._dummy_active
         state, hist, ok, flags, new_pos = kfused.fused_round(
             self.values, self.gids, self.mask, self.words, self.order_pad,
-            self.static_ok, pos, aw, nb=self.nb, window=self.window,
-            budget=self.budget, center=self.center, a=self.a, b=self.b,
-            num_groups=self.G, nbins=self.nbins, use_hist=self.use_hist,
-            probe=self.probe)
+            self.static_ok, self._pos, aw, go=self._go, nb=self.nb,
+            window=self.window, budget=self.budget, center=self.center,
+            a=self.a, b=self.b, num_groups=self.G, nbins=self.nbins,
+            use_hist=self.use_hist, probe=self.probe)
+        self._pos = new_pos
         if self._hist_host is not None:
             hist = self._hist_host.copy_(hist, non_blocking=True)
         parts = (ok, flags, new_pos, *state)
@@ -435,6 +509,311 @@ class _FusedScan:
         hdelta = None if hist is None else hist.numpy()
         return (delta, hdelta, host[:w] > 0, host[w:2 * w] > 0,
                 int(host[2 * w]))
+
+
+def _make_device_refresh(q: AggQuery, qci: _QueryIntervals,
+                         a: float, b: float, use_hist: bool, R: float,
+                         valid: torch.Tensor) -> Callable:
+    """Build the per-round CI-refresh + stop-test closure for one query:
+    the tensor twin of ``_QueryIntervals.refresh`` + ``collapse_exact`` +
+    ``update_active``, with the query's static configuration (bounder,
+    delta schedule, stopping condition, ``valid`` mask on the device)
+    baked in. Passed as ``refresh_fn`` to
+    :func:`repro_torch.kernels.fused_scan.build_query_loop`. A view's CI
+    is computed for every lane and kept where the host would have
+    refreshed it, so nothing is subset on the host."""
+    bounder = qci.bounder
+    delta_view = qci.delta_view
+    known_n = qci.known_n
+    alpha = qci.cfg.alpha
+    stop = q.stop
+
+    def refresh_fn(k, r, state, hist, tainted, exact, lo, hi, est,
+                   refreshed, active):
+        counts = state.count  # f64 in the loop carry
+        dk = delta_schedule_device(delta_view, k)
+        refresh = ~tainted & (counts > 0) & (active | ~refreshed)
+        sb = DevStatsBatch.from_state(state, hist if use_hist else None)
+        glo, ghi, gest = _view_ci_device(q, sb, a, b, r, R, dk, known_n,
+                                         bounder, alpha)
+        lo = torch.where(refresh, torch.maximum(lo, glo), lo)
+        hi = torch.where(refresh, torch.minimum(hi, ghi), hi)
+        est = torch.where(refresh, gest, est)
+        refreshed = refreshed | refresh
+        full = exact & (counts > 0)
+        ex = _exact_estimate(q, counts, state.mean, R)
+        lo = torch.where(full, ex, lo)
+        hi = torch.where(full, ex, hi)
+        est = torch.where(full, ex, est)
+        active = (stop.active_device(lo, hi, est, counts, valid)
+                  & ~exact & valid)
+        return lo, hi, est, refreshed, active
+
+    return refresh_fn
+
+
+def _host_copy(x, dtype=None) -> np.ndarray:
+    """Writable host copy of a tensor on any device (or of an array): the
+    host bookkeeping mutates its arrays in place."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.array(x, dtype=dtype)
+
+
+def _restore_views_from_carry(slot: _ScanViews, state: MomentState, hist,
+                              processed, seen_presence, tainted, exact,
+                              blocks_fetched, metrics: Dict[str, int],
+                              skipped_static, skipped_active) -> None:
+    """Copy a device-loop carry's shared fold / coverage / soundness state
+    back into a host-side :class:`_ScanViews` + metrics dict, so the
+    recovery pass and result construction run the host loop's own code
+    on identical state."""
+    slot.state = MomentState(*(_host_copy(f, np.float64) for f in state))
+    if slot.use_hist:
+        slot.hist = _host_copy(hist, np.float64)
+    slot.processed = _host_copy(processed, bool)
+    slot.seen_presence = _host_copy(seen_presence, np.int64)
+    slot.tainted = _host_copy(tainted, bool)
+    slot.exact = _host_copy(exact, bool)
+    slot.blocks_fetched = int(blocks_fetched)
+    metrics["skipped_static"] += int(skipped_static)
+    metrics["skipped_active"] += int(skipped_active)
+
+
+#: Rounds of one device-loop chunk (one CUDA graph replay on the card)
+#: when neither ``EngineConfig.chunk_rounds`` nor ``sync_every`` is set.
+#: The reference runs until the stop in one dispatch; a graph replay
+#: cannot branch on a device value, so the port replays chunks of this
+#: many rounds and reads one scalar after each. Rounds after the stop
+#: inside a chunk run their kernels on nothing and change no state, so
+#: results do not depend on it; it trades those idle rounds (a few ms at
+#: most) against one host sync and one replay launch per chunk.
+GRAPH_CHUNK_ROUNDS = 16
+
+# The kernels a device-loop chunk launches (the round head and one fold a
+# round): a graph replay launches what its capture recorded, without
+# calling their wrappers, so the loop adds each replay's launches to
+# their counts itself.
+_LOOP_KERNELS = (kbitmap.round_select, kblock.block_agg, kfold.fused_fold)
+
+
+class _DeviceLoop:
+    """Device-resident round-loop driver for one query: assembles the
+    :class:`~repro_torch.kernels.fused_scan.QueryLoopBuffers`, builds the
+    chunk function, runs chunks of ``sync_every`` / ``chunk_rounds`` /
+    :data:`GRAPH_CHUNK_ROUNDS` rounds (one scalar read on the host after
+    each), and writes the final carry back into the host-side
+    :class:`_ScanViews` / :class:`_QueryIntervals` (one packed copy) so
+    the recovery pass and result construction are the code the host loop
+    uses.
+
+    On the card the first run captures one chunk as a
+    ``torch.cuda.CUDAGraph`` over static carry tensors, after one eager
+    chunk on a copy of the carry on the capture stream (which makes the
+    round head's look-back buffer outside the capture, and is checked
+    under ``torch.cuda.set_sync_debug_mode("error")``: the enqueue must
+    not sync); each chunk is then one replay. A failed capture raises:
+    there is no eager or host-loop fallback. The instance is cached on
+    the frame (``FastFrame.device_loops``) and owns its graph and the
+    graph's memory pool, which go with it when the cache evicts it. On
+    the CPU the same chunk function runs eagerly."""
+
+    def __init__(self, frame: "FastFrame", q: AggQuery, slot: _ScanViews,
+                 qci: _QueryIntervals, probe: bool, lookahead: int,
+                 max_rounds: int):
+        cfg = frame.config
+        nb = frame.scramble.n_blocks
+        cover_cap = cfg.round_blocks * cfg.cover_cap_factor
+        window = _round_window(nb, lookahead, cover_cap)
+        dev = frame.device
+        self.device = dev
+        self.nb = nb
+        self.G = slot.G
+        self.use_hist = slot.use_hist
+        self.nbins = cfg.hist_bins
+        self.chunk = cfg.sync_every or cfg.chunk_rounds or GRAPH_CHUNK_ROUNDS
+        words = (slot.group_bm.words if probe
+                 else np.zeros((1, 1), np.uint32))
+        # run-independent buffers; order_pad / cum_rows are refilled in
+        # place by set_order (a captured graph reads them where they are)
+        self.bufs = kfused.QueryLoopBuffers(
+            values=frame._device_values(slot.value_src),
+            gids=frame._device_gids(slot.gcol),
+            mask=frame._device_mask(q.filters),
+            words=frame._put(words.view(np.int32)),
+            order_pad=torch.zeros(nb + window, dtype=torch.int32,
+                                  device=dev),
+            static_ok=frame._put(slot.static_ok),
+            presence=frame._put(slot.presence),
+            presence_total=frame._put(slot.presence_total.astype(np.int32)),
+            cum_rows=torch.zeros(nb, dtype=torch.int64, device=dev))
+        refresh_fn = _make_device_refresh(
+            q, qci, slot.a, slot.b, qci.use_hist, float(qci.R),
+            frame._put(slot.valid))
+        self._chunk_fn, self._cond = kfused.build_query_loop(
+            nb=nb, window=window, budget=cfg.round_blocks,
+            center=float(slot.center), a=float(slot.a), b=float(slot.b),
+            num_groups=slot.G, nbins=cfg.hist_bins, use_hist=slot.use_hist,
+            probe=probe, n_words=words.shape[1], lookahead=lookahead,
+            cover_cap=cover_cap, max_rounds=max_rounds, chunk=self.chunk,
+            refresh_fn=refresh_fn)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._static: Optional[kfused.QueryLoopCarry] = None
+        self._replay_launches: Tuple[int, ...] = ()
+        self.chunks = 0    # chunks run on a query's carry
+        self.replays = 0   # of which graph replays
+        self.syncs = 0     # host reads of the loop's state
+        self.last_rounds = 0  # rounds the last run's loop took
+
+    def set_order(self, order: np.ndarray, cum_rows: np.ndarray) -> None:
+        """Install this run's scan order (the only run-dependent input)."""
+        self.bufs.order_pad[:self.nb].copy_(
+            torch.from_numpy(order.astype(np.int32)))
+        self.bufs.cum_rows.copy_(torch.from_numpy(cum_rows.astype(np.int64)))
+
+    def init_carry(self, slot: _ScanViews,
+                   qci: _QueryIntervals) -> kfused.QueryLoopCarry:
+        """Fresh carry from the (just-initialized) host-side state."""
+        dev = self.device
+        f64 = lambda x: torch.as_tensor(np.asarray(x, np.float64),
+                                        device=dev)
+        put = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+        i64 = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+        return kfused.QueryLoopCarry(
+            pos=i64(0), rounds=i64(0), it=i64(0),
+            live=torch.tensor(True, device=dev),
+            stopped_early=torch.tensor(False, device=dev),
+            state=MomentState(*(f64(f) for f in slot.state)),
+            hist=f64(slot.hist) if self.use_hist else None,
+            processed=put(slot.processed),
+            seen_presence=put(slot.seen_presence.astype(np.int32)),
+            tainted=put(slot.tainted), exact=put(slot.exact),
+            lo=f64(qci.lo), hi=f64(qci.hi), est=f64(qci.est),
+            refreshed=put(qci.refreshed), active=put(qci.active),
+            blocks_fetched=i64(slot.blocks_fetched),
+            skipped_static=i64(0), skipped_active=i64(0), probes=i64(0))
+
+    def _done(self, c: kfused.QueryLoopCarry,
+              on_sync: Optional[Callable]) -> bool:
+        """The one host read after a chunk: whether the loop is over
+        (``~live | pos >= nb | rounds >= max_rounds``), with the snapshot
+        ``on_sync`` streams packed into the same copy."""
+        head = [(~self._cond(c)).to(torch.float64), c.rounds, c.pos, c.live]
+        parts = [t.reshape(1).to(torch.float64) for t in head]
+        if on_sync is not None:
+            parts += [c.lo, c.hi, c.est]
+        host = torch.cat(parts).cpu().numpy()
+        self.syncs += 1
+        if on_sync is not None:
+            G = self.G
+            on_sync(dict(rounds=int(host[1]), pos=int(host[2]),
+                         lo=host[4:4 + G].copy(),
+                         hi=host[4 + G:4 + 2 * G].copy(),
+                         est=host[4 + 2 * G:].copy(),
+                         live=bool(host[3])))
+        return bool(host[0])
+
+    def run(self, carry: kfused.QueryLoopCarry,
+            on_sync: Optional[Callable] = None) -> kfused.QueryLoopCarry:
+        """Run chunks until the loop terminates; after each the host reads
+        one packed scalar (plus the streaming snapshot for ``on_sync``
+        subscribers)."""
+        require_x64("the device-resident round loop", *carry.state,
+                    carry.hist, carry.lo, carry.hi, carry.est)
+        if self.device.type == "cuda":
+            return self._run_graph(carry, on_sync)
+        while True:
+            carry = self._chunk_fn(self.bufs, carry)
+            self.chunks += 1
+            if self._done(carry, on_sync):
+                return carry
+
+    def _run_graph(self, carry, on_sync):
+        if self.graph is None:
+            self._capture(carry)
+        else:
+            for dst, src in zip(kfused.carry_leaves(self._static),
+                                kfused.carry_leaves(carry)):
+                dst.copy_(src)
+        while True:
+            self.graph.replay()
+            for k, n in zip(_LOOP_KERNELS, self._replay_launches):
+                k.launches += n
+            self.replays += 1
+            self.chunks += 1
+            if self._done(self._static, on_sync):
+                return self._static
+
+    def _capture(self, carry: kfused.QueryLoopCarry) -> None:
+        """Capture one chunk as a CUDA graph whose replay advances the
+        static carry (``carry``'s own tensors) in place."""
+        clone = kfused.QueryLoopCarry(*(
+            MomentState(*(t.clone() for t in f))
+            if isinstance(f, MomentState) else None if f is None
+            else f.clone() for f in carry))
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        mode = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(stream):
+            torch.cuda.set_sync_debug_mode("error")
+            try:  # warm-up: the same enqueue, on a copy, must not sync
+                self._chunk_fn(self.bufs, clone)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        before = tuple(k.launches for k in _LOOP_KERNELS)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = self._chunk_fn(self.bufs, carry)
+            for dst, src in zip(kfused.carry_leaves(carry),
+                                kfused.carry_leaves(out)):
+                dst.copy_(src)
+        # the capture launched nothing: what it recorded runs per replay
+        self._replay_launches = tuple(
+            k.launches - n for k, n in zip(_LOOP_KERNELS, before))
+        for k, n in zip(_LOOP_KERNELS, before):
+            k.launches = n
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self.graph = graph
+        self._static = carry
+
+    def writeback(self, carry: kfused.QueryLoopCarry, slot: _ScanViews,
+                  qci: _QueryIntervals,
+                  metrics: Dict[str, int]) -> Tuple[int, int, bool]:
+        """Copy the final carry into the host-side bookkeeping in one
+        packed device-to-host copy (float64 holds every field exactly);
+        after this, recovery / result construction run the host loop's
+        code on identical state. Returns ``(pos, rounds,
+        stopped_early)``."""
+        G, nb = self.G, self.nb
+        scalars = [carry.pos, carry.rounds, carry.stopped_early,
+                   carry.blocks_fetched, carry.skipped_static,
+                   carry.skipped_active, carry.probes]
+        vectors = [*carry.state, carry.seen_presence, carry.tainted,
+                   carry.exact, carry.lo, carry.hi, carry.est,
+                   carry.refreshed, carry.active, carry.processed]
+        if self.use_hist:
+            vectors.append(carry.hist)
+        host = torch.cat([t.reshape(-1).to(torch.float64)
+                          for t in scalars + vectors]).cpu().numpy()
+        self.syncs += 1
+        (pos, rounds, stopped_early, blocks_fetched, skipped_static,
+         skipped_active, probes) = (int(v) for v in host[:7])
+        self.last_rounds = rounds
+        cols = host[7:7 + 13 * G].reshape(13, G)
+        processed = host[7 + 13 * G:7 + 13 * G + nb] > 0
+        hist = (host[7 + 13 * G + nb:].reshape(G, self.nbins)
+                if self.use_hist else None)
+        _restore_views_from_carry(
+            slot, MomentState(*cols[:5]), hist, processed, cols[5],
+            cols[6] > 0, cols[7] > 0, blocks_fetched, metrics,
+            skipped_static, skipped_active)
+        metrics["probes"] += probes
+        qci.lo = _host_copy(cols[8], np.float64)
+        qci.hi = _host_copy(cols[9], np.float64)
+        qci.est = _host_copy(cols[10], np.float64)
+        qci.refreshed = cols[11] > 0
+        qci.active = cols[12] > 0
+        return pos, rounds, bool(stopped_early)
 
 
 class FastFrame:
@@ -468,6 +847,10 @@ class FastFrame:
         self._dev_masks = LRUCache(cap)
         self._dev_values = LRUCache(cap)
         self._dev_gids = LRUCache(cap)
+        # device-resident round loops (each with its captured CUDA graph
+        # on the card), keyed by the query's static identity: a repeat
+        # query replays its graph instead of building and capturing anew
+        self.device_loops = LRUCache(cap)
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """Copy a host array to the frame's device."""
@@ -791,7 +1174,8 @@ class FastFrame:
 
     def run(self, q: AggQuery, sampling: str = "active_peek",
             start_block: Optional[int] = None, seed: int = 0,
-            max_rounds: int = 100_000) -> QueryResult:
+            max_rounds: int = 100_000,
+            on_sync: Optional[Callable] = None) -> QueryResult:
         """Execute one aggregate query.
 
         Args:
@@ -807,6 +1191,12 @@ class FastFrame:
             seed: RNG seed for the scan start (numpy ``default_rng``, as
                 the reference draws it).
             max_rounds: hard cap on OptStop rounds (safety valve).
+            on_sync: optional streaming callback for the device-resident
+                loop: called after every chunk (every
+                ``EngineConfig.sync_every`` rounds, or every chunk of
+                :data:`GRAPH_CHUNK_ROUNDS` when unset) with a dict
+                snapshot (``rounds``, ``pos``, ``lo``, ``hi``, ``est``,
+                ``live``). Ignored by the host loop and exact mode.
 
         Returns:
             :class:`~repro_torch.aqp.query.QueryResult` with per-group
@@ -819,7 +1209,6 @@ class FastFrame:
         nb = sc.n_blocks
         rng = np.random.default_rng(seed)
         exact_mode = (sampling == "exact") or (q.stop is None)
-        cfg.resolve_device_loop()
 
         # scan order: random start, wrap around (paper §5.2)
         start = (rng.integers(nb) if start_block is None else start_block)
@@ -839,6 +1228,26 @@ class FastFrame:
         lookahead = (cfg.sync_lookahead_blocks if sampling == "active_sync"
                      else cfg.lookahead_blocks)
         cover_cap = cfg.round_blocks * cfg.cover_cap_factor
+
+        if not exact_mode and cfg.resolve_device_loop():
+            # ---- device-resident round loop: chunks of rounds enqueued
+            # with no host sync (a CUDA graph replay each on the card),
+            # one scalar read per chunk, one packed writeback at the end
+            probe = skipping and slot.group_bm is not None
+            key = ("run", q.scan_signature(), q.agg, q.bounder,
+                   q.rangetrim, q.delta, repr(q.stop), probe, lookahead,
+                   max_rounds, cfg.sync_every or cfg.chunk_rounds)
+            dloop = self.device_loops.get_or_build(
+                key, lambda: _DeviceLoop(self, q, slot, qci, probe,
+                                         lookahead, max_rounds))
+            dloop.set_order(order, cum_rows)
+            carry = dloop.run(dloop.init_carry(slot, qci), on_sync)
+            pos, rounds, stopped_early = dloop.writeback(carry, slot, qci,
+                                                         metrics)
+            rounds = self._recovery_pass(slot, [qci], rounds, max_rounds)
+            qci.collapse_exact()
+            return qci.result(rounds, pos, cum_rows, metrics, t0,
+                              stopped_early)
 
         active_words = (self._active_words(qci.active)
                         if slot.gcol is not None else None)
@@ -862,7 +1271,7 @@ class FastFrame:
             elif fscan is not None:
                 # fused: one round of kernels + one host sync per round
                 upd, hupd, ok_w, flags_w, new_pos = fscan.round(
-                    pos, active_words)
+                    active_words)
                 idx = self._fused_accounting(
                     order, pos, new_pos, ok_w, flags_w, slot.presence,
                     slot.tainted, lookahead, cfg.round_blocks, cover_cap,

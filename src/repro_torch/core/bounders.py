@@ -24,6 +24,15 @@ Conventions (Definition 1):
 All bounders satisfy the *dataset-size monotonicity* property (§3.3): using
 any N' >= N only loosens the bounds, so the engine may pass the Theorem-3
 upper bound ``N+`` when the true N is unknown.
+
+Every bounder also has a float64 tensor twin of the batch path
+(``lbound_batch_device`` / ``rbound_batch_device`` /
+``interval_batch_device`` over a
+:class:`repro_torch.core.state.DevStatsBatch`), the port of the
+reference's ``*_device`` twins: the same formulas on the card, with
+``delta`` allowed to be a device scalar, so the device-resident round
+loop refreshes CIs without a host sync. The twins refuse a batch that is
+not float64 (:func:`repro_torch.core.state.require_x64`).
 """
 
 from __future__ import annotations
@@ -33,8 +42,10 @@ import math
 from typing import Tuple, Union
 
 import numpy as np
+import torch
 
-from repro_torch.core.state import Stats, StatsBatch
+from repro_torch.core.state import (DevStatsBatch, Stats, StatsBatch,
+                                    as_f64, require_x64)
 
 __all__ = [
     "Bounder",
@@ -70,6 +81,37 @@ def _rho_bardenet(m: np.ndarray, N: ArrayLike) -> np.ndarray:
     low = np.maximum(1.0 - (m - 1.0) / Ns, 0.0)
     high = np.maximum((1.0 - m / Ns) * (1.0 + 1.0 / np.maximum(m, 1.0)), 0.0)
     return np.where(N > 0, np.where(m <= Ns / 2.0, low, high), 1.0)
+
+
+def _rho_serfling_device(m: torch.Tensor, N) -> torch.Tensor:
+    """Tensor twin of :func:`_rho_serfling`."""
+    N = as_f64(N, m)
+    rho = torch.clamp(1.0 - (m - 1.0) / torch.where(N > 0, N, 1.0), min=0.0)
+    return torch.where(N > 0, rho, 1.0)
+
+
+def _rho_bardenet_device(m: torch.Tensor, N) -> torch.Tensor:
+    """Tensor twin of :func:`_rho_bardenet`."""
+    N = as_f64(N, m)
+    Ns = torch.where(N > 0, N, 1.0)
+    low = torch.clamp(1.0 - (m - 1.0) / Ns, min=0.0)
+    high = torch.clamp((1.0 - m / Ns) * (1.0 + 1.0 / torch.clamp(m, min=1.0)),
+                       min=0.0)
+    return torch.where(N > 0, torch.where(m <= Ns / 2.0, low, high), 1.0)
+
+
+def _log_ratio(c: float, delta, like: torch.Tensor) -> torch.Tensor:
+    """``log(c / delta)`` for a Python number or device scalar ``delta``,
+    as a float64 tensor on ``like``'s device. The quotient is a tensor
+    division: torch computes a Python number over a tensor as a
+    reciprocal times the number, an ulp away from the host's ``c /
+    delta``."""
+    return torch.log(as_f64(c, like) / as_f64(delta, like))
+
+
+def _require_f64(s: DevStatsBatch) -> None:
+    require_x64("the device bound math", s.count, s.mean, s.m2, s.vmin,
+                s.vmax, s.hist)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +157,38 @@ class Bounder:
         return (self.lbound_batch(s, a, b, N, delta / 2.0),
                 self.rbound_batch(s, a, b, N, delta / 2.0))
 
+    # -- device (float64 tensor) twins of the batch path ---------------------
+    def _lbound_batch_device(self, s: DevStatsBatch, a, b, N,
+                             delta) -> torch.Tensor:
+        raise NotImplementedError
+
+    def lbound_batch_device(self, s: DevStatsBatch, a, b, N,
+                            delta) -> torch.Tensor:
+        """Tensor twin of :meth:`lbound_batch` over a device-resident
+        :class:`DevStatsBatch`. The host path's all-empty short-circuit
+        becomes elementwise selection (dead lanes yield the a-priori
+        bound either way), so nothing is read back on the host."""
+        _require_f64(s)
+        a_arr = as_f64(a, s.count).expand(s.count.shape)
+        lb = self._lbound_batch_device(s, a, b, N, delta)
+        lb = torch.maximum(lb, a_arr)
+        return torch.where(s.count > 0, lb, a_arr)
+
+    def rbound_batch_device(self, s: DevStatsBatch, a, b, N,
+                            delta) -> torch.Tensor:
+        """Tensor twin of :meth:`rbound_batch` (reflection trick)."""
+        _require_f64(s)
+        a_arr = as_f64(a, s.count).expand(s.count.shape)
+        b_arr = as_f64(b, s.count).expand(s.count.shape)
+        lb = self._lbound_batch_device(s.reflect(a, b), a, b, N, delta)
+        rb = torch.minimum((a_arr + b_arr) - lb, b_arr)
+        return torch.where(s.count > 0, rb, b_arr)
+
+    def interval_batch_device(self, s: DevStatsBatch, a, b, N, delta
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self.lbound_batch_device(s, a, b, N, delta / 2.0),
+                self.rbound_batch_device(s, a, b, N, delta / 2.0))
+
     # -- scalar API: size-1 wrappers over the batch path ---------------------
     def lbound(self, s: Stats, a: float, b: float, N: float,
                delta: float) -> float:
@@ -140,9 +214,15 @@ class HoeffdingBounder(Bounder):
     has_phos: bool = True
     name: str = "hoeffding"
 
-    def _lbound_batch(self, s, a, b, N, delta):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def _lbound_batch(self, s, a, b, N, delta):
         rng = np.asarray(b, np.float64) - np.asarray(a, np.float64)
         eps = rng * np.sqrt(math.log(1.0 / delta) / (2.0 * s.count))
+        return s.mean - eps
+
+    def _lbound_batch_device(self, s, a, b, N, delta):
+        rng = as_f64(b, s.count) - as_f64(a, s.count)
+        eps = rng * torch.sqrt(_log_ratio(1.0, delta, s.count)
+                               / (2.0 * s.count))
         return s.mean - eps
 
 
@@ -154,11 +234,19 @@ class HoeffdingSerflingBounder(Bounder):
     has_phos: bool = True
     name: str = "hoeffding_serfling"
 
-    def _lbound_batch(self, s, a, b, N, delta):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def _lbound_batch(self, s, a, b, N, delta):
         m = s.count
         rho = _rho_serfling(m, N)
         rng = np.asarray(b, np.float64) - np.asarray(a, np.float64)
         eps = rng * np.sqrt(math.log(1.0 / delta) * rho / (2.0 * m))
+        return s.mean - eps
+
+    def _lbound_batch_device(self, s, a, b, N, delta):
+        m = s.count
+        rho = _rho_serfling_device(m, N)
+        rng = as_f64(b, m) - as_f64(a, m)
+        eps = rng * torch.sqrt(_log_ratio(1.0, delta, m) * rho
+                               / (2.0 * m))
         return s.mean - eps
 
 
@@ -173,12 +261,21 @@ class BernsteinSerflingBounder(Bounder):
     has_phos: bool = True
     name: str = "bernstein_serfling"
 
-    def _lbound_batch(self, s, a, b, N, delta):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def _lbound_batch(self, s, a, b, N, delta):
         m = s.count
         rho = _rho_bardenet(m, N)
         log_t = math.log(3.0 / delta)
         rng = np.asarray(b, np.float64) - np.asarray(a, np.float64)
         eps = (self.sigma * np.sqrt(2.0 * rho * log_t / m)
+               + _KAPPA_EBS * rng * log_t / m)
+        return s.mean - eps
+
+    def _lbound_batch_device(self, s, a, b, N, delta):
+        m = s.count
+        rho = _rho_bardenet_device(m, N)
+        log_t = _log_ratio(3.0, delta, m)
+        rng = as_f64(b, m) - as_f64(a, m)
+        eps = (self.sigma * torch.sqrt(2.0 * rho * log_t / m)
                + _KAPPA_EBS * rng * log_t / m)
         return s.mean - eps
 
@@ -196,12 +293,21 @@ class EmpiricalBernsteinSerflingBounder(Bounder):
     has_phos: bool = True
     name: str = "bernstein"
 
-    def _lbound_batch(self, s, a, b, N, delta):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def _lbound_batch(self, s, a, b, N, delta):
         m = s.count
         rho = _rho_bardenet(m, N)
         log_t = math.log(5.0 / delta)
         rng = np.asarray(b, np.float64) - np.asarray(a, np.float64)
         eps = (s.std * np.sqrt(2.0 * rho * log_t / m)
+               + _KAPPA_EBS * rng * log_t / m)
+        return s.mean - eps
+
+    def _lbound_batch_device(self, s, a, b, N, delta):
+        m = s.count
+        rho = _rho_bardenet_device(m, N)
+        log_t = _log_ratio(5.0, delta, m)
+        rng = as_f64(b, m) - as_f64(a, m)
+        eps = (s.std * torch.sqrt(2.0 * rho * log_t / m)
                + _KAPPA_EBS * rng * log_t / m)
         return s.mean - eps
 
@@ -225,7 +331,7 @@ class AndersonDKWBounder(Bounder):
     has_phos: bool = False
     name: str = "anderson_dkw"
 
-    def _lbound_batch(self, s, a, b, N, delta):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def _lbound_batch(self, s, a, b, N, delta):
         if s.hist is None:
             raise ValueError("AndersonDKW requires histogram state")
         # The histogram grid is pinned to one [a, b] range shared by the
@@ -266,6 +372,48 @@ class AndersonDKWBounder(Bounder):
                     / np.where(kept_mass > 0, kept_mass, 1.0))
         lb = eps * a + (1.0 - eps) * avg_kept
         return np.where((eps >= 1.0) | (kept_mass <= 0), a, lb)
+
+    def _lbound_batch_device(self, s, a, b, N, delta):
+        """Tensor top-mass drop: the in-place partial-bin scatter of the
+        host path becomes a one-hot select; ``a`` / ``b`` must be Python
+        numbers (the engine's pinned histogram grid)."""
+        if s.hist is None:
+            raise ValueError("AndersonDKW requires histogram state")
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            raise ValueError("AndersonDKW's device bound takes the pinned "
+                             "histogram grid [a, b] as Python numbers")
+        a = float(a) # aqplint: disable=AQP101(the pinned histogram grid edge, a Python number: no host sync)
+        b = float(b) # aqplint: disable=AQP101(the pinned histogram grid edge, a Python number: no host sync)
+        m = s.count
+        eps = torch.sqrt(_log_ratio(1.0, delta, m) / (2.0 * m))
+        hist = s.hist
+        G, K = hist.shape
+        k_idx = torch.arange(K, device=hist.device)
+        edges = a + (b - a) * k_idx.to(torch.float64) / K
+        drop = eps * m
+        csum_from_top = torch.flip(torch.cumsum(torch.flip(hist, (1,)), 1),
+                                   (1,))
+        fully = csum_from_top <= drop[:, None]
+        kept = torch.where(fully, 0.0, hist)
+        surv = (~fully).to(torch.int32)
+        surv_any = surv.any(dim=1)
+        # argmax: the first maximal index (the highest surviving bin)
+        k_hi = (K - 1) - torch.argmax(torch.flip(surv, (1,)), dim=1)
+        csum_pad = torch.cat(
+            [csum_from_top, torch.zeros((G, 1), dtype=hist.dtype,
+                                        device=hist.device)], dim=1)
+        already = torch.take_along_dim(csum_pad, (k_hi + 1)[:, None],
+                                       dim=1)[:, 0]
+        partial = torch.clamp(
+            torch.take_along_dim(kept, k_hi[:, None], dim=1)[:, 0]
+            - (drop - already), min=0.0)
+        sel = (k_idx == k_hi[:, None]) & surv_any[:, None]
+        kept = torch.where(sel, partial[:, None], kept)
+        kept_mass = kept.sum(dim=1)
+        avg_kept = ((kept * edges).sum(dim=1)
+                    / torch.where(kept_mass > 0, kept_mass, 1.0))
+        lb = eps * a + (1.0 - eps) * avg_kept
+        return torch.where((eps >= 1.0) | (kept_mass <= 0), a, lb)
 
 
 _REGISTRY = {

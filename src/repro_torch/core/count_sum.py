@@ -13,7 +13,9 @@ member-count vector ``m_v`` (and optionally per-group ``r``) and get
 vectors back — while plain Python floats in produce plain floats out, so
 the scalar call sites (tests, ``optstop``) are unchanged.
 
-A numpy port of the host path of :mod:`repro.core.count_sum`.
+Each host function has a ``*_device`` float64 tensor twin (same
+formulas, ``delta`` may be a device scalar) used by the device-resident
+round loop. The port of :mod:`repro.core.count_sum`.
 """
 
 from __future__ import annotations
@@ -21,9 +23,13 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import numpy as np
+import torch
+
+from repro_torch.core.state import as_f64
 
 __all__ = ["selectivity_ci", "count_ci", "n_plus", "sum_ci",
-           "ALPHA_DEFAULT"]
+           "selectivity_ci_device", "count_ci_device", "n_plus_device",
+           "sum_ci_device", "ALPHA_DEFAULT"]
 
 ALPHA_DEFAULT = 0.99
 
@@ -48,7 +54,7 @@ def _serfling_eps(r: np.ndarray, R: ArrayLike, delta: float) -> np.ndarray:
     return np.where(r > 0, eps, 1.0)
 
 
-def selectivity_ci(m_v: ArrayLike, r: ArrayLike, R: ArrayLike,  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+def selectivity_ci(m_v: ArrayLike, r: ArrayLike, R: ArrayLike,
                    delta: float) -> Tuple[ArrayLike, ArrayLike]:
     """Lemma 5: two-sided (1-delta) CI for the view selectivity sigma_V after
     seeing ``m_v`` member rows among ``r`` scanned of an R-row scramble."""
@@ -63,14 +69,14 @@ def selectivity_ci(m_v: ArrayLike, r: ArrayLike, R: ArrayLike,  # aqplint: disab
     return _unwrap(lo, scalar), _unwrap(hi, scalar)
 
 
-def count_ci(m_v: ArrayLike, r: ArrayLike, R: ArrayLike,  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+def count_ci(m_v: ArrayLike, r: ArrayLike, R: ArrayLike,
              delta: float) -> Tuple[ArrayLike, ArrayLike]:
     """(1-delta) CI for the number of rows in the aggregate view."""
     lo, hi = selectivity_ci(m_v, r, R, delta)
     return (lo * R, hi * R)
 
 
-def n_plus(m_v: ArrayLike, r: ArrayLike, R: ArrayLike, delta: float,  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+def n_plus(m_v: ArrayLike, r: ArrayLike, R: ArrayLike, delta: float,
            alpha: float = ALPHA_DEFAULT) -> ArrayLike:
     """Theorem 3: N+ = (m_v/r + sqrt(log(1/((1-alpha) delta)) rho / (2r))) R,
     an upper bound on N failing w.p. < (1-alpha)*delta. The remaining
@@ -86,7 +92,7 @@ def n_plus(m_v: ArrayLike, r: ArrayLike, R: ArrayLike, delta: float,  # aqplint:
     return _unwrap(out, scalar)
 
 
-def sum_ci(count: Tuple[ArrayLike, ArrayLike], avg: Tuple[ArrayLike, ArrayLike],  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+def sum_ci(count: Tuple[ArrayLike, ArrayLike], avg: Tuple[ArrayLike, ArrayLike],
            ) -> Tuple[ArrayLike, ArrayLike]:
     """Union-bound SUM CI from a (1-delta/2) COUNT CI and (1-delta/2) AVG CI.
 
@@ -102,3 +108,62 @@ def sum_ci(count: Tuple[ArrayLike, ArrayLike], avg: Tuple[ArrayLike, ArrayLike],
     lo = np.minimum(np.minimum(ll, lr), np.minimum(rl, rr))
     hi = np.maximum(np.maximum(ll, lr), np.maximum(rl, rr))
     return _unwrap(lo, scalar), _unwrap(hi, scalar)
+
+
+# ---------------------------------------------------------------------------
+# Device (float64 tensor) twins: the same formulas as the host path.
+# ---------------------------------------------------------------------------
+
+
+def _serfling_eps_device(r: torch.Tensor, R, delta) -> torch.Tensor:
+    """Tensor twin of :func:`_serfling_eps` (``delta`` may be a device
+    scalar)."""
+    r = r.to(torch.float64)
+    rho = torch.clamp(1.0 - (r - 1.0) / as_f64(R, r), min=0.0)
+    # tensor division (a Python number over a tensor is a reciprocal
+    # times the number in torch, an ulp away from the host's 1 / delta)
+    eps = torch.sqrt(torch.log(as_f64(1.0, r) / as_f64(delta, r)) * rho
+                     / (2.0 * r))
+    return torch.where(r > 0, eps, 1.0)
+
+
+def selectivity_ci_device(m_v, r, R, delta
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tensor twin of :func:`selectivity_ci`."""
+    m_v = m_v.to(torch.float64)
+    r = as_f64(r, m_v)
+    eps = _serfling_eps_device(r, R, delta / 2.0)
+    est = m_v / torch.clamp(r, min=1.0)
+    lo = torch.where(r > 0, torch.clamp(est - eps, min=0.0), 0.0)
+    hi = torch.where(r > 0, torch.clamp(est + eps, max=1.0), 1.0)
+    return lo, hi
+
+
+def count_ci_device(m_v, r, R, delta) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tensor twin of :func:`count_ci`."""
+    lo, hi = selectivity_ci_device(m_v, r, R, delta)
+    return (lo * R, hi * R)
+
+
+def n_plus_device(m_v, r, R, delta,
+                  alpha: float = ALPHA_DEFAULT) -> torch.Tensor:
+    """Tensor twin of :func:`n_plus`."""
+    m_v = m_v.to(torch.float64)
+    r = as_f64(r, m_v)
+    R_arr = as_f64(R, m_v)
+    eps = _serfling_eps_device(r, R, (1.0 - alpha) * delta)
+    npl = torch.minimum((m_v / torch.clamp(r, min=1.0) + eps) * R_arr, R_arr)
+    return torch.where(r > 0, npl, R_arr)
+
+
+def sum_ci_device(count: Tuple[torch.Tensor, torch.Tensor],
+                  avg: Tuple[torch.Tensor, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tensor twin of :func:`sum_ci`."""
+    cl, cr = count
+    gl, gr = avg
+    ll, lr = cl * gl, cl * gr
+    rl, rr = cr * gl, cr * gr
+    lo = torch.minimum(torch.minimum(ll, lr), torch.minimum(rl, rr))
+    hi = torch.maximum(torch.maximum(ll, lr), torch.maximum(rl, rr))
+    return lo, hi

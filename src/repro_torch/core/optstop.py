@@ -12,8 +12,10 @@ data-dependent stopping rule over the running interval is safe.
 This module provides the schedule, the running interval, the six stopping
 conditions of §4.2 (with their §4.3 active-group predicates), and a simple
 in-memory reference driver used by tests and benchmarks.  The production
-driver lives in ``repro_torch.aqp.engine``. A numpy port of the host
-path of :mod:`repro.core.optstop`.
+driver lives in ``repro_torch.aqp.engine``. The port of
+:mod:`repro.core.optstop`: the numpy host path, and the tensor twins of
+the schedule and of each condition's active mask that the device-resident
+round loop runs on the card.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ import math
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.bounders import Bounder
 from repro_torch.core.state import Stats
 
 __all__ = [
     "delta_schedule",
+    "delta_schedule_device",
     "RunningInterval",
     "StoppingCondition",
     "FixedSamples",
@@ -46,6 +50,18 @@ _SCHED_C = 6.0 / (math.pi ** 2)
 def delta_schedule(delta: float, k: int) -> float:
     """delta_k for round k >= 1 (Algorithm 5 line 7)."""
     return _SCHED_C * delta / float(k * k)
+
+
+def delta_schedule_device(delta: float, k) -> torch.Tensor:
+    """Tensor twin of :func:`delta_schedule`: ``k`` may be a device
+    scalar (the device-resident loop's round counter). The constant
+    ``_SCHED_C * delta`` is taken on the host, so the result is bitwise
+    the host schedule's at equal ``k``."""
+    k = (k.to(torch.float64) if isinstance(k, torch.Tensor)
+         else torch.tensor(float(k), dtype=torch.float64)) # aqplint: disable=AQP101(k is a Python number on this branch: no host sync)
+    # tensor / tensor: a Python number over a tensor is a reciprocal
+    # times the number in torch, an ulp away from the division
+    return torch.full_like(k, _SCHED_C * delta) / (k * k)
 
 
 @dataclasses.dataclass
@@ -76,12 +92,25 @@ class RunningInterval:
 
 class StoppingCondition:
     """``active(...)`` returns the per-group ACTIVE mask (groups still
-    preventing termination; §4.3); the query stops when none are active."""
+    preventing termination; §4.3); the query stops when none are active.
+
+    ``active_device(...)`` is the tensor twin run inside the
+    device-resident round loop. It cannot subset to the existing views
+    without a host sync, so it also takes the per-group ``valid`` mask
+    and must reproduce ``_QueryIntervals.cond_active``'s subset
+    semantics: invalid (phantom composite) lanes are never active and must
+    not distort order statistics (top-K midpoints, pairwise
+    orderings)."""
 
     name = "base"
 
     def active(self, lo: np.ndarray, hi: np.ndarray, est: np.ndarray,
                counts: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def active_device(self, lo: torch.Tensor, hi: torch.Tensor,
+                      est: torch.Tensor, counts: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def done(self, lo, hi, est, counts) -> bool:
@@ -95,8 +124,11 @@ class FixedSamples(StoppingCondition):
     m: int
     name = "fixed_samples"
 
-    def active(self, lo, hi, est, counts):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def active(self, lo, hi, est, counts):
         return counts < self.m
+
+    def active_device(self, lo, hi, est, counts, valid):
+        return (counts < self.m) & valid
 
 
 @dataclasses.dataclass
@@ -106,8 +138,11 @@ class AbsoluteWidth(StoppingCondition):
     eps: float
     name = "absolute_width"
 
-    def active(self, lo, hi, est, counts):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def active(self, lo, hi, est, counts):
         return (hi - lo) >= self.eps
+
+    def active_device(self, lo, hi, est, counts, valid):
+        return ((hi - lo) >= self.eps) & valid
 
 
 @dataclasses.dataclass
@@ -121,7 +156,7 @@ class RelativeWidth(StoppingCondition):
     eps: float
     name = "relative_width"
 
-    def active(self, lo, hi, est, counts):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def active(self, lo, hi, est, counts):
         with np.errstate(divide="ignore", invalid="ignore"):
             rel = np.maximum((hi - est) / np.abs(hi), (est - lo) / np.abs(lo))
         undecided = (lo <= 0.0) & (hi >= 0.0)
@@ -133,6 +168,14 @@ class RelativeWidth(StoppingCondition):
         point = hi <= lo
         return ~point & (undecided | ~np.isfinite(rel) | (rel >= self.eps))
 
+    def active_device(self, lo, hi, est, counts, valid):
+        rel = torch.maximum((hi - est) / torch.abs(hi),
+                            (est - lo) / torch.abs(lo))
+        undecided = (lo <= 0.0) & (hi >= 0.0)
+        point = hi <= lo
+        return (~point & (undecided | ~torch.isfinite(rel)
+                          | (rel >= self.eps))) & valid
+
 
 @dataclasses.dataclass
 class ThresholdSide(StoppingCondition):
@@ -141,8 +184,11 @@ class ThresholdSide(StoppingCondition):
     threshold: float
     name = "threshold_side"
 
-    def active(self, lo, hi, est, counts):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def active(self, lo, hi, est, counts):
         return (lo <= self.threshold) & (self.threshold <= hi)
+
+    def active_device(self, lo, hi, est, counts, valid):
+        return (lo <= self.threshold) & (self.threshold <= hi) & valid
 
 
 @dataclasses.dataclass
@@ -159,7 +205,7 @@ class TopKSeparated(StoppingCondition):
     largest: bool = True
     name = "topk_separated"
 
-    def active(self, lo, hi, est, counts):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def active(self, lo, hi, est, counts):
         n = est.shape[0]
         if self.k >= n:
             return np.zeros(n, dtype=bool)
@@ -173,6 +219,29 @@ class TopKSeparated(StoppingCondition):
             return np.where(chosen, lo <= mid, hi >= mid)
         return np.where(chosen, hi >= mid, lo <= mid)
 
+    def active_device(self, lo, hi, est, counts, valid):
+        """Order statistics over valid lanes only: invalid lanes carry an
+        infinite sentinel so they sort last (a stable sort, like the
+        host's subset-then-argsort) and never enter the top-K or the
+        midpoint."""
+        n = est.shape[0]
+        if self.k >= n:  # can never separate more lanes than exist
+            return torch.zeros(n, dtype=torch.bool, device=est.device)
+        n_valid = valid.sum()
+        sentinel = float("-inf") if self.largest else float("inf")
+        key = torch.where(valid, est, sentinel)
+        order = torch.argsort(-key if self.largest else key, stable=True)
+        sorted_key = key[order]
+        rank = torch.empty_like(order).scatter_(
+            0, order, torch.arange(n, device=est.device))
+        chosen = valid & (rank < self.k)
+        mid = 0.5 * (sorted_key[self.k - 1] + sorted_key[self.k])
+        if self.largest:
+            act = torch.where(chosen, lo <= mid, hi >= mid)
+        else:
+            act = torch.where(chosen, hi >= mid, lo <= mid)
+        return (self.k < n_valid) & act & valid
+
 
 @dataclasses.dataclass
 class GroupsOrdered(StoppingCondition):
@@ -180,12 +249,19 @@ class GroupsOrdered(StoppingCondition):
 
     name = "groups_ordered"
 
-    def active(self, lo, hi, est, counts):  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def active(self, lo, hi, est, counts):
         n = est.shape[0]
         # interval i intersects j  <=>  lo_i <= hi_j and lo_j <= hi_i
         inter = (lo[:, None] <= hi[None, :]) & (lo[None, :] <= hi[:, None])
         np.fill_diagonal(inter, False)
         return inter.any(axis=1)
+
+    def active_device(self, lo, hi, est, counts, valid):
+        n = est.shape[0]
+        inter = (lo[:, None] <= hi[None, :]) & (lo[None, :] <= hi[:, None])
+        inter = inter & valid[:, None] & valid[None, :]
+        inter = inter & ~torch.eye(n, dtype=torch.bool, device=est.device)
+        return inter.any(dim=1) & valid
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ Conceptually (paper §3.2), for the lower bound:
      S - {max S} as the sample and [a, max S] as the range,
   3. since AVG(D_{< max S}) <= AVG(D), that bound is valid for AVG(D).
 
-A numpy port of the host path of :mod:`repro.core.rangetrim`.
+The port of :mod:`repro.core.rangetrim`: the numpy host path and its
+float64 tensor twin for the device-resident loop.
 
 Algorithm 4 streams ``min(v, running_max_before_v)`` into the left state.
 **Multiset identity** (property-tested in ``tests/test_rangetrim.py``):
@@ -31,9 +32,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.bounders import Bounder
-from repro_torch.core.state import StatsBatch, downdate_extreme_batch
+from repro_torch.core.state import (DevStatsBatch, StatsBatch, as_f64,
+                                    downdate_extreme_batch,
+                                    downdate_extreme_batch_device,
+                                    require_x64)
 
 __all__ = ["RangeTrimBounder"]
 
@@ -65,7 +70,7 @@ class RangeTrimBounder(Bounder):
         object.__setattr__(self, "has_pma", self.inner.has_pma)
         object.__setattr__(self, "has_phos", False)
 
-    def lbound_batch(self, s: StatsBatch, a, b, N, delta) -> np.ndarray:  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def lbound_batch(self, s: StatsBatch, a, b, N, delta) -> np.ndarray:
         # NOTE: ``b`` is deliberately unused (PHOS elimination).
         a_arr = np.broadcast_to(np.asarray(a, np.float64), s.count.shape)
         ok = s.count >= 2.0  # cannot trim a 0/1-point sample
@@ -77,7 +82,7 @@ class RangeTrimBounder(Bounder):
         lb = self.inner.lbound_batch(trimmed, a_arr, b_trim, n_trim, delta)
         return np.where(ok, lb, a_arr)  # trivially valid for count < 2
 
-    def rbound_batch(self, s: StatsBatch, a, b, N, delta) -> np.ndarray:  # aqplint: disable=AQP201(host-only slice of the port: its device twins come with the device-loop slice)
+    def rbound_batch(self, s: StatsBatch, a, b, N, delta) -> np.ndarray:
         b_arr = np.broadcast_to(np.asarray(b, np.float64), s.count.shape)
         ok = s.count >= 2.0
         trimmed = downdate_extreme_batch(s, "min")
@@ -85,3 +90,29 @@ class RangeTrimBounder(Bounder):
         n_trim = np.maximum(np.asarray(N, np.float64) - 1.0, trimmed.count)
         rb = self.inner.rbound_batch(trimmed, a_trim, b_arr, n_trim, delta)
         return np.where(ok, rb, b_arr)
+
+    # -- device (float64 tensor) twins ---------------------------------------
+
+    def lbound_batch_device(self, s: DevStatsBatch, a, b, N, delta):
+        require_x64("the device bound math", s.count, s.mean, s.m2,
+                    s.vmin, s.vmax)
+        a_arr = as_f64(a, s.count).expand(s.count.shape)
+        ok = s.count >= 2.0
+        trimmed = downdate_extreme_batch_device(s, "max")
+        b_trim = torch.where(ok, s.vmax, a_arr + 1.0)
+        n_trim = torch.maximum(as_f64(N, s.count) - 1.0, trimmed.count)
+        lb = self.inner.lbound_batch_device(trimmed, a_arr, b_trim, n_trim,
+                                            delta)
+        return torch.where(ok, lb, a_arr)
+
+    def rbound_batch_device(self, s: DevStatsBatch, a, b, N, delta):
+        require_x64("the device bound math", s.count, s.mean, s.m2,
+                    s.vmin, s.vmax)
+        b_arr = as_f64(b, s.count).expand(s.count.shape)
+        ok = s.count >= 2.0
+        trimmed = downdate_extreme_batch_device(s, "min")
+        a_trim = torch.where(ok, s.vmin, b_arr - 1.0)
+        n_trim = torch.maximum(as_f64(N, s.count) - 1.0, trimmed.count)
+        rb = self.inner.rbound_batch_device(trimmed, a_trim, b_arr, n_trim,
+                                            delta)
+        return torch.where(ok, rb, b_arr)

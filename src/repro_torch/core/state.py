@@ -3,11 +3,13 @@ block granularity).
 
 The port of :mod:`repro.core.state`. Kernels fold blocks of tuples into
 per-group moment states ``(count, mean, m2, vmin, vmax)`` (Welford/Chan
-form) on the card; the engine's *running* state, and all bound
-evaluation, stay float64 numpy on the host. The device half is
-:func:`moments_of_batch` and :func:`merge_moments` on tensors (the
-trainer's per-token loss states). A state whose fields have
-shape ``(G,)`` holds G independent aggregates (one per GROUP BY view).
+form) on the card. The per-round host loop keeps the engine's *running*
+state float64 numpy on the host (:class:`StatsBatch` and the ``*_host``
+merges); the device-resident loop keeps it in float64 tensors on the
+card (:class:`DevStatsBatch`, :func:`merge_moments` and the other tensor
+functions, which the trainer's per-token loss states use too). A state
+whose fields have shape ``(G,)`` holds G independent aggregates (one per
+GROUP BY view).
 
 Key identity used by RangeTrim (:mod:`repro_torch.core.rangetrim`):
 removing one occurrence of the sample max from a Welford state is an
@@ -25,6 +27,39 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+
+def x64_enabled() -> bool:
+    """Whether float64 tensors are available on the device: always, in
+    torch (the counterpart of :func:`repro.core.state.x64_enabled`, which
+    reads JAX's 64-bit switch)."""
+    return True
+
+
+def require_x64(feature: str = "the device bound-evaluation path",
+                *tensors: Optional[torch.Tensor]) -> None:
+    """Fail loudly when a state tensor of the device bound math is not
+    float64.
+
+    The bound-evaluation math (bounders, RangeTrim, COUNT/SUM CIs, the
+    OptStop schedule) is float64 by design: a silent demotion to float32
+    would produce intervals that are *invalid guarantees*, not merely
+    imprecise ones. Torch always has float64, but it demotes quietly in
+    its own way: a float32 tensor times a float64 scalar tensor stays
+    float32. Every device-resident bound-eval entry point passes its state
+    tensors here (``None`` entries are skipped) instead of computing on
+    float32."""
+    for t in tensors:
+        if t is not None and t.dtype != torch.float64:
+            raise RuntimeError(
+                f"{feature} requires float64 state tensors, but got "
+                f"{t.dtype} — the float64 bound math would be silently "
+                "demoted to float32 and the resulting intervals would NOT "
+                "be valid (1-delta) guarantees. Cast the state with "
+                ".to(torch.float64) before any arithmetic (in torch a "
+                "float32 tensor times a float64 scalar tensor stays "
+                "float32), or run with EngineConfig(device_loop=False) to "
+                "use the host float64 round loop instead.")
 
 
 class MomentState(NamedTuple):
@@ -45,6 +80,23 @@ class HistState(NamedTuple):
     bin k of a uniform grid over the a-priori range ``[a, b]``."""
 
     hist: object  # (..., K) float counts
+
+
+def init_moments(shape=(), dtype: torch.dtype = torch.float32,
+                 device=None) -> MomentState:
+    """Empty tensor state: zeros, with ``vmin`` / ``vmax`` at ``+inf`` /
+    ``-inf``."""
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return MomentState(
+        count=z, mean=z.clone(), m2=z.clone(),
+        vmin=torch.full(shape, float("inf"), dtype=dtype, device=device),
+        vmax=torch.full(shape, float("-inf"), dtype=dtype, device=device))
+
+
+def init_hist(shape=(), nbins: int = 4096,
+              dtype: torch.dtype = torch.float32, device=None) -> HistState:
+    return HistState(hist=torch.zeros(tuple(shape) + (nbins,), dtype=dtype,
+                                      device=device))
 
 
 def init_moments_host(shape=()) -> MomentState:
@@ -143,6 +195,56 @@ def merge_moments(a: MomentState, b: MomentState) -> MomentState:
         vmin=torch.minimum(a.vmin, b.vmin),
         vmax=torch.maximum(a.vmax, b.vmax),
     )
+
+
+def merge_hist(a: HistState, b: HistState) -> HistState:
+    return HistState(hist=a.hist + b.hist)
+
+
+def hist_of_batch(values: torch.Tensor, mask: Optional[torch.Tensor],
+                  a: float, b: float, nbins: int,
+                  dtype: torch.dtype = torch.float32) -> HistState:
+    """Bucketize a batch into a uniform grid over [a, b] (clipping at the
+    edges), summed over every element: ``hist[k] = Σ m · 1[bin(v) = k]``
+    with ``bin(v) = clip(trunc((v - a) · nbins / (b - a)), 0, nbins - 1)``
+    in float32, as :func:`repro.core.state.hist_of_batch` computes it.
+    The scaled value is clamped to ``[-1, nbins]`` before the truncation
+    (where the reference's conversion saturates) and NaN goes to bin 0,
+    so every value lands where the reference puts it."""
+    if mask is None:
+        mask = torch.ones_like(values, dtype=torch.bool)
+    t = (values - float(a)) * (nbins / max(float(b) - float(a), 1e-30))
+    t = torch.nan_to_num(torch.clamp(t, -1.0, float(nbins)), nan=0.0)
+    idx = torch.clamp(t.to(torch.int64), 0, nbins - 1).reshape(-1)
+    hist = torch.zeros(nbins, dtype=dtype, device=values.device)
+    return HistState(hist=hist.index_add_(0, idx,
+                                          mask.to(dtype).reshape(-1)))
+
+
+def tree_merge_moments(state: MomentState, axis: int = 0) -> MomentState:
+    """Reduce a stacked state (e.g. per-device states gathered along the
+    leading axis) with a log-depth pairwise fold of
+    :func:`merge_moments`, in the reference's pairing order."""
+    if axis != 0:
+        raise ValueError("tree_merge_moments folds along the leading axis")
+
+    def take(s, sl):
+        return MomentState(*(f[sl] for f in s))
+
+    n = state.count.shape[0]
+    while n > 1:
+        half = n // 2
+        merged = merge_moments(take(state, slice(0, half)),
+                               take(state, slice(half, 2 * half)))
+        if n % 2:
+            merged = MomentState(*(
+                torch.cat([m, s[2 * half:2 * half + 1]], 0)
+                for m, s in zip(merged, state)))
+            n = half + 1
+        else:
+            n = half
+        state = merged
+    return take(state, 0)
 
 
 def merge_moments_host(a: MomentState, b: MomentState) -> MomentState:
@@ -343,3 +445,121 @@ def downdate_extreme_batch(s: StatsBatch, which: str) -> StatsBatch:
         h[rows, k[rows]] -= 1.0
     return StatsBatch(count=n1, mean=mean1, m2=m21,
                       vmin=s.vmin, vmax=s.vmax, hist=h)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident float64 snapshot: the tensor twin of ``StatsBatch``.
+# ---------------------------------------------------------------------------
+
+
+class DevStatsBatch(NamedTuple):
+    """Device-resident float64 twin of :class:`StatsBatch`.
+
+    Every moment field is a float64 ``(G,)`` tensor and ``hist`` (when
+    present) is ``(G, K)`` float64, so the whole batch lives on the card
+    inside the device-resident round loop, whose per-round CI refresh
+    reads nothing back on the host. The device bound math refuses a
+    batch whose fields are not float64 (:func:`require_x64`).
+    """
+
+    count: torch.Tensor
+    mean: torch.Tensor
+    m2: torch.Tensor
+    vmin: torch.Tensor
+    vmax: torch.Tensor
+    hist: Optional[torch.Tensor] = None
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return torch.where(self.count > 0,
+                           self.m2 / torch.clamp(self.count, min=1.0), 0.0)
+
+    @property
+    def std(self) -> torch.Tensor:
+        return torch.sqrt(torch.clamp(self.variance, min=0.0))
+
+    def reflect(self, a, b) -> "DevStatsBatch":
+        """Map x -> (a + b) - x per group (device twin of
+        ``StatsBatch.reflect``); ``a`` / ``b`` scalars or ``(G,)``."""
+        ab = as_f64(a, self.count) + as_f64(b, self.count)
+        h = None if self.hist is None else torch.flip(self.hist, (1,))
+        return DevStatsBatch(count=self.count, mean=ab - self.mean,
+                             m2=self.m2, vmin=ab - self.vmax,
+                             vmax=ab - self.vmin, hist=h)
+
+    @staticmethod
+    def from_state(state: MomentState,
+                   hist: Optional[torch.Tensor] = None) -> "DevStatsBatch":
+        """Device float64 view of a ``(G,)``-shaped tensor
+        :class:`MomentState` (+ optional ``(G, K)`` histogram counts),
+        cast to float64 before any arithmetic."""
+        f64 = lambda x: x.to(torch.float64)
+        return DevStatsBatch(
+            count=f64(state.count), mean=f64(state.mean), m2=f64(state.m2),
+            vmin=f64(state.vmin), vmax=f64(state.vmax),
+            hist=None if hist is None else f64(hist))
+
+
+def as_f64(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a float64 tensor on ``like``'s device: a tensor is cast, a
+    Python number is filled on the device (no host-to-device copy, so no
+    host sync), an array is copied over."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.float64)
+    if isinstance(x, (int, float, np.floating, np.integer)):
+        return torch.full((), float(x), dtype=torch.float64, # aqplint: disable=AQP101(x is a Python or numpy number on this branch: filled on the device, no host sync)
+                          device=like.device)
+    return torch.as_tensor(np.asarray(x, np.float64), device=like.device) # aqplint: disable=AQP101(a host array handed in by the caller, copied once; the loop passes tensors)
+
+
+def downdate_extreme_batch_device(s: DevStatsBatch,
+                                  which: str) -> DevStatsBatch:
+    """Tensor twin of :func:`downdate_extreme_batch`: remove one
+    occurrence of the per-group max (``which='max'``) or min on the
+    device."""
+    ok = s.count >= 2.0
+    x = torch.where(ok, s.vmax if which == "max" else s.vmin, 0.0)
+    n1 = torch.where(ok, s.count - 1.0, 0.0)
+    safe = torch.clamp(n1, min=1.0)
+    mean1 = torch.where(ok, (s.count * s.mean - x) / safe, 0.0)
+    m21 = torch.where(
+        ok, torch.clamp(s.m2 - (x - s.mean) * (x - mean1), min=0.0), 0.0)
+    h = None
+    if s.hist is not None:
+        pos = (s.hist > 0).to(torch.int32)
+        hit = pos.any(dim=1) & ok
+        K = s.hist.shape[1]
+        # argmax: the first maximal index (the first positive bin)
+        if which == "max":
+            k = (K - 1) - torch.argmax(torch.flip(pos, (1,)), dim=1)
+        else:
+            k = torch.argmax(pos, dim=1)
+        onehot = torch.arange(K, device=s.hist.device) == k[:, None]
+        h = s.hist - (onehot & hit[:, None]).to(s.hist.dtype)
+    return DevStatsBatch(count=n1, mean=mean1, m2=m21,
+                         vmin=s.vmin, vmax=s.vmax, hist=h)
+
+
+def downdate_extreme(s: Stats, which: str) -> Stats:
+    """Remove one occurrence of the sample max (``which='max'``) or min
+    from a :class:`Stats` snapshot — the exact RangeTrim trim.
+
+    After the downdate ``vmax`` / ``vmin`` of the *remaining* sample is
+    unknown, but RangeTrim only needs the removed value itself (it
+    becomes the trimmed range endpoint), so the old extremes are kept.
+    """
+    if s.count < 2:
+        return Stats(0.0, 0.0, 0.0, s.vmin, s.vmax, s.hist)
+    x = s.vmax if which == "max" else s.vmin
+    n1 = s.count - 1.0
+    mean1 = (s.count * s.mean - x) / n1
+    m21 = s.m2 - (x - s.mean) * (x - mean1)
+    h = None
+    if s.hist is not None:
+        h = s.hist.copy()
+        nz = np.nonzero(h > 0)[0]
+        if nz.size:
+            k = nz[-1] if which == "max" else nz[0]
+            h[k] -= 1.0
+    return Stats(count=n1, mean=mean1, m2=max(m21, 0.0),
+                 vmin=s.vmin, vmax=s.vmax, hist=h)

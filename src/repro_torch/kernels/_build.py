@@ -47,9 +47,8 @@ _SIGNATURES = {
     "repro_grouped_hist_plan": ([ctypes.c_longlong, _I, _I, _I, _P], None),
     "repro_grouped_hist_resident": ([_I], _I),
     "repro_bitmap_active": ([_P, _P, _I, _I, _P, _P, _I, _P], _I),
-    "repro_round_select": ([_P, _P, _P, _I, _P, ctypes.c_longlong,
-                            ctypes.c_longlong, _I, _I] + [_P] * 6
-                           + [_I, _P], _I),
+    "repro_round_select": ([_P, _P, _P, _I, _P, _P, _P, ctypes.c_longlong,
+                            _I, _I] + [_P] * 6 + [_I, _P], _I),
     "repro_selective_scan": ([_P] * 7 + [_I] * 5 + [_P] * 3 + [_I, _P],
                              _I),
     "repro_selective_scan_bwd": ([_P] * 9 + [_I] * 6 + [_P] * 10

@@ -10,7 +10,10 @@ bit patterns carried in int32 tensors.
 
 :func:`round_select` is the fused scan round's head: the same probe over
 the cursor window, with the static prefilter, the budgeted selection and
-the fold's lane table, in one launch (the source's header says how).
+the fold's lane table, in one launch (the source's header says how). It
+reads the cursor and its ``go`` flag from device scalars, so a CUDA
+graph of many rounds replays each round from the cursor the last one
+left.
 
 These wrappers only launch: they take CUDA tensors and raise on anything
 else. :mod:`repro_torch.kernels.ops` chooses between them and the plain
@@ -76,7 +79,9 @@ active_blocks.launches = 0
 # (the epoch, then a word a CTA), zeroed once. The kernel keeps the epoch
 # in the buffer and tags each call's words with a new one, so the buffer
 # is never reset and no host value changes between calls (a captured
-# CUDA graph replays right). A larger buffer replaces a too small one.
+# CUDA graph replays right). A larger buffer replaces a too small one, so
+# a caller that captures the head runs it once on the capture stream
+# first (the buffer is then made outside the capture).
 _lookback: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -91,31 +96,35 @@ def _lookback_words(dev: torch.device, stream: int,
 
 
 def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
-                 words: torch.Tensor, active_words: torch.Tensor, pos: int,
-                 *, nb: int, window: int, budget: int, probe: bool):
+                 words: torch.Tensor, active_words: torch.Tensor,
+                 pos: torch.Tensor, go: torch.Tensor, *, nb: int,
+                 window: int, budget: int, probe: bool):
     """The fused round's head in one launch, as
     :func:`repro_torch.kernels.ops.round_select` describes it.
 
-    Args: ``order_pad`` int32 with at least ``pos + window`` entries (the
+    Args: ``order_pad`` int32 with at least ``nb + window`` entries (the
     scan order, padded); ``static_ok`` ``(nb,)`` bool; ``words`` ``(nb,
     W)`` and ``active_words`` ``(W,)`` int32 (read only with ``probe``);
-    ``pos`` a host int in ``[0, nb]``. Returns ``(ok, flags, new_pos,
-    blk, tvalid)``, views of one allocation, equal bit for bit to
+    ``pos`` an int64 and ``go`` a bool device scalar (the head checks
+    ``0 <= pos <= nb`` on the card). Returns ``(ok, flags, new_pos, blk,
+    tvalid)``, views of one allocation, equal bit for bit to
     :func:`repro_torch.kernels.ref.round_select_ref`."""
     dev = order_pad.device
     _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
     _require(window >= 1 and budget >= 1, f"window and budget must be >= 1, "
              f"got {window}, {budget}")
-    _require(0 <= pos <= nb, f"pos must be in [0, nb = {nb}], got {pos}")
+    _require(pos.shape == () and pos.dtype == torch.int64
+             and go.shape == () and go.dtype == torch.bool,
+             "pos must be an int64 and go a bool device scalar")
     _require(order_pad.dim() == 1 and order_pad.dtype == torch.int32
              and order_pad.is_contiguous()
-             and order_pad.shape[0] >= pos + window,
-             "order_pad must be contiguous 1-D int32 with pos + window "
+             and order_pad.shape[0] >= nb + window,
+             "order_pad must be contiguous 1-D int32 with nb + window "
              "entries")
     _require(static_ok.dim() == 1 and static_ok.dtype == torch.bool
              and static_ok.is_contiguous() and static_ok.shape[0] >= nb,
              "static_ok must be contiguous 1-D bool with nb entries")
-    tensors = [order_pad, static_ok]
+    tensors = [order_pad, static_ok, pos, go]
     words_ptr, active_ptr, n_words = None, None, 0
     if probe:
         n_words = words.shape[1] if words.dim() == 2 else -1
@@ -139,7 +148,8 @@ def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
     status = _lookback_words(dev, stream, -(-window // 32))
     rc = _build.library().repro_round_select(
         order_pad.data_ptr(), static_ok.data_ptr(), words_ptr, n_words,
-        active_ptr, pos, nb, window, budget, buf.data_ptr() + o_ok,
+        active_ptr, pos.data_ptr(), go.data_ptr(), nb, window, budget,
+        buf.data_ptr() + o_ok,
         buf.data_ptr() + o_flags, buf.data_ptr(), buf.data_ptr() + o_blk,
         buf.data_ptr() + o_tvalid, status.data_ptr(), dev.index, stream)
     _build.check(rc, "round_select launch")

@@ -48,7 +48,7 @@ class FoldLaunch(NamedTuple):
     def args(self, center: float) -> tuple:
         """The launch arguments through ``vmax``."""
         base, g = self.out.data_ptr(), self.out.shape[1]
-        return (*self.head, float(center), *self.mode,
+        return (*self.head, float(center), *self.mode, # aqplint: disable=AQP101(center is a Python number, a launch argument: no host sync)
                 self.scratch.data_ptr(), base, base + 12 * g, base + 16 * g)
 
     @property
@@ -69,7 +69,7 @@ def plan(budget: int, block_rows: int, num_groups: int):
     tiles_cap = max(1, TABLE_CELLS // (buckets + 1))
     chunk_lanes = max(1, min(budget, tiles_cap * TILE_ROWS // block_rows))
     tiles = -(-chunk_lanes * block_rows // TILE_ROWS)
-    return chunk_lanes, int(lane_mode), buckets, tiles
+    return chunk_lanes, int(lane_mode), buckets, tiles # aqplint: disable=AQP101(a Python bool from shapes: no host sync)
 
 
 def scratch_bytes(buckets: int, tiles: int) -> int:

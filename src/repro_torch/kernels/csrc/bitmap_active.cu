@@ -24,12 +24,21 @@
 // the window, the static prefilter, the probe, `_budget_select` and
 // `_gather_blocks`) computes before the fold, in ONE launch:
 //
-//   ok[i]    = static_ok[order_pad[pos + i]] && pos + i < nb
+//   live     = go && 0 <= pos <= nb   (pos and go read on the card)
+//   left     = live ? min(window, nb - pos) : 0   (positions in range)
+//   ok[i]    = static_ok[order_pad[pos + i]] && i < left
 //   flags[i] = ok[i] && probe(order_pad[pos + i])   (ok[i] without probe)
 //   lane k   = the k-th flagged position: blk[k] = its block, tvalid[k] = 1;
 //              lanes past the last taken one: blk 0, tvalid 0
 //   new_pos  = pos + (one past the budget-th flag if there are budget
-//              flags, else min(window, nb - pos))
+//              flags, else left)
+//
+// The cursor `pos` (int64) and the flag `go` (bool) are device scalars,
+// the previous round's new_pos and the loop's own verdict, so a round
+// reads nothing from the host and a CUDA graph of many rounds replays
+// each with the cursor the round before it left. A round that is not to
+// run (go false, or pos outside [0, nb]) selects nothing: ok, flags and
+// tvalid all false, blk 0, new_pos = pos.
 //
 // On the TPU the reference is one jitted function and XLA fuses the
 // selection arithmetic; eager PyTorch would launch ~30 small kernels for
@@ -114,7 +123,9 @@ struct HeadArgs {
   const unsigned char* static_ok;  // (nb,) bool
   const unsigned* words;           // (nb, n_words), or null: no probe
   const unsigned* active;          // (n_words,)
-  long long pos, nb;
+  const long long* pos;            // () the cursor, on the card
+  const unsigned char* go;         // () run this round, on the card
+  long long nb;
   int n_words, window, budget;
   unsigned char* ok;               // (window,)
   unsigned char* flags;            // (window,)
@@ -162,6 +173,11 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
   __shared__ unsigned long long s_tag;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int i0 = blockIdx.x * kPos;  // the CTA's first window position
+  const long long pos = *h.pos;
+  const bool run = *h.go != 0 && pos >= 0 && pos <= h.nb;
+  const long long left = run ? (h.nb - pos < h.window ? h.nb - pos
+                                                      : h.window)
+                             : 0;  // window positions in range
   if (t == 0) {  // arrive: this call's tag is its epoch + 1, never 0
     const unsigned long long was = atomicAdd(h.status, 1ull);
     if ((was & ((1ull << kArriveBits) - 1)) == gridDim.x - 1) {
@@ -173,8 +189,8 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
     // lane j < kWarpRows reads position p = warp * kWarpRows + j
     const int p = warp * kWarpRows + lane;
     const int i = i0 + p;
-    const bool live = lane < kWarpRows && i < h.window && h.pos + i < h.nb;
-    const int row = live ? h.order_pad[h.pos + i] : 0;
+    const bool live = lane < kWarpRows && i < left;
+    const int row = live ? h.order_pad[pos + i] : 0;
     const bool okv = live && h.static_ok[row] != 0;
     const unsigned* w[kWarpRows];
     bool lj[kWarpRows];
@@ -225,8 +241,8 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
     const int i = i0 + t;
     bool okv = false, hit = true;
     int row = 0;
-    if (i < h.window && h.pos + i < h.nb) {
-      row = h.order_pad[h.pos + i];
+    if (i < left) {
+      row = h.order_pad[pos + i];
       okv = h.static_ok[row] != 0;
       if (h.words != nullptr) {  // kRowPass words a pass, as above
         const unsigned* w = h.words + static_cast<long long>(row) * h.n_words;
@@ -293,17 +309,14 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
       h.blk[r] = s_row[t];
       h.tvalid[r] = 1;
     }
-    if (r == h.budget - 1) *h.new_pos = h.pos + i0 + t + 1;
+    if (r == h.budget - 1) *h.new_pos = pos + i0 + t + 1;
   }
   if (blockIdx.x == gridDim.x - 1 && prefix + count < h.budget) {
     for (int r = prefix + count + t; r < h.budget; r += kThreads) {
       h.blk[r] = 0;
       h.tvalid[r] = 0;
     }
-    if (t == 0) {
-      const long long left = h.nb - h.pos;
-      *h.new_pos = h.pos + (left < h.window ? left : h.window);
-    }
+    if (t == 0) *h.new_pos = pos + left;
   }
 }
 
@@ -334,7 +347,8 @@ extern "C" int repro_bitmap_active(const unsigned* words, const int* win,
 }
 
 // The fused round's head on `stream`, in one launch (see the header).
-// order_pad holds at least pos + window entries and 0 <= pos <= nb.
+// `pos` (int64) and `go` (bool) point at device scalars; order_pad holds
+// at least nb + window entries.
 // words == null runs no probe (flags = ok); otherwise words is
 // (nb, n_words) row-major and active (n_words,). `status` holds 1 +
 // ceil(window / 32) words (the epoch, then a word for each CTA in either
@@ -344,8 +358,10 @@ extern "C" int repro_bitmap_active(const unsigned* words, const int* win,
 extern "C" int repro_round_select(const int* order_pad,
                                   const unsigned char* static_ok,
                                   const unsigned* words, int n_words,
-                                  const unsigned* active, long long pos,
-                                  long long nb, int window, int budget,
+                                  const unsigned* active,
+                                  const long long* pos,
+                                  const unsigned char* go, long long nb,
+                                  int window, int budget,
                                   unsigned char* ok, unsigned char* flags,
                                   long long* new_pos, int* blk,
                                   unsigned char* tvalid,
@@ -357,13 +373,13 @@ extern "C" int repro_round_select(const int* order_pad,
   const int per_cta = by_warp ? kWarpCta : kThreads;
   const long long ctas = (static_cast<long long>(window) + per_cta - 1) /
                          per_cta;
-  if (window < 1 || budget < 1 || pos < 0 || pos > nb ||
-      ctas >= (1ll << kArriveBits)) {
+  if (window < 1 || budget < 1 || nb < 0 || ctas >= (1ll << kArriveBits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const HeadArgs h{order_pad, static_ok, words, active, pos, nb, n_words,
-                   window, budget, ok, flags, new_pos, blk, tvalid, status};
+  const HeadArgs h{order_pad, static_ok, words, active, pos, go, nb,
+                   n_words, window, budget, ok, flags, new_pos, blk, tvalid,
+                   status};
   const unsigned grid = static_cast<unsigned>(ctas);
   if (by_warp) {
     round_head_kernel<true><<<grid, kThreads, 0, s>>>(h);

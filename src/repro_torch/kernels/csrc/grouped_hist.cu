@@ -35,8 +35,7 @@
 //     half the cells of both through distributed shared memory) and add
 //     the non-zero sums to a uint32 copy in device memory (reductions,
 //     one a cell that the cluster saw, not one a row); all CTAs wait at
-//     a grid barrier (they are resident together: the launch asks the
-//     card how many clusters it holds at once) and each turns its slice
+//     a grid barrier and each turns its slice
 //     of the device copy into float32 cells of the histogram, setting the
 //     copy back to zero. The copy and the barrier's count live in a
 //     buffer kept per (device, stream) and zeroed once; every call leaves
@@ -63,7 +62,14 @@
 //
 // PERF.md has the measured times. The grid barrier lets every CTA
 // convert a slice of the cells: one CTA converting them all moves the
-// whole histogram through one SM.
+// whole histogram through one SM. The barrier needs every CTA of the
+// grid resident at once, and the launch makes that a guarantee: it is
+// cooperative (cudaLaunchAttributeCooperative beside the cluster
+// dimension), so the runtime starts the grid only when all of its CTAs
+// fit on the card together, whatever other kernels (another stream's
+// call, a collective, an MPS share) hold, and refuses a grid that could
+// never fit. The grid is sized from cudaOccupancyMaxActiveClusters of an
+// idle card (one CTA an SM). There is no fallback path and no timeout.
 
 #include <cooperative_groups.h>
 
@@ -260,7 +266,7 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
 // before it are visible to all after it. `count` is zero on entry: each
 // CTA adds one, the last to arrive sets it back to zero, and the others
 // wait for that. The grid's CTAs must be resident together: the private
-// regime launches at most one CTA an SM.
+// regime launches at most one CTA an SM, cooperatively (see the header).
 __device__ void grid_barrier(unsigned* count) {
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -491,19 +497,24 @@ cudaError_t allow_smem(const void* kernel, int device, long long bytes) {
   return err;
 }
 
-// The private kernel's launch: clusters of kCluster CTAs of kThreads.
-cudaLaunchConfig_t private_config(long long smem) {
-  static cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = kCluster;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
+// The private kernel's launch: clusters of kCluster CTAs of kThreads,
+// and with `cooperative` a cooperative launch, which the runtime starts
+// only with every CTA of the grid resident (the grid barrier's premise).
+// The occupancy query takes the cluster dimension alone.
+cudaLaunchConfig_t private_config(long long smem, bool cooperative) {
+  static cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = kCluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(kCluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = cooperative ? 2 : 1;
   return cfg;
 }
 
@@ -521,7 +532,7 @@ cudaError_t private_resident(int device, int* resident) {
       reinterpret_cast<const void*>(hist_private_kernel),
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxCells * 4);
   if (err != cudaSuccess) return err;
-  const cudaLaunchConfig_t cfg = private_config(kMaxCells * 4);
+  const cudaLaunchConfig_t cfg = private_config(kMaxCells * 4, false);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(
       &clusters, reinterpret_cast<const void*>(hist_private_kernel), &cfg);
@@ -571,7 +582,7 @@ extern "C" int repro_grouped_hist(const float* values, const int* gids,
                 ((addr(values) | addr(gids) | addr(mask)) & 15) == 0,
                 num_groups, nbins, a, inv_width};
   if (p.regime == kPrivate) {
-    cudaLaunchConfig_t cfg = private_config(p.count_smem);
+    cudaLaunchConfig_t cfg = private_config(p.count_smem, true);
     cfg.gridDim = dim3(static_cast<unsigned>(p.count_ctas));
     cfg.stream = s;
     err = cudaLaunchKernelEx(&cfg, hist_private_kernel, in,

@@ -49,9 +49,9 @@ def fused_fold(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
     fl = prepare(values, gids, mask, blk, tvalid, num_groups, what)
     dev = values.device
     hist = torch.empty((num_groups, nbins), dtype=torch.float32, device=dev)
-    inv_width = float(nbins) / max(float(b) - float(a), 1e-30)
+    inv_width = float(nbins) / max(float(b) - float(a), 1e-30) # aqplint: disable=AQP101(the grid's Python numbers: no host sync)
     rc = _build.library().repro_fused_fold(
-        *fl.args(center), hist.data_ptr(), nbins, float(a), inv_width,
+        *fl.args(center), hist.data_ptr(), nbins, float(a), inv_width, # aqplint: disable=AQP101(a Python number, a launch argument: no host sync)
         dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_fold launch")

@@ -51,7 +51,7 @@ def moments_from_sums(sums: torch.Tensor, vmin: torch.Tensor,
     safe = torch.clamp(count, min=1.0)
     # centre as a Python scalar: rounded to float32 like the reference's
     # jnp.asarray(center, f32), with no host-to-device copy per round
-    mean = dsum / safe + float(center)
+    mean = dsum / safe + float(center) # aqplint: disable=AQP101(center is a Python number: no host sync)
     m2 = torch.clamp(dsq - dsum * dsum / safe, min=0.0)
     empty = count == 0
     zero = torch.zeros((), dtype=torch.float32, device=sums.device)
@@ -160,24 +160,32 @@ def active_blocks(words: torch.Tensor, active_words: torch.Tensor, *,
 
 
 def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
-                 words: torch.Tensor, active_words: torch.Tensor, pos: int,
-                 *, nb: int, window: int, budget: int, probe: bool):
+                 words: torch.Tensor, active_words: torch.Tensor,
+                 pos: torch.Tensor, go: torch.Tensor, *, nb: int,
+                 window: int, budget: int, probe: bool):
     """The fused round's head: the cursor window of ``order_pad`` from
-    ``pos`` (a host int), its static-prefilter verdicts ``ok``, the
-    activity ``flags`` (``ok`` AND the bitmap probe of ``words`` against
-    ``active_words``; ``ok`` itself without ``probe``), the budgeted cut
-    ``new_pos`` and the fold's lanes: ``blk`` (the k-th flagged position's
-    block) and ``tvalid`` (False on padding lanes, whose ``blk`` is 0).
-    Returns ``(ok, flags, new_pos, blk, tvalid)``: bool ``(window,)``
-    twice, an int64 device scalar, int32 and bool ``(budget,)``. One
-    launch on the card; the plain sequence
+    ``pos``, its static-prefilter verdicts ``ok``, the activity ``flags``
+    (``ok`` AND the bitmap probe of ``words`` against ``active_words``;
+    ``ok`` itself without ``probe``), the budgeted cut ``new_pos`` and the
+    fold's lanes: ``blk`` (the k-th flagged position's block) and
+    ``tvalid`` (False on padding lanes, whose ``blk`` is 0).
+
+    ``pos`` is an int64 and ``go`` a bool scalar on the tensors' device
+    (the previous round's ``new_pos`` and the loop's verdict): nothing is
+    read from the host, so a CUDA graph of many rounds replays right. A
+    round with ``go`` false, or ``pos`` outside ``[0, nb]``, selects
+    nothing and returns ``new_pos == pos``. ``order_pad`` holds ``nb +
+    window`` entries. Returns ``(ok, flags, new_pos, blk, tvalid)``: bool
+    ``(window,)`` twice, an int64 device scalar, int32 and bool
+    ``(budget,)``. One launch on the card; the plain sequence
     (:func:`repro_torch.kernels.ref.round_select_ref`) on the CPU."""
     kw = dict(nb=nb, window=window, budget=budget, probe=probe)
     if _on_cuda(order_pad, "round_select"):
         return _bitmap.round_select(order_pad, static_ok, words,
-                                    active_words, pos, **kw)
+                                    active_words, pos, go, **kw)
     return _ref.round_select_ref(order_pad, static_ok, words, active_words,
-                                 pos, **kw)
+                                 pos, go, **kw)
+
 
 def active_blocks_multi(*args, **kwargs):
     """Per-query activity probe over a ``(Q, W)`` stack of masks."""

@@ -33,7 +33,7 @@ def block_agg_ref(values, gids, mask, center, *, num_groups: int):
     v = values.reshape(-1).to(torch.float32)
     m = mask.reshape(-1).to(torch.float32)
     gid = gids.reshape(-1).to(torch.int64)
-    dv = v - float(center)   # the scalar rounds to float32, as in JAX
+    dv = v - float(center)   # the scalar rounds to float32, as in JAX # aqplint: disable=AQP101(center is a Python number: no host sync)
     cols = torch.stack([m, dv * m, dv * dv * m], dim=1)            # (N, 3)
     sums = torch.zeros((num_groups, 3), dtype=torch.float32,
                        device=v.device).index_add_(0, gid, cols)
@@ -68,9 +68,9 @@ def hist_bins_ref(values, a: float, b: float, nbins: int):
     in bin 0, as the JAX package's float-to-int conversion puts it there
     on the CPU; torch's conversion would give ``INT32_MIN``, so NaN is
     mapped to 0 before the cast. Returns int64 ``(N,)`` bins."""
-    inv_width = float(nbins) / max(float(b) - float(a), 1e-30)
+    inv_width = float(nbins) / max(float(b) - float(a), 1e-30) # aqplint: disable=AQP101(the grid's Python numbers: no host sync)
     # Python scalars round to float32, as in JAX; one op each, no FMA
-    t = torch.clamp((values - float(a)) * inv_width, 0.0, nbins - 1.0)
+    t = torch.clamp((values - float(a)) * inv_width, 0.0, nbins - 1.0) # aqplint: disable=AQP101(a is a Python number: no host sync)
     return torch.nan_to_num(t, nan=0.0).to(torch.int64)
 
 
@@ -125,21 +125,22 @@ def active_blocks_ref(words, active_words):
     return (hit != 0).any(dim=1).to(torch.int32)
 
 
-def budget_select_ref(flags: torch.Tensor, pos: int, nb: int, window: int,
-                      budget: int):
+def budget_select_ref(flags: torch.Tensor, pos: torch.Tensor,
+                      left: torch.Tensor, window: int, budget: int):
     """Budgeted selection, replicating the reference cursor bit for bit
     (:func:`repro.kernels.fused_scan._budget_select`): take the first
     ``budget`` flagged blocks; the cursor cut is one past the budget-th
-    selected block, else the (limit-clamped) window end. Returns
-    ``(take mask over the window, new_pos (device scalar), inclusive flag
-    count per position)``."""
+    selected block, else the window's ``left`` positions in range (the
+    limit-clamped window end). ``pos`` and ``left`` are int64 device
+    scalars. Returns ``(take mask over the window, new_pos (device
+    scalar), inclusive flag count per position)``."""
     csum = torch.cumsum(flags.to(torch.int32), 0)
     take = flags & (csum <= budget)
     n_sel = csum[window - 1]
     # argmax over an int tensor: the first maximal index, like jnp.argmax
     # over the bool mask in the reference
     cut = torch.argmax(((csum == budget) & flags).to(torch.int32))
-    covered = torch.where(n_sel >= budget, cut + 1, min(window, nb - pos))
+    covered = torch.where(n_sel >= budget, cut + 1, left)
     return take, pos + covered, csum
 
 
@@ -164,25 +165,43 @@ def gather_blocks_ref(take: torch.Tensor, csum: torch.Tensor,
     return blk, tvalid, take_idx
 
 
-def round_select_ref(order_pad, static_ok, words, active_words, pos: int, *,
-                     nb: int, window: int, budget: int, probe: bool):
+def round_window_ref(order_pad, pos: torch.Tensor, go: torch.Tensor, *,
+                     nb: int, window: int):
+    """The round's cursor window, read with no host sync: ``(win, left)``,
+    the ``window`` block ids of ``order_pad`` from ``pos`` and the count
+    of those positions in range, ``min(window, nb - pos)``, or 0 when the
+    round is not to run (``go`` false, or ``pos`` outside ``[0, nb]``;
+    ``win`` is then read from position 0 and never used)."""
+    dev = order_pad.device
+    live = go & (pos >= 0) & (pos <= nb)
+    left = torch.where(live, torch.clamp(nb - pos, max=window),
+                       torch.zeros((), dtype=torch.int64, device=dev))
+    start = torch.where(live, pos, torch.zeros_like(pos))
+    offs = torch.arange(window, dtype=torch.int64, device=dev)
+    return order_pad[start + offs], left
+
+
+def round_select_ref(order_pad, static_ok, words, active_words,
+                     pos: torch.Tensor, go: torch.Tensor, *, nb: int,
+                     window: int, budget: int, probe: bool):
     """Plain version of :func:`repro_torch.kernels.bitmap_active.
     round_select`, the fused round's head: the cursor window of
-    ``order_pad`` from ``pos``, its static prefilter and (with ``probe``)
-    activity verdicts, :func:`budget_select_ref` and
-    :func:`gather_blocks_ref`, as the reference's ``fused_round`` computes
-    them before its fold. Returns ``(ok (window,) bool, flags (window,)
-    bool, new_pos () int64, blk (budget,) int32, tvalid (budget,)
-    bool)``."""
-    dev = order_pad.device
-    offs = torch.arange(window, dtype=torch.int64, device=dev)
-    in_range = (pos + offs) < nb
-    win = order_pad[pos:pos + window]
-    ok = static_ok[win] & in_range
+    ``order_pad`` from ``pos`` (:func:`round_window_ref`), its static
+    prefilter and (with ``probe``) activity verdicts,
+    :func:`budget_select_ref` and :func:`gather_blocks_ref`, as the
+    reference's ``fused_round`` computes them before its fold. ``pos``
+    (int64) and ``go`` (bool) are device scalars; a round that is not to
+    run selects nothing and leaves the cursor where it is. Reads nothing
+    back on the host. Returns ``(ok (window,) bool, flags (window,) bool,
+    new_pos () int64, blk (budget,) int32, tvalid (budget,) bool)``."""
+    win, left = round_window_ref(order_pad, pos, go, nb=nb, window=window)
+    offs = torch.arange(window, dtype=torch.int64, device=order_pad.device)
+    ok = static_ok[win] & (offs < left)
     flags = ok
     if probe:
         flags = ok & (active_blocks_ref(words[win], active_words) > 0)
-    take, new_pos, csum = budget_select_ref(flags, pos, nb, window, budget)
+    take, new_pos, csum = budget_select_ref(flags, pos, left, window,
+                                            budget)
     blk, tvalid, _ = gather_blocks_ref(take, csum, win, window, budget)
     return ok, flags, new_pos, blk, tvalid
 

@@ -66,6 +66,12 @@ def _same(a, b):
         np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
 
 
+def _cursor(pos, dev="cpu", go=True):
+    """The round head's device cursor and ``go`` flag."""
+    return (torch.tensor(pos, dtype=torch.int64, device=dev),
+            torch.tensor(go, device=dev))
+
+
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("G", [1, 7, 130, 300, 2800, 10240])
 def test_block_agg_bitwise_equals_plain(cuda, G, exact):
@@ -613,10 +619,12 @@ def test_round_select_equals_plain(cuda, W, window, budget, scenario):
     opad, static_ok, words, active, pos, probe = host
     kw = dict(nb=nb, window=window, budget=budget, probe=probe)
     t = [torch.from_numpy(x) for x in (opad, static_ok, words, active)]
-    want = ops.round_select(*t, pos, **kw)
+    want = ops.round_select(*t, *_cursor(pos), **kw)
     before = bitmap_active.round_select.launches
-    got = ops.round_select(*(x.to(cuda) for x in t), pos, **kw)
-    again = ops.round_select(*(x.to(cuda) for x in t), pos, **kw)
+    got = ops.round_select(*(x.to(cuda) for x in t), *_cursor(pos, cuda),
+                           **kw)
+    again = ops.round_select(*(x.to(cuda) for x in t), *_cursor(pos, cuda),
+                             **kw)
     torch.cuda.synchronize()
     assert bitmap_active.round_select.launches == before + 2
     for x, y, z in zip(got, want, again):
@@ -640,18 +648,20 @@ def test_round_select_replays_in_a_cuda_graph(cuda):
     d = [x.to(cuda) for x in t]
     act = torch.from_numpy(masks[0]).to(cuda)
     kw = dict(nb=nb, window=window, budget=budget, probe=True)
+    cur = _cursor(pos, cuda)
     stream = torch.cuda.Stream()
     with torch.cuda.stream(stream):  # the look-back buffer, before capture
-        ops.round_select(*d, act, pos, **kw)
+        ops.round_select(*d, act, *cur, **kw)
     stream.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
-        out = ops.round_select(*d, act, pos, **kw)
+        out = ops.round_select(*d, act, *cur, **kw)
     for m in masks + masks[::-1]:
         act.copy_(torch.from_numpy(m))
         graph.replay()
         torch.cuda.synchronize()
-        want = ops.round_select(*t, torch.from_numpy(m), pos, **kw)
+        want = ops.round_select(*t, torch.from_numpy(m), *_cursor(pos),
+                                **kw)
         for x, y in zip(out, want):
             assert torch.equal(x.cpu(), y)
 
@@ -676,18 +686,19 @@ def test_round_select_on_a_scramble_is_one_launch(cuda):
     d = [x.to(cuda) for x in t]
     for pos in (0, nb // 2, nb - 40, nb):
         kw = dict(nb=nb, window=window, budget=budget, probe=True)
-        want = ops.round_select(*t, pos, **kw)
-        got = ops.round_select(*d, pos, **kw)
+        want = ops.round_select(*t, *_cursor(pos), **kw)
+        got = ops.round_select(*d, *_cursor(pos, cuda), **kw)
         for x, y in zip(got, want):
             assert torch.equal(x.cpu(), y)
-    names = _cuda_events(lambda: ops.round_select(*d, 5, **kw))
+    cur = _cursor(5, cuda)
+    names = _cuda_events(lambda: ops.round_select(*d, *cur, **kw))
     assert len(names) == 1 and "round_head_kernel" in names[0], names
     names = _cuda_events(lambda: fused_scan.fused_round(
         torch.zeros((nb, 8), device=cuda),
         torch.zeros((nb, 8), dtype=torch.int32, device=cuda),
-        torch.ones((nb, 8), device=cuda), d[2], d[0], d[1], 5, d[3], nb=nb,
-        window=window, budget=budget, center=0.0, a=0.0, b=1.0,
-        num_groups=200, nbins=64, use_hist=False, probe=True))
+        torch.ones((nb, 8), device=cuda), d[2], d[0], d[1], cur[0], d[3],
+        go=cur[1], nb=nb, window=window, budget=budget, center=0.0, a=0.0,
+        b=1.0, num_groups=200, nbins=64, use_hist=False, probe=True))
     low = " ".join(names).lower()
     assert not any(k in low for k in ("cumsum", "scan", "argmax",
                                       "scatter")), names
@@ -716,9 +727,11 @@ def test_fused_round_cuda_equals_cpu(cuda):
              for k, a in host.items()}
         outs.append([fused_scan.fused_round(
             t["values"], t["gids"], t["mask"], t["words"], t["order_pad"],
-            t["static_ok"], pos, torch.from_numpy(active).to(dev), nb=nb,
-            window=window, budget=budget, center=870.0, a=-60.0, b=1800.0,
-            num_groups=60, nbins=1024, use_hist=use_hist, probe=True)
+            t["static_ok"], _cursor(pos, dev)[0],
+            torch.from_numpy(active).to(dev), go=_cursor(pos, dev)[1],
+            nb=nb, window=window, budget=budget, center=870.0, a=-60.0,
+            b=1800.0, num_groups=60, nbins=1024, use_hist=use_hist,
+            probe=True)
             for pos in (0, 300, nb - 50) for use_hist in (False, True)])
     for (s0, h0, ok0, f0, p0), (s1, h1, ok1, f1, p1) in zip(*outs):
         assert int(p0) == int(p1)
@@ -743,11 +756,13 @@ _ENGINE_CASES = [("F-q1", "active_peek", True), ("F-q3", "active_peek", True),
 def test_engine_cuda_equals_cpu(cuda, name, sampling, fused):
     """Every sampling mode and the per-block path (host-materialized
     folds on the card) give the CPU run's bits, with the Bernstein and
-    the Anderson/DKW (``-adkw``: histogram folds) bounders."""
+    the Anderson/DKW (``-adkw``: histogram folds) bounders, through the
+    per-round host loop (its bound math is numpy on the host on both
+    sides; ``test_device_loop_on_the_card_*`` hold the device loop)."""
     ds = flights.generate(n_rows=300_000, seed=4)
     sc = build_scramble(ds.columns, catalog=ds.catalog, seed=5)
     cfg = dict(round_blocks=16, lookahead_blocks=64,
-               sync_lookahead_blocks=16, fused=fused)
+               sync_lookahead_blocks=16, fused=fused, device_loop=False)
     base, adkw = name.split("-adkw")[0], name.endswith("-adkw")
     q = fq.ALL[base](**(dict(bounder="anderson_dkw", rangetrim=False)
                         if adkw else {}))
@@ -1082,3 +1097,239 @@ def test_mamba1_train_step_cuda_equals_cpu(cuda):
         for name, w in s_cpu["opt"][part].items():
             err = float((s_gpu["opt"][part][name].cpu() - w).abs().max())
             assert err <= 1e-4 * float(w.abs().max()), (part, name, err)
+
+
+# -- CUDA graphs and the device-resident round loop --------------------------
+
+_TWO_STREAMS = r"""
+import sys
+import numpy as np
+import torch
+from repro_torch.kernels import ops
+n, G, nbins, reps = 1 << 20, 14, 1024, int(sys.argv[1])
+rng = np.random.default_rng(0)
+rows = [[torch.from_numpy(x) for x in (
+    rng.normal(40.0, 25.0, n).astype(np.float32),
+    rng.integers(0, G, n).astype(np.int32),
+    (rng.random(n) < 0.8).astype(np.float32))] for _ in range(2)]
+want = [ops.grouped_hist(*r, G, -60.0, 1800.0, nbins=nbins).hist
+        for r in rows]
+dev = [[t.cuda() for t in r] for r in rows]
+streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+torch.cuda.synchronize()
+outs = [[], []]
+for _ in range(reps):
+    for k in (0, 1):
+        with torch.cuda.stream(streams[k]):
+            outs[k].append(ops.grouped_hist(*dev[k], G, -60.0, 1800.0,
+                                            nbins=nbins).hist)
+torch.cuda.synchronize()
+for k in (0, 1):
+    for o in outs[k]:
+        assert torch.equal(o.cpu(), want[k])
+print("TWO-STREAMS-OK", reps)
+"""
+
+
+def test_grouped_hist_two_streams_at_once_do_not_hang(cuda):
+    """Two G 14 private-regime calls (1M rows, 1,024 bins) at once on two
+    streams, many times over: the private kernel's grid barrier needs all
+    its CTAs resident, which its cooperative launch guarantees whatever
+    else holds the card. Run in a subprocess with a timeout, so that a
+    hang fails this test instead of stalling the run; every output is
+    bit for bit the plain version's."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    try:
+        out = subprocess.run([sys.executable, "-c", _TWO_STREAMS, "50"],
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+    except subprocess.TimeoutExpired:
+        pytest.fail("two grouped_hist calls on two streams hung")
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "TWO-STREAMS-OK 50" in out.stdout
+
+
+@pytest.mark.parametrize("kernel", ["block_agg", "fused_fold"])
+def test_fold_replays_in_a_cuda_graph(cuda, kernel):
+    """A fold captured once in a CUDA graph and replayed with its slabs
+    and lanes changed in place (all lanes valid, a few padding lanes,
+    every lane padding): each replay is bit for bit the plain version of
+    its own inputs on the CPU."""
+    nb, br, G, budget, nbins = 96, 1024, 200, 64, 1024
+    sets = [(list(_slabs(s, nb, br, G, False)),
+             list(_lanes(s + 1, nb, budget, pad)))
+            for s, pad in ((1, 0), (2, 5), (3, budget))]
+    d = [t.to(cuda) for t in sets[0][0] + sets[0][1]]
+
+    def fold(v, g, m, blk, tvalid):
+        if kernel == "block_agg":
+            return ops.grouped_sums(v, g, m, G, 870.0, blk=blk,
+                                    tvalid=tvalid)
+        return ops.grouped_fold_hist(v, g, m, G, 870.0, -60.0, 1800.0,
+                                     nbins, blk=blk, tvalid=tvalid)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fold(*d)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fold(*d)
+    for slabs, lanes in sets + sets[::-1]:
+        for x, y in zip(d, slabs + lanes):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        _same(out, fold(*slabs, *lanes))
+
+
+def test_round_select_device_cursor_replays_in_a_cuda_graph(cuda):
+    """Six rounds of the head chained through the device cursor (each
+    round's ``new_pos`` the next one's ``pos``), captured once and
+    replayed from other starts and with ``go`` false: every round's
+    outputs equal the plain version's chain on the CPU, including the
+    rounds at the end of the scan and the rounds that do not run."""
+    nb, W, window, budget = 20_000, 88, 4096, 64
+    opad, static_ok, words, act, _, _ = _head_inputs(11, nb, W, window,
+                                                     "random")
+    t = [torch.from_numpy(x) for x in (opad, static_ok, words, act)]
+    d = [x.to(cuda) for x in t]
+    kw = dict(nb=nb, window=window, budget=budget, probe=True)
+    pos, go = _cursor(0, cuda)
+
+    def chain(p, g, tensors):
+        outs = []
+        for _ in range(6):
+            o = ops.round_select(*tensors, p, g, **kw)
+            outs.append(o)
+            p = o[2]
+        return outs
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        chain(pos, go, d)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = chain(pos, go, d)
+    for start, run in ((0, True), (nb // 2, True), (nb - 100, True),
+                       (3000, False), (0, True)):
+        pos.fill_(start)
+        go.fill_(run)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = chain(*_cursor(start, "cpu", run), t)
+        for got_round, want_round in zip(out, want):
+            for x, y in zip(got_round, want_round):
+                assert torch.equal(x.cpu(), y)
+
+
+def _loop_scramble():
+    ds = flights.generate(n_rows=300_000, n_airports=60, n_airlines=14,
+                          seed=12)
+    return build_scramble(ds.columns, catalog=ds.catalog, block_rows=256,
+                          seed=13)
+
+
+_LOOP_CFG = dict(round_blocks=16, lookahead_blocks=64,
+                 sync_lookahead_blocks=16, hist_bins=256)
+_LOOP_CASES = [("F-q5", "active_peek"), ("F-q2", "active_sync"),
+               ("F-q8", "scan"), ("F-q5-adkw", "active_peek"),
+               ("groupby-adkw", "active_peek")]
+
+
+def _loop_query(name):
+    adkw = dict(bounder="anderson_dkw", rangetrim=False)
+    if name == "groupby-adkw":
+        return AggQuery(agg="avg", column="dep_delay",
+                        group_by=("origin", "airline"),
+                        stop=ThresholdSide(threshold=10.0), **adkw)
+    base = name.split("-adkw")[0]
+    return fq.ALL[base](**(adkw if name.endswith("-adkw") else {}))
+
+
+def _assert_loops_agree(r_dev, r_host):
+    """The device loop against the host loop: scan decisions exact, CIs
+    within atol 1e-9 and rtol 1e-12 (the reference's contract)."""
+    for f in ("count_seen", "nonempty", "exact", "tainted", "rows_covered",
+              "blocks_fetched", "blocks_skipped_active",
+              "blocks_skipped_static", "bitmap_probes", "rounds",
+              "stopped_early"):
+        np.testing.assert_array_equal(getattr(r_dev, f), getattr(r_host, f),
+                                      err_msg=f)
+    for f in ("estimate", "lo", "hi"):
+        a, b = getattr(r_dev, f), getattr(r_host, f)
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+        fin = np.isfinite(a)
+        np.testing.assert_allclose(a[fin], b[fin], rtol=1e-12, atol=1e-9,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("name,sampling", _LOOP_CASES)
+def test_device_loop_on_the_card_matches_host_loop(cuda, name, sampling):
+    """``device_loop=True`` on the card (one CUDA graph replay a chunk)
+    against the per-round host loop on the card, and the default
+    ``device_loop=None`` runs the same graph path; every chunk of the run
+    is a replay, and the kernels' counts include the replays'
+    launches."""
+    sc = _loop_scramble()
+    q = _loop_query(name)
+    kw = dict(sampling=sampling, seed=1)
+    frame = FastFrame(sc, EngineConfig(device_loop=True, **_LOOP_CFG))
+    bitmap_active.round_select.launches = 0
+    r_dev = frame.run(q, **kw)
+    (dloop,) = [frame.device_loops[k] for k in frame.device_loops.keys()]
+    assert dloop.graph is not None and dloop.replays >= 1
+    assert dloop.chunks == dloop.replays
+    assert dloop.replays * dloop.chunk >= r_dev.rounds
+    # the warm-up chunk ran for real on a copy; the replays launched the rest
+    assert (bitmap_active.round_select.launches
+            == (dloop.replays + 1) * dloop.chunk)
+    r_host = FastFrame(sc, EngineConfig(device_loop=False, **_LOOP_CFG)).run(
+        q, **kw)
+    _assert_loops_agree(r_dev, r_host)
+    r_default = FastFrame(sc, EngineConfig(**_LOOP_CFG)).run(q, **kw)
+    _assert_loops_agree(r_default, r_dev)
+
+
+def test_device_loop_graph_replay_equals_eager_chunk(cuda):
+    """The captured chunk against the same chunk function run eagerly on
+    the card from the same carry, chunk after chunk: every carry tensor
+    equal bit for bit. The eager enqueue runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: no round syncs with the
+    host."""
+    from repro_torch.aqp import engine
+    sc = _loop_scramble()
+    q = _loop_query("groupby-adkw")
+    frame = FastFrame(sc, EngineConfig(device_loop=True, chunk_rounds=3,
+                                       **_LOOP_CFG))
+    nb = sc.n_blocks
+    order = (17 + np.arange(nb)) % nb
+    cum_rows = np.cumsum(frame._valid_counts[order])
+    slot = engine._ScanViews(frame, q)
+    qci = engine._QueryIntervals(frame, q, slot)
+    dl = engine._DeviceLoop(frame, q, slot, qci, probe=True, lookahead=64,
+                            max_rounds=100_000)
+    dl.set_order(order, cum_rows)
+    eager = dl.init_carry(slot, qci)
+    dl._capture(dl.init_carry(slot, qci))
+    mode = torch.cuda.get_sync_debug_mode()
+    for _ in range(4):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = dl._chunk_fn(dl.bufs, eager)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        dl.graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(fused_scan.carry_leaves(dl._static),
+                        fused_scan.carry_leaves(eager)):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+    assert int(eager.rounds) == 12

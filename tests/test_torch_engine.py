@@ -28,8 +28,11 @@ from tests.helpers.torch_parity import (assert_port_matches_ref,
                                         exact_flights_columns,
                                         port_scramble)
 
+# device_loop=False on both sides: these cases hold the port's per-round
+# host loop against the reference's (tests/test_torch_device_loop.py holds
+# the device loop)
 CFG = dict(round_blocks=16, lookahead_blocks=64, sync_lookahead_blocks=16,
-           hist_bins=256)
+           hist_bins=256, device_loop=False)
 
 
 def _queries(mod, fq, opt):

@@ -75,8 +75,9 @@ def _rounds(inp, data, probe, seed, use_hist, nbins):
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
     port = Tfs.fused_round(
         t(values), t(inp["gids"]), t(inp["mask"]),
-        t(inp["words"].view(np.int32)), t(opad), t(inp["static_ok"]), pos,
-        t(act.view(np.int32)), **kw)
+        t(inp["words"].view(np.int32)), t(opad), t(inp["static_ok"]),
+        torch.tensor(pos, dtype=torch.int64), t(act.view(np.int32)),
+        go=torch.tensor(True), **kw)
     return ref, port
 
 
@@ -124,8 +125,10 @@ def test_selection_helpers_match_reference(seed):
     take_r, new_r = Rfs._budget_select(jnp.asarray(flags),
                                        jnp.asarray(pos, jnp.int32), nb,
                                        window, budget)
-    take_t, new_t, csum = Tref.budget_select_ref(torch.from_numpy(flags),
-                                                 pos, nb, window, budget)
+    take_t, new_t, csum = Tref.budget_select_ref(
+        torch.from_numpy(flags), torch.tensor(pos, dtype=torch.int64),
+        torch.tensor(min(window, nb - pos), dtype=torch.int64), window,
+        budget)
     np.testing.assert_array_equal(take_t.numpy(), np.asarray(take_r))
     assert int(new_t) == int(new_r)
     got = Tref.gather_blocks_ref(take_t, csum, torch.from_numpy(win), window,

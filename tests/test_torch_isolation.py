@@ -78,8 +78,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     assert FastFrame(sc, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(device_loop=True),
-                                dict(shard_rows=True),
+@pytest.mark.parametrize("kw", [dict(shard_rows=True),
                                 dict(mesh_shape=(2,)),
                                 dict(merge_every=2)])
 def test_later_slices_raise_not_implemented(kw):

@@ -9,7 +9,10 @@ the window at the end of the scan, leave fewer flags than the budget,
 put exactly ``budget`` flags with the last at the window's last
 position, take a budget of one, run without the probe, and probe with
 all-ones and all-zeros masks, at every word count the kernel's two probe
-modes see."""
+modes see. The cursor and the ``go`` flag are device scalars: a round with
+``go`` false or a cursor outside ``[0, nb]`` selects nothing and leaves
+the cursor where it was, and rounds chained through ``new_pos`` walk the
+scan as the reference's cursor does."""
 
 import numpy as np
 import pytest
@@ -66,6 +69,13 @@ def _inputs(W: int, scenario: str):
     return opad, static_ok, words, active, pos, budget, probe
 
 
+def _dev_pos(pos: int) -> torch.Tensor:
+    return torch.tensor(pos, dtype=torch.int64)
+
+
+GO = torch.tensor(True)
+
+
 def _reference_head(opad, static_ok, words, active, pos, budget, probe):
     """The reference ``fused_round`` up to its fold, eagerly: ``(ok,
     flags, new_pos, blk, tvalid)``."""
@@ -93,8 +103,8 @@ def test_round_select_matches_reference_head(W, scenario):
     got = ops.round_select(
         torch.from_numpy(opad), torch.from_numpy(static_ok),
         torch.from_numpy(words.view(np.int32)),
-        torch.from_numpy(active.view(np.int32)), pos, nb=NB, window=WINDOW,
-        budget=budget, probe=probe)
+        torch.from_numpy(active.view(np.int32)), _dev_pos(pos), GO, nb=NB,
+        window=WINDOW, budget=budget, probe=probe)
     ok, flags, new_pos, blk, tvalid = got
     assert [t.dtype for t in got] == [torch.bool, torch.bool, torch.int64,
                                       torch.int32, torch.bool]
@@ -124,5 +134,53 @@ def test_round_select_kernel_rejects_cpu_tensors():
         bitmap_active.round_select(
             torch.from_numpy(opad), torch.from_numpy(static_ok),
             torch.from_numpy(words.view(np.int32)),
-            torch.from_numpy(active.view(np.int32)), pos, nb=NB,
-            window=WINDOW, budget=budget, probe=probe)
+            torch.from_numpy(active.view(np.int32)), _dev_pos(pos), GO,
+            nb=NB, window=WINDOW, budget=budget, probe=probe)
+
+
+def _torch_inputs(W: int, scenario: str):
+    opad, static_ok, words, active, pos, budget, probe = _inputs(W, scenario)
+    t = [torch.from_numpy(x) for x in (opad, static_ok, words.view(np.int32),
+                                      active.view(np.int32))]
+    return t, pos, budget, probe
+
+
+@pytest.mark.parametrize("why", ["go_false", "pos_past_nb", "pos_negative"])
+@pytest.mark.parametrize("W", [7, 88])
+def test_round_select_that_does_not_run_selects_nothing(W, why):
+    """``go`` false, or a cursor outside ``[0, nb]`` (checked on the
+    device, not the host): no position in range, no lane, the cursor
+    returned as it came."""
+    t, pos, budget, probe = _torch_inputs(W, "active_ones")
+    go = torch.tensor(why != "go_false")
+    pos = {"go_false": pos, "pos_past_nb": NB + 3, "pos_negative": -5}[why]
+    ok, flags, new_pos, blk, tvalid = ops.round_select(
+        *t, _dev_pos(pos), go, nb=NB, window=WINDOW, budget=budget,
+        probe=probe)
+    assert int(new_pos) == pos and new_pos.dtype == torch.int64
+    assert not bool(ok.any()) and not bool(flags.any())
+    assert not bool(tvalid.any()) and not bool(blk.any())
+
+
+@pytest.mark.parametrize("W", [1, 50])
+def test_round_select_chained_device_cursor_walks_like_reference(W):
+    """Rounds chained through the device cursor (each round's ``new_pos``
+    is the next round's ``pos``, never read on the host) give, round by
+    round, the reference head's outputs from the reference's cursor; a
+    round at ``pos == nb`` selects nothing."""
+    t, _, budget, probe = _torch_inputs(W, "random")
+    opad, static_ok, words, active, _, _, _ = _inputs(W, "random")
+    pos_t, ref_pos = _dev_pos(0), 0
+    for _ in range(40):
+        got = ops.round_select(*t, pos_t, GO, nb=NB, window=WINDOW,
+                               budget=budget, probe=probe)
+        if ref_pos < NB:
+            want = _reference_head(opad, static_ok, words, active, ref_pos,
+                                   budget, probe)
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+            ref_pos = int(want[2])
+        else:  # the scan is over: the head selects nothing
+            assert int(got[2]) == NB and not bool(got[4].any())
+        pos_t = got[2]
+    assert ref_pos == NB
