@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--rows N]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` (into ``build/kernels/``), then runs eight phases, each printing
+``nvcc`` (into ``build/kernels/``), then runs these phases, each printing
 one JSON line:
 
   1. environment and build: card name and power limit (also printed raw,
@@ -21,7 +21,10 @@ one JSON line:
      selective scan's states (hout, hseg) bit for bit, its y and its
      backward's gradients within stated tolerances of their plain
      versions (only the order of their sums differs), bitwise run to
-     run;
+     run; the multi-query probe at Q 1, 2 and 8 (W 7 and 88, over a
+     4096-row window and all 97,657 rows) and a slot's round head (a
+     stack of masks, a lap end, a wrapped window) bit for bit their
+     plain versions;
   3. the main paths at full size, on one frame of FLIGHTS data
      (``--rows``, default 100M; the paper's relation has 606M rows):
      ``FastFrame.run`` on the card for the quickstart query, F-q1..F-q9
@@ -48,9 +51,29 @@ one JSON line:
      replays, rounds a chunk, and the card's idle share a round for the
      G 2800 GROUP BY of both bounders through both loops (a
      ``torch.profiler`` window, ``scripts/profile_aqp_round.py``);
+  3c. shared-scan serving (``repro_torch.serve``) on phase 3b's frame,
+     through the device pass loop (a chunk of pass rounds one CUDA graph
+     replay): the default bounder's queries with Anderson F-q5 and the
+     Anderson GROUP BY in one ``run_batch`` (every interval covering,
+     each query alone in its slot bit for bit its phase-3b solo run),
+     then split into batches of distinct scan signatures (every query
+     bit for bit its solo run); the dashboard fan-outs of
+     ``benchmarks/bench_serve.py`` (8 queries on one slot, 8 on four)
+     served against 8 sequential solo runs (queries/s, captures,
+     replays, host syncs, a pass round's idle share); a
+     ``QueryScheduler`` burst of 8 (cut from 16: ``reduced``) of
+     ``benchmarks/bench_scheduler.py``'s non-probe mix, 8 slots, chunks
+     of 4 rounds, a checkpoint every step, on a ``SimClock``: every
+     ticket done and bit for bit its solo run at its anchor, a second
+     run with the same event log, and a pass with a mid-scan join,
+     resumed from a checkpoint taken after it, equal to the
+     uninterrupted pass (its joiners bit for bit their solo runs);
   4. the port on the card against the port on the CPU on a 2M-row
      scramble, for the queries of both paths through the host loop:
-     equal scan decisions, intervals within 1e-6 relative;
+     equal scan decisions, intervals within 1e-6 relative; then phase
+     3c's batch through the host pass loop (``device_loop=False``, the
+     multi-query probe once a slot a round) on the card and the CPU,
+     decisions equal, intervals within 1e-6 relative;
   5. the Mamba1 serving path: falcon-mamba-7b at full width and depth
      (64 layers, bf16, random weights from a seed) serves 8 requests of
      2048 prompt tokens (one ``prefill``, the selective-scan kernel once
@@ -67,7 +90,8 @@ one JSON line:
      forward and remat's recompute) and its backward kernel once;
   7. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times (``grouped_hist``
-     at the main path's G 14, with G 2800 beside it).
+     at the main path's G 14, with G 2800 beside it; the multi-query
+     probe at the serving host loop's window, Q 8, W 88).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and that line is not printed. Without
@@ -473,6 +497,109 @@ def check_round_select(torch, timer, ref, kbit, W: int, nb: int,
                 covered=covered, ms=ms, plain_ms=plain_ms,
                 unfused_ms=unfused_ms, probe_ms=probe_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+def check_bitmap_active_multi(torch, timer, ref, kbit, W: int, Q: int,
+                              nb: int, window: int, seed: int):
+    """The multi-query probe (one launch for a ``(Q, W)`` stack) against
+    its plain version on the card and on the CPU, bit for bit and run to
+    run, over a window of ``window`` rows and over all ``nb`` rows; each
+    row of the result also bit for bit the single-mask probe. Times at
+    the window (the serving host loop's shape) and over all rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bits = torch.randint(0, 32, (nb, W), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    on = torch.rand((nb, W), generator=gen, device="cuda") < 0.05
+    words = torch.where(on, torch.bitwise_left_shift(
+        torch.ones_like(bits), bits), torch.zeros_like(bits))
+    stack = torch.randint(-2**31, 2**31 - 1, (Q, W), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    stack[::3] = -1
+    win = torch.randint(0, nb, (window,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ok = True
+    for w in (win, None):
+        got = kbit.active_blocks_multi(words, stack, w)
+        again = kbit.active_blocks_multi(words, stack, w)
+        sel = words if w is None else words[w.long()]
+        want = ref.active_blocks_multi_ref(sel, stack)
+        want_cpu = ref.active_blocks_multi_ref(sel.cpu(), stack.cpu())
+        rows = all(torch.equal(got[q], kbit.active_blocks(words, stack[q],
+                                                          w))
+                   for q in range(Q))
+        ok &= bool(torch.equal(got, want) and torch.equal(got, again)
+                   and torch.equal(got.cpu(), want_cpu) and rows)
+    out = dict(W=W, Q=Q, rows=nb, window=window, ok=ok,
+               max_abs_err=0.0 if ok else None, library_ms=None)
+    for tag, w, n in (("window_", win, window), ("", None, nb)):
+        out[tag + "ms"] = timer(lambda: kbit.active_blocks_multi(words,
+                                                                 stack, w))
+        sel = words if w is None else words[w.long()]
+        out[tag + "plain_ms"] = timer(
+            lambda: ref.active_blocks_multi_ref(sel, stack))
+        # the rows' words and the stack read once, the flags written once
+        # (and the window's row ids); one AND and one OR a word a row
+        out[tag + "bound_ms"], out[tag + "bound_by"] = bound(
+            n * W * 4 + Q * W * 4 + Q * n * 4 + (n * 4 if w is not None
+                                                 else 0),
+            n * W * Q * 2)
+    # the reference loops its single-mask kernel over the rows: the
+    # probe kernel Q times, timed beside it
+    out["window_per_row_ms"] = timer(lambda: [
+        kbit.active_blocks(words, stack[q], win) for q in range(Q)])
+    return out
+
+
+def check_round_select_stack(torch, timer, ref, kbit, W: int, Q: int,
+                             nb: int, window: int, budget: int,
+                             seed: int):
+    """A slot's round head (a ``(Q, W)`` stack of masks, the slot's lap
+    end, a wrapped window) against its plain version on the card and on
+    the CPU, bit for bit and run to run: cursors inside the lap, past
+    nb, near the lap's end, at it, outside it, and with go false. Times
+    at a cursor inside the lap."""
+    order_pad, static_ok, words, _ = head_inputs(torch, W, nb, window,
+                                                 seed)
+    order_pad[nb:] = order_pad[:window]  # wrap-filled
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    stack = torch.randint(-2**31, 2**31 - 1, (Q, W), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    anchor = nb // 2
+    kw = dict(nb=nb, window=window, budget=budget, probe=True,
+              lap_end=anchor + nb, wrap=True)
+
+    def cur(p, go=True, dev="cuda"):
+        return (torch.tensor(p, dtype=torch.int64, device=dev),
+                torch.tensor(go, device=dev))
+
+    ok = True
+    for p, go in [(anchor, True), (anchor + 1234, True), (nb + 77, True),
+                  (anchor + nb - window // 3, True), (anchor + nb, True),
+                  (anchor - 1, True), (anchor + 5, False)]:
+        got = kbit.round_select(order_pad, static_ok, words, stack,
+                                *cur(p, go), **kw)
+        again = kbit.round_select(order_pad, static_ok, words, stack,
+                                  *cur(p, go), **kw)
+        want = ref.round_select_ref(order_pad, static_ok, words, stack,
+                                    *cur(p, go), **kw)
+        want_cpu = ref.round_select_ref(order_pad.cpu(), static_ok.cpu(),
+                                        words.cpu(), stack.cpu(),
+                                        *cur(p, go, "cpu"), **kw)
+        ok &= all(x.dtype == y.dtype and torch.equal(x, y)
+                  and torch.equal(x, z) and torch.equal(x.cpu(), c)
+                  for x, y, z, c in zip(got, want, again, want_cpu))
+    pos_t, go_t = cur(anchor + 1234)
+    ms = timer(lambda: kbit.round_select(order_pad, static_ok, words, stack,
+                                         pos_t, go_t, **kw))
+    plain_ms = timer(lambda: ref.round_select_ref(order_pad, static_ok,
+                                                  words, stack, pos_t, go_t,
+                                                  **kw))
+    bound_ms, bound_by = bound(window * (4 + 1 + W * 4) + Q * W * 4
+                               + 2 * window + budget * 5 + 8,
+                               window * W * 2 + Q * W)
+    return dict(W=W, Q=Q, window=window, budget=budget, nb=nb, ok=ok,
+                max_abs_err=0.0 if ok else None, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
 
 def check_fused_fold(torch, timer, ref, kfused, kblock, G: int, exact: bool,
                      nb: int, block_rows: int, budget: int, nbins: int,
@@ -897,14 +1024,16 @@ def device_loop_phase(torch, np, T, sc, runs, truths, host, counters):
     the static prefilters cached where phase 3's run did and counts the
     same probes; the second run finds its own cached (the one field it
     may differ from the first in). Returns ``(records, failures,
-    launches, idle, captures)``, ``captures`` the loops whose chunk was
-    captured as a graph (each after an eager chunk run under
-    ``torch.cuda.set_sync_debug_mode("error")``)."""
+    launches, idle, captures, frame, second_runs)``, ``captures`` the loops
+    whose chunk was captured as a graph (each after an eager chunk run
+    under ``torch.cuda.set_sync_debug_mode("error")``), ``second_runs`` each
+    run's second result (on the frame with its prefilters cached, as a
+    served query finds it; phase 3c's solo runs)."""
     import profile_aqp_round as prof  # scripts/, on sys.path
     frame = T.FastFrame(sc, T.EngineConfig(device_loop=True), device="cuda")
     for c in counters.values():
         c.launches = 0
-    records, failures = [], []
+    records, failures, second_runs = [], [], {}
     for path, qname, q, sampling in runs:
         rec = dict(query=qname, path=path)
         results = []
@@ -932,6 +1061,7 @@ def device_loop_phase(torch, np, T, sc, runs, truths, host, counters):
                                          "captured graph",
                                      chunks=chunks, replays=replays))
         res, again = results
+        second_runs[(path, qname)] = again
         ref = host[(path, qname)]
         diff, within = _ci_diff(np, res, ref)
         same = [f for f in DECISION_FIELDS
@@ -978,7 +1108,443 @@ def device_loop_phase(torch, np, T, sc, runs, truths, host, counters):
                 "copies_per_round")}
     captures = sum(frame.device_loops[k].graph is not None
                    for k in frame.device_loops.keys())
-    return records, failures, launches, idle, captures
+    frame.config = T.EngineConfig(device_loop=True)
+    return records, failures, launches, idle, captures, frame, second_runs
+
+
+# -- phase 3c ----------------------------------------------------------------
+
+# The dashboard workloads of benchmarks/bench_serve.py (N_QUERIES 8) and
+# the non-probe query mix of benchmarks/bench_scheduler.py, built from the
+# port's classes (those scripts import the JAX package).
+SERVE_QUERIES = 8
+# the scheduler's burst: 16 queries cut to 8 (the phase's time: each
+# query's refresh runs every pass round, and every ticket is held
+# against a solo run)
+SCHED_BURST, SCHED_SLOTS, SCHED_CHUNK, SCHED_SEED = 8, 8, 4, 13
+# the burst's queries at i % 4 == 1 and i % 4 == 3 take two more scan
+# signatures of benchmarks/bench_serve.py's multi-slot workload, without
+# its filter, so the burst's pass holds three slots that retire apart
+SCHED_EXTRA = {1: ("dep_time", None, 30.0), 3: ("dep_delay", "airline", 6.0)}
+PASS_TRACE_WARM, PASS_TRACE_CHUNKS = 1, 2   # chunks untraced, traced
+# the Anderson/DKW queries that join the default bounder's in phase 3c's
+# batch
+SERVE_ADKW = ("F-q5-adkw", "groupby_origin_airline-adkw")
+RESULT_FIELDS = ("group_codes", "estimate", "lo", "hi", "count_seen",
+                 "nonempty", "exact", "tainted", "rows_covered",
+                 "blocks_fetched", "blocks_skipped_active",
+                 "blocks_skipped_static", "bitmap_probes", "rounds",
+                 "stopped_early")
+
+
+def shared_sig_workload(T, opt, n: int = SERVE_QUERIES):
+    """n queries, one scan signature: grouped AVG, different stopping
+    conditions and deltas."""
+    out = []
+    for i in range(n):
+        kind = i % 3
+        if kind == 0:
+            stop = opt.AbsoluteWidth(eps=2.0 + 0.5 * i)
+        elif kind == 1:
+            stop = opt.ThresholdSide(threshold=float(5 * i))
+        else:
+            stop = opt.TopKSeparated(k=2 + i % 3, largest=True)
+        out.append(T.AggQuery(agg="avg", column="dep_delay",
+                              group_by="origin", stop=stop,
+                              delta=10.0 ** -(6 + i % 4)))
+    return out
+
+
+def multi_slot_workload(T, opt, n: int = SERVE_QUERIES):
+    """n queries under shared filters over 4 (column, group-by) slots."""
+    slots = [("dep_delay", "origin"), ("dep_delay", "airline"),
+             ("dep_time", "origin"), ("dep_time", "airline")]
+    out = []
+    for i in range(n):
+        col, grp = slots[i % len(slots)]
+        out.append(T.AggQuery(agg="avg", column=col, group_by=grp,
+                              filters=(T.Filter("day_of_week", "le", 5),),
+                              stop=opt.AbsoluteWidth(eps=3.0 + i),
+                              delta=1e-9))
+    return out
+
+
+def scheduler_query(T, opt, rng, i: int):
+    """The burst's ``i``-th query: benchmarks/bench_scheduler.py's
+    non-probe mix (no GROUP BY), or at ``SCHED_EXTRA``'s indices an AVG
+    of another scan signature (a grouped one is a probe slot)."""
+    if i % 4 in SCHED_EXTRA:
+        col, grp, eps = SCHED_EXTRA[i % 4]
+        return T.AggQuery(agg="avg", column=col, group_by=grp,
+                          stop=opt.AbsoluteWidth(eps=eps * (1 + i // 4)),
+                          delta=1e-9)
+    agg = ["avg", "sum", "count"][int(rng.integers(3))]
+    eps = {"avg": float(rng.uniform(0.5, 3.0)),
+           "sum": float(rng.uniform(1e5, 1e6)),
+           "count": float(rng.uniform(1e3, 1e4))}[agg]
+    return T.AggQuery(agg=agg, column="dep_delay",
+                      stop=opt.AbsoluteWidth(eps=eps), delta=1e-9)
+
+
+def truth_of_column(np, cols, q, memo=None):
+    """:func:`truth_of` for the query's own value column; ``memo`` (a
+    dict) keeps one truth a (column, group-by, filters)."""
+    key = q.scan_signature()
+    if memo is not None and key in memo:
+        return memo[key]
+    if q.column in (None, "dep_delay"):
+        out = truth_of(np, cols, q)
+    else:
+        out = truth_of(np, dict(cols, dep_delay=cols[q.column]), q)
+    if memo is not None:
+        memo[key] = out
+    return out
+
+
+class LaunchTally:
+    """Kernel launches made inside ``with tally:`` blocks alone, summed
+    over the blocks: the counts of one kind of call (a shared pass's,
+    or the solo runs it is held against) among others."""
+
+    def __init__(self, counters):
+        self._counters = counters
+        self.counts = {k: 0 for k in counters}
+
+    def __enter__(self):
+        self._before = {k: c.launches for k, c in self._counters.items()}
+        return self
+
+    def __exit__(self, *exc):
+        for k, c in self._counters.items():
+            self.counts[k] += c.launches - self._before[k]
+
+
+def same_result(np, a, b) -> bool:
+    """Bit for bit over the reference's RESULT_FIELDS."""
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in RESULT_FIELDS)
+
+
+def _pass_loops(frame):
+    return {id(v): v for v in (frame.device_loops[k]
+                               for k in frame.device_loops.keys()
+                               if k[0] == "pass")}
+
+
+def _loop_stats(frame, before):
+    """Builds (and the most slots of one), captures (with their host
+    seconds), chunks, replays and host syncs of the pass loops since
+    ``before`` (a previous
+    ``_pass_loops``-keyed snapshot of ``(chunks, replays, syncs,
+    capture_s)``)."""
+    out = dict(loops_built=0, most_slots=0, captures=0, capture_s=0.0,
+               build_s=0.0, chunks=0, replays=0, host_syncs=0)
+    slots = {id(frame.device_loops[k]): len(k[2])
+             for k in frame.device_loops.keys() if k[0] == "pass"}
+    for k, v in _pass_loops(frame).items():
+        c0, r0, s0, cap0 = before.get(k, (0, 0, 0, 0.0))
+        if k not in before:
+            out["loops_built"] += 1
+            out["most_slots"] = max(out["most_slots"], slots[k])
+            out["build_s"] += v.build_s
+            out["captures"] += int(v.graph.graph is not None)
+        out["capture_s"] += v.graph.capture_s - cap0
+        out["chunks"] += v.chunks - c0
+        out["replays"] += v.graph.replays - r0
+        out["host_syncs"] += v.syncs - s0
+    return out
+
+
+def _loop_snapshot(frame):
+    return {k: (v.chunks, v.graph.replays, v.syncs, v.graph.capture_s)
+            for k, v in _pass_loops(frame).items()}
+
+
+def _timed_solo_runs(torch, frame, queries, **kw):
+    """Solo device-loop runs of ``queries`` on ``frame``, one after
+    another: ``(results, wall seconds, seconds of graph captures among
+    them)``."""
+    out, capture = [], 0.0
+    t0 = time.perf_counter()
+    for q in queries:
+        seen = {id(v): v._graph.capture_s
+                for v in (frame.device_loops[k]
+                          for k in frame.device_loops.keys()
+                          if k[0] == "run")}
+        out.append(frame.run(q, **kw))
+        dl = _last_loop(frame)
+        capture += dl._graph.capture_s - seen.get(id(dl), 0.0)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, capture
+
+
+def trace_pass(torch, prof, server, queries, filters):
+    """The card's view of a pass's rounds: a pass of ``queries`` runs
+    ``PASS_TRACE_WARM`` chunks untraced, then ``PASS_TRACE_CHUNKS``
+    chunks in a ``torch.profiler`` window (each chunk a graph replay and
+    its packed writeback, as ``SharedPass.step`` runs them)."""
+    p = server.open_pass(filters, seed=1, start_block=0)
+    p.admit(queries)
+    for _ in range(PASS_TRACE_WARM):
+        p.step()
+    torch.cuda.synchronize()
+    r0 = p.rounds
+    # device activity only: host-op tracing would add its own cost to
+    # each of a step's ~1,000 host-side tensor ops
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as pr:
+        t0 = time.perf_counter()
+        for _ in range(PASS_TRACE_CHUNKS):
+            if p.can_step:
+                p.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = p.rounds - r0
+    if n < 1:
+        return "not measured"
+    summary = prof.summarize(torch, pr, wall, None, n)
+    return {k: summary[k] for k in (
+        "rounds_traced", "wall_ms_per_round", "device_busy_ms_per_round",
+        "device_idle_share", "kernels_per_round", "memsets_per_round",
+        "copies_per_round")}
+
+
+def serving_phase(torch, np, T, opt, frame, batch, solo, truths, cols,
+                  counters):
+    """Phase 3c: shared-scan serving on phase 3b's frame through the
+    device pass loop. ``batch`` is ``(path, name, query)`` of the
+    queries of one ``run_batch``; ``solo`` their solo device-loop
+    results on this frame (seed 0). Returns ``(record, failures,
+    pass_launches, solo_launches)``: the kernel launches of the shared
+    passes alone, and those of the solo runs they are held against."""
+    import profile_aqp_round as prof  # scripts/, on sys.path
+    from repro_torch.serve import FrameServer, QueryScheduler, SimClock
+    server = FrameServer(frame)
+    failures = []
+    nb = frame.scramble.n_blocks
+    rec = {}
+    passes, solos = LaunchTally(counters), LaunchTally(counters)
+    memo = {}
+
+    # 1. one run_batch of the whole batch: the reference plans queries of
+    # one scan signature (quickstart and F-q1, F-q2 and F-q9, ...) into
+    # one slot, whose selection is the union over them, so a query alone
+    # in its slot is bit for bit its solo run and every query covers the
+    # truth; then the batch split into run_batch calls of distinct
+    # signatures (every query alone in its slot, passes of several
+    # slots), every result bit for bit its solo run
+    queries = [q for _, _, q in batch]
+    sigs = [q.scan_signature() for q in queries]
+    splits, seen = [], {}
+    for i, sig in enumerate(sigs):
+        k = seen.get(sig, 0)
+        seen[sig] = k + 1
+        if k == len(splits):
+            splits.append([])
+        splits[k].append(i)
+    for part, groups in (("run_batch", [list(range(len(batch)))]),
+                         ("run_batch_split", splits)):
+        snap = _loop_snapshot(frame)
+        rows = []
+        t0 = time.perf_counter()
+        for idx in groups:
+            with passes:
+                res = server.run_batch([queries[i] for i in idx], seed=0)
+            for i, r in zip(idx, res):
+                path, name, _ = batch[i]
+                shared = part == "run_batch" and sigs.count(sigs[i]) > 1
+                miss = uncovered(np, r, *truths[name])
+                bitwise = (None if shared
+                           else same_result(np, r, solo[(path, name)]))
+                rows.append(dict(query=name, path=path, shared_slot=shared,
+                                 rounds=r.rounds, groups=len(r.lo),
+                                 bitwise_to_solo=bitwise,
+                                 covered=not len(miss)))
+                if len(miss) or bitwise is False:
+                    failures.append(dict(part=part, query=name,
+                                         uncovered=len(miss),
+                                         bitwise=bitwise))
+        torch.cuda.synchronize()
+        rec[part] = dict(
+            queries=rows, wall_s=time.perf_counter() - t0,
+            batches=len(groups),
+            passes=sum(len(server.plan([queries[i] for i in idx]))
+                       for idx in groups),
+            slots=sum(len({sigs[i] for i in idx}) for idx in groups),
+            **_loop_stats(frame, snap))
+
+    # 2. the dashboard fan-out: served against 8 sequential solo runs
+    fan = {}
+    for wname, qs in (("shared_sig", shared_sig_workload(T, opt)),
+                      ("multi_slot", multi_slot_workload(T, opt))):
+        kw = dict(sampling="active_peek", seed=1, start_block=0)
+        with solos:
+            seq, seq_wall, seq_capture = _timed_solo_runs(torch, frame, qs,
+                                                          **kw)
+        snap = _loop_snapshot(frame)
+        t0 = time.perf_counter()
+        with passes:
+            served = server.run_batch(qs, **kw)
+            torch.cuda.synchronize()
+        srv_wall = time.perf_counter() - t0
+        stats = _loop_stats(frame, snap)
+        t0 = time.perf_counter()
+        bad = [i for i, (q, r) in enumerate(zip(qs, served))
+               if len(uncovered(np, r, *truth_of_column(np, cols, q,
+                                                        memo)))]
+        truth_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with passes:
+            idle = trace_pass(torch, prof, server, qs, qs[0].filters)
+        trace_s = time.perf_counter() - t0
+        fan[wname] = dict(
+            queries=len(qs), pass_rounds=max(r.rounds for r in served),
+            sequential_wall_s=seq_wall, sequential_capture_s=seq_capture,
+            sequential_qps=len(qs) / seq_wall,
+            served_wall_s=srv_wall, served_qps=len(qs) / srv_wall,
+            sequential_qps_replay=len(qs) / max(seq_wall - seq_capture,
+                                                1e-9),
+            served_qps_replay=len(qs) / max(srv_wall - stats["capture_s"]
+                                            - stats["build_s"], 1e-9),
+            sequential_rounds=sum(r.rounds for r in seq),
+            uncovered=bad, truth_s=truth_s, trace_s=trace_s,
+            pass_window=idle, **stats)
+        if bad:
+            failures.append(dict(part=wname, uncovered=bad))
+    rec["fan_out"] = fan
+
+    # 3. the scheduler on a SimClock: a burst, bitwise to solo at each
+    # slot's anchor, replayed to the same event log
+    rng = np.random.default_rng(SCHED_SEED)
+    burst = [scheduler_query(T, opt, rng, i) for i in range(SCHED_BURST)]
+
+    def run_sched():
+        sched = QueryScheduler(FrameServer(frame), SimClock(), seed=1,
+                               round_cost_s=1e-3, max_slots=SCHED_SLOTS,
+                               chunk_rounds=SCHED_CHUNK, checkpoint_every=1)
+        for q in burst:
+            sched.submit(q, at=0.0)
+        sched.run_until_idle()
+        return sched
+
+    snap = _loop_snapshot(frame)
+    t0 = time.perf_counter()
+    with passes:
+        a = run_sched()
+        torch.cuda.synchronize()
+    sched_wall = time.perf_counter() - t0
+    stats = _loop_stats(frame, snap)
+    t0 = time.perf_counter()
+    with passes:
+        b = run_sched()
+        torch.cuda.synchronize()
+    rerun_wall = time.perf_counter() - t0
+    not_done = [i for i, tk in enumerate(a.tickets) if tk.status != "done"]
+    not_solo = []
+    anchors = set()
+    t0 = time.perf_counter()
+    for i, (tk, q) in enumerate(zip(a.tickets, burst)):
+        if tk.status != "done":
+            continue
+        anchor = tk._qc.slot.anchor
+        anchors.add(int(anchor))
+        with solos:
+            want = frame.run(q, sampling="active_peek", seed=1,
+                             start_block=(a.start_block + anchor) % nb)
+        if not same_result(np, tk.result, want):
+            not_solo.append(i)
+    solo_wall = time.perf_counter() - t0
+    same_log = [tuple(e) for e in a.log] == [tuple(e) for e in b.log]
+    admits = sum(1 for e in a.log if e[2] == "admit")
+    retires = sum(1 for e in a.log if e[2] == "retire")
+    # one pass with a mid-scan join, resumed from a checkpoint taken
+    # after it and held to the uninterrupted pass; the joiners also to
+    # their solo runs at their anchor
+    kw = dict(seed=1, start_block=0, chunk_rounds=SCHED_CHUNK)
+    t0 = time.perf_counter()
+    with passes:
+        p = server.open_pass((), **kw)
+        p.admit(burst[:2])
+        for _ in range(2):
+            p.step()
+        late = p.admit(burst[2:4])
+        p.step()
+        cp = p.checkpoint()
+        while p.can_step:
+            p.step()
+        p.finish()
+        q_ = server.resume_pass(cp, chunk_rounds=SCHED_CHUNK)
+        while q_.can_step:
+            q_.step()
+        q_.finish()
+    resume_wall = time.perf_counter() - t0
+    resumed_equal = all(same_result(np, q_.result_of(q), p.result_of(q))
+                        for q in burst[:4])
+    late_anchor = int(late[0].slot.anchor)
+    with solos:
+        late_solo = all(same_result(np, p.result_of(q), frame.run(
+            q, sampling="active_peek", seed=1,
+            start_block=late_anchor % nb)) for q in burst[2:4])
+    rec["scheduler"] = dict(
+        burst=SCHED_BURST, max_slots=SCHED_SLOTS, chunk_rounds=SCHED_CHUNK,
+        wall_s=sched_wall, rerun_wall_s=rerun_wall, solo_wall_s=solo_wall,
+        resume_wall_s=resume_wall,
+        signatures=len({q.scan_signature() for q in burst}),
+        checkpoints=sum(1 for e in a.log if e[2] == "checkpoint"),
+        admits=admits, retires=retires,
+        events=len(a.log), anchors=sorted(anchors), not_done=not_done,
+        not_bitwise_to_solo=not_solo, same_event_log=same_log,
+        resumed_equals_uninterrupted=resumed_equal,
+        late_join_anchor=late_anchor, late_joiners_bitwise_to_solo=late_solo,
+        **stats)
+    # the burst must have run a pass of several slots through several
+    # membership epochs (loops)
+    if (not_done or not_solo or not same_log or not resumed_equal
+            or not late_solo or late_anchor == 0
+            or stats["most_slots"] < 2 or stats["loops_built"] < 2):
+        failures.append(dict(part="scheduler", not_done=not_done,
+                             not_solo=not_solo, same_log=same_log,
+                             resumed=resumed_equal, late_solo=late_solo,
+                             late_anchor=late_anchor,
+                             most_slots=stats["most_slots"],
+                             loops_built=stats["loops_built"]))
+    return rec, failures, passes.counts, solos.counts
+
+
+def serving_host_loop(torch, np, T, sc, batch):
+    """Phase 3c's host pass loop (``device_loop=False``): the batch on
+    the card and on the CPU, decisions equal and CIs within 1e-6
+    relative (the multi-query probe runs once a slot a round here)."""
+    from repro_torch.serve import FrameServer
+    cfg = T.EngineConfig(device_loop=False)
+    queries = [q for _, _, q in batch]
+    t0 = time.perf_counter()
+    r_g = FrameServer(T.FastFrame(sc, cfg, device="cuda")).run_batch(
+        queries, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r_c = FrameServer(T.FastFrame(sc, cfg, device="cpu")).run_batch(
+        queries, seed=0)
+    rows, bad = [], []
+    for (_, name, _), a, b in zip(batch, r_g, r_c):
+        same = all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in DECISION_FIELDS)
+        rel = 0.0
+        for f in ("estimate", "lo", "hi"):
+            x, y = getattr(a, f), getattr(b, f)
+            if not np.array_equal(np.isfinite(x), np.isfinite(y)):
+                rel = np.inf
+                continue
+            fin = np.isfinite(x)
+            if fin.any():
+                rel = max(rel, float(np.max(np.abs(x[fin] - y[fin])
+                                            / np.maximum(np.abs(y[fin]),
+                                                         1e-300))))
+        rows.append(dict(query=name, rounds=a.rounds, decisions_equal=same,
+                         ci_max_rel=rel))
+        if not same or rel > 1e-6:
+            bad.append(name)
+    return dict(queries=rows, card_wall_s=wall), bad
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1329,6 +1895,17 @@ def main(argv=None) -> int:
     head = [check_round_select(torch, timer, ref, kbit, W, nb=97_657,
                                window=4096, budget=64, seed=W + 3)
             for W in (1, 7, 50, 88, 320)]
+    # shared-scan serving: the multi-query probe at Q 1, 2, 8 over one
+    # window and over every row, and a slot's head with a stack of
+    # masks over a wrapped lap
+    multi = [check_bitmap_active_multi(torch, timer, ref, kbit, W, Q,
+                                       nb=97_657, window=4096,
+                                       seed=100 + W + Q)
+             for W in (7, 88) for Q in (1, 2, 8)]
+    stacked = [check_round_select_stack(torch, timer, ref, kbit, W, Q,
+                                        nb=97_657, window=4096, budget=64,
+                                        seed=200 + W + Q)
+               for W in (7, 88) for Q in (1, 8)]
     fus = [check_fused_fold(torch, timer, ref, kfused, kblock, G, exact,
                             nb=8192, block_rows=1024, budget=64,
                             nbins=HIST_BINS, seed=G + 1)
@@ -1346,10 +1923,11 @@ def main(argv=None) -> int:
            for i, shape in enumerate(SCAN_BWD_SHAPES)]
     emit(dict(phase="kernels_vs_plain", card=name, power_limit=power_limit,
               block_agg=agg, bitmap_active=bit, round_select=head,
+              bitmap_active_multi=multi, round_select_stack=stacked,
               fused_fold=fus, grouped_hist=hst, selective_scan=scn,
               selective_scan_bwd=sbw))
-    bad = [r for r in agg + bit + head + fus + hst + scn + sbw
-           if not r["ok"]]
+    bad = [r for r in agg + bit + head + multi + stacked + fus + hst + scn
+           + sbw if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
@@ -1378,6 +1956,7 @@ def main(argv=None) -> int:
                              "grouped_hist")}
     counters = {"block_agg": kblock.block_agg,
                 "bitmap_active": kbit.active_blocks,
+                "bitmap_active_multi": kbit.active_blocks_multi,
                 "round_select": kbit.round_select,
                 "fused_fold": kfused.fused_fold,
                 "grouped_hist": khist.grouped_hist,
@@ -1454,8 +2033,9 @@ def main(argv=None) -> int:
                  for qname, q, sampling in runs if sampling != "exact"]
     del frame  # phase 3b builds its own, from the same scramble
     torch.cuda.empty_cache()
-    records, failures, launches, idle, captures = device_loop_phase(
-        torch, np, T, sc, loop_runs, truths, host_results, counters)
+    records, failures, launches, idle, captures, loop_frame, solo = \
+        device_loop_phase(torch, np, T, sc, loop_runs, truths,
+                          host_results, counters)
     path_launches["device_loop"] = launches
     emit(dict(phase="device_loop", card=name, power_limit=power_limit,
               rows=args.rows, blocks=sc.n_blocks,
@@ -1474,7 +2054,34 @@ def main(argv=None) -> int:
     if idle_k:
         raise AssertionError(f"device loop: kernels never launched "
                              f"{idle_k}: {launches}")
-    del sc, ds
+
+    # ---- 3c. shared-scan serving on phase 3b's frame ----------------------
+    t0 = time.perf_counter()
+    serve_batch = [(path, qname, q) for path, runs in paths.items()
+                   for qname, q, sampling in runs
+                   if path == "bernstein" or qname in SERVE_ADKW]
+    for c in counters.values():
+        c.launches = 0
+    serving, failures, launches, solo_launches = serving_phase(
+        torch, np, T, opt, loop_frame, serve_batch, solo, truths,
+        ds.columns, counters)
+    path_launches["serving"] = launches
+    emit(dict(phase="serving", card=name, power_limit=power_limit,
+              rows=args.rows, blocks=sc.n_blocks, launches=launches,
+              solo_launches=solo_launches,
+              phase_s=time.perf_counter() - t0,
+              reduced={"rows": f"{PAPER_ROWS / 1e6:g}M -> "
+                               f"{args.rows / 1e6:g}M",
+                       "scheduler_burst": f"16 -> {SCHED_BURST}"},
+              **serving))
+    if failures:
+        raise AssertionError(f"serving: {failures}")
+    idle_k = [k for k in ("round_select", "block_agg", "fused_fold")
+              if launches[k] == 0]
+    if idle_k:
+        raise AssertionError(f"serving: kernels never launched {idle_k}: "
+                             f"{launches}")
+    del loop_frame, solo, sc, ds
     torch.cuda.empty_cache()
 
     # ---- 4. the port on the card against the port on the CPU ----------------
@@ -1510,8 +2117,25 @@ def main(argv=None) -> int:
               total_s=time.perf_counter() - t_start))
     if mismatch:
         raise AssertionError(f"card and CPU runs differ: {mismatch}")
+    del f_gpu, f_cpu
 
-    del f_gpu, f_cpu, sc, ds
+    # ---- 3c, host pass loop: the serving batch on the card and the CPU ------
+    for c in counters.values():
+        c.launches = 0
+    host_serving, mismatch = serving_host_loop(torch, np, T, sc, serve_batch)
+    launches = {k: c.launches for k, c in counters.items()}
+    path_launches["serving_host_loop"] = launches
+    emit(dict(phase="serving_host_loop", rows=CPU_ROWS, launches=launches,
+              **host_serving, total_s=time.perf_counter() - t_start))
+    if mismatch:
+        raise AssertionError(f"served card and CPU runs differ: {mismatch}")
+    idle_k = [k for k in ("bitmap_active_multi", "round_select", "block_agg",
+                          "fused_fold") if launches[k] == 0]
+    if idle_k:
+        raise AssertionError(f"serving host loop: kernels never launched "
+                             f"{idle_k}: {launches}")
+
+    del sc, ds
     torch.cuda.empty_cache()
 
     # ---- 5. the Mamba1 serving path -----------------------------------------
@@ -1534,6 +2158,9 @@ def main(argv=None) -> int:
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])
     b = next(r for r in bit if r["W"] == PREFILTER_WORDS)
     rs = next(r for r in head if r["W"] == 88)
+    mp = next(r for r in multi if r["W"] == 88 and r["Q"] == 8)
+    st1 = next(r for r in stacked if r["W"] == 88 and r["Q"] == 1)
+    st8 = next(r for r in stacked if r["W"] == 88 and r["Q"] == 8)
     f = next(r for r in fus if r["G"] == 2800 and not r["exact_data"])
     h = next(r for r in hst
              if r["G"] == HIST_PATH_GROUPS and not r["exact_data"])
@@ -1568,7 +2195,20 @@ def main(argv=None) -> int:
              max_abs_err=max(r["max_abs_err"] for r in head),
              ms=rs["ms"], plain_ms=rs["plain_ms"], bound_ms=rs["bound_ms"],
              bound_by=rs["bound_by"], library_ms=None,
-             unfused_ms=rs["unfused_ms"], probe_ms=rs["probe_ms"]),
+             unfused_ms=rs["unfused_ms"], probe_ms=rs["probe_ms"],
+             serving_launches=path_launches["serving"]["round_select"],
+             stack_q8_ms=st8["ms"], stack_q1_ms=st1["ms"]),
+        dict(name="active_blocks_multi", route="cuda",
+             source="src/repro_torch/kernels/csrc/bitmap_active.cu",
+             replaces="src/repro/kernels/bitmap_active.py:40",
+             launches=path_launches["serving_host_loop"][
+                 "bitmap_active_multi"],
+             max_abs_err=max(r["max_abs_err"] for r in multi),
+             ms=mp["window_ms"], plain_ms=mp["window_plain_ms"],
+             bound_ms=mp["window_bound_ms"],
+             bound_by=mp["window_bound_by"], library_ms=None,
+             Q=mp["Q"], W=mp["W"], rows=mp["window"],
+             per_row_loop_ms=mp["window_per_row_ms"]),
         dict(name="fused_fold", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_fold.cu",
              replaces="src/repro/kernels/fused_scan.py:148",

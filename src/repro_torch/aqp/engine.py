@@ -254,19 +254,34 @@ class EngineConfig:
 class _ScanViews:
     """State determined by one scan signature ``(filters, column,
     group-by)``: the aggregate views' fold / coverage / soundness
-    bookkeeping, independent of any one query's stopping condition."""
+    bookkeeping, independent of any one query's stopping condition.
 
-    def __init__(self, frame: "FastFrame", q: AggQuery):
+    One instance can back several concurrent queries
+    (:class:`repro_torch.serve.FrameServer`): the moment / histogram
+    states, coverage, exactness and taint are functions of the scan
+    alone, so queries that differ only in aggregate, bounder, delta or
+    stopping condition share them. ``use_hist`` overrides the query's own
+    need for the histogram (a slot folds it when any of its queries
+    needs it)."""
+
+    def __init__(self, frame: "FastFrame", q: AggQuery,
+                 use_hist: Optional[bool] = None, anchor: int = 0):
         self.frame = frame
         self.rep_q = q
         sc = frame.scramble
-        self.lap_end = sc.n_blocks
+        # Carousel anchor: the pass cursor position where this slot
+        # joined a shared walk. Its lap is [anchor, anchor + n_blocks) in
+        # pass coordinates, one full rotation of the scan order, so the
+        # skipped prefix is covered at the end of the lap. A solo run is
+        # the anchor=0 case.
+        self.anchor = anchor
+        self.lap_end = anchor + sc.n_blocks
         self.gcol, self.G = (None, 1)
         if q.group_by is not None:
             self.gcol, self.G = frame._composite_group(q.group_cols)
         self.value_src, (self.a, self.b) = frame._values_and_bounds(q)
         self.center = 0.5 * (self.a + self.b)
-        self.use_hist = q.needs_hist
+        self.use_hist = use_hist if use_hist is not None else q.needs_hist
         self.static_ok, self.probes0 = frame._static_ok(q)
         self.group_bm = (frame.bitmap(self.gcol) if self.gcol is not None
                          else None)
@@ -311,9 +326,42 @@ class _ScanViews:
             pad_to=pad_to)
         self.seen_presence += self.presence[idx].sum(axis=0)
 
+    def export_state(self) -> Dict[str, object]:
+        """Deep copy of the mutable fold / coverage / soundness state (the
+        signature's derived arrays, presence, static_ok and bounds, are
+        functions of the frame and are rebuilt by a restored slot).
+        Consumed by :class:`repro_torch.serve.checkpoint.PassCheckpoint`."""
+        return dict(
+            use_hist=self.use_hist, anchor=self.anchor,
+            state=MomentState(*(np.array(x) for x in self.state)),
+            hist=None if self.hist is None else np.array(self.hist),
+            seen_presence=np.array(self.seen_presence),
+            processed=np.array(self.processed),
+            exact=np.array(self.exact),
+            tainted=np.array(self.tainted),
+            blocks_fetched=int(self.blocks_fetched))
+
+    def import_state(self, snap: Dict[str, object]) -> None:
+        """Overwrite the mutable state from an :meth:`export_state`
+        snapshot, arrays copied back verbatim, so a restored scan goes on
+        bit for bit where the snapshot was taken."""
+        if snap["use_hist"] != self.use_hist or \
+                snap["anchor"] != self.anchor:
+            raise ValueError("checkpoint does not match this slot's "
+                             "scan configuration")
+        self.state = MomentState(*(np.array(x) for x in snap["state"]))
+        self.hist = (None if snap["hist"] is None
+                     else np.array(snap["hist"]))
+        self.seen_presence = np.array(snap["seen_presence"])
+        self.processed = np.array(snap["processed"])
+        self.exact = np.array(snap["exact"])
+        self.tainted = np.array(snap["tainted"])
+        self.blocks_fetched = int(snap["blocks_fetched"])
+
     def update_exact(self, pos: Optional[int] = None) -> None:
-        """Mark fully-covered views exact; on exhaustion (``pos >=
-        lap_end``) also untainted views — an untainted view's unprocessed
+        """Mark fully-covered views exact; on lap exhaustion (``pos >=
+        lap_end``: the cursor walked one full rotation from this slot's
+        anchor) also untainted views — an untainted view's unprocessed
         blocks were all static-skipped (zero view rows), whereas a tainted
         view lost member rows to activity skips and must finish via the
         recovery pass."""
@@ -355,6 +403,24 @@ class _QueryIntervals:
         self.est = np.full(G, slot.center)
         self.refreshed = np.zeros(G, dtype=bool)
         self.active = slot.valid.copy()
+        self.finished = False
+
+    def export_state(self) -> Dict[str, object]:
+        """Deep copy of the running interval state (the checkpoint twin of
+        :meth:`_ScanViews.export_state` for per-query state)."""
+        return dict(lo=np.array(self.lo), hi=np.array(self.hi),
+                    est=np.array(self.est),
+                    refreshed=np.array(self.refreshed),
+                    active=np.array(self.active),
+                    finished=bool(self.finished))
+
+    def import_state(self, snap: Dict[str, object]) -> None:
+        self.lo = np.array(snap["lo"])
+        self.hi = np.array(snap["hi"])
+        self.est = np.array(snap["est"])
+        self.refreshed = np.array(snap["refreshed"])
+        self.active = np.array(snap["active"])
+        self.finished = bool(snap["finished"])
 
     def cond_active(self) -> np.ndarray:
         """Stopping-condition activity over EXISTING views only (phantom
@@ -406,12 +472,19 @@ class _QueryIntervals:
 
     def result(self, rounds: int, pos: int, cum_rows: np.ndarray,
                metrics: Dict[str, int], t0: float,
-               stopped_early: bool) -> QueryResult:
-        """Build the QueryResult from the current slot/query state (arrays
-        copied, so the result is a consistent snapshot)."""
+               stopped_early: bool,
+               rows_covered: Optional[int] = None) -> QueryResult:
+        """Build the QueryResult from the current slot/query state. The
+        arrays are copied (``count_seen`` too, which must not alias the
+        slot's live fold state), so the result is a consistent snapshot
+        even while a shared scan goes on mutating the slot: the serving
+        layer calls this the moment a query finishes. ``rows_covered``
+        overrides the prefix-sum lookup for an anchored slot, whose lap
+        does not start at cursor position 0."""
         slot = self.slot
         counts = slot.counts
-        rows_covered = int(cum_rows[pos - 1]) if pos else 0
+        if rows_covered is None:
+            rows_covered = int(cum_rows[pos - 1]) if pos else 0
         return QueryResult(
             group_codes=np.arange(slot.G), estimate=self.est.copy(),
             lo=self.lo.copy(), hi=self.hi.copy(),
@@ -590,11 +663,88 @@ def _restore_views_from_carry(slot: _ScanViews, state: MomentState, hist,
 #: most) against one host sync and one replay launch per chunk.
 GRAPH_CHUNK_ROUNDS = 16
 
-# The kernels a device-loop chunk launches (the round head and one fold a
-# round): a graph replay launches what its capture recorded, without
-# calling their wrappers, so the loop adds each replay's launches to
-# their counts itself.
-_LOOP_KERNELS = (kbitmap.round_select, kblock.block_agg, kfold.fused_fold)
+# The kernels a device-loop chunk may launch (the round head and a fold a
+# round, a slot a round in a shared pass, and the multi-query probe): a
+# graph replay launches what its capture recorded, without calling their
+# wrappers, so each replay adds its launches to their counts itself.
+_LOOP_KERNELS = (kbitmap.round_select, kblock.block_agg, kfold.fused_fold,
+                 kbitmap.active_blocks_multi)
+
+
+class _ChunkGraph:
+    """One chunk of a device-resident loop (the solo query loop's or a
+    shared pass's) captured as a ``torch.cuda.CUDAGraph`` and replayed:
+    the one piece of code that holds a chunk to "no host sync".
+
+    The first :meth:`load` captures: one eager chunk on a *copy* of the
+    carry on a side stream, under ``torch.cuda.set_sync_debug_mode(
+    "error")`` (the enqueue must not sync; it also makes the round head's
+    look-back buffer for that stream outside the capture), then the
+    capture of ``chunk_fn`` on the same stream, whose replay advances the
+    carry's own tensors (the static carry) in place. Later loads copy a
+    carry into the static one. A failed capture raises: there is no eager
+    or host-loop fallback. Each :meth:`replay` adds the launches its
+    capture recorded to the kernels' counts. The instance owns its graph
+    and the graph's memory pool."""
+
+    def __init__(self, chunk_fn: Callable, bufs, device: torch.device):
+        self._chunk_fn = chunk_fn
+        self._bufs = bufs
+        self.device = device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static = None
+        self._replay_launches: Tuple[int, ...] = ()
+        self.capture_s = 0.0   # host seconds of the warm-up and capture
+        self.replays = 0
+
+    def load(self, carry):
+        """Make ``carry``'s values the static carry's (capturing on the
+        first call, when ``carry``'s own tensors become the static carry);
+        returns the static carry."""
+        if self.graph is None:
+            self.capture(carry)
+        else:
+            for dst, src in zip(kfused.carry_leaves(self.static),
+                                kfused.carry_leaves(carry)):
+                dst.copy_(src)
+        return self.static
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in zip(_LOOP_KERNELS, self._replay_launches):
+            k.launches += n
+        self.replays += 1
+
+    def capture(self, carry) -> None:
+        """Capture one chunk as a CUDA graph whose replay advances the
+        static carry (``carry``'s own tensors) in place."""
+        t0 = time.perf_counter()
+        clone = kfused.carry_map(torch.clone, carry)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        mode = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(stream):
+            torch.cuda.set_sync_debug_mode("error")
+            try:  # warm-up: the same enqueue, on a copy, must not sync
+                self._chunk_fn(self._bufs, clone)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        warm = tuple(k.launches for k in _LOOP_KERNELS)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = self._chunk_fn(self._bufs, carry)
+            for dst, src in zip(kfused.carry_leaves(carry),
+                                kfused.carry_leaves(out)):
+                dst.copy_(src)
+        # the capture launched nothing: what it recorded runs per replay
+        self._replay_launches = tuple(
+            k.launches - n for k, n in zip(_LOOP_KERNELS, warm))
+        for k, n in zip(_LOOP_KERNELS, warm):
+            k.launches = n
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self.graph = graph
+        self.static = carry
+        self.capture_s += time.perf_counter() - t0
 
 
 class _DeviceLoop:
@@ -607,16 +757,13 @@ class _DeviceLoop:
     the recovery pass and result construction are the code the host loop
     uses.
 
-    On the card the first run captures one chunk as a
-    ``torch.cuda.CUDAGraph`` over static carry tensors, after one eager
-    chunk on a copy of the carry on the capture stream (which makes the
-    round head's look-back buffer outside the capture, and is checked
-    under ``torch.cuda.set_sync_debug_mode("error")``: the enqueue must
-    not sync); each chunk is then one replay. A failed capture raises:
-    there is no eager or host-loop fallback. The instance is cached on
-    the frame (``FastFrame.device_loops``) and owns its graph and the
-    graph's memory pool, which go with it when the cache evicts it. On
-    the CPU the same chunk function runs eagerly."""
+    On the card the first run captures one chunk as a CUDA graph
+    (:class:`_ChunkGraph`: an eager warm-up chunk on a copy of the carry
+    under ``torch.cuda.set_sync_debug_mode("error")``, then the capture);
+    each chunk is then one replay. The instance is cached on the frame
+    (``FastFrame.device_loops``) and owns its graph and the graph's
+    memory pool, which go with it when the cache evicts it. On the CPU
+    the same chunk function runs eagerly."""
 
     def __init__(self, frame: "FastFrame", q: AggQuery, slot: _ScanViews,
                  qci: _QueryIntervals, probe: bool, lookahead: int,
@@ -657,11 +804,8 @@ class _DeviceLoop:
             probe=probe, n_words=words.shape[1], lookahead=lookahead,
             cover_cap=cover_cap, max_rounds=max_rounds, chunk=self.chunk,
             refresh_fn=refresh_fn)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self._static: Optional[kfused.QueryLoopCarry] = None
-        self._replay_launches: Tuple[int, ...] = ()
+        self._graph = _ChunkGraph(self._chunk_fn, self.bufs, dev)
         self.chunks = 0    # chunks run on a query's carry
-        self.replays = 0   # of which graph replays
         self.syncs = 0     # host reads of the loop's state
         self.last_rounds = 0  # rounds the last run's loop took
 
@@ -728,53 +872,29 @@ class _DeviceLoop:
             if self._done(carry, on_sync):
                 return carry
 
-    def _run_graph(self, carry, on_sync):
-        if self.graph is None:
-            self._capture(carry)
-        else:
-            for dst, src in zip(kfused.carry_leaves(self._static),
-                                kfused.carry_leaves(carry)):
-                dst.copy_(src)
-        while True:
-            self.graph.replay()
-            for k, n in zip(_LOOP_KERNELS, self._replay_launches):
-                k.launches += n
-            self.replays += 1
-            self.chunks += 1
-            if self._done(self._static, on_sync):
-                return self._static
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        return self._graph.graph
+
+    @property
+    def _static(self):
+        return self._graph.static
+
+    @property
+    def replays(self) -> int:
+        """Chunks run as graph replays."""
+        return self._graph.replays
 
     def _capture(self, carry: kfused.QueryLoopCarry) -> None:
-        """Capture one chunk as a CUDA graph whose replay advances the
-        static carry (``carry``'s own tensors) in place."""
-        clone = kfused.QueryLoopCarry(*(
-            MomentState(*(t.clone() for t in f))
-            if isinstance(f, MomentState) else None if f is None
-            else f.clone() for f in carry))
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        mode = torch.cuda.get_sync_debug_mode()
-        with torch.cuda.stream(stream):
-            torch.cuda.set_sync_debug_mode("error")
-            try:  # warm-up: the same enqueue, on a copy, must not sync
-                self._chunk_fn(self.bufs, clone)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        before = tuple(k.launches for k in _LOOP_KERNELS)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            out = self._chunk_fn(self.bufs, carry)
-            for dst, src in zip(kfused.carry_leaves(carry),
-                                kfused.carry_leaves(out)):
-                dst.copy_(src)
-        # the capture launched nothing: what it recorded runs per replay
-        self._replay_launches = tuple(
-            k.launches - n for k, n in zip(_LOOP_KERNELS, before))
-        for k, n in zip(_LOOP_KERNELS, before):
-            k.launches = n
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        self.graph = graph
-        self._static = carry
+        self._graph.capture(carry)
+
+    def _run_graph(self, carry, on_sync):
+        static = self._graph.load(carry)
+        while True:
+            self._graph.replay()
+            self.chunks += 1
+            if self._done(static, on_sync):
+                return static
 
     def writeback(self, carry: kfused.QueryLoopCarry, slot: _ScanViews,
                   qci: _QueryIntervals,
@@ -784,36 +904,17 @@ class _DeviceLoop:
         after this, recovery / result construction run the host loop's
         code on identical state. Returns ``(pos, rounds,
         stopped_early)``."""
-        G, nb = self.G, self.nb
-        scalars = [carry.pos, carry.rounds, carry.stopped_early,
-                   carry.blocks_fetched, carry.skipped_static,
-                   carry.skipped_active, carry.probes]
-        vectors = [*carry.state, carry.seen_presence, carry.tainted,
-                   carry.exact, carry.lo, carry.hi, carry.est,
-                   carry.refreshed, carry.active, carry.processed]
-        if self.use_hist:
-            vectors.append(carry.hist)
-        host = torch.cat([t.reshape(-1).to(torch.float64)
-                          for t in scalars + vectors]).cpu().numpy()
+        h, _ = kfused.carry_to_host(carry)
         self.syncs += 1
-        (pos, rounds, stopped_early, blocks_fetched, skipped_static,
-         skipped_active, probes) = (int(v) for v in host[:7])
-        self.last_rounds = rounds
-        cols = host[7:7 + 13 * G].reshape(13, G)
-        processed = host[7 + 13 * G:7 + 13 * G + nb] > 0
-        hist = (host[7 + 13 * G + nb:].reshape(G, self.nbins)
-                if self.use_hist else None)
+        self.last_rounds = int(h.rounds)
         _restore_views_from_carry(
-            slot, MomentState(*cols[:5]), hist, processed, cols[5],
-            cols[6] > 0, cols[7] > 0, blocks_fetched, metrics,
-            skipped_static, skipped_active)
-        metrics["probes"] += probes
-        qci.lo = _host_copy(cols[8], np.float64)
-        qci.hi = _host_copy(cols[9], np.float64)
-        qci.est = _host_copy(cols[10], np.float64)
-        qci.refreshed = cols[11] > 0
-        qci.active = cols[12] > 0
-        return pos, rounds, bool(stopped_early)
+            slot, h.state, h.hist, h.processed, h.seen_presence, h.tainted,
+            h.exact, h.blocks_fetched, metrics, h.skipped_static,
+            h.skipped_active)
+        metrics["probes"] += int(h.probes)
+        qci.lo, qci.hi, qci.est = (np.array(x) for x in (h.lo, h.hi, h.est))
+        qci.refreshed, qci.active = np.array(h.refreshed), np.array(h.active)
+        return int(h.pos), int(h.rounds), bool(h.stopped_early)
 
 
 class FastFrame:
@@ -1101,23 +1202,31 @@ class FastFrame:
 
     def _fused_accounting(self, order, pos, new_pos, ok, flags, presence,
                           tainted, lookahead, budget, cover_cap, probe,
-                          metrics):
+                          metrics, lap_end=None):
         """Host-side bookkeeping for one fused round: replicates the
         `_advance` skip/taint/probe accounting bit for bit from the
         per-position verdicts the round returned, and materializes the
-        selected block ids."""
+        selected block ids.
+
+        ``lap_end`` clamps the accounting to one slot's lap in a shared
+        pass whose cursor runs past ``n_blocks`` (late joiners): window
+        positions at or past the slot's lap end count toward none of its
+        metrics and select none of its blocks. Cursor position ``p`` is
+        block ``order[p % n_blocks]``. Defaults to ``n_blocks``, the plain
+        single-lap scan."""
         nb = order.shape[0]
+        end = nb if lap_end is None else lap_end
         if probe:
             # probe metric: the reference path probes whole lookahead
             # batches until the budget is met (or cap/end reached)
-            win_len = min(len(flags), nb - pos)
+            win_len = min(len(flags), end - pos)
             total, p = 0, 0
             while total < budget and p < win_len and p < cover_cap:
                 e = min(p + lookahead, win_len)
                 metrics["probes"] += e - p
                 total += int(flags[p:e].sum())
                 p = e
-        covered = min(new_pos, nb) - pos
+        covered = min(new_pos, end) - pos
         okc, flagsc = ok[:covered], flags[:covered]
         metrics["skipped_static"] += int((~okc).sum())
         act_skip = okc & ~flagsc

@@ -37,6 +37,7 @@ class LRUCache:
                              f"got {capacity}")
         self.capacity = int(capacity)
         self._data: "OrderedDict[Hashable, object]" = OrderedDict()
+        self.misses = 0   # builds: the lookups that found no entry
 
     def get_or_build(self, key: Hashable, build: Callable[[], V]) -> V:
         """Return the cached value for ``key`` (refreshing its recency),
@@ -45,6 +46,7 @@ class LRUCache:
         if hit is not None:
             self._data.move_to_end(key)
             return hit
+        self.misses += 1
         val = self._data[key] = build()
         while len(self._data) > self.capacity:
             self._data.popitem(last=False)

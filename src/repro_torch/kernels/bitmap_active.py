@@ -8,17 +8,23 @@ bitmaps, where ``row_i`` is ``win[i]`` (rows read in place) or ``i``
 (every row: the static prefilter, the per-block path). Words are uint32
 bit patterns carried in int32 tensors.
 
+:func:`active_blocks_multi` is shared-scan serving's form of the probe:
+a ``(Q, W)`` stack of masks, one a query, against the same rows in one
+launch (``out[q, i]``), each row's words read once for all Q masks.
+
 :func:`round_select` is the fused scan round's head: the same probe over
 the cursor window, with the static prefilter, the budgeted selection and
 the fold's lane table, in one launch (the source's header says how). It
 reads the cursor and its ``go`` flag from device scalars, so a CUDA
 graph of many rounds replays each round from the cursor the last one
-left.
+left. For a slot of a shared pass it takes a stack of masks (their
+union), the slot's lap end and a wrapped window.
 
 These wrappers only launch: they take CUDA tensors and raise on anything
 else. :mod:`repro_torch.kernels.ops` chooses between them and the plain
-versions by the tensors' device. ``active_blocks.launches`` and
-``round_select.launches`` count the launches.
+versions by the tensors' device. ``active_blocks.launches``,
+``active_blocks_multi.launches`` and ``round_select.launches`` count the
+launches.
 """
 
 from __future__ import annotations
@@ -75,6 +81,50 @@ def active_blocks(words: torch.Tensor, active_words: torch.Tensor,
 active_blocks.launches = 0
 
 
+def active_blocks_multi(words: torch.Tensor, stack: torch.Tensor,
+                        win: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Probe rows of ``words`` (``(nb, W)`` int32 on a CUDA device)
+    against each row of ``stack`` (``(Q, W)`` int32), in one launch.
+    ``win`` (``(n,)`` int32 row ids, or None for all ``nb`` rows) picks
+    the rows. Returns int32 ``(Q, n)`` flags, row ``q`` bit for bit
+    :func:`active_blocks` against ``stack[q]``."""
+    dev = words.device
+    _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
+    _require(words.dim() == 2 and stack.dim() == 2
+             and stack.shape[1] == words.shape[1],
+             f"words must be (nb, W) and stack (Q, W), got "
+             f"{tuple(words.shape)} and {tuple(stack.shape)}")
+    n_words, q = words.shape[1], stack.shape[0]
+    _require(q * n_words * 4 <= 227 * 1024,
+             f"the ({q}, {n_words}) stack must fit one CTA's shared memory "
+             "(227 KB)")
+    for name, t in (("words", words), ("stack", stack)):
+        _require(t.device == dev, f"{name} is on {t.device}, not {dev}")
+        _require(t.dtype == torch.int32, f"{name} must be int32 (uint32 "
+                 f"bits), got {t.dtype}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    win_ptr = None
+    n = words.shape[0]
+    if win is not None:
+        _require(win.dim() == 1 and win.device == dev
+                 and win.dtype == torch.int32 and win.is_contiguous(),
+                 "win must be a contiguous 1-D int32 tensor on the words' "
+                 "device")
+        win_ptr = win.data_ptr()
+        n = win.shape[0]
+    out = torch.empty((q, n), dtype=torch.int32, device=dev)
+    rc = _build.library().repro_bitmap_active_multi(
+        words.data_ptr(), win_ptr, n, n_words, stack.data_ptr(), q,
+        out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "bitmap_active_multi launch")
+    active_blocks_multi.launches += 1
+    return out
+
+
+active_blocks_multi.launches = 0
+
+
 # The round head's look-back words per (device, stream): an int64 buffer
 # (the epoch, then a word a CTA), zeroed once. The kernel keeps the epoch
 # in the buffer and tags each call's words with a new one, so the buffer
@@ -98,21 +148,27 @@ def _lookback_words(dev: torch.device, stream: int,
 def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
                  words: torch.Tensor, active_words: torch.Tensor,
                  pos: torch.Tensor, go: torch.Tensor, *, nb: int,
-                 window: int, budget: int, probe: bool):
+                 window: int, budget: int, probe: bool,
+                 lap_end: Optional[int] = None, wrap: bool = False):
     """The fused round's head in one launch, as
     :func:`repro_torch.kernels.ops.round_select` describes it.
 
     Args: ``order_pad`` int32 with at least ``nb + window`` entries (the
-    scan order, padded); ``static_ok`` ``(nb,)`` bool; ``words`` ``(nb,
-    W)`` and ``active_words`` ``(W,)`` int32 (read only with ``probe``);
-    ``pos`` an int64 and ``go`` a bool device scalar (the head checks
-    ``0 <= pos <= nb`` on the card). Returns ``(ok, flags, new_pos, blk,
-    tvalid)``, views of one allocation, equal bit for bit to
+    scan order, padded; wrap-filled for ``wrap``); ``static_ok`` ``(nb,)``
+    bool; ``words`` ``(nb, W)`` and ``active_words`` ``(W,)`` or a ``(Q,
+    W)`` stack, int32 (read only with ``probe``); ``pos`` an int64 and
+    ``go`` a bool device scalar (the head checks ``lap_end - nb <= pos <=
+    lap_end`` on the card); ``lap_end`` the cursor limit (``nb`` when
+    None). Returns ``(ok, flags, new_pos, blk, tvalid)``, views of one
+    allocation, equal bit for bit to
     :func:`repro_torch.kernels.ref.round_select_ref`."""
     dev = order_pad.device
+    lap_end = nb if lap_end is None else lap_end
     _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
     _require(window >= 1 and budget >= 1, f"window and budget must be >= 1, "
              f"got {window}, {budget}")
+    _require(nb >= 1 and lap_end >= nb, f"nb must be >= 1 and lap_end >= "
+             f"nb, got {nb}, {lap_end}")
     _require(pos.shape == () and pos.dtype == torch.int64
              and go.shape == () and go.dtype == torch.bool,
              "pos must be an int64 and go a bool device scalar")
@@ -125,12 +181,18 @@ def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
              and static_ok.is_contiguous() and static_ok.shape[0] >= nb,
              "static_ok must be contiguous 1-D bool with nb entries")
     tensors = [order_pad, static_ok, pos, go]
-    words_ptr, active_ptr, n_words = None, None, 0
+    words_ptr, active_ptr, n_words, n_active = None, None, 0, 0
     if probe:
         n_words = words.shape[1] if words.dim() == 2 else -1
+        n_active = (active_words.shape[0] if active_words.dim() == 2
+                    else 1)
         _require(n_words > 0 and words.shape[0] >= nb
-                 and active_words.shape == (n_words,),
-                 "words must be (nb, W) and active_words (W,)")
+                 and active_words.shape[-1] == n_words
+                 and active_words.dim() in (1, 2) and n_active >= 1,
+                 "words must be (nb, W) and active_words (W,) or (Q, W)")
+        _require(n_active == 1 or n_words * 4 <= 48 * 1024,
+                 f"a stack's OR of {n_words} words must fit 48 KB of "
+                 "shared memory")
         for name, t in (("words", words), ("active_words", active_words)):
             _require(t.dtype == torch.int32 and t.is_contiguous(),
                      f"{name} must be contiguous int32 (uint32 bits)")
@@ -148,7 +210,8 @@ def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
     status = _lookback_words(dev, stream, -(-window // 32))
     rc = _build.library().repro_round_select(
         order_pad.data_ptr(), static_ok.data_ptr(), words_ptr, n_words,
-        active_ptr, pos.data_ptr(), go.data_ptr(), nb, window, budget,
+        active_ptr, n_active, pos.data_ptr(), go.data_ptr(), nb, lap_end,
+        1 if wrap else 0, window, budget,
         buf.data_ptr() + o_ok,
         buf.data_ptr() + o_flags, buf.data_ptr(), buf.data_ptr() + o_blk,
         buf.data_ptr() + o_tvalid, status.data_ptr(), dev.index, stream)

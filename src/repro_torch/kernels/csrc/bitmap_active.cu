@@ -24,10 +24,11 @@
 // the window, the static prefilter, the probe, `_budget_select` and
 // `_gather_blocks`) computes before the fold, in ONE launch:
 //
-//   live     = go && 0 <= pos <= nb   (pos and go read on the card)
-//   left     = live ? min(window, nb - pos) : 0   (positions in range)
-//   ok[i]    = static_ok[order_pad[pos + i]] && i < left
-//   flags[i] = ok[i] && probe(order_pad[pos + i])   (ok[i] without probe)
+//   live     = go && lap_end - nb <= pos <= lap_end   (pos, go on the card)
+//   left     = live ? min(window, lap_end - pos) : 0  (positions in range)
+//   base     = wrap ? pos % nb : pos
+//   ok[i]    = static_ok[order_pad[base + i]] && i < left
+//   flags[i] = ok[i] && probe(order_pad[base + i])   (ok[i] without probe)
 //   lane k   = the k-th flagged position: blk[k] = its block, tvalid[k] = 1;
 //              lanes past the last taken one: blk 0, tvalid 0
 //   new_pos  = pos + (one past the budget-th flag if there are budget
@@ -37,8 +38,9 @@
 // the previous round's new_pos and the loop's own verdict, so a round
 // reads nothing from the host and a CUDA graph of many rounds replays
 // each with the cursor the round before it left. A round that is not to
-// run (go false, or pos outside [0, nb]) selects nothing: ok, flags and
-// tvalid all false, blk 0, new_pos = pos.
+// run (go false, or pos outside [lap_end - nb, lap_end]) selects
+// nothing: ok, flags and tvalid all false, blk 0, new_pos = pos. A solo
+// scan's lap_end is nb, with no wrap and one active row.
 //
 // On the TPU the reference is one jitted function and XLA fuses the
 // selection arithmetic; eager PyTorch would launch ~30 small kernels for
@@ -68,6 +70,27 @@
 // launch, two dependent DRAM round trips (order_pad, then words), and
 // one L2 round trip for the counts. Every output is an integer or a
 // bool, so the result is exact and the same on every run.
+//
+// The multi-query probe (repro_bitmap_active_multi) is shared-scan
+// serving's form of the same test: a (Q, W) stack of active masks, one a
+// query, against the same rows,
+//
+//   out[q, i] = any_w(words[row_i, w] & stack[q, w]) != 0,
+//
+// in one launch. The reference loops its Pallas kernel once a row of the
+// stack (src/repro/kernels/ops.py, `active_blocks_multi`) and so reads
+// the bitmap Q times; here each CTA stages the stack in shared memory
+// once and walks its rows, each row's W words loaded from memory once
+// (into registers) and tested against all Q masks. Bound: bytes, n·W·4
+// + Q·W·4 read and Q·n·4 written.
+//
+// The round head also serves a slot of a shared pass: `active` may be a
+// stack of n_active rows (the slot's queries), ORed at the start of each
+// CTA into one mask in shared memory, which is bitwise the union of the
+// rows' flags; and the cursor limit is the slot's lap end (anchor + nb)
+// in place of nb, the window read from order_pad[(pos % nb) + i] of a
+// wrap-filled order with `wrap` (a lap that starts mid-scan runs past
+// nb). The live test becomes lap_end - nb <= pos <= lap_end.
 //
 // Words are uint32 bit patterns; the port carries them in int32 tensors,
 // which this kernel reads as uint32. The result is exact: the same bits on
@@ -111,6 +134,94 @@ active_rows_by_warp(const unsigned* __restrict__ words,
   if (lane == 0) out[i] = acc != 0u;
 }
 
+// ---- the multi-query probe --------------------------------------------------
+
+constexpr int kMultiRowWords = 32;   // thread mode: words a row, at most
+constexpr int kMultiLaneWords = 16;  // warp mode: words a lane holds a pass
+
+// Stages the (q, n_words) stack in shared memory (s_stack).
+__device__ __forceinline__ void stage_stack(const unsigned* __restrict__ st,
+                                            int q, int n_words,
+                                            unsigned* s_stack) {
+  for (int k = threadIdx.x; k < q * n_words; k += kThreads) {
+    s_stack[k] = st[k];
+  }
+  __syncthreads();
+}
+
+// W < 32: a thread a row (grid-stride), the row's words in registers.
+__global__ void __launch_bounds__(kThreads)
+multi_rows_by_thread(const unsigned* __restrict__ words,
+                     const int* __restrict__ win, int n, int n_words,
+                     const unsigned* __restrict__ stack, int q,
+                     int* __restrict__ out) {
+  extern __shared__ unsigned s_stack[];
+  stage_stack(stack, q, n_words, s_stack);
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long row = win != nullptr ? win[i] : i;
+    const unsigned* w = words + row * n_words;
+    unsigned v[kMultiRowWords];
+#pragma unroll
+    for (int k = 0; k < kMultiRowWords; ++k) {
+      v[k] = k < n_words ? w[k] : 0u;
+    }
+    for (int r = 0; r < q; ++r) {
+      const unsigned* a = s_stack + r * n_words;
+      unsigned acc = 0u;
+#pragma unroll
+      for (int k = 0; k < kMultiRowWords; ++k) {
+        if (k < n_words) acc |= v[k] & a[k];
+      }
+      out[static_cast<long long>(r) * n + i] = acc != 0u;
+    }
+  }
+}
+
+// W >= 32: a warp a row (grid-stride over warps). A lane holds up to
+// kMultiLaneWords of the row's words a pass (32 * 16 = 512 words, G up
+// to 16,384, in one pass); a wider row takes more passes, each ORed
+// into the row's flags by the same lane.
+__global__ void __launch_bounds__(kThreads)
+multi_rows_by_warp(const unsigned* __restrict__ words,
+                   const int* __restrict__ win, int n, int n_words,
+                   const unsigned* __restrict__ stack, int q,
+                   int* __restrict__ out) {
+  extern __shared__ unsigned s_stack[];
+  stage_stack(stack, q, n_words, s_stack);
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long i = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+                     (threadIdx.x >> 5);
+       i < n; i += warps) {  // uniform across the warp
+    const long long row = win != nullptr ? win[i] : i;
+    const unsigned* w = words + row * n_words;
+    for (int k0 = 0; k0 < n_words; k0 += 32 * kMultiLaneWords) {
+      unsigned v[kMultiLaneWords];
+#pragma unroll
+      for (int u = 0; u < kMultiLaneWords; ++u) {
+        const int k = k0 + lane + 32 * u;
+        v[u] = k < n_words ? w[k] : 0u;
+      }
+      for (int r = 0; r < q; ++r) {
+        const unsigned* a = s_stack + r * n_words;
+        unsigned acc = 0u;
+#pragma unroll
+        for (int u = 0; u < kMultiLaneWords; ++u) {
+          const int k = k0 + lane + 32 * u;
+          if (k < n_words) acc |= v[u] & a[k];
+        }
+        const unsigned any = __reduce_or_sync(0xffffffffu, acc);
+        if (lane == 0) {
+          int* o = out + static_cast<long long>(r) * n + i;
+          *o = (k0 == 0 ? 0 : *o) | (any != 0u);
+        }
+      }
+    }
+  }
+}
+
 // ---- the fused round's head ------------------------------------------------
 
 constexpr int kWarpRows = 4;  // warp mode: window positions a warp probes
@@ -122,11 +233,13 @@ struct HeadArgs {
   const int* order_pad;            // (>= pos + window,) block ids
   const unsigned char* static_ok;  // (nb,) bool
   const unsigned* words;           // (nb, n_words), or null: no probe
-  const unsigned* active;          // (n_words,)
+  const unsigned* active;          // (n_active, n_words): ORed rows
   const long long* pos;            // () the cursor, on the card
   const unsigned char* go;         // () run this round, on the card
   long long nb;
-  int n_words, window, budget;
+  long long lap_end;               // the cursor limit: nb, or anchor + nb
+  int n_words, n_active, window, budget;
+  bool wrap;                       // window from pos % nb
   unsigned char* ok;               // (window,)
   unsigned char* flags;            // (window,)
   long long* new_pos;              // ()
@@ -171,13 +284,32 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
   __shared__ int s_wcnt[kThreads / 32];
   __shared__ int s_prefix;
   __shared__ unsigned long long s_tag;
+  extern __shared__ unsigned s_mask[];  // the stack's OR (n_active > 1)
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int i0 = blockIdx.x * kPos;  // the CTA's first window position
   const long long pos = *h.pos;
-  const bool run = *h.go != 0 && pos >= 0 && pos <= h.nb;
-  const long long left = run ? (h.nb - pos < h.window ? h.nb - pos
-                                                      : h.window)
+  const bool run = *h.go != 0 && pos >= h.lap_end - h.nb &&
+                   pos <= h.lap_end;
+  const long long left = run ? (h.lap_end - pos < h.window
+                                    ? h.lap_end - pos : h.window)
                              : 0;  // window positions in range
+  // the window's first entry of order_pad; a round that does not run
+  // reads none of it
+  const int* order = h.order_pad + (h.wrap ? pos % h.nb : pos);
+  // the mask: one row read where it lies, or the OR of the stack's rows
+  // (the union of the rows' flags) in shared memory
+  const unsigned* active = h.active;
+  if (h.words != nullptr && h.n_active > 1) {
+    for (int k = t; k < h.n_words; k += kThreads) {
+      unsigned m = 0u;
+      for (int r = 0; r < h.n_active; ++r) {
+        m |= h.active[static_cast<long long>(r) * h.n_words + k];
+      }
+      s_mask[k] = m;
+    }
+    __syncthreads();
+    active = s_mask;
+  }
   if (t == 0) {  // arrive: this call's tag is its epoch + 1, never 0
     const unsigned long long was = atomicAdd(h.status, 1ull);
     if ((was & ((1ull << kArriveBits) - 1)) == gridDim.x - 1) {
@@ -190,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
     const int p = warp * kWarpRows + lane;
     const int i = i0 + p;
     const bool live = lane < kWarpRows && i < left;
-    const int row = live ? h.order_pad[pos + i] : 0;
+    const int row = live ? order[i] : 0;
     const bool okv = live && h.static_ok[row] != 0;
     const unsigned* w[kWarpRows];
     bool lj[kWarpRows];
@@ -210,7 +342,7 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
 #pragma unroll
       for (int u = 0; u < kWordPass; ++u) {
         const int k = k0 + 32 * u;
-        a[u] = k < h.n_words ? h.active[k] : 0u;
+        a[u] = k < h.n_words ? active[k] : 0u;
 #pragma unroll
         for (int j = 0; j < kWarpRows; ++j) {
           v[u][j] = k < h.n_words && lj[j] ? w[j][k] : 0u;
@@ -242,7 +374,7 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
     bool okv = false, hit = true;
     int row = 0;
     if (i < left) {
-      row = h.order_pad[pos + i];
+      row = order[i];
       okv = h.static_ok[row] != 0;
       if (h.words != nullptr) {  // kRowPass words a pass, as above
         const unsigned* w = h.words + static_cast<long long>(row) * h.n_words;
@@ -251,7 +383,7 @@ __global__ void __launch_bounds__(kThreads) round_head_kernel(HeadArgs h) {
           unsigned v[kRowPass];
 #pragma unroll
           for (int u = 0; u < kRowPass; ++u) {
-            v[u] = k0 + u < h.n_words ? w[k0 + u] & h.active[k0 + u] : 0u;
+            v[u] = k0 + u < h.n_words ? w[k0 + u] & active[k0 + u] : 0u;
           }
 #pragma unroll
           for (int u = 0; u < kRowPass; ++u) acc |= v[u];
@@ -346,21 +478,75 @@ extern "C" int repro_bitmap_active(const unsigned* words, const int* win,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The multi-query probe on `stream`: out[q * n + i] (int32) for the q
+// rows of `stack` ((q, n_words) row-major) against n rows of words, row
+// i being win[i] when win is not null, else i. One launch; the stack is
+// staged in shared memory (q * n_words * 4 bytes, at most 227 KB).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int repro_bitmap_active_multi(const unsigned* words,
+                                         const int* win, int n,
+                                         int n_words,
+                                         const unsigned* stack, int q,
+                                         int* out, int device,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n == 0 || q == 0) return 0;
+  const long long smem = static_cast<long long>(q) * n_words * 4;
+  if (n_words < 1 || q < 0 || smem > 227 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool by_warp = n_words >= 32;
+  const long long rows_per_cta = by_warp ? kThreads / 32 : kThreads;
+  long long grid = (n + rows_per_cta - 1) / rows_per_cta;
+  // a few CTAs an SM, each walking many rows: the stack is staged once a
+  // CTA, not once a few rows
+  if (grid > 4ll * sms) grid = 4ll * sms;
+  const void* fn = by_warp ? reinterpret_cast<const void*>(multi_rows_by_warp)
+                           : reinterpret_cast<const void*>(
+                                 multi_rows_by_thread);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (by_warp) {
+    multi_rows_by_warp<<<static_cast<unsigned>(grid), kThreads,
+                         static_cast<size_t>(smem), s>>>(
+        words, win, n, n_words, stack, q, out);
+  } else {
+    multi_rows_by_thread<<<static_cast<unsigned>(grid), kThreads,
+                           static_cast<size_t>(smem), s>>>(
+        words, win, n, n_words, stack, q, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The fused round's head on `stream`, in one launch (see the header).
 // `pos` (int64) and `go` (bool) point at device scalars; order_pad holds
-// at least nb + window entries.
+// at least nb + window entries (wrap-filled when `wrap`). The cursor
+// limit is lap_end (nb for a solo scan, anchor + nb for a slot of a
+// shared pass).
 // words == null runs no probe (flags = ok); otherwise words is
-// (nb, n_words) row-major and active (n_words,). `status` holds 1 +
-// ceil(window / 32) words (the epoch, then a word for each CTA in either
-// mode), zeroed before its first call and never reset after; calls that
-// share a buffer must not overlap.
+// (nb, n_words) row-major and active (n_active, n_words), its rows ORed.
+// `status` holds 1 + ceil(window / 32) words (the epoch, then a word for
+// each CTA in either mode), zeroed before its first call and never reset
+// after; calls that share a buffer must not overlap. A shared pass calls
+// the head once a slot a round on one stream, one call after another, so
+// its calls never overlap: each finds the epoch the one before it left
+// (inside one captured graph too).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_round_select(const int* order_pad,
                                   const unsigned char* static_ok,
                                   const unsigned* words, int n_words,
-                                  const unsigned* active,
+                                  const unsigned* active, int n_active,
                                   const long long* pos,
                                   const unsigned char* go, long long nb,
+                                  long long lap_end, int wrap,
                                   int window, int budget,
                                   unsigned char* ok, unsigned char* flags,
                                   long long* new_pos, int* blk,
@@ -373,18 +559,22 @@ extern "C" int repro_round_select(const int* order_pad,
   const int per_cta = by_warp ? kWarpCta : kThreads;
   const long long ctas = (static_cast<long long>(window) + per_cta - 1) /
                          per_cta;
-  if (window < 1 || budget < 1 || nb < 0 || ctas >= (1ll << kArriveBits)) {
+  const size_t smem = words != nullptr && n_active > 1
+                          ? static_cast<size_t>(n_words) * 4 : 0;
+  if (window < 1 || budget < 1 || nb < 1 || lap_end < nb ||
+      ctas >= (1ll << kArriveBits) || (words != nullptr && n_active < 1) ||
+      smem > 48 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HeadArgs h{order_pad, static_ok, words, active, pos, go, nb,
-                   n_words, window, budget, ok, flags, new_pos, blk, tvalid,
-                   status};
+                   lap_end, n_words, n_active, window, budget, wrap != 0,
+                   ok, flags, new_pos, blk, tvalid, status};
   const unsigned grid = static_cast<unsigned>(ctas);
   if (by_warp) {
-    round_head_kernel<true><<<grid, kThreads, 0, s>>>(h);
+    round_head_kernel<true><<<grid, kThreads, smem, s>>>(h);
   } else {
-    round_head_kernel<false><<<grid, kThreads, 0, s>>>(h);
+    round_head_kernel<false><<<grid, kThreads, smem, s>>>(h);
   }
   return static_cast<int>(cudaGetLastError());
 }

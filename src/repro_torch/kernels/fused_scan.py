@@ -46,14 +46,26 @@ updating every carry field through ``torch.where(go, new, old)``, so a
 round after the stop is a no-op. The host reads one scalar per chunk.
 On the card the engine captures a chunk as one CUDA graph and replays it
 (:class:`repro_torch.aqp.engine._DeviceLoop`); on the CPU the same chunk
-function runs eagerly. The multi-query pass loop is a later slice of the
-port.
+function runs eagerly.
+
+**Shared passes** (:mod:`repro_torch.serve`): :func:`fused_round_multi`
+is one round of a pass of several queries over shared filters, each
+*slot* (a distinct ``(column, group-by)``) walking its own cursor over
+its own lap ``[anchor, anchor + nb)`` of a wrap-filled scan order with
+its own flags (the union over the slot's queries: one head launch with a
+stack of masks), and returning the per-query flag stacks through the
+multi-query probe. :func:`build_pass_loop` is the pass's device-resident
+loop, the twin of :func:`build_query_loop` with every slot frozen by
+``torch.where`` once its lap ends or its queries all finish, and each
+query's result snapshotted in the carry the round it finishes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.state import MomentState, merge_moments
@@ -208,25 +220,82 @@ class QueryLoopCarry(NamedTuple):
     probes: torch.Tensor          # i64
 
 
-def carry_leaves(c: QueryLoopCarry):
-    """The carry's tensors in field order (the moment state's five
-    expanded, a missing histogram skipped)."""
+_LEAF = (torch.Tensor, np.ndarray)
+
+
+def carry_leaves(c):
+    """The carry's tensors in field order, depth first (a moment state's
+    five expanded, nested slot and query carries walked, missing fields
+    skipped). Works for every carry of this module, and for its host
+    image (numpy arrays in place of tensors)."""
     for f in c:
-        if isinstance(f, MomentState):
-            yield from f
-        elif f is not None:
+        if isinstance(f, _LEAF):
             yield f
+        elif f is not None:
+            yield from carry_leaves(f)
 
 
-def _select(go: torch.Tensor, new: QueryLoopCarry,
-            old: QueryLoopCarry) -> QueryLoopCarry:
+def carry_map(fn: Callable, *carries):
+    """Rebuild a carry (or a tuple of carries) with ``fn`` applied to its
+    tensors (or arrays), leaf by leaf across ``carries`` of one
+    structure."""
+    c0 = carries[0]
+    if isinstance(c0, _LEAF):
+        return fn(*carries)
+    if c0 is None:
+        return None
+    vals = [carry_map(fn, *fs) for fs in zip(*carries)]
+    return type(c0)(*vals) if hasattr(c0, "_fields") else tuple(vals)
+
+
+def _select(go: torch.Tensor, new, old):
     """``new`` where the round ran, ``old`` where it did not, field by
     field: a round after the stop changes nothing."""
-    pick = lambda n, o: torch.where(go, n, o)
-    return QueryLoopCarry(*(
-        MomentState(*map(pick, n, o)) if isinstance(n, MomentState)
-        else None if n is None else pick(n, o)
-        for n, o in zip(new, old)))
+    return carry_map(lambda n, o: torch.where(go, n, o), new, old)
+
+
+_TORCH_DTYPE = {np.dtype(bool): torch.bool, np.dtype(np.int32): torch.int32,
+                np.dtype(np.int64): torch.int64,
+                np.dtype(np.float64): torch.float64}
+
+
+def carry_to_device(host, device: torch.device):
+    """Upload a carry's host image (numpy arrays of bool, int32, int64 or
+    float64) in ONE host-to-device copy: the leaves packed as float64
+    (which holds every value of theirs exactly), from pinned memory
+    without a stream sync on the card, then split and cast on the
+    device."""
+    leaves = list(carry_leaves(host))
+    flat = np.concatenate([np.asarray(x, np.float64).reshape(-1)
+                           for x in leaves])
+    t = torch.from_numpy(flat)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.to(device)
+    parts = iter(torch.split(t, [x.size for x in leaves]))
+    return carry_map(lambda x: next(parts).to(_TORCH_DTYPE[x.dtype])
+                     .reshape(x.shape), host)
+
+
+def carry_to_host(carry, extra=()):
+    """A carry's host image (numpy arrays of each leaf's dtype) in ONE
+    device-to-host copy, the leaves packed as float64; ``extra`` tensors
+    ride in the same copy and come back as float64 arrays after it.
+    Returns ``(host carry, [extra arrays])``."""
+    leaves = list(carry_leaves(carry)) + list(extra)
+    flat = torch.cat([t.reshape(-1).to(torch.float64)
+                      for t in leaves]).cpu().numpy()
+    out, at = [], 0
+    for t in leaves:
+        n = t.numel()
+        dt = {torch.bool: bool, torch.int32: np.int32,
+              torch.int64: np.int64}.get(t.dtype, np.float64)
+        out.append(flat[at:at + n].reshape(tuple(t.shape)).astype(dt))
+        at += n
+    it = iter(out)
+    host = carry_map(lambda _: next(it), carry)
+    return host, out[len(out) - len(extra):] if extra else []
 
 
 def _round_scan(bufs: QueryLoopBuffers, pos: torch.Tensor, go: torch.Tensor,
@@ -335,6 +404,383 @@ def build_query_loop(*, nb: int, window: int, budget: int, center: float,
 
     def chunk_fn(bufs: QueryLoopBuffers,
                  carry: QueryLoopCarry) -> QueryLoopCarry:
+        carry = carry._replace(it=torch.zeros_like(carry.it))
+        for _ in range(chunk):
+            carry = body(bufs, carry)
+        return carry
+
+    return chunk_fn, cond
+
+
+# ---------------------------------------------------------------------------
+# Shared passes: several queries' slots, each on its own cursor
+# ---------------------------------------------------------------------------
+
+
+def fused_round_multi(mask: torch.Tensor, order_pad: torch.Tensor,
+                      static_ok: torch.Tensor, pos: torch.Tensor, values,
+                      gids, words, active, *, nb: int, window: int,
+                      budget: int, meta, anchors=None):
+    """One fused scan round shared by several queries (a
+    :class:`repro_torch.serve.FrameServer` pass's host loop). All queries
+    share the predicate mask and the static prefilter; each *slot*
+    (distinct ``(column, group-by)`` over the shared filters) advances its
+    OWN cursor through its own budgeted selection and folds its own
+    columns, so every slot's scan replays its solo run whatever else is
+    co-resident. Each query adds one row to its slot's stack of masks;
+    the slot selects with the union over its rows.
+
+    Args (tensors on one device unless noted):
+      mask: ``(nb, block_rows)`` shared predicate*valid mask (f32);
+      order_pad: ``(nb + window,)`` int32 scan order with a WRAP-FILLED
+        tail (``order[:window]``): every slot reads it from its own
+        ``pos % nb``;
+      static_ok: ``(nb,)`` bool static prefilter;
+      pos: ``(S,)`` int64 per-slot cursors in pass coordinates (a slot's
+        lap is ``[anchors[s], anchors[s] + nb)``);
+      values / gids: length-S tuples of ``(nb, block_rows)`` per-slot
+        value (f32) / group-code (int32) columns;
+      words: length-S tuple of ``(nb, W_s)`` bitmap words (uint32 bits in
+        int32): the slot's group bitmap, or an all-ones ``(nb, 1)``
+        engagement bitmap for a slot that does not skip on activity (its
+        queries then gate selection with one engaged / finished bit);
+      active: length-S tuple of ``(Q_s, W_s)`` int32 per-query masks;
+      anchors: length-S Python ints (None: all zero, a static batch).
+
+    ``meta`` is a length-S tuple of per-slot ``(num_groups, nbins,
+    use_hist, a, b, center)``. The head (:func:`repro_torch.kernels.ops.
+    round_select` with the stack, the slot's lap end and ``wrap``) gives
+    the union's selection and the fold's lanes; the multi-query probe
+    (:func:`repro_torch.kernels.ops.active_blocks_multi`, one launch a
+    slot) gives the per-query verdicts over the same window. The caller
+    does not advance slots that are lapped or fully finished (the round
+    of a finished slot covers ground without selecting).
+
+    Returns ``(states, hists, flag_stacks, oks, new_pos)``: per-slot
+    float32 mergeable deltas (``hists[s]`` None without a histogram),
+    per-slot ``(Q_s, window)`` bool per-query verdicts, per-slot
+    ``(window,)`` static verdicts and the ``(S,)`` int64 advanced
+    cursors, all on the device.
+    """
+    S = len(meta)
+    anchors = tuple(anchors) if anchors is not None else (0,) * S
+    dev = order_pad.device
+    go = torch.ones((), dtype=torch.bool, device=dev)
+    offs = torch.arange(window, dtype=torch.int64, device=dev)
+    states, hists, flag_stacks, oks, new_positions = [], [], [], [], []
+    for s, (num_groups, nbins, use_hist, a, b, center) in enumerate(meta):
+        p = pos[s]
+        ok, _, new_p, blk, tvalid = kops.round_select(
+            order_pad, static_ok, words[s], active[s], p, go, nb=nb,
+            window=window, budget=budget, probe=True,
+            lap_end=anchors[s] + nb, wrap=True)
+        win = order_pad[torch.remainder(p, nb) + offs].to(torch.int32)
+        act = kops.active_blocks_multi(words[s], active[s], win=win) > 0
+        st, h = _fold(values[s], gids[s], mask, blk, tvalid, center, a, b,
+                      num_groups, nbins, use_hist)
+        states.append(st)
+        hists.append(h)
+        flag_stacks.append(ok[None, :] & act)
+        oks.append(ok)
+        new_positions.append(new_p)
+    return (tuple(states), tuple(hists), tuple(flag_stacks), tuple(oks),
+            torch.stack(new_positions))
+
+
+class SlotSpec(NamedTuple):
+    """Static per-slot configuration of the pass loop."""
+
+    num_groups: int
+    nbins: int
+    use_hist: bool
+    a: float
+    b: float
+    center: float
+    probe: bool
+    n_words: int
+
+
+class PassLoopBuffers(NamedTuple):
+    """Device-resident inputs of the pass loop; the per-slot fields are
+    length-S tuples. A captured chunk reads them where they are:
+    ``order_pad`` and ``cum_rows`` are refilled in place for each pass."""
+
+    mask: torch.Tensor            # (nb, block_rows) shared predicate mask
+    order_pad: torch.Tensor       # (nb + window,) i32, wrap-filled
+    static_ok: torch.Tensor       # (nb,) bool
+    cum_rows: torch.Tensor        # (nb,) i64 cumulative valid rows in order
+    values: Tuple[torch.Tensor, ...]          # per-slot value columns
+    gids: Tuple[torch.Tensor, ...]            # per-slot group codes
+    words: Tuple[torch.Tensor, ...]           # per-slot bitmap words
+    presence: Tuple[torch.Tensor, ...]        # per-slot (nb, G_s) bool
+    presence_total: Tuple[torch.Tensor, ...]  # per-slot (G_s,) i32
+
+
+class SlotCarry(NamedTuple):
+    """Per-slot scan state inside the pass carry: the slot's own cursor,
+    fold, coverage and metrics, the twin of a solo
+    :class:`QueryLoopCarry`'s scan half, so a slot replays its solo run
+    whatever else is co-resident."""
+
+    pos: torch.Tensor             # i64 slot cursor (pass coordinates)
+    state: MomentState            # f64 (G_s,)
+    hist: Optional[torch.Tensor]  # f64 (G_s, K) or None
+    seen_presence: torch.Tensor   # (G_s,) i32
+    tainted: torch.Tensor         # (G_s,) bool
+    exact: torch.Tensor           # (G_s,) bool
+    processed: torch.Tensor       # (nb,) bool blocks this slot fetched
+    blocks_fetched: torch.Tensor  # i64 scan metrics (slot-local)
+    skipped_static: torch.Tensor  # i64
+    skipped_active: torch.Tensor  # i64
+    probes: torch.Tensor          # i64
+    lap_rounds: torch.Tensor      # i64 round the slot's lap ended (-1
+                                  # while still inside it)
+    # the sharded scan's collective cadence (not ported): always None
+    pend_sums: Optional[torch.Tensor] = None
+    pend_vmin: Optional[torch.Tensor] = None
+    pend_vmax: Optional[torch.Tensor] = None
+    pend_hist: Optional[torch.Tensor] = None
+
+
+class PassQueryCarry(NamedTuple):
+    """Per-query OptStop state plus its finish-time snapshot: the slot
+    keeps scanning for its other queries, so the carry records the
+    slot's state and metrics the round the query finishes."""
+
+    lo: torch.Tensor              # (G_s,) f64
+    hi: torch.Tensor              # (G_s,) f64
+    est: torch.Tensor             # (G_s,) f64
+    refreshed: torch.Tensor       # (G_s,) bool
+    active: torch.Tensor          # (G_s,) bool
+    finished: torch.Tensor        # bool
+    stopped_early: torch.Tensor   # bool
+    finish_rounds: torch.Tensor   # i64 slot-local rounds at the finish
+    finish_pos: torch.Tensor      # i64
+    finish_blocks_fetched: torch.Tensor   # i64
+    finish_skipped_static: torch.Tensor   # i64
+    finish_skipped_active: torch.Tensor   # i64
+    finish_probes: torch.Tensor           # i64
+    snap_counts: torch.Tensor     # (G_s,) f64 slot counts at the finish
+    snap_exact: torch.Tensor      # (G_s,) bool
+    snap_tainted: torch.Tensor    # (G_s,) bool
+
+
+class PassCarry(NamedTuple):
+    """The pass loop's state: the shared round clock and liveness, and
+    per-slot / per-query carries."""
+
+    rounds: torch.Tensor          # i64 pass rounds (the shared clock)
+    it: torch.Tensor              # i64 rounds run inside the current chunk
+    n_live: torch.Tensor          # i64 unfinished queries across slots
+    slots: Tuple[SlotCarry, ...]
+    queries: Tuple[Tuple[PassQueryCarry, ...], ...]  # [slot][query]
+    pend_rounds: Optional[torch.Tensor] = None       # not ported: None
+
+
+def slot_nonfinite(carry: PassCarry) -> torch.Tensor:
+    """The NaN sentinel on the device: ``(S,)`` bool, True where a slot's
+    folded state is poisoned (non-finite count / mean / m2, NaN min / max,
+    or non-finite histogram mass). ``vmin`` / ``vmax`` are legitimately
+    ``±inf`` for groups no row has touched, so only NaN counts there."""
+    flags = []
+    for slot in carry.slots:
+        st = slot.state
+        bad = (~torch.isfinite(st.count) | ~torch.isfinite(st.mean)
+               | ~torch.isfinite(st.m2) | torch.isnan(st.vmin)
+               | torch.isnan(st.vmax))
+        if slot.hist is not None:
+            bad = bad | ~torch.isfinite(slot.hist).all(dim=-1)
+        flags.append(bad.any())
+    return torch.stack(flags)
+
+
+def carry_nonfinite_slots(carry: PassCarry) -> Tuple[bool, ...]:
+    """Host-side NaN sentinel over a pass carry: one flag per slot
+    (:func:`slot_nonfinite`), read in one device-to-host copy. The
+    serving layer quarantines a poisoned slot at a chunk boundary
+    without looking at its co-resident slots."""
+    return tuple(bool(v) for v in slot_nonfinite(carry).cpu().tolist())
+
+
+def _any_unfinished(queries) -> torch.Tensor:
+    return functools.reduce(torch.logical_or,
+                            [~qc.finished for qc in queries])
+
+
+def build_pass_loop(*, nb: int, window: int, budget: int, lookahead: int,
+                    cover_cap: int, max_rounds: int, chunk: int,
+                    slot_specs: Sequence[SlotSpec],
+                    refresh_fns: Sequence[Sequence[Callable]],
+                    anchors: Optional[Sequence[int]] = None,
+                    round_offsets: Optional[Sequence[int]] = None,
+                    row_offsets: Optional[Sequence[int]] = None):
+    """Build the device-resident loop of one shared pass (S slots, each
+    with its own queries and its OWN cursor walk).
+
+    Returns ``(chunk_fn, cond)``. ``chunk_fn(bufs: PassLoopBuffers,
+    carry: PassCarry) -> PassCarry`` enqueues ``chunk`` pass rounds with
+    nothing read back on the host, so it can be captured as one CUDA
+    graph; ``cond(carry)`` is the device bool "some slot can still
+    progress, rounds < max_rounds and some query is unfinished" (the
+    reference's while-loop condition). Each round computes ``cond`` on
+    the card as its ``go``; a round whose ``go`` is false changes
+    nothing, so results do not depend on ``chunk``.
+
+    Every slot advances on its own each pass round: the round head at its
+    own cursor, with a stack of its queries' masks (the union) over its
+    lap and a wrapped window, the fold, the float64 merge and the
+    coverage / taint / metric accounting: the device twin of a solo
+    :func:`build_query_loop` run on the scan order rotated to the slot's
+    anchor. A slot whose lap ended (``pos >= anchor + nb``) or whose
+    queries all finished is frozen in place (``torch.where`` on every
+    field). Per-query CI refresh and stop tests use slot-local round and
+    row counts; a query's result is snapshotted in its carry the round
+    it finishes. ``refresh_fns[s][q]`` has :func:`build_query_loop`'s
+    ``refresh_fn`` signature.
+
+    Non-probe slots probe an all-ones ``(nb, 1)`` bitmap with a ``(Q,
+    1)`` stack of their queries' ``~finished`` bits. ``anchors[s]`` is
+    the slot's admission position in pass coordinates (a static
+    argument of the head), ``round_offsets[s]`` the pass rounds before
+    it and ``row_offsets[s]`` the rows before its anchor, in pass
+    coordinates (rows are periodic in ``nb``, so ``cum_rows`` needs no
+    extension); None means all zero (a static batch).
+    """
+    S = len(slot_specs)
+    anchors = tuple(anchors) if anchors is not None else (0,) * S
+    round_offsets = (tuple(round_offsets) if round_offsets is not None
+                     else (0,) * S)
+    row_offsets = (tuple(row_offsets) if row_offsets is not None
+                   else (0,) * S)
+    lap_ends = tuple(a + nb for a in anchors)
+
+    def cond(c: PassCarry) -> torch.Tensor:
+        progressable = functools.reduce(torch.logical_or, [
+            (c.slots[s].pos < lap_ends[s]) & _any_unfinished(c.queries[s])
+            for s in range(S)])
+        return progressable & (c.rounds < max_rounds) & (c.n_live > 0)
+
+    def _stack(spec: SlotSpec, queries) -> torch.Tensor:
+        if spec.probe:
+            rows = [pack_active_device(qc.active, spec.n_words)
+                    for qc in queries]
+        else:
+            rows = [(~qc.finished).to(torch.int32).reshape(1)
+                    for qc in queries]
+        return torch.stack(rows)
+
+    def _slot_rows(bufs: PassLoopBuffers, s: int,
+                   p_end: torch.Tensor) -> torch.Tensor:
+        """Rows the slot's cursor has covered, the f64 ``r`` of its
+        refresh: laps of the whole scramble plus ``cum_rows``, rebased
+        to the slot's own lap by ``row_offsets[s]``; integer valued, so
+        bit for bit a solo run's ``r``."""
+        p_end = torch.clamp(p_end, max=lap_ends[s])
+        pm1 = p_end - 1
+        within = bufs.cum_rows.index_select(
+            0, torch.remainder(pm1, nb).reshape(1))[0]
+        laps = torch.div(pm1, nb, rounding_mode="floor")
+        rows_abs = torch.where(p_end > 0, laps * bufs.cum_rows[nb - 1]
+                               + within, 0)
+        return (rows_abs - row_offsets[s]).to(torch.float64)
+
+    def body(bufs: PassLoopBuffers, c: PassCarry) -> PassCarry:
+        go = cond(c)
+        k = c.rounds + 1
+        dev = k.device
+        offs = torch.arange(window, dtype=torch.int64, device=dev)
+        n_live = c.n_live
+        new_slots, new_queries = [], []
+        for s, spec in enumerate(slot_specs):
+            sc, queries, le = c.slots[s], c.queries[s], lap_ends[s]
+            # a slot whose lap ended or whose queries all finished is
+            # frozen: its solo twin has left its loop
+            slot_live = go & (sc.pos < le) & _any_unfinished(queries)
+            ok, flags, new_pos, blk, tvalid = kops.round_select(
+                bufs.order_pad, bufs.static_ok, bufs.words[s],
+                _stack(spec, queries), sc.pos, slot_live, nb=nb,
+                window=window, budget=budget, probe=True, lap_end=le,
+                wrap=True)
+            win = bufs.order_pad[torch.remainder(sc.pos, nb) + offs]
+            covmask = offs < (new_pos - sc.pos)
+            dstate, dhist = _fold(bufs.values[s], bufs.gids[s], bufs.mask,
+                                  blk, tvalid, spec.center, spec.a, spec.b,
+                                  spec.num_groups, spec.nbins, spec.use_hist)
+            state = _merge_f64(sc.state, dstate)
+            hist = (sc.hist + dhist.to(torch.float64) if spec.use_hist
+                    else None)
+
+            # -- accounting (twin of build_query_loop's) -----------------
+            act_skip = ok & ~flags & covmask
+            presence = bufs.presence[s]
+            tainted = sc.tainted | (presence[win]
+                                    & act_skip[:, None]).any(dim=0)
+            probes = sc.probes
+            if spec.probe:
+                probes = probes + _probe_cost(flags, sc.pos, le, window,
+                                              budget, lookahead, cover_cap)
+            hit = torch.zeros(nb, dtype=torch.int32, device=dev)
+            hit.index_add_(0, blk, tvalid.to(torch.int32))
+            seen_presence = sc.seen_presence + (
+                presence[blk] & tvalid[:, None]).sum(dim=0,
+                                                     dtype=torch.int32)
+            cov = seen_presence >= bufs.presence_total[s]
+            cov = cov | ((new_pos >= le) & ~tainted)
+            exact = sc.exact | cov
+            new_sc = SlotCarry(
+                pos=new_pos, state=state, hist=hist,
+                seen_presence=seen_presence, tainted=tainted, exact=exact,
+                processed=sc.processed | (hit > 0),
+                blocks_fetched=sc.blocks_fetched + tvalid.sum(),
+                skipped_static=sc.skipped_static + (~ok & covmask).sum(),
+                skipped_active=sc.skipped_active + act_skip.sum(),
+                probes=probes,
+                lap_rounds=torch.where((sc.pos < le) & (new_pos >= le), k,
+                                       sc.lap_rounds))
+            new_slots.append(_select(slot_live, new_sc, sc))
+
+            # -- per-query CI refresh, stop test and finish snapshot -----
+            r_s = _slot_rows(bufs, s, new_pos)
+            k_s = k - round_offsets[s]
+            slot_queries = []
+            for qi, qc in enumerate(queries):
+                nlo, nhi, nest, nrefr, nact = refresh_fns[s][qi](
+                    k_s, r_s, state, hist, tainted, exact, qc.lo, qc.hi,
+                    qc.est, qc.refreshed, qc.active)
+                # a frozen slot stops refreshing (a lapped slot's queries
+                # still active wait for the host's recovery pass)
+                keep = qc.finished | ~slot_live
+                kept = lambda new, old: torch.where(keep, old, new)
+                active = kept(nact, qc.active)
+                now_fin = slot_live & ~qc.finished & ~active.any()
+                n_live = n_live - now_fin.to(n_live.dtype)
+                snap = lambda new, old: torch.where(now_fin, new, old)
+                slot_queries.append(PassQueryCarry(
+                    lo=kept(nlo, qc.lo), hi=kept(nhi, qc.hi),
+                    est=kept(nest, qc.est),
+                    refreshed=kept(nrefr, qc.refreshed), active=active,
+                    finished=qc.finished | now_fin,
+                    stopped_early=snap(new_pos < le, qc.stopped_early),
+                    finish_rounds=snap(k_s, qc.finish_rounds),
+                    finish_pos=snap(new_pos, qc.finish_pos),
+                    finish_blocks_fetched=snap(new_sc.blocks_fetched,
+                                               qc.finish_blocks_fetched),
+                    finish_skipped_static=snap(new_sc.skipped_static,
+                                               qc.finish_skipped_static),
+                    finish_skipped_active=snap(new_sc.skipped_active,
+                                               qc.finish_skipped_active),
+                    finish_probes=snap(probes, qc.finish_probes),
+                    snap_counts=snap(state.count, qc.snap_counts),
+                    snap_exact=snap(exact, qc.snap_exact),
+                    snap_tainted=snap(tainted, qc.snap_tainted)))
+            new_queries.append(tuple(slot_queries))
+
+        return PassCarry(rounds=torch.where(go, k, c.rounds),
+                         it=torch.where(go, c.it + 1, c.it), n_live=n_live,
+                         slots=tuple(new_slots),
+                         queries=tuple(new_queries))
+
+    def chunk_fn(bufs: PassLoopBuffers, carry: PassCarry) -> PassCarry:
         carry = carry._replace(it=torch.zeros_like(carry.it))
         for _ in range(chunk):
             carry = body(bufs, carry)

@@ -5,14 +5,16 @@ backend with ``impl=`` (Pallas, interpreter or oracle), the port picks by
 where the tensors live:
 
   * CUDA tensors -> the hand-written kernel (``block_agg``,
-    ``fused_fold``, ``grouped_hist``, ``bitmap_active`` and its round
-    head ``round_select``, ``selective_scan``, ``selective_scan_bwd``),
+    ``fused_fold``, ``grouped_hist``, ``bitmap_active`` with its
+    multi-query form and its round head ``round_select``,
+    ``selective_scan``, ``selective_scan_bwd``),
     which launches or raises; there is no fallback;
   * CPU tensors  -> the plain PyTorch version in :mod:`.ref`, the
     oracle the kernels are tested against.
 
 Anything else raises. The engine calls the round head and a fold once
-per fused scan round; the Mamba1 layer's ``"pallas"`` path calls
+per fused scan round (once a slot a round in a shared pass, whose host
+loop also runs the multi-query probe); the Mamba1 layer's ``"pallas"`` path calls
 :func:`selective_scan` once per layer per forward and, in training,
 :func:`selective_scan_bwd` once per layer per backward.
 """
@@ -159,10 +161,25 @@ def active_blocks(words: torch.Tensor, active_words: torch.Tensor, *,
     return _ref.active_blocks_ref(words, active_words)
 
 
+def active_blocks_multi(words: torch.Tensor, stack: torch.Tensor, *,
+                        win: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-query activity probe over a ``(Q, W)`` stack of masks -> int32
+    ``(Q, n)``, row ``q`` bit for bit :func:`active_blocks` of the same
+    rows against ``stack[q]`` (rows ``win`` of ``words``, all rows when
+    ``win`` is None). One launch on the card, where the reference loops
+    its kernel once a row of the stack."""
+    if _on_cuda(words, "active_blocks_multi"):
+        return _bitmap.active_blocks_multi(words, stack, win)
+    if win is not None:
+        words = words[win.long()]
+    return _ref.active_blocks_multi_ref(words, stack)
+
+
 def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
                  words: torch.Tensor, active_words: torch.Tensor,
                  pos: torch.Tensor, go: torch.Tensor, *, nb: int,
-                 window: int, budget: int, probe: bool):
+                 window: int, budget: int, probe: bool,
+                 lap_end: Optional[int] = None, wrap: bool = False):
     """The fused round's head: the cursor window of ``order_pad`` from
     ``pos``, its static-prefilter verdicts ``ok``, the activity ``flags``
     (``ok`` AND the bitmap probe of ``words`` against ``active_words``;
@@ -173,26 +190,26 @@ def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
     ``pos`` is an int64 and ``go`` a bool scalar on the tensors' device
     (the previous round's ``new_pos`` and the loop's verdict): nothing is
     read from the host, so a CUDA graph of many rounds replays right. A
-    round with ``go`` false, or ``pos`` outside ``[0, nb]``, selects
-    nothing and returns ``new_pos == pos``. ``order_pad`` holds ``nb +
-    window`` entries. Returns ``(ok, flags, new_pos, blk, tvalid)``: bool
+    round with ``go`` false, or ``pos`` outside ``[lap_end - nb,
+    lap_end]``, selects nothing and returns ``new_pos == pos``.
+    ``order_pad`` holds ``nb + window`` entries.
+
+    A slot of a shared pass (:func:`repro_torch.kernels.fused_scan.
+    build_pass_loop`) passes its lap's end ``lap_end`` (``anchor + nb``;
+    ``nb`` when None), ``wrap=True`` (the window starts at ``pos % nb``
+    of a wrap-filled ``order_pad``) and a ``(Q, W)`` stack of its
+    queries' masks as ``active_words``, whose flags are the union over
+    the rows. Returns ``(ok, flags, new_pos, blk, tvalid)``: bool
     ``(window,)`` twice, an int64 device scalar, int32 and bool
     ``(budget,)``. One launch on the card; the plain sequence
     (:func:`repro_torch.kernels.ref.round_select_ref`) on the CPU."""
-    kw = dict(nb=nb, window=window, budget=budget, probe=probe)
+    kw = dict(nb=nb, window=window, budget=budget, probe=probe,
+              lap_end=lap_end, wrap=wrap)
     if _on_cuda(order_pad, "round_select"):
         return _bitmap.round_select(order_pad, static_ok, words,
                                     active_words, pos, go, **kw)
     return _ref.round_select_ref(order_pad, static_ok, words, active_words,
                                  pos, go, **kw)
-
-
-def active_blocks_multi(*args, **kwargs):
-    """Per-query activity probe over a ``(Q, W)`` stack of masks."""
-    raise NotImplementedError(
-        "active_blocks_multi (the multi-query probe of shared-scan "
-        "serving) is not ported yet: it comes with the serving slice of "
-        "the port.")
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,

@@ -13,6 +13,8 @@ prefill path.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -165,41 +167,71 @@ def gather_blocks_ref(take: torch.Tensor, csum: torch.Tensor,
     return blk, tvalid, take_idx
 
 
+def active_blocks_multi_ref(words, stack):
+    """Plain version of :func:`repro_torch.kernels.bitmap_active.
+    active_blocks_multi`, the multi-query probe of shared-scan serving:
+    row ``q`` of the result is :func:`active_blocks_ref` of ``words``
+    against ``stack[q]`` (the reference's ``ref`` branch of
+    ``ops.active_blocks_multi``). ``words`` is ``(n, W)`` and ``stack``
+    ``(Q, W)``, uint32 bits in int32. Returns int32 ``(Q, n)``."""
+    hit = torch.bitwise_and(words.to(torch.int32)[None, :, :],
+                            stack.to(torch.int32)[:, None, :])
+    return (hit != 0).any(dim=2).to(torch.int32)
+
+
 def round_window_ref(order_pad, pos: torch.Tensor, go: torch.Tensor, *,
-                     nb: int, window: int):
+                     nb: int, window: int, lap_end: Optional[int] = None,
+                     wrap: bool = False):
     """The round's cursor window, read with no host sync: ``(win, left)``,
     the ``window`` block ids of ``order_pad`` from ``pos`` and the count
-    of those positions in range, ``min(window, nb - pos)``, or 0 when the
-    round is not to run (``go`` false, or ``pos`` outside ``[0, nb]``;
-    ``win`` is then read from position 0 and never used)."""
+    of those positions in range, ``min(window, lap_end - pos)``, or 0
+    when the round is not to run (``go`` false, or ``pos`` outside
+    ``[lap_end - nb, lap_end]``; ``win`` is then read from position 0 and
+    never used).
+
+    ``lap_end`` is the cursor limit (``nb`` by default: a solo scan); a
+    slot of a shared pass walks the lap ``[anchor, anchor + nb)`` and
+    passes ``anchor + nb``. With ``wrap`` the window starts at ``pos %
+    nb`` of a wrap-filled ``order_pad`` (its tail the order's head), so
+    a lap past ``nb`` reads a rotation of the scan order."""
     dev = order_pad.device
-    live = go & (pos >= 0) & (pos <= nb)
-    left = torch.where(live, torch.clamp(nb - pos, max=window),
+    end = nb if lap_end is None else lap_end
+    live = go & (pos >= end - nb) & (pos <= end)
+    left = torch.where(live, torch.clamp(end - pos, max=window),
                        torch.zeros((), dtype=torch.int64, device=dev))
-    start = torch.where(live, pos, torch.zeros_like(pos))
+    start = torch.remainder(pos, nb) if wrap else pos
+    start = torch.where(live, start, torch.zeros_like(pos))
     offs = torch.arange(window, dtype=torch.int64, device=dev)
     return order_pad[start + offs], left
 
 
 def round_select_ref(order_pad, static_ok, words, active_words,
                      pos: torch.Tensor, go: torch.Tensor, *, nb: int,
-                     window: int, budget: int, probe: bool):
+                     window: int, budget: int, probe: bool,
+                     lap_end: Optional[int] = None, wrap: bool = False):
     """Plain version of :func:`repro_torch.kernels.bitmap_active.
     round_select`, the fused round's head: the cursor window of
-    ``order_pad`` from ``pos`` (:func:`round_window_ref`), its static
-    prefilter and (with ``probe``) activity verdicts,
-    :func:`budget_select_ref` and :func:`gather_blocks_ref`, as the
-    reference's ``fused_round`` computes them before its fold. ``pos``
+    ``order_pad`` from ``pos`` (:func:`round_window_ref`, with the slot's
+    ``lap_end`` and ``wrap``), its static prefilter and (with ``probe``)
+    activity verdicts, :func:`budget_select_ref` and
+    :func:`gather_blocks_ref`, as the reference's ``fused_round`` (and,
+    for a slot of a shared pass, ``_round_scan(bound=, wrap=)``) computes
+    them before its fold. ``active_words`` is one ``(W,)`` mask or a
+    ``(Q, W)`` stack, whose flags are the union over its rows, ``(ok &
+    probe_q).any(0)`` (the reference's ``fused_round_multi``). ``pos``
     (int64) and ``go`` (bool) are device scalars; a round that is not to
     run selects nothing and leaves the cursor where it is. Reads nothing
     back on the host. Returns ``(ok (window,) bool, flags (window,) bool,
     new_pos () int64, blk (budget,) int32, tvalid (budget,) bool)``."""
-    win, left = round_window_ref(order_pad, pos, go, nb=nb, window=window)
+    win, left = round_window_ref(order_pad, pos, go, nb=nb, window=window,
+                                 lap_end=lap_end, wrap=wrap)
     offs = torch.arange(window, dtype=torch.int64, device=order_pad.device)
     ok = static_ok[win] & (offs < left)
     flags = ok
     if probe:
-        flags = ok & (active_blocks_ref(words[win], active_words) > 0)
+        stack = active_words.reshape(-1, active_words.shape[-1])
+        act = active_blocks_multi_ref(words[win], stack) > 0
+        flags = (ok[None, :] & act).any(dim=0)
     take, new_pos, csum = budget_select_ref(flags, pos, left, window,
                                             budget)
     blk, tvalid, _ = gather_blocks_ref(take, csum, win, window, budget)

@@ -1333,3 +1333,164 @@ def test_device_loop_graph_replay_equals_eager_chunk(cuda):
                         fused_scan.carry_leaves(eager)):
             torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
     assert int(eager.rounds) == 12
+
+
+# -- shared-scan serving: the multi-query probe, the slot's head, passes ----
+
+
+@pytest.mark.parametrize("W,Q", [(1, 1), (7, 2), (31, 8), (32, 3), (88, 8),
+                                 (320, 5), (600, 2)])
+def test_bitmap_active_multi_equals_plain(cuda, W, Q):
+    """One launch for a (Q, W) stack equals the plain version on the CPU
+    bit for bit, row q equals the single-mask probe against stack[q],
+    over all rows and through a window (W 600: a lane's words in two
+    passes)."""
+    rng = np.random.default_rng(W * 31 + Q)
+    nb = 5000
+    one_bit = (np.uint64(1) << rng.integers(0, 32, (nb, W)).astype(
+        np.uint64)).astype(np.uint32)
+    words = torch.from_numpy(np.where(rng.random((nb, W)) < 0.02, one_bit,
+                                      np.uint32(0)).view(np.int32))
+    stack = rng.integers(-2**31, 2**31, (Q, W)).astype(np.int32)
+    stack[::3] = -1
+    stack[1::4] = 0
+    stack = torch.from_numpy(stack)
+    win = torch.from_numpy(rng.integers(0, nb, 4096).astype(np.int32))
+    for w in (win, None):
+        want = ops.active_blocks_multi(words, stack, win=w)
+        before = bitmap_active.active_blocks_multi.launches
+        wc = None if w is None else w.to(cuda)
+        got = ops.active_blocks_multi(words.to(cuda), stack.to(cuda), win=wc)
+        again = ops.active_blocks_multi(words.to(cuda), stack.to(cuda),
+                                        win=wc)
+        torch.cuda.synchronize()
+        assert bitmap_active.active_blocks_multi.launches == before + 2
+        assert got.shape == (Q, nb if w is None else len(w))
+        assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+        for q in range(Q):
+            single = ops.active_blocks(words.to(cuda), stack[q].to(cuda),
+                                       win=wc)
+            assert torch.equal(got[q], single)
+
+
+@pytest.mark.parametrize("W,Q,anchor", [(1, 1, 0), (7, 3, 9_000),
+                                        (88, 8, 6_000), (88, 1, 19_000),
+                                        (320, 4, 14_000)])
+def test_round_select_stack_and_lap_equal_plain(cuda, W, Q, anchor):
+    """A slot's head (a stack of masks, the slot's lap end, a wrapped
+    window) equals its plain version bit for bit at cursors inside the
+    lap, past nb, near the lap's end, at its end and outside it, and
+    with go false; a stack of one row with lap end nb and no wrap equals
+    the solo head."""
+    nb, window, budget = 20_000, 4096, 64
+    rng = np.random.default_rng(W + Q + anchor)
+    order = rng.permutation(nb).astype(np.int32)
+    opad = np.concatenate([order, order[np.arange(window) % nb]])
+    static_ok = rng.random(nb) < 0.85
+    one_bit = (np.uint64(1) << rng.integers(0, 32, (nb, W)).astype(
+        np.uint64)).astype(np.uint32)
+    words = np.where(rng.random((nb, W)) < 0.02, one_bit,
+                     np.uint32(0)).view(np.int32)
+    stack = rng.integers(-2**31, 2**31, (Q, W)).astype(np.int32)
+    t = [torch.from_numpy(x) for x in (opad, static_ok, words, stack)]
+    tc = [x.to(cuda) for x in t]
+    le = anchor + nb
+    kw = dict(nb=nb, window=window, budget=budget, probe=True, lap_end=le,
+              wrap=True)
+    cases = [(anchor, True), (anchor + 777, True), (nb + 5, True),
+             (le - window // 3, True), (le, True), (le + 1, True),
+             (anchor - 1, True), (anchor + 50, False)]
+    for pos, go in cases:
+        want = ops.round_select(*t, *_cursor(pos, go=go), **kw)
+        got = ops.round_select(*tc, *_cursor(pos, cuda, go), **kw)
+        again = ops.round_select(*tc, *_cursor(pos, cuda, go), **kw)
+        for x, y, z in zip(got, want, again):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert torch.equal(x.cpu(), y) and torch.equal(x, z), (pos, go)
+    # one row, the solo lap: the solo head's bits
+    solo = dict(nb=nb, window=window, budget=budget, probe=True)
+    for pos in (0, 4321, nb - 100):
+        a = ops.round_select(*tc[:3], tc[3][0], *_cursor(pos, cuda), **solo)
+        b = ops.round_select(*tc[:3], tc[3][:1], *_cursor(pos, cuda),
+                             lap_end=nb, wrap=False, **solo)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def _serve_frame(sc, **over):
+    return FastFrame(sc, EngineConfig(**dict(_LOOP_CFG, **over)),
+                     device="cuda")
+
+
+def _serve_queries():
+    """Three slots over one non-categorical filter (no static-prefilter
+    probes, so every slot's metrics match a solo run on any frame): two
+    probe slots and one non-probe slot."""
+    filt = (Filter("dep_time", "gt", 400.0),)
+    return [AggQuery(agg="avg", column="dep_delay", group_by="origin",
+                     filters=filt, stop=ThresholdSide(threshold=10.0)),
+            AggQuery(agg="avg", column="dep_time", group_by="airline",
+                     filters=filt, stop=ThresholdSide(threshold=800.0)),
+            AggQuery(agg="sum", column="dep_delay", filters=filt,
+                     stop=fq.ALL["F-q1"]().stop)]
+
+
+def test_pass_loop_graph_replay_equals_eager_chunk(cuda):
+    """A pass of S = 3 slots: its captured chunk against the same chunk
+    run eagerly on the card from the same carry, chunk after chunk,
+    every carry tensor equal bit for bit (the round head runs three
+    times a round on one stream inside the graph, so its look-back
+    epoch must survive S calls a round and the replays). The eager
+    enqueue runs under ``set_sync_debug_mode("error")``."""
+    from repro_torch.serve import FrameServer
+    from repro_torch.serve.frame_server import _PassLoop
+    sc = _loop_scramble()
+    frame = _serve_frame(sc, device_loop=True)
+    p = FrameServer(frame).open_pass(_serve_queries()[0].filters,
+                                     start_block=17, chunk_rounds=3)
+    p.admit(_serve_queries())
+    assert len(p.slots) == 3
+    loop = _PassLoop(p)
+    loop.set_order(p.start, p.order_pad, p.cum_rows)
+    eager = fused_scan.carry_to_device(p._host_carry(), cuda)
+    static = loop.graph.load(fused_scan.carry_to_device(p._host_carry(),
+                                                        cuda))
+    before = bitmap_active.round_select.launches
+    mode = torch.cuda.get_sync_debug_mode()
+    for _ in range(4):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = loop.chunk_fn(loop.bufs, eager)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        loop.graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(fused_scan.carry_leaves(static),
+                        fused_scan.carry_leaves(eager)):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+    assert int(eager.rounds) == 12
+    # eager chunks and replays: 3 heads a round each
+    assert bitmap_active.round_select.launches - before == 2 * 4 * 3 * 3
+
+
+def test_served_batch_bitwise_equals_solo_device_loop(cuda):
+    """A three-slot batch served through the device pass loop on the
+    card: each result bit for bit its query's solo device-loop run, and
+    every pass chunk a graph replay."""
+    from repro_torch.serve import FrameServer
+    sc = _loop_scramble()
+    qs = _serve_queries()
+    frame = _serve_frame(sc)
+    res = FrameServer(frame).run_batch(qs, seed=2, start_block=5)
+    loops = [frame.device_loops[k] for k in frame.device_loops.keys()]
+    assert len(loops) == 1 and loops[0].graph.replays == loops[0].chunks
+    solo = _serve_frame(sc)
+    for q, r in zip(qs, res):
+        want = solo.run(q, seed=2, start_block=5)
+        for f in ("group_codes", "estimate", "lo", "hi", "count_seen",
+                  "nonempty", "exact", "tainted", "rows_covered",
+                  "blocks_fetched", "blocks_skipped_active",
+                  "blocks_skipped_static", "bitmap_probes", "rounds",
+                  "stopped_early"):
+            np.testing.assert_array_equal(getattr(r, f), getattr(want, f),
+                                          err_msg=f)

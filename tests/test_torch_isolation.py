@@ -3,7 +3,8 @@ nor the JAX package, entry points refuse to run on the CPU unless asked,
 the kernel wrappers launch or raise (no silent fallback), the
 Anderson/DKW path and the training path run on the CPU when asked, and
 the parts of the reference that later slices port raise
-NotImplementedError (among them the ``"dots"`` remat policy)."""
+NotImplementedError (among them the ``"dots"`` remat policy and the
+sharded scan)."""
 
 import os
 import subprocess
@@ -46,6 +47,8 @@ import repro_torch.models.lm, repro_torch.models.zoo
 import repro_torch.models.convert
 import repro_torch.train, repro_torch.train.optimizer
 import repro_torch.train.trainer, repro_torch.data.tokens
+import repro_torch.serve, repro_torch.serve.frame_server
+import repro_torch.serve.checkpoint, repro_torch.serve.scheduler
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -87,16 +90,20 @@ def test_later_slices_raise_not_implemented(kw):
 
 
 def test_histogram_and_multi_probe_raise_not_implemented():
-    """The histogram fold and the Anderson/DKW query now run on the CPU
-    (plain versions); the multi-query probe still raises until the
-    serving slice."""
+    """The histogram fold, the Anderson/DKW query and the multi-query
+    probe of serving now run on the CPU (plain versions): the probe gives
+    each row of the stack its own flags, and launches no kernel."""
     h = ops.grouped_hist(torch.tensor([0.1, 0.6, 0.9, float("nan")]),
                          torch.zeros(4, dtype=torch.int32), None, 1, 0.0,
                          1.0, nbins=2)
     np.testing.assert_array_equal(h.hist.numpy(), [[2.0, 2.0]])
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        ops.active_blocks_multi(torch.zeros((4, 1), dtype=torch.int32),
-                                torch.zeros((2, 1), dtype=torch.int32))
+    before = bitmap_active.active_blocks_multi.launches
+    flags = ops.active_blocks_multi(
+        torch.tensor([[1], [2], [0], [3]], dtype=torch.int32),
+        torch.tensor([[1], [2]], dtype=torch.int32))
+    np.testing.assert_array_equal(flags.numpy(), [[1, 0, 0, 1],
+                                                  [0, 1, 0, 1]])
+    assert bitmap_active.active_blocks_multi.launches == before
     q = AggQuery(agg="avg", column="v", bounder="anderson_dkw",
                  rangetrim=False, stop=AbsoluteWidth(eps=0.1))
     res = FastFrame(_tiny_scramble(), EngineConfig(hist_bins=100),
@@ -115,6 +122,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         block_agg.block_agg(v, g, v, blk, blk, 0.0, 1)
     with pytest.raises(ValueError, match="needs CUDA"):
         bitmap_active.active_blocks(g, g[0, :1].contiguous())
+    with pytest.raises(ValueError, match="needs CUDA"):
+        bitmap_active.active_blocks_multi(g, g[:1, :].contiguous())
     with pytest.raises(ValueError, match="needs CUDA"):
         fused_fold.fused_fold(v, g, v, blk, blk, 0.0, 0.0, 1.0, 1, 8)
     with pytest.raises(ValueError, match="needs CUDA"):
