@@ -68,6 +68,17 @@ one JSON line:
      run with the same event log, and a pass with a mid-scan join,
      resumed from a checkpoint taken after it, equal to the
      uninterrupted pass (its joiners bit for bit their solo runs);
+  3d. seeded faults (``repro_torch.testing.faults``) on phase 3c's
+     scheduler burst, the same frame and settings, phase 3c's fault-free
+     tickets the oracle: transient dispatch / transfer / shard faults and
+     a clock skew, retried (every ticket bit for bit its fault-free
+     run); a NaN-poisoned slot quarantined (the survivors bit for bit);
+     a real ``torch.OutOfMemoryError`` (the card asked for twice its
+     memory) taking the chunk-halving rung; injected OOMs down the
+     ladder to the host-loop rung (the pass ends on the host pass loop,
+     the multi-query probe launched) and a ladder exhausted (partial
+     intervals covering the truth); a seeded trace over all six kinds,
+     run twice to the same event log;
   4. the port on the card against the port on the CPU on a 2M-row
      scramble, for the queries of both paths through the host loop:
      equal scan decisions, intervals within 1e-6 relative; then phase
@@ -81,6 +92,14 @@ one JSON line:
      and the same tokens both times; then, at full width and 4 layers in
      float32, prefill + decode against forward (2e-3), and the reduced
      config on the card against the CPU (1e-4);
+  5b. ``evalx.ApproxEval`` of the same model (64 layers, bf16) over a
+     scrambled eval set of 512 x 2048 tokens (``data.tokens.
+     make_eval_scramble``), batches of 8, delta 1e-6, target width 0.1:
+     it must stop early with a certificate covering the full set's mean
+     clipped loss (one forward a batch over all 64 batches, float64),
+     each forward launching the scan kernel once a layer; then at full
+     width, 4 layers, float32, 32 examples of 256 tokens, card against
+     CPU (per-token losses within 1e-4, the same rounds and examples);
   6. the Mamba1 training path: falcon-mamba-7b at full width, cut to 16
      layers, bf16, AdamW with float32 moments, remat, 2 microbatches of
      2 x 4096 tokens: one warm-up step and 3 timed steps on the same
@@ -88,6 +107,10 @@ one JSON line:
      that fall at every step, no grad norm above 3x the first, and per
      step the scan kernel twice a layer a microbatch (the
      forward and remat's recompute) and its backward kernel once;
+  6b. ``launch/train.py``'s monitors fed phase 6's steps: the loss CI
+     states to a ``ThresholdMonitor`` (3 ln V, range [0, 4 ln V]), whose
+     interval must hold the steps' mean loss, the step times to a
+     ``StragglerMonitor``; their decisions printed;
   7. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times (``grouped_hist``
      at the main path's G 14, with G 2800 beside it; the multi-query
@@ -104,6 +127,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1508,7 +1532,205 @@ def serving_phase(torch, np, T, opt, frame, batch, solo, truths, cols,
                              late_anchor=late_anchor,
                              most_slots=stats["most_slots"],
                              loops_built=stats["loops_built"]))
-    return rec, failures, passes.counts, solos.counts
+    return rec, failures, passes.counts, solos.counts, (burst, a)
+
+
+# -- phase 3d ----------------------------------------------------------------
+
+# the replay run's fault trace: fault_schedule(seed, W, rate) over all
+# six kinds, W the fault-free run's steps and the rate CHAOS_EVENTS / W
+# (at most 0.9), for the first seed from CHAOS_SEED whose events cover
+# every kind with one NaN, the last event: every event before it comes
+# while the pass still runs (a retry adds an attempt, never a round)
+CHAOS_SEED, CHAOS_EVENTS, CHAOS_RETRIES = 0, 10, 3
+# the transient run's faults: (attempt, kind, arg)
+CHAOS_TRANSIENT = ((1, "dispatch", 0.0), (3, "transfer", 0.0),
+                   (5, "shard", 0.0), (6, "skew", 0.5))
+CHAOS_EXHAUST_FROM = 2   # the exhausted ladder's clean attempts
+
+
+def scheduler_truth(np, cols, q, memo):
+    """Per-group truth of a burst query's own aggregate (AVG, SUM or
+    COUNT of its column by its group-by; the burst has no filters) and
+    which groups exist."""
+    key = (q.agg, q.scan_signature())
+    if key not in memo:
+        if q.filters:
+            raise AssertionError(f"a burst query has filters: {q}")
+        codes, G = np.zeros(len(cols[q.column]), np.int64), 1
+        for c in q.group_cols:
+            card = int(cols[c].max()) + 1
+            codes, G = codes * card + cols[c], G * card
+        cnt = np.bincount(codes, minlength=G).astype(np.float64)
+        tot = np.bincount(codes, weights=cols[q.column].astype(np.float64),
+                          minlength=G)
+        memo[key] = ({"avg": tot / np.maximum(cnt, 1), "sum": tot,
+                      "count": cnt}[q.agg], cnt > 0)
+    return memo[key]
+
+
+class OOMUntilHostLoop:
+    """A fault hook: an injected OOM on every step attempt until the
+    scheduler's log shows the host-loop rung, then none."""
+
+    def __init__(self, oom):
+        self.oom, self.fired, self.seen = oom, 0, 0
+
+    def before_step(self, sched, pas, t):
+        for ev in sched.log[self.seen:]:
+            if ev[2] == "degrade" and ev[3] == ("host-loop",):
+                self.oom = None
+        self.seen = len(sched.log)
+        if self.oom is not None:
+            self.fired += 1
+            raise self.oom(f"attempt {self.fired}")
+
+    def after_step(self, sched, pas, t):
+        return None
+
+
+def chaos_schedule(faults, steps: int):
+    """The replay run's trace (see CHAOS_SEED): ``(seed, rate,
+    events)``."""
+    rate = min(0.9, CHAOS_EVENTS / steps)
+    for seed in range(CHAOS_SEED, CHAOS_SEED + 100_000):
+        ev = faults.fault_schedule(seed, steps, rate=rate)
+        kinds = [e.kind for e in ev]
+        if (set(kinds) == set(faults.KINDS) and kinds.count("nan") == 1
+                and kinds[-1] == "nan"):
+            return seed, rate, ev
+    raise AssertionError(f"no seed gives every fault kind in {steps} "
+                         f"steps")
+
+
+def chaos_phase(torch, np, frame, burst, clean, cols, counters):
+    """Phase 3d: seeded faults on phase 3c's scheduler burst (the same
+    frame, device pass loop, burst and scheduler settings; ``clean`` is
+    phase 3c's fault-free run, the oracle). Returns ``(record,
+    failures, launches)``, the launches counted around the scheduler
+    runs alone."""
+    from repro_torch.serve import FrameServer, QueryScheduler, SimClock
+    from repro_torch.testing import faults
+    tally = LaunchTally(counters)
+    memo, failures, runs = {}, [], {}
+
+    def run(name, hook, **over):
+        kw = dict(seed=1, round_cost_s=1e-3, max_slots=SCHED_SLOTS,
+                  chunk_rounds=SCHED_CHUNK, checkpoint_every=1,
+                  fault_hook=hook)
+        kw.update(over)
+        sched = QueryScheduler(FrameServer(frame), SimClock(), **kw)
+        for q in burst:
+            sched.submit(q, at=0.0)
+        before = dict(tally.counts)
+        t0 = time.perf_counter()
+        with tally:
+            sched.run_until_idle()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = [e[2] for e in sched.log]
+        statuses = [tk.status + ("-partial" if tk.partial else "")
+                    for tk in sched.tickets]
+        runs[name] = dict(
+            wall_s=wall, faults=[list(e[3]) for e in sched.log
+                                 if e[2] == "fault"],
+            retries=log.count("retry"),
+            degradations=[e[3][0] for e in sched.log if e[2] == "degrade"],
+            statuses={k: statuses.count(k) for k in sorted(set(statuses))},
+            skews=[e[3][0] for e in sched.log if e[2] == "skew"],
+            quarantined=log.count("quarantine"), events=len(log),
+            launches={k: tally.counts[k] - before[k] for k in counters
+                      if tally.counts[k] - before[k]})
+        return sched
+
+    def bitwise_to_clean(sched, name):
+        bad = [i for i, (tc, tf) in enumerate(zip(clean.tickets,
+                                                  sched.tickets))
+               if tf.status == "done"
+               and (tf.partial or not same_result(np, tf.result, tc.result))]
+        runs[name]["not_bitwise_to_fault_free"] = bad
+        return bad
+
+    def not_covering(sched, name):
+        bad = [i for i, tk in enumerate(sched.tickets)
+               if tk.status == "done" and len(uncovered(
+                   np, tk.result, *scheduler_truth(np, cols, tk.query,
+                                                   memo)))]
+        runs[name]["not_covering"] = bad
+        return bad
+
+    def check(name, ok, **detail):
+        runs[name]["ok"] = bool(ok)
+        if not ok:
+            failures.append(dict(run=name, **runs[name], **detail))
+
+    Ev = faults.FaultEvent
+    # 1. transient faults, retried from the checkpoint
+    s = run("transient", faults.FaultInjector(
+        [Ev(*e) for e in CHAOS_TRANSIENT]), max_retries=10)
+    kinds = [f[0] for f in runs["transient"]["faults"]]
+    check("transient", kinds == ["dispatch", "transfer", "shard"]
+          and len(runs["transient"]["skews"]) == 1
+          and all(tk.status == "done" for tk in s.tickets)
+          and not bitwise_to_clean(s, "transient"))
+    # 2. a poisoned slot, quarantined; the survivors bit for bit
+    s = run("poison", faults.FaultInjector([Ev(1, "nan", 0.0)]))
+    st = [tk.status for tk in s.tickets]
+    check("poison", st.count("quarantined") >= 1
+          and st.count("done") + st.count("quarantined") == len(st)
+          and st.count("done") >= 1 and not bitwise_to_clean(s, "poison"))
+    # 3. a real torch.OutOfMemoryError: the card asked for twice its memory
+    hook = faults.DeviceOOMHook([1, 2], device=frame.device)
+    s = run("real_oom", hook, max_retries=1)
+    check("real_oom", runs["real_oom"]["faults"] == [["oom", 1], ["oom", 2]]
+          and runs["real_oom"]["degradations"] == [f"chunk_rounds="
+                                                   f"{SCHED_CHUNK // 2}"]
+          and all(tk.status == "done" and not tk.partial
+                  for tk in s.tickets)
+          and not not_covering(s, "real_oom"), fired=hook.fired)
+    # 4. down to the host loop (injected OOMs until its rung), then the
+    # ladder exhausted (dispatch faults from attempt CHAOS_EXHAUST_FROM)
+    multi = counters["bitmap_active_multi"].launches
+    s = run("host_loop_rung", OOMUntilHostLoop(faults.InjectedOOM),
+            max_retries=1)
+    multi = counters["bitmap_active_multi"].launches - multi
+    runs["host_loop_rung"]["multi_probe_launches"] = multi
+    rungs = [f"chunk_rounds={c}" for c in (2, 1)] + ["host-loop"]
+    check("host_loop_rung", runs["host_loop_rung"]["degradations"] == rungs
+          and multi > 0 and all(tk.status == "done" and not tk.partial
+                                for tk in s.tickets)
+          and not not_covering(s, "host_loop_rung"))
+    s = run("ladder_exhausted", faults.FaultInjector(
+        [Ev(CHAOS_EXHAUST_FROM + i, "dispatch", 0.0) for i in range(64)]),
+        max_retries=2)
+    check("ladder_exhausted",
+          "ladder-exhausted" in [e[2] for e in s.log]
+          and all(tk.status == "done" for tk in s.tickets)
+          and any(tk.partial for tk in s.tickets)
+          and not not_covering(s, "ladder_exhausted"))
+    # 5. a seeded chaos trace over all six kinds, run twice
+    steps = sum(1 for e in clean.log if e[2] == "checkpoint")
+    seed, rate, events = chaos_schedule(faults, steps)
+    injectors = [faults.FaultInjector(events) for _ in range(2)]
+    a = run("replay", injectors[0], max_retries=CHAOS_RETRIES)
+    b = run("replay_again", injectors[1], max_retries=CHAOS_RETRIES)
+    fired = sorted({e.kind for e in injectors[0].fired})
+    done = [tk for tk in a.tickets if tk.status == "done"]
+    finishes = sum(1 for e in a.log if e[2] in ("finish", "finish-partial"))
+    same_log = [tuple(e) for e in a.log] == [tuple(e) for e in b.log]
+    runs["replay"].update(
+        seed=seed, rate=rate, schedule_steps=steps,
+        scheduled={k: sum(e.kind == k for e in events) for k in faults.KINDS},
+        fired={k: sum(e.kind == k for e in injectors[0].fired)
+               for k in faults.KINDS},
+        same_event_log=same_log, finish_events=finishes, done=len(done))
+    check("replay", fired == sorted(faults.KINDS) and same_log
+          and finishes == len(done) and len(done) >= 1
+          and not not_covering(a, "replay"))
+    rec = dict(burst=len(burst), max_slots=SCHED_SLOTS,
+               chunk_rounds=SCHED_CHUNK, fault_free_steps=steps,
+               runs=runs, launches=tally.counts)
+    return rec, failures, tally.counts
 
 
 def serving_host_loop(torch, np, T, sc, batch):
@@ -1660,7 +1882,7 @@ def check_card_vs_cpu_model(torch, np, model, B: int, T: int, seed: int):
 def serve_phase(torch, np, counters):
     """Phase 5: falcon-mamba-7b serving at full width and depth, then the
     two consistency checks. Returns (record, launches on the serving
-    path)."""
+    path, (model, weights)): phase 5b evaluates the same model."""
     from repro_torch.configs import get as get_config
     from repro_torch.models import build as build_model
 
@@ -1684,8 +1906,6 @@ def serve_phase(torch, np, counters):
                  peak_gib_after_prefill=r["prefill_peak_gib"],
                  finite=r["finite"]) for r in (first, second)]
     repeatable = torch.equal(first["tokens"], second["tokens"])
-    del lm
-    torch.cuda.empty_cache()
 
     # prefill + decode = forward at full width, 4 layers, float32
     cfg4 = dataclasses.replace(cfg, n_layers=4, param_dtype="float32",
@@ -1722,7 +1942,156 @@ def serve_phase(torch, np, counters):
                                "after 2048 tokens"},
         prefill_decode_vs_forward=consistency, card_vs_cpu=card_vs_cpu,
         ok=ok)
-    return record, launches
+    return record, launches, (model, lm)
+
+
+# -- phase 5b ----------------------------------------------------------------
+
+# launch/train.py's eval of the reference: 512 examples of the run's
+# sequence length, delta 1e-6, target width 0.1; batches of 8 (16 there)
+EVAL_EXAMPLES, EVAL_LEN, EVAL_BATCH = 512, PROMPT_LEN, 8
+EVAL_DELTA, EVAL_WIDTH = 1e-6, 0.1
+# tests/test_train_stack.py's width, used (and said) only when the
+# certificate cannot reach EVAL_WIDTH within EVAL_EXAMPLES; delta stays
+EVAL_WIDTH_FALLBACK = 0.5
+# the card-vs-CPU check: full width, 4 layers, float32, 32 examples of
+# 256 tokens in batches of 4, stopping at width 1.0
+EVAL_SMALL = dict(layers=4, examples=32, tokens=256, batch=4, width=1.0)
+EVAL_LOSS_RTOL = 1e-4
+
+
+def eval_loss_fn(torch, model, lm, device, kscan, seen):
+    """tests/test_train_stack.py's per-token eval loss on ``device``:
+    logsumexp minus the picked logit of ``model.forward``, ``targets >=
+    0`` the mask. Each call appends ``(scan launches, losses)`` to
+    ``seen``."""
+
+    @torch.inference_mode()
+    def loss_fn(batch):
+        toks = torch.from_numpy(batch["tokens"]).to(device)
+        targets = torch.from_numpy(batch["targets"]).to(device)
+        before = kscan.selective_scan.launches
+        logits, _ = model.forward(lm, {"tokens": toks})
+        logz = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              targets.clamp(min=0).long()[..., None])[..., 0]
+        losses = logz - picked
+        seen.append((kscan.selective_scan.launches - before, losses))
+        return losses, targets >= 0
+
+    return loss_fn
+
+
+def report_dict(rep):
+    return dict(dataclasses.asdict(rep), fraction_used=rep.fraction_used)
+
+
+def eval_card_vs_cpu(torch, np, cfg, kscan, device="cuda"):
+    """ApproxEval of the same float32 weights (full width, 4 layers) on
+    the card and on the CPU over one scramble: per-token losses within
+    ``EVAL_LOSS_RTOL`` of their largest magnitude, the same rounds and
+    examples."""
+    import copy
+    from repro_torch.data.tokens import make_eval_scramble
+    from repro_torch.evalx import ApproxEval
+    from repro_torch.models import build as build_model
+    e = EVAL_SMALL
+    small = build_model(dataclasses.replace(
+        cfg, n_layers=e["layers"], param_dtype="float32",
+        compute_dtype="float32"))
+    lm_gpu = small.init(MODEL_SEED, device=device)
+    lm_cpu = copy.deepcopy(lm_gpu).to("cpu")
+    sc = make_eval_scramble(small.cfg, n_examples=e["examples"],
+                            seq_len=e["tokens"])
+    out = []
+    for dev, lm in ((device, lm_gpu), ("cpu", lm_cpu)):
+        seen = []
+        t0 = time.perf_counter()
+        rep = ApproxEval(eval_loss_fn(torch, small, lm, dev, kscan, seen),
+                         vocab=small.cfg.vocab_padded, delta=EVAL_DELTA).run(
+            sc.batches(e["batch"]), sc.n_examples, target_width=e["width"])
+        out.append((rep, seen, time.perf_counter() - t0))
+    (g, g_seen, g_s), (c, c_seen, c_s) = out
+    rel = max(float((lg.cpu() - lc).abs().max()) / float(lc.abs().max())
+              for (_, lg), (_, lc) in zip(g_seen, c_seen))
+    same = (g.rounds, g.examples_used) == (c.rounds, c.examples_used)
+    return dict(n_layers=e["layers"], d_model=cfg.d_model, examples=e["examples"],
+                tokens=e["tokens"], batch=e["batch"], target_width=e["width"],
+                card=report_dict(g), cpu=report_dict(c), card_s=g_s,
+                cpu_s=c_s, loss_max_rel=rel, loss_rtol=EVAL_LOSS_RTOL,
+                card_scan_launches=[n for n, _ in g_seen],
+                cpu_scan_launches=[n for n, _ in c_seen],
+                ok=same and rel <= EVAL_LOSS_RTOL
+                and all(n == e["layers"] for n, _ in g_seen)
+                and not any(n for n, _ in c_seen))
+
+
+def eval_phase(torch, np, counters, model, lm, kscan, device="cuda"):
+    """Phase 5b: ApproxEval of phase 5's falcon-mamba-7b (64 layers, full
+    width, bf16) over a scrambled eval set of EVAL_EXAMPLES examples,
+    then the full set's mean clipped loss from a forward over every
+    batch, then :func:`eval_card_vs_cpu`. Returns (record, launches of
+    the eval's run)."""
+    from repro_torch.data.tokens import make_eval_scramble
+    from repro_torch.evalx import ApproxEval
+    cfg = model.cfg
+    sc = make_eval_scramble(cfg, n_examples=EVAL_EXAMPLES, seq_len=EVAL_LEN)
+    seen = []
+    ev = ApproxEval(eval_loss_fn(torch, model, lm, device, kscan, seen),
+                    vocab=cfg.vocab_padded, delta=EVAL_DELTA)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = ev.run(sc.batches(EVAL_BATCH), sc.n_examples,
+                 target_width=EVAL_WIDTH)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    width, fallback = EVAL_WIDTH, None
+    if not rep.stopped_early:
+        # the same losses again (no forward): delta is not loosened
+        width = EVAL_WIDTH_FALLBACK
+        fallback = (f"width {EVAL_WIDTH} not reached within "
+                    f"{EVAL_EXAMPLES} examples (final {rep.hi - rep.lo:.4g})"
+                    f"; tests/test_train_stack.py's width {width}")
+        cached = iter([l for _, l in seen])
+        rep = ApproxEval(lambda b: (next(cached), torch.from_numpy(
+            b["targets"]) >= 0), vocab=cfg.vocab_padded,
+            delta=EVAL_DELTA).run(sc.batches(EVAL_BATCH), sc.n_examples,
+                                  target_width=width)
+    # the full set: one forward a batch, the clipped mean in float64
+    full_seen = []
+    full_fn = eval_loss_fn(torch, model, lm, device, kscan, full_seen)
+    total, count = 0.0, 0
+    t0 = time.perf_counter()
+    for b in sc.batches(EVAL_BATCH):
+        losses, mask = full_fn(b)
+        v = losses.cpu().numpy().astype(np.float64)[mask.cpu().numpy()]
+        total += float(np.clip(v, 0.0, ev.loss_clip).sum())
+        count += v.size
+    full_s = time.perf_counter() - t0
+    full_mean = total / count
+    repeat = all(torch.equal(a, b) for (_, a), (_, b)
+                 in zip(seen, full_seen))
+    forwards = [n for n, _ in seen + full_seen]
+    covers = rep.lo <= full_mean <= rep.hi
+    stray = [k for k, v in launches.items() if k != "selective_scan" and v]
+    small = eval_card_vs_cpu(torch, np, cfg, kscan, device)
+    ok = (rep.stopped_early and rep.examples_used < EVAL_EXAMPLES and covers
+          and forwards == [cfg.n_layers] * len(forwards) and not stray
+          and repeat and small["ok"])
+    return dict(
+        model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        param_dtype=cfg.param_dtype, examples=EVAL_EXAMPLES,
+        seq_len=EVAL_LEN, batch=EVAL_BATCH, delta=EVAL_DELTA,
+        target_width=width, width_fallback=fallback, report=report_dict(rep),
+        eval_s=eval_s, full_pass_s=full_s, full_pass_batches=len(full_seen),
+        full_mean_clipped_loss=full_mean, certificate_covers=covers,
+        eval_losses_repeat=repeat, scan_launches_per_forward=sorted(
+            set(forwards)), forwards=len(forwards), launches=launches,
+        reduced={"batch": "launch/train.py's 16 examples a round -> 8"},
+        card_vs_cpu=small, ok=ok), launches
 
 
 def training_setup(torch):
@@ -1767,7 +2136,7 @@ def train_step_once(torch, step, state, batch):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     ci = met["loss_ci_state"]
-    return state, dict(
+    return state, ci, dict(
         step=int(state["step"]) - 1, loss=float(met["loss"]),
         total_loss=float(met["total_loss"]),
         z_loss=float(met["z_loss"]), grad_norm=float(met["grad_norm"]),
@@ -1780,17 +2149,36 @@ def train_phase(torch, np, counters):
     """Phase 6: :func:`training_setup`, one warm-up step, then
     TRAIN_STEPS timed steps with the launch counts zeroed before them.
     Returns (record, launches on the training path)."""
+    from repro_torch.distributed.straggler import StragglerMonitor
+    from repro_torch.evalx import ThresholdMonitor
+
     torch.cuda.reset_peak_memory_stats()
     cfg, ocfg, state, batch, step, init_s = training_setup(torch)
     state_gib = torch.cuda.memory_allocated() / 2**30
     n_params = sum(p.numel() for p in state["params"].parameters())
-    state, warm = train_step_once(torch, step, state, batch)
+    # phase 6b: launch/train.py's monitors, fed every step
+    alarm = ThresholdMonitor(threshold=3.0 * math.log(cfg.vocab),
+                             value_range=(0.0, 4.0 * math.log(cfg.vocab)),
+                             direction="above")
+    straggler = StragglerMonitor(n_hosts=1)
+    decisions, mon_s = [], 0.0
+
+    def monitor(ci, rec):
+        nonlocal mon_s
+        t0 = time.perf_counter()
+        straggler.record(np.array([rec["seconds"]]))
+        decisions.append(alarm.update(ci))
+        mon_s += time.perf_counter() - t0
+
+    state, ci, warm = train_step_once(torch, step, state, batch)
+    monitor(ci, warm)
     for c in counters.values():
         c.launches = 0
     timed = []
     for _ in range(TRAIN_STEPS):
-        state, rec = train_step_once(torch, step, state, batch)
+        state, ci, rec = train_step_once(torch, step, state, batch)
         timed.append(rec)
+        monitor(ci, rec)
     launches = {k: c.launches for k, c in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     del state, step, batch
@@ -1805,8 +2193,18 @@ def train_phase(torch, np, counters):
                               for k in ("loss", "grad_norm")]))
     falls = all(b < a for a, b in zip(losses, losses[1:]))
     norm_bounded = max(norms) <= TRAIN_GRAD_NORM_GROWTH * norms[0]
+    lo, hi = alarm.interval()
+    step_mean = statistics.mean(r["loss"] for r in [warm] + timed)
+    monitors = dict(
+        threshold=alarm.threshold, value_range=list(alarm.value_range),
+        decisions=decisions, interval=[lo, hi], steps_mean_loss=step_mean,
+        interval_holds_mean=lo <= step_mean <= hi,
+        straggler_flagged=straggler.flagged(),
+        straggler_interval_s=straggler.intervals()[0].tolist(),
+        straggler_min_samples=straggler.min_samples, host_s=mon_s)
     ok = (finite and falls and norm_bounded and not stray
-          and all(launches[k] == v for k, v in want.items()))
+          and all(launches[k] == v for k, v in want.items())
+          and monitors["interval_holds_mean"])
     record = dict(
         model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
         d_inner=cfg.d_inner, ssm_state=cfg.ssm_state, vocab=cfg.vocab,
@@ -1821,7 +2219,7 @@ def train_phase(torch, np, counters):
         / sum(r["seconds"] for r in timed),
         loss_falls_every_step=falls, grad_norm_bounded=norm_bounded,
         grad_norm_growth_limit=TRAIN_GRAD_NORM_GROWTH, launches=launches,
-        launches_expected=want, peak_device_gib=peak_gib,
+        launches_expected=want, peak_device_gib=peak_gib, monitors=monitors,
         reduced={"n_layers": "64 -> 16 (16 bytes a parameter: bf16 param "
                              "and grad, f32 grad accumulator, two f32 "
                              "moments; 7.27 G parameters need ~116 GB, "
@@ -2062,9 +2460,9 @@ def main(argv=None) -> int:
                    if path == "bernstein" or qname in SERVE_ADKW]
     for c in counters.values():
         c.launches = 0
-    serving, failures, launches, solo_launches = serving_phase(
-        torch, np, T, opt, loop_frame, serve_batch, solo, truths,
-        ds.columns, counters)
+    serving, failures, launches, solo_launches, (burst, clean) = \
+        serving_phase(torch, np, T, opt, loop_frame, serve_batch, solo,
+                      truths, ds.columns, counters)
     path_launches["serving"] = launches
     emit(dict(phase="serving", card=name, power_limit=power_limit,
               rows=args.rows, blocks=sc.n_blocks, launches=launches,
@@ -2081,7 +2479,26 @@ def main(argv=None) -> int:
     if idle_k:
         raise AssertionError(f"serving: kernels never launched {idle_k}: "
                              f"{launches}")
-    del loop_frame, solo, sc, ds
+
+    # ---- 3d. seeded faults on phase 3c's scheduler burst -------------------
+    t0 = time.perf_counter()
+    chaos, failures, launches = chaos_phase(torch, np, loop_frame, burst,
+                                            clean, ds.columns, counters)
+    path_launches["chaos"] = launches
+    emit(dict(phase="chaos", card=name, power_limit=power_limit,
+              rows=args.rows, phase_s=time.perf_counter() - t0,
+              reduced={"rows": f"{PAPER_ROWS / 1e6:g}M -> "
+                               f"{args.rows / 1e6:g}M",
+                       "scheduler_burst": f"16 -> {SCHED_BURST}"},
+              **chaos))
+    if failures:
+        raise AssertionError(f"chaos: {failures}")
+    idle_k = [k for k in ("round_select", "block_agg", "bitmap_active_multi")
+              if launches[k] == 0]
+    if idle_k:
+        raise AssertionError(f"chaos: kernels never launched {idle_k}: "
+                             f"{launches}")
+    del loop_frame, solo, sc, ds, burst, clean
     torch.cuda.empty_cache()
 
     # ---- 4. the port on the card against the port on the CPU ----------------
@@ -2139,12 +2556,24 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. the Mamba1 serving path -----------------------------------------
-    serve, launches = serve_phase(torch, np, counters)
+    serve, launches, (model, lm) = serve_phase(torch, np, counters)
     path_launches["mamba1_serve"] = launches
     emit(dict(phase="mamba1_serve", card=name, power_limit=power_limit,
               **serve, total_s=time.perf_counter() - t_start))
     if not serve["ok"]:
         raise AssertionError(f"the Mamba1 serving path failed: {serve}")
+
+    # ---- 5b. CI-guaranteed early-stopped eval of the same model -----------
+    t0 = time.perf_counter()
+    ev, launches = eval_phase(torch, np, counters, model, lm, kscan)
+    path_launches["mamba1_eval"] = launches
+    del model, lm
+    torch.cuda.empty_cache()
+    emit(dict(phase="mamba1_eval", card=name, power_limit=power_limit,
+              **ev, phase_s=time.perf_counter() - t0,
+              total_s=time.perf_counter() - t_start))
+    if not ev["ok"]:
+        raise AssertionError(f"the Mamba1 eval path failed: {ev}")
 
     # ---- 6. the Mamba1 training path ----------------------------------------
     train, launches = train_phase(torch, np, counters)
@@ -2153,6 +2582,9 @@ def main(argv=None) -> int:
               **train, total_s=time.perf_counter() - t_start))
     if not train["ok"]:
         raise AssertionError(f"the Mamba1 training path failed: {train}")
+    # ---- 6b. the monitors' decisions over phase 6's steps ------------------
+    emit(dict(phase="monitors", card=name, power_limit=power_limit,
+              steps=TRAIN_STEPS + 1, **train["monitors"]))
 
     # ---- 7. the kernels line ------------------------------------------------
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])
@@ -2177,6 +2609,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/block_agg.py:92",
              launches=launches["block_agg"],
              device_loop_launches=path_launches["device_loop"]["block_agg"],
+             chaos_launches=path_launches["chaos"]["block_agg"],
              max_abs_err=max(r["max_abs_err"] for r in agg),
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
              bound_by=a["bound_by"], library_ms=a["library_ms"]),
@@ -2197,12 +2630,14 @@ def main(argv=None) -> int:
              bound_by=rs["bound_by"], library_ms=None,
              unfused_ms=rs["unfused_ms"], probe_ms=rs["probe_ms"],
              serving_launches=path_launches["serving"]["round_select"],
+             chaos_launches=path_launches["chaos"]["round_select"],
              stack_q8_ms=st8["ms"], stack_q1_ms=st1["ms"]),
         dict(name="active_blocks_multi", route="cuda",
              source="src/repro_torch/kernels/csrc/bitmap_active.cu",
              replaces="src/repro/kernels/bitmap_active.py:40",
              launches=path_launches["serving_host_loop"][
                  "bitmap_active_multi"],
+             chaos_launches=path_launches["chaos"]["bitmap_active_multi"],
              max_abs_err=max(r["max_abs_err"] for r in multi),
              ms=mp["window_ms"], plain_ms=mp["window_plain_ms"],
              bound_ms=mp["window_bound_ms"],
@@ -2232,6 +2667,7 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/selective_scan.cu",
              replaces="src/repro/kernels/selective_scan.py:102",
              launches=path_launches["mamba1_serve"]["selective_scan"],
+             eval_launches=path_launches["mamba1_eval"]["selective_scan"],
              max_abs_err=max(r["max_abs_err"] for r in scn),
              ms=sf["ms"], plain_ms=sf["plain_ms"], bound_ms=sf["bound_ms"],
              bound_by=sf["bound_by"], library_ms=None),

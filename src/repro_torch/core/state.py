@@ -118,8 +118,15 @@ def _host_f64(x) -> np.ndarray:
 
 def to_host(state: MomentState) -> MomentState:
     """Float64 host copy of a state whose fields may be torch tensors on
-    the card (one device-to-host copy per field)."""
-    return MomentState(*(_host_f64(f) for f in state))
+    the card: one device-to-host copy of the stacked fields when they
+    are tensors of one device, dtype and shape, else one copy per
+    field."""
+    fields = tuple(state)
+    if (all(isinstance(f, torch.Tensor) for f in fields)
+            and len({(f.device, f.dtype, f.shape) for f in fields}) == 1):
+        h = _host_f64(torch.stack(fields))
+        return MomentState(*(h[i, ...] for i in range(len(fields))))
+    return MomentState(*(_host_f64(f) for f in fields))
 
 
 def moments_nonfinite(state: MomentState,

@@ -1,16 +1,21 @@
-"""Synthetic LM training batches: deterministic and restart-safe.
+"""Synthetic LM token pipeline: deterministic and restart-safe.
 
-The part of :mod:`repro.data.tokens` the trainer needs (numpy only, a
-copy, not an import): :func:`train_batch` draws the same tokens as the
-reference for the same ``(cfg, shape, step, seed, host)``, from a
-counter-based RNG keyed on ``(seed, step, host)``. The token stream is a
-small deterministic Markov chain over the vocabulary, so a model can
-learn it. The eval scrambles wait for ``evalx`` (ROADMAP queue 1 item 13).
+The port of :mod:`repro.data.tokens` (numpy only, a copy, not an
+import). :func:`train_batch` draws the same tokens as the reference for
+the same ``(cfg, shape, step, seed, host)``, from a counter-based RNG
+keyed on ``(seed, step, host)``. The token stream is a small
+deterministic Markov chain over the vocabulary, so a model can learn it.
+
+Eval sets are materialized once and SCRAMBLED (paper Definition 4) by
+:func:`make_eval_scramble`, bitwise the reference's for the same seed,
+so :class:`repro_torch.evalx.ApproxEval`'s scan prefixes are uniform
+without-replacement samples.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -66,3 +71,35 @@ def train_batch(cfg: ArchConfig, shape: ShapeConfig, step: int,
         targets[:, front:] = toks[:, 1:]
         out["targets"] = targets
     return out
+
+
+@dataclasses.dataclass
+class EvalScramble:
+    """Pre-shuffled eval set (tokens) for ApproxEval."""
+
+    tokens: np.ndarray   # (N, T) already permuted
+    seed: int
+
+    @property
+    def n_examples(self) -> int:
+        return self.tokens.shape[0]
+
+    def batches(self, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+        """Numpy batches of ``batch_size`` examples in scramble order
+        (a trailing partial batch is dropped); ``targets`` are the
+        tokens shifted left, ``-1`` at the last position."""
+        n = self.n_examples // batch_size * batch_size
+        for lo in range(0, n, batch_size):
+            toks = self.tokens[lo:lo + batch_size]
+            targets = np.concatenate(
+                [toks[:, 1:], np.full((toks.shape[0], 1), -1, np.int32)],
+                axis=1)
+            yield {"tokens": toks, "targets": targets}
+
+
+def make_eval_scramble(cfg: ArchConfig, n_examples: int, seq_len: int,
+                       seed: int = 1234) -> EvalScramble:
+    rng = np.random.default_rng(seed)
+    toks = _markov_tokens(rng, (n_examples, seq_len), cfg.vocab)
+    perm = rng.permutation(n_examples)
+    return EvalScramble(tokens=toks[perm], seed=seed)

@@ -274,9 +274,13 @@ class SharedPass:
         self.force_host = bool(force_host)
         self.force_unsharded = bool(force_unsharded)
         self.device_pass = cfg.resolve_device_loop() and not force_host
+        # a host-loop pass has no chunk unless one is asked for, as in
+        # the reference, so the OOM rung never halves a chunk the host
+        # loop does not use
         self.chunk = (chunk_rounds if chunk_rounds is not None
                       else (cfg.sync_every or cfg.chunk_rounds
-                            or GRAPH_CHUNK_ROUNDS))
+                            or (GRAPH_CHUNK_ROUNDS if self.device_pass
+                                else None)))
 
         # wrap-filled order pad: the window slice at ``pos % nb`` is a
         # rotation of the scan order, so the pad never grows when late

@@ -45,7 +45,8 @@ never depends on the failing configuration. After a rung every
 SLO-bearing ticket still attached to the pass is re-quoted (``requote``
 log event). The port has no sharded scan yet, so the reference's
 sharded → single-device rung (and the round-cost multiplier it sets)
-is not here.
+is not here: a ``shard`` fault walks the same ladder as any other and
+lands on the host-loop rung, as on a one-device reference pass.
 When the ladder is exhausted, running queries are frozen at their
 current sound CI and returned as partial-with-guarantee results
 (``ticket.partial``); the same freeze fires on SLO deadline expiry.
@@ -53,9 +54,10 @@ A query whose fold state goes NaN/inf (or whose admission raises a
 per-query shape error) is quarantined at the next boundary without
 touching co-resident slots. Faults, retries, degradations and
 quarantines all land in the replayable event log, and the injectable
-``fault_hook`` replays a seeded fault trace deterministically (the
-port's fault-injection module is a later slice; the hook's interface is
-here).
+``fault_hook`` (in tests and smoke runs a
+:class:`repro_torch.testing.faults.FaultInjector`, which this module
+never imports) replays a seeded fault trace deterministically
+(``tests/test_torch_faults.py``).
 
 **Simulation-first**: every scheduling decision flows through an
 injectable :class:`Clock` and a deterministic event heap. Under

@@ -19,7 +19,7 @@ import torch
 from repro_torch.aqp import (AggQuery, EngineConfig, FastFrame, Filter,
                              build_scramble)
 from repro_torch.aqp import flights_queries as fq
-from repro_torch.core.optstop import ThresholdSide
+from repro_torch.core.optstop import AbsoluteWidth, ThresholdSide
 from repro_torch.data import flights
 from repro_torch.configs import get as get_config
 from repro_torch.kernels import (_build, bitmap_active, block_agg,
@@ -1494,3 +1494,155 @@ def test_served_batch_bitwise_equals_solo_device_loop(cuda):
                   "stopped_early"):
             np.testing.assert_array_equal(getattr(r, f), getattr(want, f),
                                           err_msg=f)
+
+
+# -- faults on the card's serving path; the eval's forward --------------------
+
+
+def _sched_queries():
+    """A burst over two scan signatures, no GROUP BY (non-probe slots:
+    bitwise to their fault-free run whatever the membership)."""
+    rng = np.random.default_rng(5)
+    out = []
+    for i in range(4):
+        col = "dep_time" if i % 2 else "dep_delay"
+        eps = float(rng.uniform(1.0, 3.0)) * (20.0 if i % 2 else 1.0)
+        out.append(AggQuery(agg="avg", column=col,
+                            stop=AbsoluteWidth(eps=eps), delta=1e-9))
+    return out
+
+
+def _card_scheduler(frame, **over):
+    from repro_torch.serve import FrameServer, QueryScheduler, SimClock
+    kw = dict(seed=1, round_cost_s=1e-3, max_slots=4, chunk_rounds=4,
+              checkpoint_every=1)
+    kw.update(over)
+    sched = QueryScheduler(FrameServer(frame), SimClock(), **kw)
+    for q in _sched_queries():
+        sched.submit(q, at=0.0)
+    sched.run_until_idle()
+    return sched
+
+
+def _assert_tickets_bitwise(clean, faulty, allow_quarantine=False):
+    survivors = 0
+    for tc, tf in zip(clean.tickets, faulty.tickets):
+        if allow_quarantine and tf.status == "quarantined":
+            assert tf.result is None
+            continue
+        assert tc.status == tf.status == "done" and not tf.partial
+        for f in ("estimate", "lo", "hi", "count_seen", "exact", "tainted",
+                  "rows_covered", "blocks_fetched", "rounds",
+                  "stopped_early"):
+            np.testing.assert_array_equal(getattr(tf.result, f),
+                                          getattr(tc.result, f), err_msg=f)
+        survivors += 1
+    return survivors
+
+
+def test_transient_faults_on_the_device_pass_loop(cuda):
+    """Dispatch, transfer, shard and skew faults on the card's device
+    pass loop are retried from the checkpoint: every ticket bit for bit
+    its fault-free run, the skew logged."""
+    from repro_torch.testing import FaultEvent, FaultInjector
+    frame = _serve_frame(_loop_scramble(), device_loop=True)
+    clean = _card_scheduler(frame)
+    faults = [FaultEvent(1, "dispatch", 0.0), FaultEvent(3, "transfer", 0.0),
+              FaultEvent(5, "shard", 0.0), FaultEvent(6, "skew", 0.5)]
+    faulty = _card_scheduler(frame, fault_hook=FaultInjector(faults),
+                             max_retries=10)
+    kinds = [ev[2] for ev in faulty.log]
+    assert kinds.count("fault") == 3 and kinds.count("retry") == 3
+    assert kinds.count("skew") == 1
+    assert _assert_tickets_bitwise(clean, faulty) == 4
+
+
+def test_nan_quarantine_on_the_device_pass_loop(cuda):
+    """A NaN-poisoned slot on the card's device pass loop is evicted; the
+    survivors are bit for bit their fault-free run."""
+    from repro_torch.testing import FaultEvent, FaultInjector
+    frame = _serve_frame(_loop_scramble(), device_loop=True)
+    clean = _card_scheduler(frame)
+    faulty = _card_scheduler(
+        frame, fault_hook=FaultInjector([FaultEvent(1, "nan", 0.0)]))
+    assert "quarantine" in [ev[2] for ev in faulty.log]
+    assert [tk.status for tk in faulty.tickets].count("quarantined") >= 1
+    assert _assert_tickets_bitwise(clean, faulty, allow_quarantine=True) >= 1
+
+
+def test_real_oom_takes_the_chunk_rung(cuda):
+    """A real ``torch.OutOfMemoryError`` (the card asked for twice its
+    memory on attempts 1 and 2) is classified ``oom`` and, with one retry
+    allowed, halves the chunk; the pass then finishes, every ticket done
+    and not partial."""
+    from repro_torch.testing import DeviceOOMHook
+    frame = _serve_frame(_loop_scramble(), device_loop=True)
+    hook = DeviceOOMHook([1, 2], device=cuda)
+    sched = _card_scheduler(frame, fault_hook=hook, max_retries=1)
+    assert hook.fired == [1, 2]
+    faults = [ev[3] for ev in sched.log if ev[2] == "fault"]
+    assert faults == [("oom", 1), ("oom", 2)]
+    assert [ev[3][0] for ev in sched.log if ev[2] == "degrade"] == [
+        "chunk_rounds=2"]
+    assert all(tk.status == "done" and not tk.partial
+               for tk in sched.tickets)
+
+
+def test_to_host_of_a_card_state_is_one_copy_of_its_fields(cuda):
+    """``to_host`` of a state on the card (stacked, one copy) equals the
+    field-by-field copy of the same state on the CPU."""
+    from repro_torch.core.state import moments_of_batch, to_host
+    v = torch.from_numpy(np.random.default_rng(4).normal(3, 2, (4, 500)))
+    for axis in (None, 1):
+        got = to_host(moments_of_batch(v.to(cuda), axis=axis))
+        want = to_host(moments_of_batch(v, axis=axis))
+        for g, w in zip(got, want):
+            assert g.dtype == np.float64 and g.shape == w.shape
+            np.testing.assert_allclose(g, w, rtol=1e-6)
+
+
+def test_approx_eval_forward_launches_the_scan(cuda):
+    """ApproxEval of the reduced falcon-mamba (float32, the same weights)
+    on the card and on the CPU: every forward on the card launches the
+    scan kernel once a layer, the CPU none; per-token losses within 1e-4
+    of their largest magnitude, and the same rounds and examples."""
+    import dataclasses
+    from repro_torch.data.tokens import make_eval_scramble
+    from repro_torch.evalx import ApproxEval
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b", reduced=True),
+                              param_dtype="float32", compute_dtype="float32",
+                              ssm_impl="pallas")
+    model = build_model(cfg)
+    lm_cpu = model.init(0, device="cpu")
+    lm_gpu = model.init(0, device=cuda)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    sc = make_eval_scramble(cfg, n_examples=128, seq_len=64)
+    seen = {"cpu": [], "cuda": []}
+
+    def loss_fn_for(lm, dev):
+        @torch.inference_mode()
+        def loss_fn(batch):
+            toks = torch.from_numpy(batch["tokens"]).to(dev)
+            targets = torch.from_numpy(batch["targets"]).to(dev)
+            before = selective_scan.selective_scan.launches
+            logits, _ = model.forward(lm, {"tokens": toks})
+            logz = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(
+                logits, -1, targets.clamp(min=0).long()[..., None])[..., 0]
+            seen[torch.device(dev).type].append(
+                (selective_scan.selective_scan.launches - before,
+                 (logz - picked).cpu()))
+            return logz - picked, targets >= 0
+        return loss_fn
+
+    reps = {dev: ApproxEval(loss_fn_for(lm, dev), vocab=cfg.vocab_padded,
+                            delta=1e-6).run(sc.batches(16), sc.n_examples,
+                                            target_width=1.0)
+            for lm, dev in ((lm_cpu, "cpu"), (lm_gpu, cuda))}
+    got, want = reps[cuda], reps["cpu"]
+    assert (got.rounds, got.examples_used) == (want.rounds,
+                                               want.examples_used)
+    assert [n for n, _ in seen["cuda"]] == [cfg.n_layers] * got.rounds
+    assert [n for n, _ in seen["cpu"]] == [0] * want.rounds
+    for (_, g), (_, w) in zip(seen["cuda"], seen["cpu"]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())

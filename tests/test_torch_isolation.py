@@ -1,11 +1,13 @@
 """The port stands alone: importing the whole slice pulls in neither JAX
-nor the JAX package, entry points refuse to run on the CPU unless asked,
+nor the JAX package, no production module imports the test-only fault
+injection, entry points refuse to run on the CPU unless asked,
 the kernel wrappers launch or raise (no silent fallback), the
 Anderson/DKW path and the training path run on the CPU when asked, and
 the parts of the reference that later slices port raise
 NotImplementedError (among them the ``"dots"`` remat policy and the
 sharded scan)."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -49,6 +51,11 @@ import repro_torch.train, repro_torch.train.optimizer
 import repro_torch.train.trainer, repro_torch.data.tokens
 import repro_torch.serve, repro_torch.serve.frame_server
 import repro_torch.serve.checkpoint, repro_torch.serve.scheduler
+import repro_torch.testing, repro_torch.testing.faults
+import repro_torch.core.pathologies
+import repro_torch.distributed, repro_torch.distributed.straggler
+import repro_torch.evalx, repro_torch.evalx.monitors
+import repro_torch.evalx.approx_eval
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -62,6 +69,40 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+def _imported_modules(tree: ast.AST):
+    """Every module an AST imports (``import a.b`` and ``from a.b import
+    c`` give ``a.b``; ``from a import b`` also gives ``a.b``)."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out.add(node.module)
+            out.update(f"{node.module}.{a.name}" for a in node.names)
+    return out
+
+
+def test_production_modules_never_import_testing():
+    """Fault injection is for tests and smoke runs: no module of the port
+    outside ``repro_torch/testing/`` imports ``repro_torch.testing`` (the
+    port's counterpart of aqplint's AQP104); the scheduler takes its
+    ``fault_hook`` as an opaque object."""
+    pkg = SRC / "repro_torch"
+    offenders, checked = [], 0
+    for path in sorted(pkg.rglob("*.py")):
+        if (pkg / "testing") in path.parents:
+            continue
+        checked += 1
+        mods = _imported_modules(ast.parse(path.read_text()))
+        if any(m == "repro_torch.testing"
+               or m.startswith("repro_torch.testing.") for m in mods):
+            offenders.append(str(path.relative_to(SRC)))
+    assert checked > 30
+    assert offenders == []
+    assert "repro_torch.testing.faults" in _imported_modules(ast.parse(
+        (pkg / "testing" / "__init__.py").read_text()))
 
 
 def _tiny_scramble():
