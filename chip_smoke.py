@@ -79,6 +79,28 @@ one JSON line:
      the multi-query probe launched) and a ladder exhausted (partial
      intervals covering the truth); a seeded trace over all six kinds,
      run twice to the same event log;
+  3e. the sharded scan (``EngineConfig(shard_rows=True)``) on the first
+     blocks of phase 3b's scramble that hold 20M rows (``SHARD_ROWS``,
+     cut for the phase's time): the main process runs the Bernstein and
+     the Anderson/DKW G 2,800 GROUP BY and phase 3c's ``shared_sig``
+     batch through phases 3b / 3c's single-device paths and writes the
+     blocks to files once; 2 spawned processes, each a rank of a gloo
+     group (a ``FileStore``) on the same card, load them, confirm that
+     gloo all-reduces the card's tensors, and run the same at
+     ``merge_every`` 1 and 4, each rank folding its half of every
+     block's rows with ``block_agg`` / ``fused_fold`` after the round
+     head (launches counted per rank); both ranks' results the same
+     bits; at K 1 the exact fields equal to the single-device results
+     and CIs within 1e-3 of ``max(|x|, 1)``; every interval covering the
+     truth; on an
+     integer-valued frame (exact per-rank sums) K 1 bit for bit the
+     single-device loop and K 4 within 1e-5; wall s, rounds/s,
+     all-reduces a round and the seconds inside gloo. Then under NCCL in
+     a group of one rank: ``make_sharded_fold`` captured in a CUDA graph
+     and replayed, bit for bit ``ops.grouped_moments``, and the sharded
+     device loop captured with its all-reduces, bit for bit the
+     unsharded loop (with >= 2 cards the NCCL sharded loop also runs at
+     that world size, up to 4);
   4. the port on the card against the port on the CPU on a 2M-row
      scramble, for the queries of both paths through the host loop:
      equal scan decisions, intervals within 1e-6 relative; then phase
@@ -1733,6 +1755,497 @@ def chaos_phase(torch, np, frame, burst, clean, cols, counters):
     return rec, failures, tally.counts
 
 
+# -- phase 3e ----------------------------------------------------------------
+
+# The sharded scan (EngineConfig(shard_rows=True)) on the card: SHARD_RANKS
+# processes (spawned), each a rank of a gloo group through a FileStore,
+# all on cuda:0, at merge_every 1 and 4: the Bernstein and the
+# Anderson/DKW G 2,800 GROUP BY and phase 3c's shared_sig batch, on the
+# first blocks of phase 3b's scramble that hold SHARD_ROWS rows (written
+# once by the main process, memory-mapped by the ranks). The cut: at
+# 100M rows the phase took 230 s alone (scripts/smoke_sharded_phase.py),
+# over its ~150 s budget, and 161 s at 40M inside the smoke, which then
+# took 942 s of its 1200; under gloo every K = 1 round waits for its two
+# staged all-reduces, so a round runs at ~19-80 rounds/s.
+SHARD_ROWS = 20_000_000
+SHARD_RANKS = 2
+SHARD_MERGE_EVERY = (1, 4)
+SHARD_RUNS = ("groupby_origin_airline", "groupby_origin_airline-adkw")
+SHARD_GROUP_TIMEOUT_S = 300     # a collective no rank joins fails then
+SHARD_JOIN_TIMEOUT_S = 600      # a rank still running then is killed
+# the reference's tolerances (tests/helpers/sharded_scenarios.py): the
+# merge reorders the float32 row sum of general data (1e-3), the cadence
+# pools deltas in float64 (1e-5), each relative to max(|x|, 1): a mean
+# near zero is folded about the catalog centre (870 for dep_delay), so
+# its float32 error is absolute, ~1e-4 (the smoke's coverage convention)
+SHARD_CI_RTOL, SHARD_CADENCE_TOL = 1e-3, 1e-5
+SHARD_EXACT_FIELDS = ("group_codes", "count_seen", "nonempty", "exact",
+                      "tainted", "rows_covered", "blocks_fetched",
+                      "blocks_skipped_active", "blocks_skipped_static",
+                      "bitmap_probes", "rounds", "stopped_early")
+# the integer-valued frame: every rank's float32 partial sums exact
+SHARD_INT_ROWS, SHARD_INT_GROUPS = 4_000_000, 8
+
+
+def _save_result(np, out, prefix, res):
+    for f in RESULT_FIELDS:
+        out[f"{prefix}/{f}"] = np.asarray(getattr(res, f))
+
+
+def _load_result(data, prefix):
+    import types
+    return types.SimpleNamespace(**{f: data[f"{prefix}/{f}"][()]
+                                    for f in RESULT_FIELDS})
+
+
+def _shard_ci_gap(np, a, b):
+    """Largest gap of the finite CI endpoints and estimates, relative to
+    ``max(|b|, 1)``, and whether the finite patterns agree."""
+    worst, same_fin = 0.0, True
+    for f in ("estimate", "lo", "hi"):
+        x, y = getattr(a, f), getattr(b, f)
+        same_fin &= bool(np.array_equal(np.isfinite(x), np.isfinite(y)))
+        fin = np.isfinite(x) & np.isfinite(y)
+        if fin.any():
+            d = np.abs(x[fin] - y[fin])
+            worst = max(worst, float(np.max(d / np.maximum(
+                np.abs(y[fin]), 1.0))))
+    return worst, same_fin
+
+
+def _exact_fields_equal(np, a, b):
+    return [f for f in SHARD_EXACT_FIELDS
+            if not np.array_equal(getattr(a, f), getattr(b, f))]
+
+
+def _cadence_faults(np, got, k1):
+    """The collective cadence's contract against the per-round merge on
+    the same ranks: never fewer rounds (termination waits for a merge);
+    where the rounds and the blocks fetched are equal, the same rows
+    folded (``count_seen``, ``rows_covered``), which a lost pending delta
+    or a skipped flush would break. The intervals have no order here: a
+    group that goes inactive freezes its interval, and under the cadence
+    it does so at a later merge, on more rows (the integer frame, whose
+    exhaustion keeps every group active, holds K 4's intervals to K 1's
+    within ``SHARD_CADENCE_TOL``). Returns what broke."""
+    faults = []
+    if got.rounds < k1.rounds:
+        faults.append("fewer rounds")
+    elif (got.rounds == k1.rounds
+          and got.blocks_fetched == k1.blocks_fetched):
+        faults += [f for f in ("count_seen", "rows_covered")
+                   if not np.array_equal(getattr(got, f), getattr(k1, f))]
+    return faults
+
+
+def _integer_scramble(np, T, n, groups):
+    g = (np.arange(n) % groups).astype(np.int32)
+    v = (((np.arange(n) * 7) // 5 + g) % 5).astype(np.float32)
+    return T.build_scramble({"g": g, "v": v}, catalog={"v": (0.0, 4.0)},
+                            seed=1)
+
+
+def shard_rank_main(a: dict) -> None:
+    """Phase 3e's rank ``a["rank"]`` of ``a["world"]`` (spawned): joins the
+    group, confirms that gloo all-reduces the card's tensors, runs the
+    sharded scan on the scramble in ``a["data"]`` at every
+    ``SHARD_MERGE_EVERY`` and the integer-valued frame's checks, and
+    writes its record (JSON) and results (npz) to ``a["out"]``."""
+    import datetime
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path[:0] = [p for p in a["sys_path"] if p not in sys.path]
+    import repro_torch.aqp as T
+    from repro_torch.core import optstop as opt
+    from repro_torch.aqp import flights_queries as fq
+    from repro_torch.kernels import (bitmap_active as kbit, block_agg as kblock,
+                                     fused_fold as kfused_fold,
+                                     fused_scan as kscan_loop,
+                                     grouped_hist as khist)
+    from repro_torch.serve import FrameServer
+    rank, world = a["rank"], a["world"]
+    dev = torch.device("cuda", a["device_index"])
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+    dist.init_process_group(
+        a["backend"], store=dist.FileStore(a["store"], world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    rec = dict(rank=rank, world=world, backend=a["backend"],
+               device=str(dev), init_s=time.perf_counter() - t_start)
+    # gloo takes the card's tensors by staging them through host memory
+    x = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(x)
+    y = torch.full((4,), -float(rank + 1), device=dev)
+    dist.all_reduce(y, op=dist.ReduceOp.MIN)
+    want = float(sum(range(1, world + 1)))
+    rec["cuda_all_reduce"] = dict(
+        sum_ok=bool((x.cpu() == want).all()),
+        min_ok=bool((y.cpu() == -float(world)).all()),
+        device=str(x.device))
+    t0 = time.perf_counter()
+    meta = json.loads(Path(a["data"], "meta.json").read_text())
+    cols = {c: np.load(Path(a["data"], f"{c}.npy"), mmap_mode="r")
+            for c in meta["columns"]}
+    sc = T.scramble_from_arrays(
+        cols, np.load(Path(a["data"], "valid.npy"), mmap_mode="r"),
+        meta["n_rows"], meta["block_rows"],
+        {k: tuple(v) for k, v in meta["catalog"].items()},
+        meta["categorical"], meta["seed"])
+    rec["load_s"] = time.perf_counter() - t0
+    runs = {name: q for name, q, _ in main_path_queries(T, fq, opt)
+            + anderson_queries(T, fq, opt) if name in SHARD_RUNS}
+    counters = {"block_agg": kblock.block_agg,
+                "bitmap_active": kbit.active_blocks,
+                "bitmap_active_multi": kbit.active_blocks_multi,
+                "round_select": kbit.round_select,
+                "fused_fold": kfused_fold.fused_fold,
+                "grouped_hist": khist.grouped_hist}
+    coll = kscan_loop.COLLECTIVES
+    out, records = {}, []
+    only = a.get("only")
+    for K in a["merge_every"]:
+        frame = T.FastFrame(sc, T.EngineConfig(shard_rows=True,
+                                               merge_every=K), device=dev)
+        jobs = [(name, "run") for name in SHARD_RUNS
+                if only is None or name in only]
+        if only is None:
+            jobs.append(("shared_sig", "batch"))
+        for name, how in jobs:
+            for c in counters.values():
+                c.launches = 0
+            c0 = dict(coll)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if how == "run":
+                res = [frame.run(runs[name], sampling="active_peek", seed=0)]
+            else:
+                res = FrameServer(frame).run_batch(
+                    shared_sig_workload(T, opt), sampling="active_peek",
+                    seed=1, start_block=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rounds = max(r.rounds for r in res)
+            calls = coll["calls"] - c0["calls"]
+            loop = frame.device_loops[list(frame.device_loops.keys())[-1]]
+            records.append(dict(
+                run=name, merge_every=K, wall_s=wall, rounds=rounds,
+                rounds_per_s=rounds / wall if wall > 0 else None,
+                all_reduces=calls,
+                all_reduces_per_round=calls / rounds if rounds else None,
+                all_reduce_mb=(coll["bytes"] - c0["bytes"]) / 1e6,
+                gloo_s=coll["seconds"] - c0["seconds"],
+                captured=bool(getattr(loop, "graph", None) is not None),
+                launches={k: c.launches for k, c in counters.items()}))
+            for i, r in enumerate(res):
+                _save_result(np, out, f"{name}/K{K}/{i}", r)
+        del frame
+        torch.cuda.empty_cache()
+    if only is None:
+        # the integer-valued frame: sharded (K 1) bit for bit the
+        # single-device loop, early stop and exhaustion; at K 4 the
+        # exhaustion's exact fields equal, CIs within SHARD_CADENCE_TOL
+        isc = _integer_scramble(np, T, SHARD_INT_ROWS, SHARD_INT_GROUPS)
+        qs = {"exhaustion": T.AggQuery(agg="avg", column="v", group_by="g",
+                                       stop=opt.AbsoluteWidth(eps=1e-9),
+                                       delta=1e-9),
+              "early_stop": T.AggQuery(agg="avg", column="v", group_by="g",
+                                       stop=opt.ThresholdSide(threshold=2.0),
+                                       delta=1e-6)}
+        ints = []
+        for qname, q in qs.items():
+            oracle = T.FastFrame(isc, T.EngineConfig(shard_rows=False),
+                                 device=dev).run(q, seed=1, start_block=0)
+            for K in a["merge_every"]:
+                if K > 1 and qname != "exhaustion":
+                    continue
+                r = T.FastFrame(isc, T.EngineConfig(
+                    shard_rows=True, merge_every=K), device=dev).run(
+                    q, seed=1, start_block=0)
+                gap, same_fin = _shard_ci_gap(np, r, oracle)
+                ints.append(dict(
+                    query=qname, merge_every=K, rounds=r.rounds,
+                    exact_fields_differ=_exact_fields_equal(np, r, oracle),
+                    ci_bitwise=all(np.array_equal(getattr(r, f),
+                                                  getattr(oracle, f))
+                                   for f in ("estimate", "lo", "hi")),
+                    ci_max_rel=gap, same_finite=same_fin))
+        rec["integer_frame"] = dict(rows=SHARD_INT_ROWS,
+                                    groups=SHARD_INT_GROUPS, runs=ints)
+    rec["runs"] = records
+    rec["rank_s"] = time.perf_counter() - t_start
+    np.savez(Path(a["out"], f"rank{rank}.npz"), **out)
+    Path(a["out"], f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def nccl_world1_main(a: dict) -> None:
+    """Phase 3e's NCCL check (spawned): a group of one rank under NCCL.
+    ``make_sharded_fold`` captured in a CUDA graph and replayed, with and
+    without the histogram, bit for bit ``ops.grouped_moments`` /
+    ``ops.grouped_hist`` on exact data. (The sharded loop needs a group
+    of >= 2 ranks, and NCCL one card a rank.)"""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path[:0] = [p for p in a["sys_path"] if p not in sys.path]
+    from repro_torch.aqp import distributed as adist
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(a["store"], 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    rec = dict(world=1, backend=dist.get_backend())
+    rng = np.random.default_rng(7)
+    G, nb, br, center = 2800, 64, 1024, 2.0
+    v = torch.from_numpy(rng.integers(0, 5, (nb, br)).astype(np.float32))
+    g = torch.from_numpy(rng.integers(0, G, (nb, br)).astype(np.int32))
+    m = torch.from_numpy((rng.random((nb, br)) < 0.8).astype(np.float32))
+    v, g, m = (t.to(dev) for t in (v, g, m))
+    ref = ops.grouped_moments(v, g, m, G, center)
+    ref_h = ops.grouped_hist(v, g, m, G, 0.0, 5.0, nbins=HIST_BINS).hist
+    checks = {}
+    for with_hist in (False, True):
+        fold = adist.make_sharded_fold(None, G, center, with_hist=with_hist,
+                                       hist_bins=HIST_BINS,
+                                       hist_range=(0.0, 5.0))
+        eager = fold(v, g, m)                  # the communicator, eagerly
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            fold(v, g, m)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = fold(v, g, m)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        st, hist = (got if with_hist else (got, None))
+        est = eager[0] if with_hist else eager
+        ok = all(torch.equal(getattr(st, f).view(torch.int32),
+                             getattr(ref, f).view(torch.int32))
+                 and torch.equal(getattr(est, f).view(torch.int32),
+                                 getattr(ref, f).view(torch.int32))
+                 for f in ("count", "mean", "m2", "vmin", "vmax"))
+        if with_hist:
+            ok = ok and torch.equal(hist, ref_h)
+        checks["with_hist" if with_hist else "moments"] = ok
+    rec["fold_captured_bitwise"] = checks
+    Path(a["out"], "nccl1.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(ctx, target, argss, timeout_s):
+    """Start one process per argument dict, join each within the time
+    limit; a process still running then is killed. Returns the exit
+    codes (None for a killed one)."""
+    procs = [ctx.Process(target=target, args=(a,)) for a in argss]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout_s
+    codes = []
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 1.0))
+        if p.is_alive():
+            p.terminate()
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+def _cut_scramble(np, T, sc, rows: int):
+    """The first blocks of ``sc`` that hold at least ``rows`` valid rows,
+    as a scramble of their own (the blocks are a uniform shuffle, so a
+    prefix of them is a sample of the table), and its valid rows as flat
+    columns (the truth's input)."""
+    nb = int(np.searchsorted(np.cumsum(sc.valid.sum(axis=1)), rows)) + 1
+    nb = min(nb, sc.n_blocks)
+    valid = sc.valid[:nb]
+    cut = T.scramble_from_arrays(
+        {c: a[:nb] for c, a in sc.columns.items()}, valid,
+        int(valid.sum()), sc.block_rows, sc.catalog, sc.categorical,
+        sc.seed)
+    return cut, {c: a[valid] for c, a in cut.columns.items()}
+
+
+def sharded_phase(torch, np, T, opt, sc, rows: int):
+    """Phase 3e: the sharded scan on the card, on the first blocks of
+    ``sc`` holding ``rows`` rows. The main process runs the queries
+    through phases 3b / 3c's single-device paths (the device loop, the
+    device pass loop) on the same blocks; the ranks are held to those
+    results. Returns ``(record, failures, launches)``, ``launches`` each
+    kernel's launches summed over the ranks' sharded runs."""
+    import tempfile
+    import torch.multiprocessing as tmp
+    from repro_torch.aqp import flights_queries as fq
+    from repro_torch.serve import FrameServer
+    ctx = tmp.get_context("spawn")
+    failures, rec = [], {}
+    t0 = time.perf_counter()
+    if rows < sc.n_rows:
+        sc, cols = _cut_scramble(np, T, sc, rows)
+    else:
+        cols = {c: a[sc.valid] for c, a in sc.columns.items()}
+    rec["rows"], rec["blocks"] = int(sc.n_rows), int(sc.n_blocks)
+    # the single-device results the ranks are held to, and the truths
+    frame = T.FastFrame(sc, T.EngineConfig(device_loop=True), device="cuda")
+    runs = {name: q for name, q, _ in main_path_queries(T, fq, opt)
+            + anderson_queries(T, fq, opt) if name in SHARD_RUNS}
+    solo = {name: frame.run(q, sampling="active_peek", seed=0)
+            for name, q in runs.items()}
+    truths = {name: truth_of(np, cols, q) for name, q in runs.items()}
+    served = FrameServer(frame).run_batch(
+        shared_sig_workload(T, opt), sampling="active_peek", seed=1,
+        start_block=0)
+    torch.cuda.synchronize()
+    del frame
+    torch.cuda.empty_cache()
+    rec["single_device_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3e_") as tdir:
+        tdir = Path(tdir)
+        data = tdir / "data"
+        data.mkdir()
+        t0 = time.perf_counter()
+        for c, arr in sc.columns.items():
+            np.save(data / f"{c}.npy", arr)
+        np.save(data / "valid.npy", sc.valid)
+        (data / "meta.json").write_text(json.dumps(dict(
+            columns=list(sc.columns), n_rows=int(sc.n_rows),
+            block_rows=int(sc.block_rows),
+            catalog={k: [float(x) for x in v] for k, v in sc.catalog.items()},
+            categorical={k: int(v) for k, v in sc.categorical.items()},
+            seed=int(sc.seed))))
+        rec["write_s"] = time.perf_counter() - t0
+        base = dict(world=SHARD_RANKS, store=str(tdir / "store"),
+                    data=str(data), out=str(tdir), backend="gloo",
+                    device_index=0, merge_every=list(SHARD_MERGE_EVERY),
+                    sys_path=list(sys.path))
+        t0 = time.perf_counter()
+        codes = _spawn_ranks(ctx, shard_rank_main,
+                             [dict(base, rank=r) for r in range(SHARD_RANKS)],
+                             SHARD_JOIN_TIMEOUT_S)
+        rec["ranks_wall_s"] = time.perf_counter() - t0
+        rec["rank_exit_codes"] = codes
+        if codes != [0] * SHARD_RANKS:
+            failures.append(dict(part="gloo ranks", exit_codes=codes))
+            return rec, failures, {}
+        ranks = [json.loads((tdir / f"rank{r}.json").read_text())
+                 for r in range(SHARD_RANKS)]
+        results = [np.load(tdir / f"rank{r}.npz") for r in range(SHARD_RANKS)]
+        rec["ranks"] = ranks
+        for r in ranks:
+            if not all(r["cuda_all_reduce"][k] for k in ("sum_ok", "min_ok")):
+                failures.append(dict(part="gloo all_reduce of a CUDA tensor",
+                                     rank=r["rank"], got=r["cuda_all_reduce"]))
+            for run in r["runs"]:
+                fold = "fused_fold" if "adkw" in run["run"] else "block_agg"
+                idle = [k for k in ("round_select", fold)
+                        if run["launches"][k] == 0]
+                if idle or run["captured"]:
+                    failures.append(dict(part="launches", rank=r["rank"],
+                                         run=run["run"], idle=idle,
+                                         captured=run["captured"]))
+            for i in r["integer_frame"]["runs"]:
+                bad = (i["exact_fields_differ"] or not i["same_finite"]
+                       or (i["merge_every"] == 1 and not i["ci_bitwise"])
+                       or i["ci_max_rel"] > SHARD_CADENCE_TOL)
+                if bad:
+                    failures.append(dict(part="integer frame",
+                                         rank=r["rank"], **i))
+        # replicated: every rank's results the same bits
+        keys = sorted(results[0].files)
+        diverged = [k for k in keys if any(
+            not np.array_equal(results[0][k], res[k]) for res in results[1:])]
+        rec["ranks_bitwise_equal"] = not diverged
+        if diverged:
+            failures.append(dict(part="ranks differ", fields=diverged[:8]))
+        # against phases 3b / 3c: K 1 exact fields equal and CIs within
+        # SHARD_CI_RTOL; every K's intervals cover the truth; K > 1 held
+        # to the ranks' own K 1 run by the cadence's contract
+        memo = {}
+        checks = []
+        qs = shared_sig_workload(T, opt)
+        for K in SHARD_MERGE_EVERY:
+            for name in SHARD_RUNS + ("shared_sig",):
+                n_q = len(qs) if name == "shared_sig" else 1
+                for i in range(n_q):
+                    got = _load_result(results[0], f"{name}/K{K}/{i}")
+                    if name == "shared_sig":
+                        want = served[i]
+                        truth = truth_of_column(np, cols, qs[i], memo)
+                    else:
+                        want, truth = solo[name], truths[name]
+                    differ = _exact_fields_equal(np, got, want)
+                    gap, same_fin = _shard_ci_gap(np, got, want)
+                    miss = uncovered(np, got, *truth)
+                    row = dict(run=name, query=i, merge_every=K,
+                               rounds=int(got.rounds),
+                               single_device_rounds=int(want.rounds),
+                               exact_fields_differ=differ,
+                               ci_max_rel=gap, covered=not len(miss))
+                    if K > 1:
+                        row["cadence_faults"] = _cadence_faults(
+                            np, got, _load_result(results[0],
+                                                  f"{name}/K1/{i}"))
+                    checks.append(row)
+                    if (len(miss) or row.get("cadence_faults")
+                            or (K == 1 and (differ or not same_fin
+                                            or gap > SHARD_CI_RTOL))):
+                        failures.append(dict(part="vs single device", **row))
+        rec["checks"] = checks
+        n_cards = torch.cuda.device_count()
+        rec["nccl_world"] = 1
+        if n_cards >= 2:
+            # one rank a card under NCCL: the Bernstein GROUP BY at K 1
+            world = min(n_cards, 4)
+            base = dict(world=world, store=str(tdir / "store_nccl"),
+                        data=str(data), out=str(tdir / "nccl"),
+                        backend="nccl", merge_every=[1],
+                        only=[SHARD_RUNS[0]], sys_path=list(sys.path))
+            (tdir / "nccl").mkdir()
+            codes = _spawn_ranks(ctx, shard_rank_main, [
+                dict(base, rank=r, device_index=r) for r in range(world)],
+                SHARD_JOIN_TIMEOUT_S)
+            rec["nccl_world"] = world
+            rec["nccl_exit_codes"] = codes
+            if codes != [0] * world:
+                failures.append(dict(part=f"nccl world {world}",
+                                     exit_codes=codes))
+        else:
+            rec["nccl_note"] = ("one card: NCCL takes one rank a card, so "
+                                "only make_sharded_fold runs under NCCL "
+                                "here, at world size 1")
+        # NCCL: a one-rank group, the fold captured
+        t0 = time.perf_counter()
+        codes = _spawn_ranks(ctx, nccl_world1_main, [dict(
+            store=str(tdir / "store_nccl1"), out=str(tdir),
+            sys_path=list(sys.path))], SHARD_JOIN_TIMEOUT_S)
+        nccl = dict(exit_codes=codes, wall_s=time.perf_counter() - t0)
+        ok = False
+        if codes == [0]:
+            nccl.update(json.loads((tdir / "nccl1.json").read_text()))
+            ok = all(nccl["fold_captured_bitwise"].values())
+        if not ok:
+            failures.append(dict(part="nccl world 1", **nccl))
+        rec["nccl_world_1"] = nccl
+    launches = {}
+    for r in rec.get("ranks", []):
+        for run in r["runs"]:
+            for k, n in run["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    return rec, failures, launches
+
+
 def serving_host_loop(torch, np, T, sc, batch):
     """Phase 3c's host pass loop (``device_loop=False``): the batch on
     the card and on the CPU, decisions equal and CIs within 1e-6
@@ -2498,7 +3011,27 @@ def main(argv=None) -> int:
     if idle_k:
         raise AssertionError(f"chaos: kernels never launched {idle_k}: "
                              f"{launches}")
-    del loop_frame, solo, sc, ds, burst, clean
+    del loop_frame, burst, clean
+    torch.cuda.empty_cache()
+
+    # ---- 3e. the sharded scan: gloo ranks on the card ----------------------
+    del solo
+    t0 = time.perf_counter()
+    shard_rows = min(SHARD_ROWS, args.rows)
+    sharded, failures, launches = sharded_phase(torch, np, T, opt, sc,
+                                                shard_rows)
+    path_launches["sharded"] = launches
+    emit(dict(phase="sharded", card=name, power_limit=power_limit,
+              world=SHARD_RANKS, backend="gloo",
+              merge_every=list(SHARD_MERGE_EVERY),
+              phase_s=time.perf_counter() - t0,
+              reduced={"rows": f"{PAPER_ROWS / 1e6:g}M -> "
+                               f"{shard_rows / 1e6:g}M (phase 3b's first "
+                               "blocks)"},
+              **sharded))
+    if failures:
+        raise AssertionError(f"sharded: {failures}")
+    del sc, ds
     torch.cuda.empty_cache()
 
     # ---- 4. the port on the card against the port on the CPU ----------------
@@ -2610,6 +3143,7 @@ def main(argv=None) -> int:
              launches=launches["block_agg"],
              device_loop_launches=path_launches["device_loop"]["block_agg"],
              chaos_launches=path_launches["chaos"]["block_agg"],
+             sharded_launches=path_launches["sharded"]["block_agg"],
              max_abs_err=max(r["max_abs_err"] for r in agg),
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
              bound_by=a["bound_by"], library_ms=a["library_ms"]),
@@ -2631,6 +3165,7 @@ def main(argv=None) -> int:
              unfused_ms=rs["unfused_ms"], probe_ms=rs["probe_ms"],
              serving_launches=path_launches["serving"]["round_select"],
              chaos_launches=path_launches["chaos"]["round_select"],
+             sharded_launches=path_launches["sharded"]["round_select"],
              stack_q8_ms=st8["ms"], stack_q1_ms=st1["ms"]),
         dict(name="active_blocks_multi", route="cuda",
              source="src/repro_torch/kernels/csrc/bitmap_active.cu",
@@ -2649,6 +3184,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/fused_scan.py:148",
              launches=adkw["fused_fold"],
              device_loop_launches=path_launches["device_loop"]["fused_fold"],
+             sharded_launches=path_launches["sharded"]["fused_fold"],
              max_abs_err=max(r["max_abs_err"] for r in fus),
              ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
              bound_by=f["bound_by"], library_ms=f["library_ms"]),
@@ -2656,6 +3192,7 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/grouped_hist.cu",
              replaces="src/repro/kernels/hist.py:73",
              launches=adkw["grouped_hist"],
+             sharded_launches=path_launches["sharded"]["grouped_hist"],
              max_abs_err=max(r["max_abs_err"] for r in hst),
              ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
              bound_by=h["bound_by"], library_ms=h["library_ms"],

@@ -59,12 +59,14 @@ Soundness bookkeeping beyond the paper's prose (as in the reference):
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.aqp import distributed as adist
 from repro_torch.aqp.bitmap import (BlockBitmap, build_bitmap, pack_mask,
                                     unpack_words)
 from repro_torch.aqp.query import AggQuery, Expression, QueryResult
@@ -187,11 +189,14 @@ class EngineConfig:
             device's transcendentals and reduction orders).
         chunk_rounds: OptStop rounds a chunk enqueues (one CUDA graph
             replay on the card). ``None`` takes
-            :data:`GRAPH_CHUNK_ROUNDS`, where the reference runs until
-            the stop in one dispatch: a replay cannot branch on a device
+            :data:`GRAPH_CHUNK_ROUNDS` (rounded up to a multiple of
+            ``merge_every`` on a sharded cadence loop:
+            :func:`default_chunk`), where the reference runs until the
+            stop in one dispatch: a replay cannot branch on a device
             value, so a chunk always holds a fixed number of rounds, and
             rounds after the stop inside it change nothing. Chunking
-            changes dispatch granularity only, never results.
+            changes dispatch granularity only, never results, save under
+            the collective cadence (``merge_every``).
         sync_every: host-sync (and ``on_sync`` streaming callback)
             cadence in rounds for the device loop; takes precedence over
             ``chunk_rounds`` as the chunk size.
@@ -199,9 +204,50 @@ class EngineConfig:
             device materialization caches (value columns, predicate
             masks, group-code columns). Every entry pins one full
             ``(n_blocks, block_rows)`` device buffer.
-        shard_rows / mesh_shape / merge_every: the mesh-sharded scan. Not
-            ported yet: any setting other than the defaults (``None``,
-            ``None``, ``1``) raises ``NotImplementedError``.
+        shard_rows: run the device-resident round loop with the scan
+            DIVIDED over the ranks of the default ``torch.distributed``
+            process group, one process a device (shard ``d`` is rank
+            ``d``; :mod:`repro_torch.aqp.distributed`): the within-block
+            row axis of the value / mask / group-code slabs is sliced
+            into ``n_shards`` equal pieces (the block axis whole on every
+            rank, rows zero-padded to divide evenly), so each rank folds
+            only ``1/n_shards`` of every selected block's rows;
+            selection, accounting and bound math stay replicated, and
+            each round's fold sums merge across ranks with two
+            ``all_reduce`` calls before the moment conversion. Every rank
+            runs the same call on the same scramble and gets the same
+            result. ``None`` (default) turns it on when the device loop
+            is in effect AND a default group of >= 2 ranks is
+            initialized; ``True`` requires both (a clear error
+            otherwise). Against the single-device loop
+            (``tests/test_torch_distributed.py``): scan decisions,
+            coverage, taint and scan metrics equal; fold deltas bit for
+            bit whenever each rank's float32 partial sums are exact
+            (then CIs too); on general data the merge reorders the
+            float32 row sum (CIs within 1e-3 relative, the reference's
+            bound). Under gloo a chunk's rounds are enqueued (the
+            collectives stage the card's tensors through host memory);
+            under NCCL a chunk is one captured CUDA graph.
+        mesh_shape: explicit shape of the ranks for ``shard_rows`` (e.g.
+            ``(2, 2)``): its product must be the group's size, and it
+            only orders the ranks (flattened). ``None`` takes every rank
+            as a 1-D layout.
+        merge_every: collective cadence K of the sharded round loop: the
+            merge across ranks fires every K rounds on a replicated round
+            counter, with nothing crossing ranks between merges.
+            Termination reads merged stats only and is observed at most
+            K-1 rounds after the round that would have stopped the K=1
+            loop; between merges each rank pools its raw fold delta in
+            float64 and the intervals stay at their last merged values
+            (stale by at most K rounds, still anytime-valid). A chunk
+            asked for (``sync_every`` / ``chunk_rounds``) is one of the
+            reference's dispatches of that many rounds and ends with a
+            merge, so its host reads and ``on_sync`` snapshots see merged
+            stats; the default chunk (:func:`default_chunk`, a multiple
+            of K) stands in for the reference's one dispatch to the end:
+            pending rounds carry from chunk to chunk and the merges fall
+            on that dispatch's rounds. 1 (default) merges every round;
+            K > 1 has no effect on an unsharded run.
     """
 
     round_blocks: int = 64          # processed-block budget per round
@@ -218,21 +264,19 @@ class EngineConfig:
     mat_cache_entries: int = 32     # LRU cap per device materialization
                                     # cache (each entry pins one full
                                     # (n_blocks, block_rows) buffer)
-    shard_rows: Optional[bool] = None   # mesh-sharded scan (later slice)
-    mesh_shape: Optional[Tuple[int, ...]] = None
-    merge_every: int = 1
+    shard_rows: Optional[bool] = None   # sharded device loop (None = on
+                                    # iff the device loop is in effect
+                                    # and a group of >= 2 ranks exists)
+    mesh_shape: Optional[Tuple[int, ...]] = None  # order of the ranks
+    merge_every: int = 1            # collective cadence K of the sharded
+                                    # loop (1 = merge folds every round)
 
     def __post_init__(self):
         if self.merge_every < 1:
             raise ValueError(
                 f"EngineConfig(merge_every={self.merge_every}) must be "
-                ">= 1 (1 merges the shard folds every round)")
-        if self.shard_rows or self.mesh_shape is not None \
-                or self.merge_every > 1:
-            raise NotImplementedError(
-                "the mesh-sharded scan (shard_rows / mesh_shape / "
-                "merge_every > 1) is not ported yet: it comes with the "
-                "sharded-scan slice of the port (torch.distributed)")
+                ">= 1 (1 merges the shard folds every round; K > 1 "
+                "amortizes the collective set over K rounds)")
         for name in ("chunk_rounds", "sync_every"):
             v = getattr(self, name)
             if v is not None and v < 1:
@@ -249,6 +293,33 @@ class EngineConfig:
                 "EngineConfig(device_loop=True) requires fused=True: the "
                 "device-resident loop is built on the fused scan round")
         return bool(self.device_loop)
+
+    def resolve_shard_rows(self) -> bool:
+        """Whether the device-resident round loop runs divided over the
+        ranks of the default process group, with the guards applied for
+        an explicit ``shard_rows=True`` (auto is off without a group of
+        >= 2 ranks)."""
+        n_dev = (math.prod(self.mesh_shape) if self.mesh_shape
+                 else adist.world()[0])
+        if self.shard_rows is None:
+            return n_dev > 1 and self.resolve_device_loop()
+        if self.shard_rows:
+            if n_dev < 2:
+                raise ValueError(
+                    "EngineConfig(shard_rows=True) needs >= 2 ranks (one "
+                    f"a device), but the resolved layout has {n_dev}: "
+                    "initialize a torch.distributed default group of >= "
+                    "2 processes (e.g. torchrun --nproc-per-node=N, or "
+                    "gloo ranks on the CPU) before building the frame. "
+                    "Sharding on one device is pure overhead, so it is "
+                    "never enabled implicitly.")
+            if not self.resolve_device_loop():
+                raise ValueError(
+                    "EngineConfig(shard_rows=True) requires the device-"
+                    "resident round loop (device_loop=True, which needs "
+                    "fused=True): the sharded scan is the device loop run "
+                    "on every rank.")
+        return bool(self.shard_rows)
 
 
 class _ScanViews:
@@ -663,6 +734,15 @@ def _restore_views_from_carry(slot: _ScanViews, state: MomentState, hist,
 #: most) against one host sync and one replay launch per chunk.
 GRAPH_CHUNK_ROUNDS = 16
 
+
+def default_chunk(merge_every: int = 1) -> int:
+    """The rounds of a device-loop chunk nobody asked for:
+    :data:`GRAPH_CHUNK_ROUNDS` rounded up to a multiple of the collective
+    cadence K, so that chunks standing in for the reference's one
+    dispatch to the end merge on its rounds (``build_query_loop(
+    until_end=True)``)."""
+    return -(-GRAPH_CHUNK_ROUNDS // merge_every) * merge_every
+
 # The kernels a device-loop chunk may launch (the round head and a fold a
 # round, a slot a round in a shared pass, and the multi-query probe): a
 # graph replay launches what its capture recorded, without calling their
@@ -684,16 +764,25 @@ class _ChunkGraph:
     carry's own tensors (the static carry) in place. Later loads copy a
     carry into the static one. A failed capture raises: there is no eager
     or host-loop fallback. Each :meth:`replay` adds the launches its
-    capture recorded to the kernels' counts. The instance owns its graph
-    and the graph's memory pool."""
+    capture recorded to the kernels' counts (and, for a sharded chunk
+    under NCCL, the all-reduces to ``fused_scan.COLLECTIVES``). The
+    instance owns its graph and the graph's memory pool.
 
-    def __init__(self, chunk_fn: Callable, bufs, device: torch.device):
+    A sharded chunk is captured only when its group's collectives can be
+    (NCCL): ``shard`` is its :class:`~repro_torch.kernels.fused_scan.
+    ShardInfo`, and the group's communicator is set up by one eager
+    all-reduce before the warm-up."""
+
+    def __init__(self, chunk_fn: Callable, bufs, device: torch.device,
+                 shard: Optional[kfused.ShardInfo] = None):
         self._chunk_fn = chunk_fn
         self._bufs = bufs
+        self._shard = shard
         self.device = device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static = None
         self._replay_launches: Tuple[int, ...] = ()
+        self._replay_collectives: Tuple[int, int] = (0, 0)
         self.capture_s = 0.0   # host seconds of the warm-up and capture
         self.replays = 0
 
@@ -713,12 +802,19 @@ class _ChunkGraph:
         self.graph.replay()
         for k, n in zip(_LOOP_KERNELS, self._replay_launches):
             k.launches += n
+        coll = kfused.COLLECTIVES
+        coll["calls"] += self._replay_collectives[0]
+        coll["bytes"] += self._replay_collectives[1]
         self.replays += 1
 
     def capture(self, carry) -> None:
         """Capture one chunk as a CUDA graph whose replay advances the
         static carry (``carry``'s own tensors) in place."""
         t0 = time.perf_counter()
+        if self._shard is not None:  # the communicator, outside capture
+            kfused.merge_across_shards(self._shard, [
+                tuple(torch.zeros((3, 1), device=self.device)
+                      for _ in range(3)) + (None,)])
         clone = kfused.carry_map(torch.clone, carry)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -730,6 +826,8 @@ class _ChunkGraph:
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
         warm = tuple(k.launches for k in _LOOP_KERNELS)
+        coll = kfused.COLLECTIVES
+        warm_coll = (coll["calls"], coll["bytes"])
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):
             out = self._chunk_fn(self._bufs, carry)
@@ -741,6 +839,9 @@ class _ChunkGraph:
             k.launches - n for k, n in zip(_LOOP_KERNELS, warm))
         for k, n in zip(_LOOP_KERNELS, warm):
             k.launches = n
+        self._replay_collectives = (coll["calls"] - warm_coll[0],
+                                    coll["bytes"] - warm_coll[1])
+        coll["calls"], coll["bytes"] = warm_coll
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self.graph = graph
         self.static = carry
@@ -751,7 +852,7 @@ class _DeviceLoop:
     """Device-resident round-loop driver for one query: assembles the
     :class:`~repro_torch.kernels.fused_scan.QueryLoopBuffers`, builds the
     chunk function, runs chunks of ``sync_every`` / ``chunk_rounds`` /
-    :data:`GRAPH_CHUNK_ROUNDS` rounds (one scalar read on the host after
+    :func:`default_chunk` rounds (one scalar read on the host after
     each), and writes the final carry back into the host-side
     :class:`_ScanViews` / :class:`_QueryIntervals` (one packed copy) so
     the recovery pass and result construction are the code the host loop
@@ -763,11 +864,21 @@ class _DeviceLoop:
     each chunk is then one replay. The instance is cached on the frame
     (``FastFrame.device_loops``) and owns its graph and the graph's
     memory pool, which go with it when the cache evicts it. On the CPU
-    the same chunk function runs eagerly."""
+    the same chunk function runs eagerly.
+
+    ``shards`` (:class:`repro_torch.aqp.distributed.BlockShards`) divides
+    the scan over the ranks: the value, group and mask slabs are this
+    rank's row slices and the fold merges across ranks. Whether a chunk
+    is captured then follows the group's backend (:attr:`backend`):
+    under NCCL it is, collectives included; under gloo, whose
+    collectives stage the card's tensors through host memory, the
+    chunk's rounds are enqueued eagerly, as on the CPU. :attr:`captured`
+    says which ran."""
 
     def __init__(self, frame: "FastFrame", q: AggQuery, slot: _ScanViews,
                  qci: _QueryIntervals, probe: bool, lookahead: int,
-                 max_rounds: int):
+                 max_rounds: int,
+                 shards: Optional[adist.BlockShards] = None):
         cfg = frame.config
         nb = frame.scramble.n_blocks
         cover_cap = cfg.round_blocks * cfg.cover_cap_factor
@@ -778,15 +889,23 @@ class _DeviceLoop:
         self.G = slot.G
         self.use_hist = slot.use_hist
         self.nbins = cfg.hist_bins
-        self.chunk = cfg.sync_every or cfg.chunk_rounds or GRAPH_CHUNK_ROUNDS
+        self.shards = shards
+        self.cadence = shards is not None and shards.merge_every > 1
+        asked = cfg.sync_every or cfg.chunk_rounds
+        self.chunk = asked or default_chunk(shards.merge_every
+                                            if self.cadence else 1)
+        self.backend = shards.backend if shards is not None else None
+        self.capturable = dev.type == "cuda" and (shards is None
+                                                   or self.backend == "nccl")
         words = (slot.group_bm.words if probe
                  else np.zeros((1, 1), np.uint32))
         # run-independent buffers; order_pad / cum_rows are refilled in
-        # place by set_order (a captured graph reads them where they are)
+        # place by set_order (a captured graph reads them where they are);
+        # sharded, the three slabs are this rank's row slices
         self.bufs = kfused.QueryLoopBuffers(
-            values=frame._device_values(slot.value_src),
-            gids=frame._device_gids(slot.gcol),
-            mask=frame._device_mask(q.filters),
+            values=frame._device_values(slot.value_src, shards),
+            gids=frame._device_gids(slot.gcol, shards),
+            mask=frame._device_mask(q.filters, shards),
             words=frame._put(words.view(np.int32)),
             order_pad=torch.zeros(nb + window, dtype=torch.int32,
                                   device=dev),
@@ -803,8 +922,12 @@ class _DeviceLoop:
             num_groups=slot.G, nbins=cfg.hist_bins, use_hist=slot.use_hist,
             probe=probe, n_words=words.shape[1], lookahead=lookahead,
             cover_cap=cover_cap, max_rounds=max_rounds, chunk=self.chunk,
-            refresh_fn=refresh_fn)
-        self._graph = _ChunkGraph(self._chunk_fn, self.bufs, dev)
+            refresh_fn=refresh_fn,
+            shard=shards.info if shards is not None else None,
+            until_end=asked is None)
+        self._graph = _ChunkGraph(self._chunk_fn, self.bufs, dev,
+                                  shards.info if shards is not None
+                                  else None)
         self.chunks = 0    # chunks run on a query's carry
         self.syncs = 0     # host reads of the loop's state
         self.last_rounds = 0  # rounds the last run's loop took
@@ -823,6 +946,20 @@ class _DeviceLoop:
                                         device=dev)
         put = lambda x: torch.as_tensor(np.asarray(x), device=dev)
         i64 = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+        pend = {}
+        if self.cadence:  # the cadence's pending slots, empty
+            G = slot.G
+            pend = dict(
+                pend_sums=torch.zeros((3, G), dtype=torch.float64,
+                                      device=dev),
+                pend_vmin=torch.full((G,), np.inf, dtype=torch.float64,
+                                     device=dev),
+                pend_vmax=torch.full((G,), -np.inf, dtype=torch.float64,
+                                     device=dev),
+                pend_hist=(torch.zeros((G, self.nbins), dtype=torch.float64,
+                                       device=dev)
+                           if self.use_hist else None),
+                pend_rounds=i64(0))
         return kfused.QueryLoopCarry(
             pos=i64(0), rounds=i64(0), it=i64(0),
             live=torch.tensor(True, device=dev),
@@ -835,7 +972,8 @@ class _DeviceLoop:
             lo=f64(qci.lo), hi=f64(qci.hi), est=f64(qci.est),
             refreshed=put(qci.refreshed), active=put(qci.active),
             blocks_fetched=i64(slot.blocks_fetched),
-            skipped_static=i64(0), skipped_active=i64(0), probes=i64(0))
+            skipped_static=i64(0), skipped_active=i64(0), probes=i64(0),
+            **pend)
 
     def _done(self, c: kfused.QueryLoopCarry,
               on_sync: Optional[Callable]) -> bool:
@@ -864,7 +1002,7 @@ class _DeviceLoop:
         subscribers)."""
         require_x64("the device-resident round loop", *carry.state,
                     carry.hist, carry.lo, carry.hi, carry.est)
-        if self.device.type == "cuda":
+        if self.capturable:
             return self._run_graph(carry, on_sync)
         while True:
             carry = self._chunk_fn(self.bufs, carry)
@@ -875,6 +1013,11 @@ class _DeviceLoop:
     @property
     def graph(self) -> Optional[torch.cuda.CUDAGraph]:
         return self._graph.graph
+
+    @property
+    def captured(self) -> bool:
+        """Whether the loop's chunks run as a captured graph's replays."""
+        return self._graph.graph is not None
 
     @property
     def _static(self):
@@ -941,7 +1084,8 @@ class FastFrame:
         self._static_cache: Dict[Tuple, np.ndarray] = {}
         self._valid_counts = scramble.valid.sum(axis=1).astype(np.int64)
         # device-resident materialization caches, keyed by the components
-        # of the (filters, column, group-by) scan signature; LRU-bounded
+        # of the (filters, column, group-by) scan signature (+ whether the
+        # buffer is this rank's row slices); LRU-bounded
         # (config.mat_cache_entries). In-flight scans hold direct
         # references, so eviction only drops the cache's pin.
         cap = self.config.mat_cache_entries
@@ -952,6 +1096,25 @@ class FastFrame:
         # on the card), keyed by the query's static identity: a repeat
         # query replays its graph instead of building and capturing anew
         self.device_loops = LRUCache(cap)
+        self._block_shards: Optional[adist.BlockShards] = None
+        self._shards_resolved = False
+
+    def block_shards(self) -> Optional[adist.BlockShards]:
+        """The frame's divided-scan layout over the default group's ranks,
+        or ``None`` when sharding is off (``EngineConfig.shard_rows``
+        resolves False). Built once, so every run and serving pass of the
+        frame shards alike."""
+        if not self._shards_resolved:
+            shards = None
+            if self.config.resolve_shard_rows():
+                mesh = adist.make_aqp_mesh(self.config.mesh_shape)
+                shards = adist.build_block_shards(
+                    self.scramble.n_blocks, mesh,
+                    self.scramble.valid.shape[1],
+                    merge_every=self.config.merge_every, device=self.device)
+            self._block_shards = shards
+            self._shards_resolved = True
+        return self._block_shards
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """Copy a host array to the frame's device."""
@@ -1039,23 +1202,32 @@ class FastFrame:
             return q.column, q.column.derived_bounds(self.scramble.catalog)
         return q.column, self.scramble.catalog[q.column]
 
-    def _device_mask(self, filters) -> torch.Tensor:
+    def _put_blocks(self, arr: np.ndarray,
+                    shards: Optional[adist.BlockShards]) -> torch.Tensor:
+        """A (n_blocks, block_rows) slab on the frame's device: this
+        rank's row slices when ``shards`` is set, whole otherwise."""
+        if shards is not None:
+            return shards.put_blocks(arr)
+        return self._put(arr)
+
+    def _device_mask(self, filters, shards=None) -> torch.Tensor:
         """Device-resident (n_blocks, block_rows) f32 predicate*valid
-        mask, cached by the filters' key."""
+        mask, cached by the filters' key (per sharded / unsharded
+        layout)."""
 
         def build():
             sc = self.scramble
             mask = sc.valid.copy()
             for f in filters:
                 mask &= f.evaluate(sc.columns)
-            return self._put(mask.astype(np.float32))
+            return self._put_blocks(mask.astype(np.float32), shards)
 
         return self._dev_masks.get_or_build(
-            tuple(f.key() for f in filters), build)
+            (tuple(f.key() for f in filters), shards is not None), build)
 
-    def _device_values(self, value_src) -> torch.Tensor:
+    def _device_values(self, value_src, shards=None) -> torch.Tensor:
         """Device-resident f32 value column (zeros for COUNT), cached by
-        the column name / Expression."""
+        the column name / Expression (per sharded / unsharded layout)."""
 
         def build():
             sc = self.scramble
@@ -1065,20 +1237,23 @@ class FastFrame:
                 values = sc.columns[value_src].astype(np.float32)
             else:  # COUNT: value column unused
                 values = np.zeros(sc.valid.shape, np.float32)
-            return self._put(np.asarray(values, np.float32))
+            return self._put_blocks(np.asarray(values, np.float32), shards)
 
-        return self._dev_values.get_or_build(value_src, build)
+        return self._dev_values.get_or_build(
+            (value_src, shards is not None), build)
 
-    def _device_gids(self, gcol: Optional[str]) -> torch.Tensor:
-        """Device-resident int32 group-code column, cached by name."""
+    def _device_gids(self, gcol: Optional[str], shards=None) -> torch.Tensor:
+        """Device-resident int32 group-code column, cached by name (per
+        sharded / unsharded layout)."""
 
         def build():
             sc = self.scramble
             gids = (sc.columns[gcol].astype(np.int32) if gcol is not None
                     else np.zeros(sc.valid.shape, np.int32))
-            return self._put(gids)
+            return self._put_blocks(gids, shards)
 
-        return self._dev_gids.get_or_build(gcol, build)
+        return self._dev_gids.get_or_build((gcol, shards is not None),
+                                           build)
 
     def _materialize(self, q: AggQuery, idx: np.ndarray, value_src,
                      gcol: Optional[str]):
@@ -1318,6 +1493,10 @@ class FastFrame:
         nb = sc.n_blocks
         rng = np.random.default_rng(seed)
         exact_mode = (sampling == "exact") or (q.stop is None)
+        if cfg.shard_rows:
+            # explicit sharding that cannot take effect (no device loop /
+            # no group of ranks) must fail loudly, not run unsharded
+            cfg.resolve_shard_rows()
 
         # scan order: random start, wrap around (paper §5.2)
         start = (rng.integers(nb) if start_block is None else start_block)
@@ -1343,12 +1522,15 @@ class FastFrame:
             # with no host sync (a CUDA graph replay each on the card),
             # one scalar read per chunk, one packed writeback at the end
             probe = skipping and slot.group_bm is not None
+            shards = self.block_shards()
             key = ("run", q.scan_signature(), q.agg, q.bounder,
                    q.rangetrim, q.delta, repr(q.stop), probe, lookahead,
-                   max_rounds, cfg.sync_every or cfg.chunk_rounds)
+                   max_rounds, cfg.sync_every or cfg.chunk_rounds,
+                   (shards.n_shards, shards.shard_rows, shards.merge_every)
+                   if shards is not None else None)
             dloop = self.device_loops.get_or_build(
                 key, lambda: _DeviceLoop(self, q, slot, qci, probe,
-                                         lookahead, max_rounds))
+                                         lookahead, max_rounds, shards))
             dloop.set_order(order, cum_rows)
             carry = dloop.run(dloop.init_carry(slot, qci), on_sync)
             pos, rounds, stopped_early = dloop.writeback(carry, slot, qci,

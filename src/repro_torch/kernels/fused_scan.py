@@ -58,35 +58,139 @@ multi-query probe. :func:`build_pass_loop` is the pass's device-resident
 loop, the twin of :func:`build_query_loop` with every slot frozen by
 ``torch.where`` once its lap ends or its queries all finish, and each
 query's result snapshotted in the carry the round it finishes.
+
+**Sharded scan** (``EngineConfig(shard_rows=True)``, :class:`ShardInfo`):
+the same loops with the scan *divided* over the ranks of a
+``torch.distributed`` process group, one process a device. Each rank
+holds its ``shard_rows`` row slice of every block (the block axis is
+whole everywhere), so the round head, the cursor, the accounting and the
+bound math run replicated on every rank, and each rank folds only its
+slice of the selected blocks. The fold's raw additive sums (count, dsum,
+dsq about the centre, and the histogram) and its extremes are the only
+thing that crosses ranks: two ``all_reduce`` calls a merge, a SUM over
+the sums and a MIN over ``[vmin, -vmax]`` (:func:`merge_across_shards`),
+before the shifted-moment conversion. At ``merge_every = K > 1`` (the
+collective cadence) a round only adds its local delta to float64 pending
+slots of the carry, and the merge fires at the start of a round once K
+rounds are pending, plus a flush when the reference's dispatch would
+exit. A chunk is a fixed sequence of rounds, so the merge is issued at
+fixed positions of it (the start of every K-th round, and the exit) on
+every rank, and its effect is gated on the replicated ``go &
+(pend_rounds >= K)`` (``pend_rounds > 0`` for the flush): every rank
+issues the same collectives in the same order, and a chunk can be
+captured as a CUDA graph (under NCCL). A chunk the caller asked for is
+one of the reference's dispatches of that many rounds (it exits
+merged); the default chunk stands in for the reference's single
+dispatch to the end (``until_end``: a multiple of K rounds, pending
+deltas carried into the next chunk, the flush once the loop is over),
+so the merges fall on the same rounds as there.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.state import MomentState, merge_moments
 from repro_torch.kernels import ops as kops
 
 
-def _fold(values, gids, mask, blk, tvalid, center, a, b, num_groups,
-          nbins, use_hist):
-    """One round's fold of the selected blocks -> ``(float32
-    MomentState delta, (G, nbins) histogram delta | None)``. Without the
-    histogram it is the ``block_agg`` fold alone; with it the
-    ``fused_fold`` pass, whose moments are the same bits."""
-    hist = None
+class ShardInfo(NamedTuple):
+    """The divided scan's geometry on this rank (built by
+    :class:`repro_torch.aqp.distributed.BlockShards`). Shard ``d`` is rank
+    ``d`` of ``group`` and holds rows ``[d * shard_rows, (d + 1) *
+    shard_rows)`` of EVERY block, the row axis zero-padded so every rank
+    holds an equal-shape ``(nb, shard_rows)`` slab (padding rows carry
+    ``mask == 0`` and fold to exact zeros). The block axis is whole on
+    every rank, so global block ids index the local slab directly."""
+
+    group: object         # torch.distributed group (None: the default)
+    n_shards: int
+    rank: int
+    shard_rows: int       # padded rows a block on each rank
+    merge_every: int = 1  # collective cadence K (1: merge every round)
+
+
+#: Host-side tally of the sharded fold's all-reduces: calls, bytes and
+#: the host seconds spent inside them (under gloo the whole staged reduce;
+#: under NCCL the enqueue). A captured chunk's replays add the calls and
+#: bytes their capture recorded (``engine._ChunkGraph``), not seconds.
+COLLECTIVES = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def _all_reduce(t: torch.Tensor, op, group) -> None:
+    t0 = time.perf_counter() # aqplint: disable=AQP101(a host clock read around the collective: no device sync)
+    dist.all_reduce(t, op=op, group=group)
+    COLLECTIVES["seconds"] += time.perf_counter() - t0 # aqplint: disable=AQP101(a host clock read around the collective: no device sync)
+    COLLECTIVES["calls"] += 1
+    COLLECTIVES["bytes"] += t.numel() * t.element_size()
+
+
+def merge_across_shards(shard: ShardInfo, folds):
+    """Merge raw additive folds across the ranks of ``shard.group``:
+    ``folds`` is a sequence of ``(sums (3, G), vmin, vmax, hist | None)``
+    (one a slot), all of one float dtype, and the same sequence comes
+    back summed (sums, histograms) and min / max-ed (extremes) over the
+    ranks. Two ``all_reduce`` calls whatever the number of folds: a SUM
+    over every sum and histogram in one flat buffer, a MIN over every
+    ``vmin`` and ``-vmax`` (``max(x) = -min(-x)`` holds exactly for
+    floats and infinities). The inputs are not modified (the collectives
+    run on fresh buffers), so a caller may still discard the result."""
+    sums = [f[0] for f in folds] + [f[3] for f in folds if f[3] is not None]
+    ext = ([f[1] for f in folds]
+           + [torch.neg(f[2]) for f in folds])
+    buf = torch.cat([t.reshape(-1) for t in sums])
+    mins = torch.cat([t.reshape(-1) for t in ext])
+    _all_reduce(buf, dist.ReduceOp.SUM, shard.group)
+    _all_reduce(mins, dist.ReduceOp.MIN, shard.group)
+    sum_parts = iter(torch.split(buf, [t.numel() for t in sums]))
+    min_parts = iter(torch.split(mins, [t.numel() for t in ext]))
+    merged_sums = [next(sum_parts).reshape(f[0].shape) for f in folds]
+    merged_hist = [next(sum_parts).reshape(f[3].shape)
+                   if f[3] is not None else None for f in folds]
+    merged_min = [next(min_parts).reshape(f[1].shape) for f in folds]
+    merged_max = [torch.neg(next(min_parts)).reshape(f[2].shape)
+                  for f in folds]
+    return [tuple(x) for x in zip(merged_sums, merged_min, merged_max,
+                                  merged_hist)]
+
+
+def _fold_local(values, gids, mask, blk, tvalid, center, a, b, num_groups,
+                nbins, use_hist):
+    """This rank's raw additive fold of one round's selected blocks:
+    ``(sums (3, G), vmin (1, G), vmax (1, G), hist (G, nbins) | None)``,
+    float32, about ``center``, before any merge across ranks or the
+    shifted-moment conversion. Without the histogram it is the
+    ``block_agg`` fold alone; with it the ``fused_fold`` pass, whose
+    moments are the same bits."""
     if use_hist:
-        sums, vmin, vmax, hist = kops.grouped_fold_hist(
-            values, gids, mask, num_groups, center, a, b, nbins, blk=blk,
-            tvalid=tvalid)
-    else:
-        sums, vmin, vmax = kops.grouped_sums(values, gids, mask,
-                                             num_groups, center, blk=blk,
-                                             tvalid=tvalid)
+        return kops.grouped_fold_hist(values, gids, mask, num_groups, center,
+                                      a, b, nbins, blk=blk, tvalid=tvalid)
+    sums, vmin, vmax = kops.grouped_sums(values, gids, mask, num_groups,
+                                         center, blk=blk, tvalid=tvalid)
+    return sums, vmin, vmax, None
+
+
+def _fold(values, gids, mask, blk, tvalid, center, a, b, num_groups,
+          nbins, use_hist, shard: Optional[ShardInfo] = None):
+    """One round's fold of the selected blocks -> ``(float32
+    MomentState delta, (G, nbins) histogram delta | None)``. With
+    ``shard`` the slabs are this rank's row slice of every block and the
+    raw sums merge across ranks BEFORE the shifted-moment conversion
+    (the reference's ``_fold(shard_axes=)``), so the merged state is the
+    single-device fold up to the order of the row sum: bit for bit
+    whenever each rank's float32 partial sums are exact."""
+    sums, vmin, vmax, hist = _fold_local(values, gids, mask, blk, tvalid,
+                                         center, a, b, num_groups, nbins,
+                                         use_hist)
+    if shard is not None:
+        ((sums, vmin, vmax, hist),) = merge_across_shards(
+            shard, [(sums, vmin, vmax, hist)])
     return kops.moments_from_sums(sums, vmin, vmax, center), hist
 
 
@@ -218,6 +322,15 @@ class QueryLoopCarry(NamedTuple):
     skipped_static: torch.Tensor  # i64
     skipped_active: torch.Tensor  # i64
     probes: torch.Tensor          # i64
+    # the collective cadence's slots (``ShardInfo.merge_every > 1``;
+    # None otherwise): this rank's raw additive delta since the last
+    # merge, zeroed by every merge; a dispatch exits merged (its flush)
+    pend_sums: Optional[torch.Tensor] = None    # (3, G) f64
+    pend_vmin: Optional[torch.Tensor] = None    # (G,) f64, +inf when empty
+    pend_vmax: Optional[torch.Tensor] = None    # (G,) f64, -inf when empty
+    pend_hist: Optional[torch.Tensor] = None    # (G, K) f64
+    pend_rounds: Optional[torch.Tensor] = None  # i64 rounds since the last
+                                                # merge (replicated)
 
 
 _LEAF = (torch.Tensor, np.ndarray)
@@ -315,11 +428,44 @@ def _round_scan(bufs: QueryLoopBuffers, pos: torch.Tensor, go: torch.Tensor,
     return win, ok, flags, blk, tvalid, new_pos, covmask
 
 
+def _empty_pending(like: torch.Tensor, hist: Optional[torch.Tensor]):
+    """The cadence's pending slots emptied: zero sums (and histogram),
+    ``+inf`` / ``-inf`` extremes, no pending round."""
+    return dict(pend_sums=torch.zeros_like(like),
+                pend_vmin=torch.full_like(like[0], float("inf")),
+                pend_vmax=torch.full_like(like[0], float("-inf")),
+                pend_hist=None if hist is None else torch.zeros_like(hist))
+
+
+def _check_until_end(cadence: bool, until_end: bool, chunk: int,
+                     K: int) -> None:
+    if cadence and until_end and chunk % K:
+        raise ValueError(
+            f"a chunk of {chunk} rounds is not a multiple of merge_every="
+            f"{K}: chunks that stand in for one dispatch to the end would "
+            "merge on other rounds than that dispatch")
+
+
+def _add_pending(sums, vmin, vmax, hist, pend_sums, pend_vmin, pend_vmax,
+                 pend_hist):
+    """A round's float32 local delta added to the float64 pending slots
+    (cast before any arithmetic, as the merge into the running state
+    is)."""
+    f64 = torch.float64
+    return dict(
+        pend_sums=pend_sums + sums.to(f64),
+        pend_vmin=torch.minimum(pend_vmin, vmin.to(f64).reshape(-1)),
+        pend_vmax=torch.maximum(pend_vmax, vmax.to(f64).reshape(-1)),
+        pend_hist=None if hist is None else pend_hist + hist.to(f64))
+
+
 def build_query_loop(*, nb: int, window: int, budget: int, center: float,
                      a: float, b: float, num_groups: int, nbins: int,
                      use_hist: bool, probe: bool, n_words: int,
                      lookahead: int, cover_cap: int, max_rounds: int,
-                     chunk: int, refresh_fn: Callable):
+                     chunk: int, refresh_fn: Callable,
+                     shard: Optional[ShardInfo] = None,
+                     until_end: bool = False):
     """Build the device-resident round loop for one query.
 
     Returns ``(chunk_fn, cond)``. ``chunk_fn(bufs: QueryLoopBuffers,
@@ -341,29 +487,57 @@ def build_query_loop(*, nb: int, window: int, budget: int, center: float,
     active)``. The carry's moments, histogram and intervals must be
     float64 (the caller checks them with
     :func:`repro_torch.core.state.require_x64`).
+
+    With ``shard`` the value, group and mask slabs are this rank's row
+    slice of every block (:class:`ShardInfo`) and every other buffer and
+    the whole carry are replicated: each rank runs the same round on its
+    slice, and the fold's sums merge across ranks each round
+    (:func:`_fold`). ``shard.merge_every = K > 1`` runs the reference's
+    collective cadence: a round adds its local delta to the carry's
+    float64 pending slots and the intervals and active mask stay at
+    their last merged values (stale by at most K rounds, still
+    anytime-valid); the merge (:func:`merge_across_shards`, then the
+    refresh and stop test on merged stats) fires at the start of a round
+    once K rounds are pending, selection of that round using the active
+    mask from before the merge (the round runs even when that merge
+    stops the loop, as in the reference), and once more (the flush) when
+    the reference's dispatch would exit. The merge is issued at fixed
+    positions of the chunk (every K-th round start and the exit) and
+    gated on the replicated ``go & (pend_rounds >= K)``. With
+    ``until_end=False`` a chunk is one of the reference's dispatches of
+    ``chunk`` rounds: it starts with nothing pending and exits merged,
+    so the merge schedule follows the chunk. ``until_end=True`` makes
+    the chunks stand in for the reference's one dispatch to the end:
+    ``chunk`` must be a multiple of K, the pending delta and its rounds
+    carry into the next chunk, whose first round start merges them, and
+    the flush fires only once ``cond`` is false, so the merges fall on
+    the rounds of an unchunked run whatever ``chunk`` is.
     """
+    cadence = shard is not None and shard.merge_every > 1
+    K = shard.merge_every if shard is not None else 1
+    _check_until_end(cadence, until_end, chunk, K)
 
     def cond(c: QueryLoopCarry) -> torch.Tensor:
         return c.live & (c.pos < nb) & (c.rounds < max_rounds)
 
-    def body(bufs: QueryLoopBuffers, c: QueryLoopCarry) -> QueryLoopCarry:
-        go = cond(c)
-        k = c.rounds + 1
-        aw = pack_active_device(c.active, n_words) if probe else None
+    def rows_at(bufs: QueryLoopBuffers, p: torch.Tensor) -> torch.Tensor:
+        last = torch.clamp(p - 1, min=0).reshape(1)
+        return torch.where(p > 0, bufs.cum_rows.index_select(0, last)[0],
+                           0).to(torch.float64)
+
+    def scan(bufs: QueryLoopBuffers, c: QueryLoopCarry, go: torch.Tensor,
+             active: torch.Tensor):
+        """The round's head and its accounting (twin of
+        engine._fused_accounting + ingest + _ScanViews.update_exact):
+        returns the fold's lanes, the new cursor and the updated carry
+        fields."""
+        aw = pack_active_device(active, n_words) if probe else None
         win, ok, flags, blk, tvalid, new_pos, covmask = _round_scan(
             bufs, c.pos, go, aw, nb=nb, window=window, budget=budget,
             probe=probe)
-        dstate, dhist = _fold(bufs.values, bufs.gids, bufs.mask, blk, tvalid,
-                              center, a, b, num_groups, nbins, use_hist)
-        state = _merge_f64(c.state, dstate)
-        hist = c.hist + dhist.to(torch.float64) if use_hist else None
-
-        # -- accounting (twin of engine._fused_accounting + ingest) ------
         act_skip = ok & ~flags & covmask
         pres_win = bufs.presence[win]
         tainted = c.tainted | (pres_win & act_skip[:, None]).any(dim=0)
-        skipped_static = c.skipped_static + (~ok & covmask).sum()
-        skipped_active = c.skipped_active + act_skip.sum()
         probes = c.probes
         if probe:
             probes = probes + _probe_cost(flags, c.pos, nb, window, budget,
@@ -371,42 +545,95 @@ def build_query_loop(*, nb: int, window: int, budget: int, center: float,
         # the taken positions are the valid lanes, their blocks blk
         hit = torch.zeros(nb, dtype=torch.int32, device=blk.device)
         hit.index_add_(0, blk, tvalid.to(torch.int32))
-        processed = c.processed | (hit > 0)
-        blocks_fetched = c.blocks_fetched + tvalid.sum()
         seen_presence = c.seen_presence + (
             bufs.presence[blk] & tvalid[:, None]).sum(dim=0,
                                                      dtype=torch.int32)
-
-        # -- coverage / exactness (twin of _ScanViews.update_exact) ------
         cov = seen_presence >= bufs.presence_total
         cov = cov | ((new_pos >= nb) & ~tainted)
-        exact = c.exact | cov
+        acct = dict(
+            processed=c.processed | (hit > 0), seen_presence=seen_presence,
+            tainted=tainted, exact=c.exact | cov,
+            blocks_fetched=c.blocks_fetched + tvalid.sum(),
+            skipped_static=c.skipped_static + (~ok & covmask).sum(),
+            skipped_active=c.skipped_active + act_skip.sum(), probes=probes)
+        return blk, tvalid, new_pos, acct
 
+    def body(bufs: QueryLoopBuffers, c: QueryLoopCarry) -> QueryLoopCarry:
+        go = cond(c)
+        k = c.rounds + 1
+        blk, tvalid, new_pos, acct = scan(bufs, c, go, c.active)
+        dstate, dhist = _fold(bufs.values, bufs.gids, bufs.mask, blk, tvalid,
+                              center, a, b, num_groups, nbins, use_hist,
+                              shard)
+        state = _merge_f64(c.state, dstate)
+        hist = c.hist + dhist.to(torch.float64) if use_hist else None
         # -- CI refresh + stopping condition (engine-supplied) -----------
-        last = torch.clamp(new_pos - 1, min=0).reshape(1)
-        r = torch.where(new_pos > 0, bufs.cum_rows.index_select(0, last)[0],
-                        0).to(torch.float64)
         lo, hi, est, refreshed, active = refresh_fn(
-            k, r, state, hist, tainted, exact, c.lo, c.hi, c.est,
-            c.refreshed, c.active)
+            k, rows_at(bufs, new_pos), state, hist, acct["tainted"],
+            acct["exact"], c.lo, c.hi, c.est, c.refreshed, c.active)
         live = active.any()
         stopped_early = c.stopped_early | (~live & (new_pos < nb))
-
-        new = QueryLoopCarry(
+        new = c._replace(
             pos=new_pos, rounds=k, it=c.it + 1, live=live,
-            stopped_early=stopped_early, state=state, hist=hist,
-            processed=processed, seen_presence=seen_presence,
-            tainted=tainted, exact=exact, lo=lo, hi=hi, est=est,
+            stopped_early=stopped_early, state=state, hist=hist, lo=lo,
+            hi=hi, est=est, refreshed=refreshed, active=active, **acct)
+        return _select(go, new, c)
+
+    # -- the collective cadence (shard.merge_every = K > 1) --------------
+
+    def merge_refresh(bufs: QueryLoopBuffers,
+                      c: QueryLoopCarry) -> QueryLoopCarry:
+        """The merge across ranks of the pending multi-round delta, folded
+        into the running state, then the refresh and stop test on merged
+        stats at delta index ``c.rounds`` (the rounds the merged state
+        covers); the pending slots emptied."""
+        ((sums, vmin, vmax, hist),) = merge_across_shards(
+            shard, [(c.pend_sums, c.pend_vmin, c.pend_vmax, c.pend_hist)])
+        state = merge_moments(c.state,
+                              kops.moments_from_sums(sums, vmin, vmax,
+                                                     center))
+        hist = c.hist + hist if use_hist else None
+        lo, hi, est, refreshed, active = refresh_fn(
+            c.rounds, rows_at(bufs, c.pos), state, hist, c.tainted,
+            c.exact, c.lo, c.hi, c.est, c.refreshed, c.active)
+        live = active.any()
+        return c._replace(
+            live=live,
+            stopped_early=c.stopped_early | (~live & (c.pos < nb)),
+            state=state, hist=hist, lo=lo, hi=hi, est=est,
             refreshed=refreshed, active=active,
-            blocks_fetched=blocks_fetched, skipped_static=skipped_static,
-            skipped_active=skipped_active, probes=probes)
+            pend_rounds=torch.zeros_like(c.pend_rounds),
+            **_empty_pending(c.pend_sums, c.pend_hist))
+
+    def cadence_body(bufs: QueryLoopBuffers, c: QueryLoopCarry,
+                     i: int) -> QueryLoopCarry:
+        go = cond(c)
+        # the round selects on the mask from before the merge, so its
+        # scan and fold do not wait on the collective
+        sel_active = c.active
+        if i % K == 0 and (i > 0 or until_end):
+            c = _select(go & (c.pend_rounds >= K), merge_refresh(bufs, c),
+                        c)
+        blk, tvalid, new_pos, acct = scan(bufs, c, go, sel_active)
+        pend = _add_pending(*_fold_local(
+            bufs.values, bufs.gids, bufs.mask, blk, tvalid, center, a, b,
+            num_groups, nbins, use_hist), c.pend_sums, c.pend_vmin,
+            c.pend_vmax, c.pend_hist)
+        new = c._replace(pos=new_pos, rounds=c.rounds + 1, it=c.it + 1,
+                         pend_rounds=c.pend_rounds + 1, **acct, **pend)
         return _select(go, new, c)
 
     def chunk_fn(bufs: QueryLoopBuffers,
                  carry: QueryLoopCarry) -> QueryLoopCarry:
         carry = carry._replace(it=torch.zeros_like(carry.it))
-        for _ in range(chunk):
-            carry = body(bufs, carry)
+        for i in range(chunk):
+            carry = (cadence_body(bufs, carry, i) if cadence
+                     else body(bufs, carry))
+        if cadence:  # the flush: a dispatch exits merged
+            flush = carry.pend_rounds > 0
+            if until_end:
+                flush = flush & ~cond(carry)
+            carry = _select(flush, merge_refresh(bufs, carry), carry)
         return carry
 
     return chunk_fn, cond
@@ -535,11 +762,12 @@ class SlotCarry(NamedTuple):
     probes: torch.Tensor          # i64
     lap_rounds: torch.Tensor      # i64 round the slot's lap ended (-1
                                   # while still inside it)
-    # the sharded scan's collective cadence (not ported): always None
-    pend_sums: Optional[torch.Tensor] = None
-    pend_vmin: Optional[torch.Tensor] = None
-    pend_vmax: Optional[torch.Tensor] = None
-    pend_hist: Optional[torch.Tensor] = None
+    # the collective cadence's slots (merge_every > 1, else None; see
+    # QueryLoopCarry): this rank's raw delta since the last merge
+    pend_sums: Optional[torch.Tensor] = None    # (3, G_s) f64
+    pend_vmin: Optional[torch.Tensor] = None    # (G_s,) f64
+    pend_vmax: Optional[torch.Tensor] = None    # (G_s,) f64
+    pend_hist: Optional[torch.Tensor] = None    # (G_s, K) f64
 
 
 class PassQueryCarry(NamedTuple):
@@ -574,7 +802,8 @@ class PassCarry(NamedTuple):
     n_live: torch.Tensor          # i64 unfinished queries across slots
     slots: Tuple[SlotCarry, ...]
     queries: Tuple[Tuple[PassQueryCarry, ...], ...]  # [slot][query]
-    pend_rounds: Optional[torch.Tensor] = None       # not ported: None
+    pend_rounds: Optional[torch.Tensor] = None       # i64 rounds since the
+                                                     # last merge (cadence)
 
 
 def slot_nonfinite(carry: PassCarry) -> torch.Tensor:
@@ -613,7 +842,9 @@ def build_pass_loop(*, nb: int, window: int, budget: int, lookahead: int,
                     refresh_fns: Sequence[Sequence[Callable]],
                     anchors: Optional[Sequence[int]] = None,
                     round_offsets: Optional[Sequence[int]] = None,
-                    row_offsets: Optional[Sequence[int]] = None):
+                    row_offsets: Optional[Sequence[int]] = None,
+                    shard: Optional[ShardInfo] = None,
+                    until_end: bool = False):
     """Build the device-resident loop of one shared pass (S slots, each
     with its own queries and its OWN cursor walk).
 
@@ -645,6 +876,20 @@ def build_pass_loop(*, nb: int, window: int, budget: int, lookahead: int,
     it and ``row_offsets[s]`` the rows before its anchor, in pass
     coordinates (rows are periodic in ``nb``, so ``cum_rows`` needs no
     extension); None means all zero (a static batch).
+
+    ``shard`` divides the pass as :func:`build_query_loop` does: every
+    slot's value and group slabs and the shared mask are this rank's row
+    slices, everything else is replicated, and each round's folds of all
+    slots merge across ranks in one :func:`merge_across_shards` (two
+    all-reduces a round for the whole pass). ``shard.merge_every = K >
+    1`` applies the query loop's collective cadence to the whole pass:
+    one replicated ``pend_rounds``, per-slot pending slots, the queries'
+    intervals and finished flags refreshed only at merges (selection
+    gates on the flags from before the merge: at most K rounds of extra
+    blocks for a query that just finished), finish snapshots taken at
+    merges, and ``until_end`` as there. The cadence needs every anchor
+    at zero: a mid-lap joiner's refresh schedule would be quantized to
+    merge boundaries, up to K rounds off its solo run's.
     """
     S = len(slot_specs)
     anchors = tuple(anchors) if anchors is not None else (0,) * S
@@ -653,6 +898,16 @@ def build_pass_loop(*, nb: int, window: int, budget: int, lookahead: int,
     row_offsets = (tuple(row_offsets) if row_offsets is not None
                    else (0,) * S)
     lap_ends = tuple(a + nb for a in anchors)
+    cadence = shard is not None and shard.merge_every > 1
+    K = shard.merge_every if shard is not None else 1
+    if cadence and any(a != 0 for a in anchors):
+        raise ValueError(
+            "mid-scan admission (anchor > 0) does not compose with the "
+            "collective cadence (merge_every > 1): a joiner's refresh "
+            "schedule would be quantized to merge boundaries, up to K "
+            "rounds apart from its solo run's; admit onto a fresh pass "
+            "or a merge_every=1 pass")
+    _check_until_end(cadence, until_end, chunk, K)
 
     def cond(c: PassCarry) -> torch.Tensor:
         progressable = functools.reduce(torch.logical_or, [
@@ -684,33 +939,26 @@ def build_pass_loop(*, nb: int, window: int, budget: int, lookahead: int,
                                + within, 0)
         return (rows_abs - row_offsets[s]).to(torch.float64)
 
-    def body(bufs: PassLoopBuffers, c: PassCarry) -> PassCarry:
-        go = cond(c)
+    def scan(bufs: PassLoopBuffers, c: PassCarry, go: torch.Tensor,
+             sel_queries):
+        """Every slot's head (with the stack of ``sel_queries``' masks),
+        its fold's lanes and its accounting, a slot frozen unless live.
+        Returns per slot ``(slot_live, blk, tvalid, new carry fields)``."""
         k = c.rounds + 1
-        dev = k.device
-        offs = torch.arange(window, dtype=torch.int64, device=dev)
-        n_live = c.n_live
-        new_slots, new_queries = [], []
+        offs = torch.arange(window, dtype=torch.int64, device=k.device)
+        out = []
         for s, spec in enumerate(slot_specs):
-            sc, queries, le = c.slots[s], c.queries[s], lap_ends[s]
+            sc, le = c.slots[s], lap_ends[s]
             # a slot whose lap ended or whose queries all finished is
             # frozen: its solo twin has left its loop
-            slot_live = go & (sc.pos < le) & _any_unfinished(queries)
+            slot_live = go & (sc.pos < le) & _any_unfinished(c.queries[s])
             ok, flags, new_pos, blk, tvalid = kops.round_select(
                 bufs.order_pad, bufs.static_ok, bufs.words[s],
-                _stack(spec, queries), sc.pos, slot_live, nb=nb,
+                _stack(spec, sel_queries[s]), sc.pos, slot_live, nb=nb,
                 window=window, budget=budget, probe=True, lap_end=le,
                 wrap=True)
             win = bufs.order_pad[torch.remainder(sc.pos, nb) + offs]
             covmask = offs < (new_pos - sc.pos)
-            dstate, dhist = _fold(bufs.values[s], bufs.gids[s], bufs.mask,
-                                  blk, tvalid, spec.center, spec.a, spec.b,
-                                  spec.num_groups, spec.nbins, spec.use_hist)
-            state = _merge_f64(sc.state, dstate)
-            hist = (sc.hist + dhist.to(torch.float64) if spec.use_hist
-                    else None)
-
-            # -- accounting (twin of build_query_loop's) -----------------
             act_skip = ok & ~flags & covmask
             presence = bufs.presence[s]
             tainted = sc.tainted | (presence[win]
@@ -719,71 +967,167 @@ def build_pass_loop(*, nb: int, window: int, budget: int, lookahead: int,
             if spec.probe:
                 probes = probes + _probe_cost(flags, sc.pos, le, window,
                                               budget, lookahead, cover_cap)
-            hit = torch.zeros(nb, dtype=torch.int32, device=dev)
+            hit = torch.zeros(nb, dtype=torch.int32, device=k.device)
             hit.index_add_(0, blk, tvalid.to(torch.int32))
             seen_presence = sc.seen_presence + (
                 presence[blk] & tvalid[:, None]).sum(dim=0,
                                                      dtype=torch.int32)
             cov = seen_presence >= bufs.presence_total[s]
             cov = cov | ((new_pos >= le) & ~tainted)
-            exact = sc.exact | cov
-            new_sc = SlotCarry(
-                pos=new_pos, state=state, hist=hist,
-                seen_presence=seen_presence, tainted=tainted, exact=exact,
-                processed=sc.processed | (hit > 0),
+            acct = dict(
+                pos=new_pos, seen_presence=seen_presence, tainted=tainted,
+                exact=sc.exact | cov, processed=sc.processed | (hit > 0),
                 blocks_fetched=sc.blocks_fetched + tvalid.sum(),
                 skipped_static=sc.skipped_static + (~ok & covmask).sum(),
                 skipped_active=sc.skipped_active + act_skip.sum(),
                 probes=probes,
                 lap_rounds=torch.where((sc.pos < le) & (new_pos >= le), k,
                                        sc.lap_rounds))
-            new_slots.append(_select(slot_live, new_sc, sc))
+            out.append((slot_live, blk, tvalid, acct))
+        return out
 
-            # -- per-query CI refresh, stop test and finish snapshot -----
-            r_s = _slot_rows(bufs, s, new_pos)
-            k_s = k - round_offsets[s]
-            slot_queries = []
-            for qi, qc in enumerate(queries):
-                nlo, nhi, nest, nrefr, nact = refresh_fns[s][qi](
-                    k_s, r_s, state, hist, tainted, exact, qc.lo, qc.hi,
-                    qc.est, qc.refreshed, qc.active)
-                # a frozen slot stops refreshing (a lapped slot's queries
-                # still active wait for the host's recovery pass)
-                keep = qc.finished | ~slot_live
-                kept = lambda new, old: torch.where(keep, old, new)
-                active = kept(nact, qc.active)
-                now_fin = slot_live & ~qc.finished & ~active.any()
-                n_live = n_live - now_fin.to(n_live.dtype)
-                snap = lambda new, old: torch.where(now_fin, new, old)
-                slot_queries.append(PassQueryCarry(
-                    lo=kept(nlo, qc.lo), hi=kept(nhi, qc.hi),
-                    est=kept(nest, qc.est),
-                    refreshed=kept(nrefr, qc.refreshed), active=active,
-                    finished=qc.finished | now_fin,
-                    stopped_early=snap(new_pos < le, qc.stopped_early),
-                    finish_rounds=snap(k_s, qc.finish_rounds),
-                    finish_pos=snap(new_pos, qc.finish_pos),
-                    finish_blocks_fetched=snap(new_sc.blocks_fetched,
-                                               qc.finish_blocks_fetched),
-                    finish_skipped_static=snap(new_sc.skipped_static,
-                                               qc.finish_skipped_static),
-                    finish_skipped_active=snap(new_sc.skipped_active,
-                                               qc.finish_skipped_active),
-                    finish_probes=snap(probes, qc.finish_probes),
-                    snap_counts=snap(state.count, qc.snap_counts),
-                    snap_exact=snap(exact, qc.snap_exact),
-                    snap_tainted=snap(tainted, qc.snap_tainted)))
-            new_queries.append(tuple(slot_queries))
+    def local_folds(bufs: PassLoopBuffers, lanes):
+        return [_fold_local(bufs.values[s], bufs.gids[s], bufs.mask, blk,
+                            tvalid, spec.center, spec.a, spec.b,
+                            spec.num_groups, spec.nbins, spec.use_hist)
+                for s, (spec, (_, blk, tvalid, _)) in enumerate(
+                    zip(slot_specs, lanes))]
 
-        return PassCarry(rounds=torch.where(go, k, c.rounds),
-                         it=torch.where(go, c.it + 1, c.it), n_live=n_live,
-                         slots=tuple(new_slots),
-                         queries=tuple(new_queries))
+    def refresh(s: int, k_s, r_s, state, hist, tainted, exact, queries,
+                may, acct: dict, n_live):
+        """Every query of slot ``s``: its refresh and stop test where
+        ``may`` (and it is unfinished), and its finish snapshot the round
+        it finishes (``acct``: the slot's fields at that point)."""
+        slot_queries = []
+        for qi, qc in enumerate(queries):
+            nlo, nhi, nest, nrefr, nact = refresh_fns[s][qi](
+                k_s, r_s, state, hist, tainted, exact, qc.lo, qc.hi,
+                qc.est, qc.refreshed, qc.active)
+            keep = qc.finished | ~may
+            kept = lambda new, old: torch.where(keep, old, new)
+            active = kept(nact, qc.active)
+            now_fin = may & ~qc.finished & ~active.any()
+            n_live = n_live - now_fin.to(n_live.dtype)
+            snap = lambda new, old: torch.where(now_fin, new, old)
+            slot_queries.append(PassQueryCarry(
+                lo=kept(nlo, qc.lo), hi=kept(nhi, qc.hi),
+                est=kept(nest, qc.est),
+                refreshed=kept(nrefr, qc.refreshed), active=active,
+                finished=qc.finished | now_fin,
+                stopped_early=snap(acct["pos"] < lap_ends[s],
+                                   qc.stopped_early),
+                finish_rounds=snap(k_s, qc.finish_rounds),
+                finish_pos=snap(acct["pos"], qc.finish_pos),
+                finish_blocks_fetched=snap(acct["blocks_fetched"],
+                                           qc.finish_blocks_fetched),
+                finish_skipped_static=snap(acct["skipped_static"],
+                                           qc.finish_skipped_static),
+                finish_skipped_active=snap(acct["skipped_active"],
+                                           qc.finish_skipped_active),
+                finish_probes=snap(acct["probes"], qc.finish_probes),
+                snap_counts=snap(state.count, qc.snap_counts),
+                snap_exact=snap(exact, qc.snap_exact),
+                snap_tainted=snap(tainted, qc.snap_tainted)))
+        return tuple(slot_queries), n_live
+
+    def body(bufs: PassLoopBuffers, c: PassCarry) -> PassCarry:
+        go = cond(c)
+        k = c.rounds + 1
+        lanes = scan(bufs, c, go, c.queries)
+        folds = local_folds(bufs, lanes)
+        if shard is not None:
+            folds = merge_across_shards(shard, folds)
+        n_live = c.n_live
+        new_slots, new_queries = [], []
+        for s, spec in enumerate(slot_specs):
+            sc = c.slots[s]
+            slot_live, _, _, acct = lanes[s]
+            sums, vmin, vmax, dhist = folds[s]
+            state = _merge_f64(sc.state, kops.moments_from_sums(
+                sums, vmin, vmax, spec.center))
+            hist = (sc.hist + dhist.to(torch.float64) if spec.use_hist
+                    else None)
+            new_slots.append(_select(slot_live, sc._replace(
+                state=state, hist=hist, **acct), sc))
+            # a frozen slot stops refreshing (a lapped slot's queries
+            # still active wait for the host's recovery pass)
+            queries, n_live = refresh(
+                s, k - round_offsets[s], _slot_rows(bufs, s, acct["pos"]),
+                state, hist, acct["tainted"], acct["exact"], c.queries[s],
+                slot_live, acct, n_live)
+            new_queries.append(queries)
+        return c._replace(rounds=torch.where(go, k, c.rounds),
+                          it=torch.where(go, c.it + 1, c.it), n_live=n_live,
+                          slots=tuple(new_slots),
+                          queries=tuple(new_queries))
+
+    # -- the collective cadence (shard.merge_every = K > 1) --------------
+
+    def merge_refresh(bufs: PassLoopBuffers, c: PassCarry) -> PassCarry:
+        """Every slot's pending delta merged across ranks (one
+        :func:`merge_across_shards` for the pass) into its running state,
+        then every unfinished query's refresh and stop test on merged
+        stats (delta index ``c.rounds``), with finish snapshots from the
+        merged values; the pending slots emptied. A frozen slot carries
+        an empty delta, so its merge changes nothing."""
+        folds = merge_across_shards(shard, [
+            (sc.pend_sums, sc.pend_vmin, sc.pend_vmax, sc.pend_hist)
+            for sc in c.slots])
+        n_live = c.n_live
+        everyone = torch.ones((), dtype=torch.bool, device=n_live.device)
+        new_slots, new_queries = [], []
+        for s, spec in enumerate(slot_specs):
+            sc = c.slots[s]
+            sums, vmin, vmax, dhist = folds[s]
+            state = merge_moments(sc.state, kops.moments_from_sums(
+                sums, vmin, vmax, spec.center))
+            hist = sc.hist + dhist if spec.use_hist else None
+            new_slots.append(sc._replace(
+                state=state, hist=hist,
+                **_empty_pending(sc.pend_sums, sc.pend_hist)))
+            acct = dict(pos=sc.pos, blocks_fetched=sc.blocks_fetched,
+                        skipped_static=sc.skipped_static,
+                        skipped_active=sc.skipped_active, probes=sc.probes)
+            queries, n_live = refresh(
+                s, c.rounds - round_offsets[s], _slot_rows(bufs, s, sc.pos),
+                state, hist, sc.tainted, sc.exact, c.queries[s], everyone,
+                acct, n_live)
+            new_queries.append(queries)
+        return c._replace(n_live=n_live, slots=tuple(new_slots),
+                          queries=tuple(new_queries),
+                          pend_rounds=torch.zeros_like(c.pend_rounds))
+
+    def cadence_body(bufs: PassLoopBuffers, c: PassCarry,
+                     i: int) -> PassCarry:
+        go = cond(c)
+        # selection gates on the flags from before the merge
+        sel_queries = c.queries
+        if i % K == 0 and (i > 0 or until_end):
+            c = _select(go & (c.pend_rounds >= K), merge_refresh(bufs, c),
+                        c)
+        lanes = scan(bufs, c, go, sel_queries)
+        folds = local_folds(bufs, lanes)
+        new_slots = []
+        for sc, (slot_live, _, _, acct), fold in zip(c.slots, lanes, folds):
+            pend = _add_pending(*fold, sc.pend_sums, sc.pend_vmin,
+                                sc.pend_vmax, sc.pend_hist)
+            new_slots.append(_select(slot_live,
+                                     sc._replace(**acct, **pend), sc))
+        return c._replace(
+            rounds=torch.where(go, c.rounds + 1, c.rounds),
+            it=torch.where(go, c.it + 1, c.it), slots=tuple(new_slots),
+            pend_rounds=torch.where(go, c.pend_rounds + 1, c.pend_rounds))
 
     def chunk_fn(bufs: PassLoopBuffers, carry: PassCarry) -> PassCarry:
         carry = carry._replace(it=torch.zeros_like(carry.it))
-        for _ in range(chunk):
-            carry = body(bufs, carry)
+        for i in range(chunk):
+            carry = (cadence_body(bufs, carry, i) if cadence
+                     else body(bufs, carry))
+        if cadence:  # the flush: a dispatch exits merged
+            flush = carry.pend_rounds > 0
+            if until_end:
+                flush = flush & ~cond(carry)
+            carry = _select(flush, merge_refresh(bufs, carry), carry)
         return carry
 
     return chunk_fn, cond

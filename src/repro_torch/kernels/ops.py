@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.state import HistState, MomentState
@@ -46,14 +47,16 @@ def _on_cuda(t: torch.Tensor, what: str) -> bool:
 def moments_from_sums(sums: torch.Tensor, vmin: torch.Tensor,
                       vmax: torch.Tensor, center) -> MomentState:
     """Convert raw fold outputs — ``sums`` = (count, dsum, dsq) rows of a
-    ``(3, G)`` float32 tensor plus ``(1, G)``-or-``(G,)`` extremes — into
-    a :class:`MomentState` via the exact shifted-moment identity, in
-    float32 exactly as the JAX package does."""
+    ``(3, G)`` tensor plus ``(1, G)``-or-``(G,)`` extremes — into a
+    :class:`MomentState` via the exact shifted-moment identity, in the
+    sums' dtype exactly as the JAX package does: float32 for a round's
+    fold, float64 for the sharded scan's pooled cadence delta."""
     count, dsum, dsq = sums[0], sums[1], sums[2]
     safe = torch.clamp(count, min=1.0)
-    # centre as a Python scalar: rounded to float32 like the reference's
-    # jnp.asarray(center, f32), with no host-to-device copy per round
-    mean = dsum / safe + float(center) # aqplint: disable=AQP101(center is a Python number: no host sync)
+    # centre as a Python scalar rounded to float32, like the reference's
+    # jnp.asarray(center, f32) (also in float64 arithmetic), with no
+    # host-to-device copy per round
+    mean = dsum / safe + float(np.float32(center)) # aqplint: disable=AQP101(center is a Python number: no host sync)
     m2 = torch.clamp(dsq - dsum * dsum / safe, min=0.0)
     empty = count == 0
     zero = torch.zeros((), dtype=torch.float32, device=sums.device)

@@ -7,8 +7,10 @@ of state as it steps: the per-slot shared fold state
 coverage, taint), the per-query interval state
 (:class:`~repro_torch.aqp.engine._QueryIntervals` — OptStop lo/hi/est,
 activity) and the pass cursor (``pos``/``rounds``/``n_live``/``wrap``).
-Every chunk boundary of the device loop is *fully merged* (the port has
-no collective cadence; the host loop merges every round), so a snapshot
+Every step boundary of the device loop is *fully merged* (a sharded
+pass's collective cadence flushes before a step returns: at the end of
+every chunk asked for, or once a step with the default chunks has run
+the pass to its end; the host loop merges every round), so a snapshot
 taken at a round/chunk boundary is a **sound resume point**: restoring
 it and stepping forward replays the exact fold/coverage/taint sequence,
 and every result produced after resume is bitwise-identical to the
@@ -31,7 +33,7 @@ never loses a finished answer and never re-runs one.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.aqp.query import AggQuery, QueryResult
 
@@ -78,6 +80,12 @@ class PassCheckpoint:
     slots: List[SlotCheckpoint] = field(default_factory=list)
     results: Dict[int, QueryResult] = field(default_factory=dict)
     t0s: Dict[int, float] = field(default_factory=dict)
+    # the divided-scan layout (n_shards, shard_rows, merge_every) of the
+    # pass that took the snapshot, None when it ran on one device. The
+    # snapshot is merged host state, so it restores onto any layout (the
+    # unsharded rung resumes a sharded pass's); only a wrapped one
+    # refuses a cadence pass.
+    layout: Optional[Tuple[int, int, int]] = None
 
     @property
     def queries(self) -> List[AggQuery]:

@@ -54,6 +54,19 @@ oracle: each round is :func:`repro_torch.kernels.fused_scan.
 fused_round_multi` (the round head with the slot's stack of masks, the
 multi-query probe, the fold) and the host's own bookkeeping.
 
+Under the device pass loop, a frame with a divided-scan layout
+(``EngineConfig.shard_rows``; :mod:`repro_torch.aqp.distributed`) runs
+the whole pass divided over the ranks of the default process group: each
+slot's value / group slabs and the shared mask are this rank's row
+slices, each rank folds only its slice of each slot's selection, and the
+slots' folds merge across ranks once a round (once every
+``merge_every`` rounds under the collective cadence); cursors and
+interval state stay replicated. Carousel (anchored) passes compose with
+it. The one exception is the cadence: on a ``merge_every > 1`` pass a
+mid-lap joiner's refresh schedule would be quantized to merge
+boundaries, so mid-scan admission and wrapped restores there raise the
+typed :class:`UnsupportedPassConfig` for the scheduler to reroute.
+
 Soundness: each slot skips a block only when none of ITS queries has an
 active view there, so each query's skipped blocks contain only views
 inactive for that query (the single-query taint invariant). Every query
@@ -75,7 +88,7 @@ from repro_torch.aqp.bitmap import pack_mask
 from repro_torch.aqp.engine import (FastFrame, _ChunkGraph, _QueryIntervals,
                                     _ScanViews, _make_device_refresh,
                                     _restore_views_from_carry, _round_window,
-                                    GRAPH_CHUNK_ROUNDS)
+                                    default_chunk)
 from repro_torch.aqp.query import AggQuery, QueryResult
 from repro_torch.core.state import MomentState, moments_nonfinite
 from repro_torch.kernels import fused_scan as kfused
@@ -85,11 +98,14 @@ __all__ = ["FrameServer", "SharedPass", "UnsupportedPassConfig"]
 
 
 class UnsupportedPassConfig(RuntimeError):
-    """A pass configuration the serving stack cannot run. In the
-    reference: mid-scan admission or a wrapped restore on a sharded pass
-    running the collective cadence (``merge_every > 1``). The port has no
-    sharded scan yet (``EngineConfig`` refuses one), so nothing raises it
-    here; the scheduler catches it all the same."""
+    """A pass configuration the serving stack cannot run: mid-scan
+    admission (anchor > 0) or a wrapped restore on a sharded pass
+    running the collective cadence (``merge_every > 1``), where a
+    mid-lap joiner's observable round boundaries would be merge
+    boundaries, up to K rounds apart from its solo run's refresh
+    schedule. Raised before any pass state changes, so the scheduler
+    can catch it and route the queries to a fresh pass (the loop
+    builder keeps its own check as a backstop)."""
 
 
 class _SlotExec:
@@ -100,10 +116,13 @@ class _SlotExec:
     admitted (its lap is ``[anchor, anchor + n_blocks)``; 0 for a static
     batch) and ``join_round`` the pass round count at admission, so
     slot-local OptStop rounds are ``pass_rounds - join_round``. ``pos``
-    is the slot's OWN cursor."""
+    is the slot's OWN cursor. ``shards`` (a :class:`repro_torch.aqp.
+    distributed.BlockShards`) puts this rank's row slices of the slot's
+    value / group slabs on the device for the sharded pass loop; the
+    bitmap words stay whole (selection is replicated)."""
 
     def __init__(self, frame: FastFrame, rep_q: AggQuery, skipping: bool,
-                 queries: Sequence[AggQuery], anchor: int = 0,
+                 queries: Sequence[AggQuery], shards=None, anchor: int = 0,
                  join_round: int = 0, row_offset: int = 0):
         use_hist_any = any(q.needs_hist for q in queries)
         self.views = _ScanViews(frame, rep_q, use_hist=use_hist_any,
@@ -120,8 +139,8 @@ class _SlotExec:
         # engagement bitmap so a finished query stops pulling blocks
         # without changing which blocks it saw while running
         self.probe = skipping and v.group_bm is not None
-        self.values = frame._device_values(v.value_src)
-        self.gids = frame._device_gids(v.gcol)
+        self.values = frame._device_values(v.value_src, shards)
+        self.gids = frame._device_gids(v.gcol, shards)
         nb = frame.scramble.n_blocks
         words = (v.group_bm.words if self.probe
                  else np.ones((nb, 1), np.uint32))
@@ -178,7 +197,9 @@ class _PassLoop:
             refresh_fns=refresh_fns,
             anchors=tuple(s.anchor for s in slots),
             round_offsets=tuple(s.join_round for s in slots),
-            row_offsets=tuple(s.row_offset for s in slots))
+            row_offsets=tuple(s.row_offset for s in slots),
+            shard=p.shards.info if p.shards is not None else None,
+            until_end=p.until_end)
         self.bufs = kfused.PassLoopBuffers(
             mask=p.mask_dev,
             order_pad=torch.zeros(nb + p.window, dtype=torch.int32,
@@ -192,8 +213,14 @@ class _PassLoop:
             presence_total=tuple(
                 frame._put(s.views.presence_total.astype(np.int32))
                 for s in slots))
-        self.graph = (_ChunkGraph(self.chunk_fn, self.bufs, dev)
-                      if dev.type == "cuda" else None)
+        # a sharded pass is captured only under NCCL (gloo stages the
+        # card's tensors through host memory): the device loop's rule
+        self.backend = p.shards.backend if p.shards is not None else None
+        self.graph = (_ChunkGraph(self.chunk_fn, self.bufs, dev,
+                                  p.shards.info if p.shards is not None
+                                  else None)
+                      if dev.type == "cuda"
+                      and self.backend in (None, "nccl") else None)
         self.start = None     # the scan start whose order is installed
         self.chunks = 0       # chunks run
         self.syncs = 0        # host reads (done checks and writebacks)
@@ -233,12 +260,17 @@ class SharedPass:
     Construct via :meth:`FrameServer.open_pass`; all queries of a pass
     must share their filters. ``chunk_rounds`` overrides the device-loop
     chunk (``EngineConfig.sync_every`` / ``chunk_rounds`` /
-    :data:`~repro_torch.aqp.engine.GRAPH_CHUNK_ROUNDS`): a scheduler uses
+    :func:`~repro_torch.aqp.engine.default_chunk`): a scheduler uses
     small chunks so admission boundaries come up often; ``run_batch``
-    keeps the config default and runs to completion. ``force_host``
+    keeps the config default and runs to completion. On a collective
+    cadence pass (``merge_every > 1``) with no chunk asked for, the
+    chunks stand in for the reference's one dispatch to the end (see
+    ``build_pass_loop(until_end=)``): a ``step`` then runs until no slot
+    can progress, as the reference's unchunked step does. ``force_host``
     drops to the per-round host loop (the degradation ladder's last
-    rung); ``force_unsharded`` is accepted and changes nothing: the port
-    has no sharded scan yet."""
+    rung); ``force_unsharded`` keeps the device loop but runs it whole
+    on this rank's device (the rung above it): both are oracle paths, so
+    every rung keeps soundness."""
 
     def __init__(self, frame: FastFrame, filters, sampling: str,
                  start_block: Optional[int], seed: int, max_rounds: int,
@@ -274,13 +306,23 @@ class SharedPass:
         self.force_host = bool(force_host)
         self.force_unsharded = bool(force_unsharded)
         self.device_pass = cfg.resolve_device_loop() and not force_host
+        if cfg.shard_rows:
+            cfg.resolve_shard_rows()  # the loud guard, as in FastFrame.run
+        # the divided layout applies to the device pass loop only (the
+        # host loop and the recovery pass fold whole host rows)
+        self.shards = (frame.block_shards()
+                       if self.device_pass and not force_unsharded
+                       else None)
         # a host-loop pass has no chunk unless one is asked for, as in
         # the reference, so the OOM rung never halves a chunk the host
         # loop does not use
-        self.chunk = (chunk_rounds if chunk_rounds is not None
-                      else (cfg.sync_every or cfg.chunk_rounds
-                            or (GRAPH_CHUNK_ROUNDS if self.device_pass
-                                else None)))
+        asked = (chunk_rounds if chunk_rounds is not None
+                 else cfg.sync_every or cfg.chunk_rounds)
+        cadence = self.shards is not None and self.shards.merge_every > 1
+        self.until_end = cadence and asked is None
+        self.chunk = asked or (
+            default_chunk(self.shards.merge_every if cadence else 1)
+            if self.device_pass else None)
 
         # wrap-filled order pad: the window slice at ``pos % nb`` is a
         # rotation of the scan order, so the pad never grows when late
@@ -341,6 +383,17 @@ class SharedPass:
         order."""
         frame = self.frame
         t0 = self.t0 if t0 is None else t0
+        if (self.shards is not None and self.shards.merge_every > 1
+                and (self.wrap or self.pos > 0)):
+            # raised before any state changes: the scheduler catches it
+            # and opens a fresh pass for the late joiner. Plain sharded
+            # carousels compose; only the cadence cannot host a mid-lap
+            # joiner (its refresh schedule would be quantized to merge
+            # boundaries, up to K rounds off its solo run's)
+            raise UnsupportedPassConfig(
+                "mid-scan admission (anchor > 0) is not supported on a "
+                "sharded pass with merge_every > 1; admit to a fresh "
+                "pass or run the frame at merge_every=1")
         for q in queries:
             if tuple(f.key() for f in q.filters) != tuple(
                     f.key() for f in self.filters):
@@ -362,7 +415,8 @@ class SharedPass:
                 slot.qcis.extend(new)
             else:
                 slot = _SlotExec(
-                    frame, qs[0], self.skipping, qs, anchor=self.pos,
+                    frame, qs[0], self.skipping, qs, self.shards,
+                    anchor=self.pos,
                     join_round=self.rounds,
                     row_offset=self._rows_at(self.pos))
                 if self.pos > 0:
@@ -375,7 +429,8 @@ class SharedPass:
                 out_qcis[id(q)] = qc
             self.n_live += len(qs)
         if self.mask_dev is None:
-            self.mask_dev = frame._device_mask(queries[0].filters)
+            self.mask_dev = frame._device_mask(queries[0].filters,
+                                               self.shards)
             self.static_ok_dev = frame._put(self.slots[0].views.static_ok)
         return [out_qcis[id(q)] for q in queries]
 
@@ -418,7 +473,8 @@ class SharedPass:
             filters=self.filters, sampling=self.sampling,
             start=int(self.start), max_rounds=self.max_rounds,
             pos=self.pos, rounds=self.rounds, n_live=self.n_live,
-            wrap=self.wrap, slots=slots, results=results, t0s=t0s)
+            wrap=self.wrap, slots=slots, results=results, t0s=t0s,
+            layout=self._layout())
 
     def restore(self, cp: PassCheckpoint) -> None:
         """Restore this pass in place from a checkpoint. The pass must
@@ -434,6 +490,12 @@ class SharedPass:
                 self.sampling:
             raise ValueError("checkpoint scan order does not match this "
                              "pass (start/sampling differ)")
+        if (cp.wrap and self.shards is not None
+                and self.shards.merge_every > 1):
+            raise UnsupportedPassConfig(
+                "cannot restore a carousel (wrapped) checkpoint onto a "
+                "sharded pass with merge_every > 1; resume with "
+                "force_unsharded/force_host or merge_every=1")
         self.pos, self.rounds = int(cp.pos), int(cp.rounds)
         self.wrap = bool(cp.wrap)
         self.slots = []
@@ -446,7 +508,7 @@ class SharedPass:
         frame = self.frame
         for sc in cp.slots:
             slot = _SlotExec(frame, sc.queries[0], self.skipping,
-                             sc.queries, anchor=sc.anchor,
+                             sc.queries, self.shards, anchor=sc.anchor,
                              join_round=sc.join_round,
                              row_offset=sc.row_offset)
             slot.lap_done_round = sc.lap_done_round
@@ -472,7 +534,7 @@ class SharedPass:
                           if not qc.finished)
         if self.slots and self.mask_dev is None:
             self.mask_dev = frame._device_mask(
-                self.slots[0].qcis[0].q.filters)
+                self.slots[0].qcis[0].q.filters, self.shards)
             self.static_ok_dev = frame._put(self.slots[0].views.static_ok)
 
     def freeze_partial(self, q: AggQuery) -> QueryResult:
@@ -543,9 +605,11 @@ class SharedPass:
 
     def step(self) -> List[AggQuery]:
         """Advance the pass one round (host loop) or one chunk of rounds
-        (device loop); returns the queries that finished during it."""
+        (device loop; on a cadence pass with no chunk asked for, chunks
+        until no slot can progress); returns the queries that finished
+        during it."""
         if self.device_pass:
-            return self._device_step(until_done=False)
+            return self._device_step(until_done=self.until_end)
         return self._step_host()
 
     def run_to_completion(self) -> None:
@@ -676,6 +740,13 @@ class SharedPass:
 
     # -- device-resident stepping ----------------------------------------------
 
+    def _layout(self) -> Optional[Tuple[int, int, int]]:
+        """The pass's divided-scan layout ``(n_shards, shard_rows,
+        merge_every)``, None when it runs whole on one device."""
+        sh = self.shards
+        return ((sh.n_shards, sh.shard_rows, sh.merge_every)
+                if sh is not None else None)
+
     def _loop_key(self) -> Tuple:
         """The pass loop's static identity (its cache key on the frame):
         the queries' configuration, the slots' shapes and their carousel
@@ -687,15 +758,30 @@ class SharedPass:
                       for s in slots for qc in s.qcis),
                 tuple((len(s.qcis), s.probe, s.views.use_hist)
                       for s in slots),
-                self.lookahead, self.max_rounds, self.chunk, None,
+                self.lookahead, self.max_rounds, self.chunk, self.until_end,
+                self._layout(),
                 tuple(s.anchor for s in slots),
                 tuple(s.join_round for s in slots),
                 tuple(s.row_offset for s in slots))
 
     def _host_carry(self) -> kfused.PassCarry:
-        """The pass's state as the loop carry's host image."""
+        """The pass's state as the loop carry's host image (with the
+        collective cadence's empty pending slots on a ``merge_every > 1``
+        pass)."""
         i64 = lambda v: np.asarray(v, np.int64)
         f64 = lambda x: np.asarray(x, np.float64)
+        cadence = self.shards is not None and self.shards.merge_every > 1
+
+        def pend(s):
+            if not cadence:
+                return {}
+            G = s.views.G
+            return dict(
+                pend_sums=np.zeros((3, G)), pend_vmin=np.full(G, np.inf),
+                pend_vmax=np.full(G, -np.inf),
+                pend_hist=(np.zeros((G, self.cfg.hist_bins))
+                           if s.views.use_hist else None))
+
         slots = tuple(
             kfused.SlotCarry(
                 pos=i64(s.pos),
@@ -710,7 +796,8 @@ class SharedPass:
                 skipped_active=i64(s.metrics["skipped_active"]),
                 probes=i64(s.metrics["probes"]),
                 lap_rounds=i64(s.lap_done_round
-                               if s.lap_done_round is not None else -1))
+                               if s.lap_done_round is not None else -1),
+                **pend(s))
             for s in self.slots)
         queries = tuple(
             tuple(kfused.PassQueryCarry(
@@ -731,7 +818,8 @@ class SharedPass:
             for s in self.slots)
         return kfused.PassCarry(rounds=i64(self.rounds), it=i64(0),
                                 n_live=i64(self.n_live), slots=slots,
-                                queries=queries)
+                                queries=queries,
+                                pend_rounds=i64(0) if cadence else None)
 
     def _device_step(self, until_done: bool) -> List[AggQuery]:
         """Run the pass's round loop device-resident

@@ -39,14 +39,24 @@ can fail. At every membership boundary (and optionally every
 since every round/chunk boundary is fully merged. A failed step restores
 the checkpoint and retries with bounded exponential backoff; after
 ``max_retries`` consecutive failures the scheduler *degrades* the pass
-config instead — smaller ``chunk_rounds`` on OOM, then device loop →
-host oracle loop — each rung an existing oracle path, so soundness
-never depends on the failing configuration. After a rung every
-SLO-bearing ticket still attached to the pass is re-quoted (``requote``
-log event). The port has no sharded scan yet, so the reference's
-sharded → single-device rung (and the round-cost multiplier it sets)
-is not here: a ``shard`` fault walks the same ladder as any other and
-lands on the host-loop rung, as on a one-device reference pass.
+config instead — smaller ``chunk_rounds`` on OOM, sharded →
+single-device, device loop → host oracle loop — each rung an existing
+oracle path, so soundness never depends on the failing configuration.
+A rung that changes the per-round work (unsharding puts the divided
+scan back on one device: ~``n_shards`` x the gather/fold per round)
+scales the pass's effective round cost, and every SLO-bearing ticket
+still attached to the pass is immediately re-quoted at the degraded
+rate (``requote`` log event) — deadline budgets never go stale.
+
+On a frame divided over the ranks of a process group every rank runs
+this loop on the same trace, and a fault one rank alone sees (a real
+OOM, say) would send that rank down the ladder alone, its next
+collective then waiting for ranks that never come. So the ranks agree
+on a step's fault before the ladder acts: one MAX ``all_reduce`` of the
+fault kind's code after the hook's ``before_step`` (before the step's
+own collectives) and one after the step, and every rank takes the
+agreed kind's path. A fault raised inside a step's collectives on one
+rank alone is beyond this: the group's timeout ends the wait.
 When the ladder is exhausted, running queries are frozen at their
 current sound CI and returned as partial-with-guarantee results
 (``ticket.partial``); the same freeze fires on SLO deadline expiry.
@@ -89,12 +99,21 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.aqp.distributed import agree_max
 from repro_torch.aqp.query import AggQuery, QueryResult
 from repro_torch.serve.frame_server import (FrameServer, SharedPass,
                                       UnsupportedPassConfig)
 
 __all__ = ["SimClock", "WallClock", "AdmissionQuote", "QueryTicket",
            "QueryScheduler"]
+
+# the faults a step may raise (a failed kernel launch raises RuntimeError,
+# and so does torch.cuda.OutOfMemoryError, whose message holds "out of
+# memory": _classify_failure maps it to "oom")
+_STEP_FAULTS = (MemoryError, FloatingPointError, RuntimeError)
+# the fault kinds in the order the ranks agree on them: the largest code
+# any rank saw wins (0: no fault)
+_FAULT_KINDS = ("dispatch", "transfer", "shard", "oom")
 
 
 class SimClock:
@@ -197,6 +216,14 @@ class _PassState:
         self.fails = 0                    # consecutive failed steps
         self.chunk: Optional[int] = None  # ladder override (OOM rung)
         self.force_host = False
+        self.force_unsharded = False
+        # effective per-round service-time multiplier for THIS pass.
+        # Degradation rungs change what one round costs — unsharding an
+        # n-rank pass puts the whole divided scan back on one device,
+        # ~n x the per-round work — and both the SLO quotes and the
+        # simulated service time must price rounds at the degraded
+        # rate, not the admission-time one.
+        self.cost_mult = 1.0
 
 
 class QueryScheduler:
@@ -444,7 +471,7 @@ class QueryScheduler:
         blocked = False
         for tk in ps.pending:
             q = (self.quote(tk.query, now=t, deadline=tk.deadline,
-                            round_cost=self.round_cost_s)
+                            round_cost=self._round_cost(ps))
                  if tk.deadline is not None else None)
             if q is not None and not q.feasible:
                 tk.status, tk.quote, tk.finish_t = "rejected", q, t
@@ -538,25 +565,51 @@ class QueryScheduler:
 
     # -- stepping + failure handling -------------------------------------------
 
+    def _round_cost(self, ps: _PassState) -> float:
+        """Effective per-round service time of THIS pass: the base rate
+        times the pass's degradation multiplier."""
+        return self.round_cost_s * ps.cost_mult
+
+    def _agree_fault(self, exc: Optional[BaseException]) -> Optional[str]:
+        """The step's fault kind (None: no fault), the same on every
+        rank of a divided frame's group: the largest kind any rank saw
+        (one MAX ``all_reduce``). On an undivided frame, this process's
+        own."""
+        kind = None if exc is None else self._classify_failure(exc)
+        shards = self.frame.block_shards()
+        if shards is None:
+            return kind
+        code = 0 if kind is None else _FAULT_KINDS.index(kind) + 1
+        code = agree_max(shards.mesh.group, code, shards.device)
+        return None if code == 0 else _FAULT_KINDS[code - 1]
+
     def _step_pass(self, t: float, ps: _PassState) -> None:
         r0 = ps.pas.rounds
         hook = self.fault_hook
         skew = None
+        fault = None
         try:
             if hook is not None:
                 hook.before_step(self, ps.pas, t)
-            newly = ps.pas.step()
-            if hook is not None:
-                skew = hook.after_step(self, ps.pas, t)
-        except (MemoryError, FloatingPointError, RuntimeError) as exc:
-            # a failed kernel launch raises RuntimeError, and so does
-            # torch.cuda.OutOfMemoryError (a RuntimeError whose message
-            # holds "out of memory": _classify_failure maps it to "oom")
-            self._on_step_failure(t, ps, exc)
+        except _STEP_FAULTS as exc:
+            fault = exc
+        # agreed before the step, whose collectives the other ranks
+        # would otherwise wait in
+        kind = self._agree_fault(fault)
+        if kind is None:
+            try:
+                newly = ps.pas.step()
+                if hook is not None:
+                    skew = hook.after_step(self, ps.pas, t)
+            except _STEP_FAULTS as exc:
+                fault = exc
+            kind = self._agree_fault(fault)
+        if kind is not None:
+            self._on_step_failure(t, ps, kind)
             return
         ps.fails = 0
         ps.steps_since_ckpt += 1
-        t_done = t + (ps.pas.rounds - r0) * self.round_cost_s
+        t_done = t + (ps.pas.rounds - r0) * self._round_cost(ps)
         if skew:
             self._log(t, "skew", round(float(skew), 9))
             t_done += float(skew)
@@ -598,13 +651,13 @@ class QueryScheduler:
         return "dispatch"
 
     def _on_step_failure(self, t: float, ps: _PassState,
-                         exc: BaseException) -> None:
+                         kind: str) -> None:
         """Retry from the checkpoint with bounded exponential backoff;
         after ``max_retries`` consecutive failures move down the
         degradation ladder; when the ladder is exhausted, freeze every
         running query at its current sound CI (partial-with-guarantee)
-        and fail the still-queued ones."""
-        kind = self._classify_failure(exc)
+        and fail the still-queued ones. ``kind`` is the step's agreed
+        fault kind (:meth:`_agree_fault`)."""
         ps.fails += 1
         self._log(t, "fault", kind, ps.fails)
         backoff = min(self.backoff_s * (2 ** (ps.fails - 1)),
@@ -645,7 +698,8 @@ class QueryScheduler:
         config chosen by :meth:`_degrade_action`."""
         ps.pas = self.server.resume_pass(
             ps.ckpt, chunk_rounds=ps.chunk,
-            force_host=ps.force_host)
+            force_host=ps.force_host,
+            force_unsharded=ps.force_unsharded)
         self._remap(ps)
 
     def _remap(self, ps: _PassState) -> None:
@@ -667,7 +721,7 @@ class QueryScheduler:
                                                         "queued"):
                 continue
             q = self.quote(tk.query, now=t, deadline=tk.deadline,
-                           round_cost=self.round_cost_s)
+                           round_cost=self._round_cost(ps))
             tk.quote = q
             self._log(t, "requote", q.feasible, q.est_rounds,
                       q.round_budget)
@@ -676,14 +730,22 @@ class QueryScheduler:
                         kind: str) -> Optional[str]:
         """Pick the next ladder rung for a repeatedly-failing pass:
         OOM first shrinks the dispatch chunk, then any failure falls
-        back to the host oracle loop. Returns a log label, or None when
-        no rung is left."""
+        back sharded -> single device -> host oracle loop. Returns a
+        log label, or None when no rung is left. Rungs that change the
+        per-round work also scale ``ps.cost_mult`` — the divided scan
+        put back on one device does ``n_shards`` x the gather/fold per
+        round — so quotes and service time re-price afterwards
+        (:meth:`_requote`)."""
         pas = ps.pas
         if kind == "oom":
             cur = ps.chunk if ps.chunk is not None else pas.chunk
             if cur is not None and int(cur) > 1:
                 ps.chunk = max(1, int(cur) // 2)
                 return f"chunk_rounds={ps.chunk}"
+        if pas.shards is not None and not ps.force_unsharded:
+            ps.force_unsharded = True
+            ps.cost_mult *= float(pas.shards.n_shards)
+            return "unsharded"
         if pas.device_pass and not ps.force_host:
             ps.force_host = True
             return "host-loop"

@@ -24,9 +24,9 @@ Fault kinds:
   * ``transfer`` — a host-transfer failure *after* the pass moved its
     round counter, mimicking a partially-applied step; recovery MUST
     restore from the checkpoint rather than trust in-memory state.
-  * ``shard`` — a shard/device dropout. The port has no sharded rung,
-    so after its retries it lands on the host-loop rung, as on a
-    one-device reference pass.
+  * ``shard`` — a shard/device dropout. After its retries a sharded
+    pass takes the single-device rung (``force_unsharded``), an
+    unsharded one the host-loop rung.
   * ``nan`` — poisons one slot's fold state (a NaN mean in the slot's
     host views, which the next device-loop step uploads), exercising the
     NaN sentinel and quarantine path.

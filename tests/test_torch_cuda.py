@@ -1646,3 +1646,110 @@ def test_approx_eval_forward_launches_the_scan(cuda):
     assert [n for n, _ in seen["cpu"]] == [0] * want.rounds
     for (_, g), (_, w) in zip(seen["cuda"], seen["cpu"]):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+# -- the sharded scan: folds on a rank's slab, NCCL at world size 1 ------------
+
+
+def _shard_layout(nb, block_rows, n_shards, rank, dev):
+    from repro_torch.aqp.distributed import AqpMesh, build_block_shards
+    mesh = AqpMesh(group=None, shape=(n_shards,), n_shards=n_shards,
+                   rank=rank, backend="gloo")
+    return build_block_shards(nb, mesh, block_rows, device=dev)
+
+
+@pytest.mark.parametrize("kernel", ["block_agg", "fused_fold"])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("block_rows,n_shards,G", [
+    (128, 3, 30), (1024, 2, 700), (1024, 4, 2800), (700, 3, 200)])
+def test_folds_on_shard_slabs_equal_plain(cuda, kernel, exact, block_rows,
+                                          n_shards, G):
+    """Each rank's fold of its ``(nb, shard_rows)`` slab (128 rows over 3
+    ranks: 43 a rank, the last one padded) is bit for bit the CPU plain
+    version of the same slab; the kernels pick lane or warp mode from
+    ``shard_rows`` (G 700: warp mode on the whole 1024-row blocks, lane
+    mode on their halves). On exact data the ranks' sums add up to the
+    whole slab's fold bit for bit, and their extremes to its extremes."""
+    nb, budget, center = 96, 64, 8.0
+    v, g, m = _slabs(G + block_rows, nb, block_rows, G, exact)
+    blk, tvalid = _lanes(G + 5, nb, budget, 3)
+    a, b = (0.0, 16.0) if exact else (-20.0, 100.0)
+
+    def fold(vv, gg, mm, bl, tv):
+        if kernel == "block_agg":
+            return ops.grouped_sums(vv, gg, mm, G, center, blk=bl, tvalid=tv)
+        return ops.grouped_fold_hist(vv, gg, mm, G, center, a, b, 256,
+                                     blk=bl, tvalid=tv)
+
+    kw = (blk.to(cuda), tvalid.to(cuda))
+    parts = []
+    for d in range(n_shards):
+        lay = _shard_layout(nb, block_rows, n_shards, d, cuda)
+        if d == 0 and (block_rows, G) == (1024, 700):
+            assert block_agg.plan(budget, block_rows, G)[1] == 0
+            assert block_agg.plan(budget, lay.shard_rows, G)[1] == 1
+        local = [torch.from_numpy(lay.local_rows(x.numpy()))
+                 for x in (v, g, m)]
+        want = fold(*local, blk, tvalid)
+        got = fold(*(lay.put_blocks(x.numpy()) for x in (v, g, m)), *kw)
+        assert got[0].device.type == "cuda"
+        _same(got, want)
+        parts.append([t.cpu() for t in got])
+    if exact:
+        whole = fold(v, g, m, blk, tvalid)
+        total = parts[0][0].clone()
+        for p in parts[1:]:
+            total += p[0]
+        assert torch.equal(total, whole[0])
+        vmin = torch.stack([p[1] for p in parts]).amin(dim=0)
+        vmax = torch.stack([p[2] for p in parts]).amax(dim=0)
+        assert torch.equal(vmin, whole[1]) and torch.equal(vmax, whole[2])
+        if kernel == "fused_fold":
+            assert torch.equal(sum(p[3] for p in parts), whole[3])
+
+
+def test_nccl_world1_sharded_fold_captured(cuda, tmp_path):
+    """Under NCCL at world size 1 (one card): ``make_sharded_fold``
+    captured in a CUDA graph and replayed is bit for bit
+    ``ops.grouped_moments`` (and ``ops.grouped_hist``) on exact data.
+    (The sharded loop needs a group of >= 2 ranks, and NCCL one card a
+    rank.)"""
+    import torch.distributed as dist
+    from repro_torch.aqp import distributed as adist
+    if not dist.is_nccl_available() or dist.is_initialized():
+        pytest.skip("needs NCCL and no process group in this process")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        rng = np.random.default_rng(7)
+        G, nb, br, center = 300, 40, 512, 2.0
+        v, g, m = (torch.from_numpy(x).to(cuda) for x in (
+            rng.integers(0, 5, (nb, br)).astype(np.float32),
+            rng.integers(0, G, (nb, br)).astype(np.int32),
+            (rng.random((nb, br)) < 0.8).astype(np.float32)))
+        ref_m = ops.grouped_moments(v, g, m, G, center)
+        ref_h = ops.grouped_hist(v, g, m, G, 0.0, 5.0, nbins=128).hist
+        for with_hist in (False, True):
+            fold = adist.make_sharded_fold(None, G, center,
+                                           with_hist=with_hist,
+                                           hist_bins=128,
+                                           hist_range=(0.0, 5.0))
+            fold(v, g, m)
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                fold(v, g, m)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                out = fold(v, g, m)
+            torch.cuda.current_stream().wait_stream(stream)
+            graph.replay()
+            torch.cuda.synchronize()
+            st = out[0] if with_hist else out
+            for f in ("count", "mean", "m2", "vmin", "vmax"):
+                assert torch.equal(getattr(st, f).view(torch.int32),
+                                   getattr(ref_m, f).view(torch.int32)), f
+            if with_hist:
+                assert torch.equal(out[1], ref_h)
+    finally:
+        dist.destroy_process_group()

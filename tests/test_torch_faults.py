@@ -25,10 +25,9 @@ fault never produces a wrong answer, only a later or wider one.
 The reference's suite runs the host loop unless a case turns 64-bit JAX
 on; the port's ``device_loop=None`` always resolves to the device pass
 loop, so the mirrors of host-loop cases pin ``device_loop=False``
-(``CFG``) and the device-loop cases ask for ``device_loop=True``. The
-reference's ``test_unsharded_rung_scales_round_cost`` is not mirrored:
-the port has no sharded scan and so no unsharded rung (ROADMAP queue 1
-item 12).
+(``CFG``) and the device-loop cases ask for ``device_loop=True``. On a
+frame divided over gloo ranks (``tests/helpers/torch_dist_world.py``), a
+fault one rank alone sees moves every rank down the same rung.
 
 All timing virtual (SimClock) except the wall-clock deadline test, which
 needs real elapsed time to fire the deadline path. The module runs torch
@@ -490,6 +489,58 @@ def test_degrade_requotes_slo_tickets(scramble):
     assert tk.quote.round_budget < int(60.0 / sched.round_cost_s)
 
 
+def test_unsharded_rung_scales_round_cost(scramble):
+    """The unsharded rung puts the divided scan back on one device —
+    ~n_shards x the per-round gather/fold — so the ladder scales the
+    pass's effective round cost by n_shards; the host-loop rung keeps
+    per-round work unchanged."""
+    from repro_torch.serve.scheduler import _PassState
+    sched = make_scheduler(scramble)
+    fake_pas = types.SimpleNamespace(
+        shards=types.SimpleNamespace(n_shards=4), device_pass=True,
+        chunk=None)
+    ps = _PassState(("k",), fake_pas, (("k",), 0))
+    assert sched._degrade_action(ps, "dispatch") == "unsharded"
+    assert ps.cost_mult == 4.0
+    assert sched._round_cost(ps) == sched.round_cost_s * 4.0
+    assert sched._degrade_action(ps, "dispatch") == "host-loop"
+    assert ps.cost_mult == 4.0      # host loop: same per-round work
+
+
+@pytest.fixture(scope="module")
+def gloo_pair(tmp_path_factory):
+    """Two gloo ranks on the CPU, for the agreement cases."""
+    from tests.helpers.torch_dist_world import DistWorld
+    w = DistWorld(2, tmp_path_factory.mktemp("gloo"))
+    yield w
+    w.close()
+
+
+@pytest.mark.parametrize("faulty,kinds,rung", [
+    ([0], ["shard", "shard", "shard"], "unsharded"),
+    ([1], ["oom", "oom", "oom"], "chunk_rounds=1"),
+    ([0, 1], ["dispatch", "dispatch", "dispatch"], "unsharded"),
+])
+def test_fault_one_rank_sees_moves_every_rank(gloo_pair, faulty, kinds,
+                                              rung):
+    """A scheduler burst on a frame divided over 2 gloo ranks, faults
+    injected at step attempts 1-3 on the ranks in ``faulty`` only: the
+    ranks agree on each fault (one MAX all-reduce of its kind), so both
+    retry, then take the same rung, log the same events, and end with
+    the same results; none hangs in a collective the other skipped."""
+    outs = gloo_pair.run("fault_agreement", timeout=120, faults=faulty,
+                         kinds=kinds)
+    a, b = outs
+    assert a["log"] == b["log"]
+    assert a["results"] == b["results"]
+    assert a["statuses"] == b["statuses"] == ["done"] * 3
+    log = a["log"]
+    assert sum("'fault'" in ev for ev in log) == 3
+    assert sum("'retry'" in ev for ev in log) == 2
+    degrades = [ev for ev in log if "'degrade'" in ev]
+    assert len(degrades) == 1 and repr(rung) in degrades[0], degrades
+
+
 # -- quarantine ----------------------------------------------------------------
 
 
@@ -559,29 +610,62 @@ def test_admit_shape_error_isolated(scramble):
 
 
 def test_unsupported_pass_config_raises_before_mutation(scramble):
-    """The reference refuses a mid-scan joiner on a sharded pass with a
-    collective cadence (``merge_every > 1``) at the top of admit(). The
-    port has neither: the cadence cannot even be configured, so the
-    check has nothing to guard. What admit() does refuse (a query whose
-    filters are not the pass's) raises before any slot or live count
-    changes, and the pass stays healthy."""
+    """The cadence-mid-scan-join check fires at the top of admit(): a
+    typed error, no slot / live-count change (plain sharded carousels
+    compose; only the merge_every > 1 collective cadence rejects a
+    mid-lap joiner). admit()'s other refusal, a query whose filters are
+    not the pass's, also raises before anything changes, and the pass
+    stays healthy."""
+    import types
     from repro_torch.aqp import Filter
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EngineConfig(merge_every=2)
     rng = np.random.default_rng(51)
     srv = FrameServer(fresh_frame(scramble))
     p = srv.open_pass([])
     p.admit([make_query(rng)])
     p.step()
     assert p.pos > 0
+    # pretend the frame is sharded on a collective cadence
+    p.shards = types.SimpleNamespace(merge_every=2)
+    n_slots, n_live = len(p.slots), p.n_live
+    with pytest.raises(UnsupportedPassConfig):
+        p.admit([make_query(rng)])
+    assert len(p.slots) == n_slots and p.n_live == n_live
+    p.shards = None
     other = AggQuery(agg="avg", column="dep_delay",
                      filters=(Filter("day_of_week", "le", 5),),
                      stop=AbsoluteWidth(eps=1.0), delta=1e-9)
-    n_slots, n_live = len(p.slots), p.n_live
     with pytest.raises(ValueError, match="filters"):
         p.admit([make_query(rng), other])
     assert len(p.slots) == n_slots and p.n_live == n_live
     _run_out(p, [])                   # pass still healthy
+
+
+def test_wrapped_restore_refused_on_a_cadence_pass(scramble):
+    """A wrapped (carousel) checkpoint cannot be restored onto a pass
+    running the collective cadence (the late joiner's refresh schedule
+    would be quantized to merges): UnsupportedPassConfig before any
+    state changes, and the same checkpoint restores onto a
+    per-round-merge pass. The checkpoint records the layout it was taken
+    on (None: one device)."""
+    import types
+    rng = np.random.default_rng(1)
+    q1, q2 = make_query(rng), make_query(rng)
+    srv = FrameServer(fresh_frame(scramble))
+    p = srv.open_pass([])
+    p.admit([q1])
+    p.step()
+    p.admit([q2])                     # anchor > 0: wrapped pass
+    p.step()
+    cp = p.checkpoint()
+    assert cp.wrap and cp.layout is None
+    fresh = srv.open_pass([])
+    fresh.shards = types.SimpleNamespace(merge_every=2)
+    with pytest.raises(UnsupportedPassConfig):
+        fresh.restore(cp)
+    assert fresh.slots == [] and fresh.rounds == 0
+    fresh.shards = None
+    fresh.restore(cp)
+    assert fresh.rounds == p.rounds and len(fresh.slots) == len(p.slots)
 
 
 class _NoCarouselPass(SharedPass):

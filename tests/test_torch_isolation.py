@@ -4,8 +4,9 @@ injection, entry points refuse to run on the CPU unless asked,
 the kernel wrappers launch or raise (no silent fallback), the
 Anderson/DKW path and the training path run on the CPU when asked, and
 the parts of the reference that later slices port raise
-NotImplementedError (among them the ``"dots"`` remat policy and the
-sharded scan)."""
+NotImplementedError (among them the ``"dots"`` remat policy), and the
+sharded scan's settings refuse, with the reference's ValueError, a
+process without a group of ranks."""
 
 import ast
 import os
@@ -30,6 +31,7 @@ _IMPORT_ALL = """
 import sys
 import repro_torch
 import repro_torch.aqp, repro_torch.aqp.engine, repro_torch.aqp.bitmap
+import repro_torch.aqp.distributed
 import repro_torch.aqp.query, repro_torch.aqp.scramble
 import repro_torch.aqp.flights_queries
 import repro_torch.core.state, repro_torch.core.bounders
@@ -126,8 +128,22 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                                 dict(mesh_shape=(2,)),
                                 dict(merge_every=2)])
 def test_later_slices_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EngineConfig(**kw)
+    """The sharded scan is ported: its settings build a config. In a
+    process without a group of >= 2 ranks, an explicit ``shard_rows=True``
+    or a two-rank ``mesh_shape`` raises the reference's ValueError when
+    the frame resolves its layout (nothing runs unsharded in their
+    place), and ``merge_every`` alone runs unsharded."""
+    frame = FastFrame(_tiny_scramble(), EngineConfig(**kw), device="cpu")
+    if "merge_every" in kw:
+        assert frame.block_shards() is None
+        q = AggQuery(agg="avg", column="v", stop=AbsoluteWidth(eps=0.1))
+        assert frame.run(q).count_seen[0] > 0
+        return
+    with pytest.raises(ValueError, match="2 ranks|2 devices"):
+        frame.block_shards()
+    with pytest.raises(ValueError, match="2 ranks|2 devices"):
+        frame.run(AggQuery(agg="avg", column="v",
+                           stop=AbsoluteWidth(eps=0.1)))
 
 
 def test_histogram_and_multi_probe_raise_not_implemented():

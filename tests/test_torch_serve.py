@@ -256,8 +256,9 @@ def test_materialization_cache_reused_across_batches(ds):
                  filters=(Filter("airline", "eq", 2),),
                  stop=AbsoluteWidth(eps=5.0), delta=1e-9)
     server.run_batch([q], seed=1, start_block=0)
-    vkey, gkey = q.value_key, "origin"
-    mkey = tuple(f.key() for f in q.filters)
+    # keyed as the reference keys them: (component, sharded layout?)
+    vkey, gkey = (q.value_key, False), ("origin", False)
+    mkey = (tuple(f.key() for f in q.filters), False)
     vals = frame._dev_values[vkey]
     mask = frame._dev_masks[mkey]
     gids = frame._dev_gids[gkey]
@@ -284,7 +285,7 @@ def test_materialization_cache_is_bounded(ds):
         frame._device_mask((Filter("dep_time", "gt", float(t)),))
     assert len(frame._dev_masks) == 4
     # most-recent keys survive
-    key9 = (Filter("dep_time", "gt", 9.0).key(),)
+    key9 = ((Filter("dep_time", "gt", 9.0).key(),), False)
     assert key9 in frame._dev_masks
 
 
