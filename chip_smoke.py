@@ -122,6 +122,16 @@ one JSON line:
      each forward launching the scan kernel once a layer; then at full
      width, 4 layers, float32, 32 examples of 256 tokens, card against
      CPU (per-token losses within 1e-4, the same rounds and examples);
+  5c. the dense, vlm and MoE families (plain PyTorch, no kernel):
+     qwen2.5-3b and pixtral-12b at full width and depth, dbrx-132b at
+     full width and 4 of its 40 layers (``DENSE_SERVE``; bf16, random
+     weights from a seed) each serve 8 requests of 2048 positions
+     (pixtral's first 512 its stubbed frontend's patch embeddings) and 32
+     greedy decode steps from a cache with room for them, twice, with
+     finite logits and the same tokens both times; then prefill + decode
+     against forward (2e-3) at full width in float32 (qwen3-0.6b at 4
+     layers, dbrx at 2, dropless), the seven ids' reduced configs on the
+     card against the CPU (1e-4), and no kernel counter moved;
   6. the Mamba1 training path: falcon-mamba-7b at full width, cut to 16
      layers, bf16, AdamW with float32 moments, remat, 2 microbatches of
      2 x 4096 tokens: one warm-up step and 3 timed steps on the same
@@ -227,6 +237,24 @@ SCAN_BWD_RTOL = 1e-5
 # microbatch (2 batch rows, 8 chunks: the shape the training path gives)
 SCAN_BWD_SHAPES = [(1, 1024, 8192, 16, 512), (1, 512, 128, 8, 512),
                    (1, 1536, 128, 8, 512), TRAIN_SCAN_SHAPE]
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper by name; each counts its launches in
+    ``.launches``."""
+    from repro_torch.kernels import bitmap_active as kbit
+    from repro_torch.kernels import block_agg as kblock
+    from repro_torch.kernels import fused_fold as kfused
+    from repro_torch.kernels import grouped_hist as khist
+    from repro_torch.kernels import selective_scan as kscan
+    return {"block_agg": kblock.block_agg,
+            "bitmap_active": kbit.active_blocks,
+            "bitmap_active_multi": kbit.active_blocks_multi,
+            "round_select": kbit.round_select,
+            "fused_fold": kfused.fused_fold,
+            "grouped_hist": khist.grouped_hist,
+            "selective_scan": kscan.selective_scan,
+            "selective_scan_bwd": kscan.selective_scan_bwd}
 
 
 def emit(obj) -> None:
@@ -2346,6 +2374,19 @@ def serve_once(torch, model, lm, tokens, steps: int):
                 prefill_peak_gib=prefill_peak_gib)
 
 
+def with_room(model, cache, max_len: int):
+    """An attention family's prefill cache (KV of the prompt's length)
+    copied into a cache of ``max_len`` slots, the room to decode into
+    (tests/test_models_smoke.py's splice); an ssm cache as it is."""
+    if "k" not in cache["layers"]:
+        return cache
+    k = cache["layers"]["k"]
+    room = model.init_cache(k.shape[1], max_len, device=k.device)
+    for name in ("k", "v"):
+        room["layers"][name][:, :, :k.shape[2]] = cache["layers"][name]
+    return room
+
+
 def check_prefill_decode(torch, np, model, lm, B: int, T: int, seed: int):
     """tests/test_models_smoke.py's contract on the card: prefill(T-1
     tokens) + decode(token T-1) against forward(T) at positions T-2 and
@@ -2356,6 +2397,7 @@ def check_prefill_decode(torch, np, model, lm, B: int, T: int, seed: int):
     with torch.inference_mode():
         full, _ = model.forward(lm, {"tokens": toks})
     pre, cache = model.prefill(lm, {"tokens": toks[:, :T - 1]})
+    cache = with_room(model, cache, T)
     dec, _ = model.decode(lm, cache, {"token": toks[:, T - 1:],
                                       "pos": T - 1})
     pairs = ((pre[:, -1], full[:, T - 2]), (dec[:, 0], full[:, T - 1]))
@@ -2381,8 +2423,8 @@ def check_card_vs_cpu_model(torch, np, model, B: int, T: int, seed: int):
         with torch.inference_mode():
             full, _ = model.forward(lm, {"tokens": t})
         pre, cache = model.prefill(lm, {"tokens": t[:, :T - 1]})
-        dec, _ = model.decode(lm, cache, {"token": t[:, T - 1:],
-                                          "pos": T - 1})
+        dec, _ = model.decode(lm, with_room(model, cache, T),
+                              {"token": t[:, T - 1:], "pos": T - 1})
         outs.append((full, pre, dec))
     rel = {name: float((g.cpu() - w).abs().max()) / float(w.abs().max())
            for name, g, w in zip(("forward", "prefill", "decode"), outs[1],
@@ -2605,6 +2647,165 @@ def eval_phase(torch, np, counters, model, lm, kscan, device="cuda"):
             set(forwards)), forwards=len(forwards), launches=launches,
         reduced={"batch": "launch/train.py's 16 examples a round -> 8"},
         card_vs_cpu=small, ok=ok), launches
+
+
+# -- phase 5c ----------------------------------------------------------------
+
+# The dense families' serving path: (id, layers served or None for the
+# config's own, why cut). dbrx's experts are 6.3 GB a layer in bf16, so
+# its 40 layers (~265 GB) are cut to 4.
+DENSE_SERVE = (("qwen2_5_3b", None, None),
+               ("pixtral_12b", None, None),
+               ("dbrx_132b", 4, "40 -> 4 layers (its experts are 6.3 GB a "
+                                "layer in bf16: 40 layers ~265 GB)"))
+# prefill + decode = forward at full width in float32: (id, layers, B, T,
+# capacity factor). dbrx dropless at B 2, T 256: B(T-1) = 510 and BT = 512
+# both give whole dispatch groups.
+DENSE_CONSISTENCY = (("qwen3_0_6b", 4, 2, 512, None),
+                     ("dbrx_132b", 2, 2, 256, 16.0))
+DENSE_IDS = ("qwen3_0_6b", "qwen2_5_3b", "stablelm_1_6b", "phi3_mini_3_8b",
+             "pixtral_12b", "dbrx_132b", "arctic_480b")
+
+
+def dense_request_batch(torch, np, cfg):
+    """SERVE_BATCH requests of PROMPT_LEN positions for ``cfg``, as
+    ``input_specs`` lays them out: text tokens from MODEL_SEED and, for
+    the vlm, the stubbed frontend's patch embeddings (N(0, 0.02), drawn on
+    the card) before them."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import input_specs
+    specs = input_specs(cfg, ShapeConfig("serve", PROMPT_LEN, SERVE_BATCH,
+                                         "prefill"))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(
+        MODEL_SEED).integers(0, cfg.vocab, specs["tokens"].shape)).cuda()}
+    if "extra_embeds" in specs:
+        gen = torch.Generator(device="cuda").manual_seed(MODEL_SEED)
+        e = specs["extra_embeds"]
+        batch["extra_embeds"] = (torch.randn(
+            e.shape, generator=gen, device="cuda") * 0.02).to(e.dtype)
+    return batch
+
+
+def dense_serve_once(torch, model, lm, batch, steps: int):
+    """One prefill of ``batch``, its KV copied into a cache with room for
+    ``steps`` more, and ``steps`` greedy decode steps."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(lm, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    T = cache["layers"]["k"].shape[2]
+    cache = with_room(model, cache, T + steps)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    gen, finite, _, decode_s = decode_steps(torch, model, lm, cache, tok, T,
+                                            steps)
+    finite &= torch.isfinite(logits).all()
+    return dict(tokens=torch.cat([tok, gen], dim=1).cpu(),
+                finite=bool(finite), prefill_s=prefill_s, decode_s=decode_s,
+                prefill_peak_gib=prefill_peak_gib)
+
+
+def dense_serving_model(torch, np, arch_id: str, layers=None):
+    """A model of DENSE_SERVE at full width (``layers`` of them, or the
+    config's own), bf16, its weights initialised on the card from
+    MODEL_SEED, and its requests. Returns (model, lm, batch, init_s)."""
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import build as build_model
+    cfg = get_config(arch_id)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    lm = model.init(MODEL_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    return model, lm, dense_request_batch(torch, np, cfg), init_s
+
+
+def dense_serve_model(torch, np, arch_id: str, layers, cut):
+    """One model of DENSE_SERVE: two serving runs. Returns its record."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, lm, batch, init_s = dense_serving_model(torch, np, arch_id,
+                                                   layers)
+    cfg = model.cfg
+    weights_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    runs = [dense_serve_once(torch, model, lm, batch, DECODE_STEPS)
+            for _ in range(2)]
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    front = batch["extra_embeds"].shape[1] if "extra_embeds" in batch else 0
+    reduced = {"prefill_32k": "32 x 32768 -> 8 x 2048 positions",
+               "decode_32k": "batch 128 after a 32K context -> batch 8 "
+                             "after 2048 positions"}
+    if cut:
+        reduced["n_layers"] = cut
+    record = dict(
+        model=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        n_experts=cfg.n_experts, top_k=cfg.top_k,
+        param_dtype=cfg.param_dtype,
+        params=sum(p.numel() for p in lm.parameters()), init_s=init_s,
+        requests=SERVE_BATCH, prompt_positions=PROMPT_LEN,
+        frontend_positions=front, decode_steps=DECODE_STEPS,
+        runs=[dict(prefill_s=r["prefill_s"],
+                   prefill_tokens_per_s=SERVE_BATCH * PROMPT_LEN
+                   / r["prefill_s"],
+                   decode_ms_per_step=r["decode_s"] / DECODE_STEPS * 1e3,
+                   decode_tokens_per_s=SERVE_BATCH * DECODE_STEPS
+                   / r["decode_s"],
+                   peak_gib_after_prefill=(r["prefill_peak_gib"]
+                                           - base / 2**30),
+                   finite=r["finite"]) for r in runs],
+        tokens_repeat=torch.equal(runs[0]["tokens"], runs[1]["tokens"]),
+        weights_gib=weights_gib, peak_device_gib=peak_gib, reduced=reduced)
+    record["ok"] = record["tokens_repeat"] and all(r["finite"]
+                                                   for r in runs)
+    del lm, model, batch
+    torch.cuda.empty_cache()
+    return record
+
+
+def dense_serve_phase(torch, np, counters):
+    """Phase 5c: the dense, vlm and MoE families. DENSE_SERVE's models
+    served twice at full width (bf16), then prefill + decode against
+    forward at full width in float32 (DENSE_CONSISTENCY), then each of
+    the seven ids' reduced float32 config on the card against the CPU.
+    These families run plain PyTorch: no kernel counter may move.
+    Returns (record, launches)."""
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import build as build_model
+    for c in counters.values():
+        c.launches = 0
+    served = [dense_serve_model(torch, np, *m) for m in DENSE_SERVE]
+    consistency = []
+    for arch_id, layers, B, T, cf in DENSE_CONSISTENCY:
+        cfg = dataclasses.replace(get_config(arch_id), n_layers=layers,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        model = build_model(cfg)
+        lm = model.init(MODEL_SEED)
+        consistency.append(dict(model=arch_id, capacity_factor=cf,
+                                **check_prefill_decode(torch, np, model, lm,
+                                                       B=B, T=T, seed=1)))
+        del lm
+        torch.cuda.empty_cache()
+    # B 2, T 32: whole MoE groups (64 tokens) for forward and prefill
+    card_vs_cpu = [dict(model=arch_id, **check_card_vs_cpu_model(
+        torch, np, build_model(dataclasses.replace(
+            get_config(arch_id, reduced=True), param_dtype="float32",
+            compute_dtype="float32")), B=2, T=32, seed=2))
+        for arch_id in DENSE_IDS]
+    launches = {k: c.launches for k, c in counters.items()}
+    stray = [k for k, v in launches.items() if v]
+    ok = (all(r["ok"] for r in served + consistency + card_vs_cpu)
+          and not stray)
+    return dict(served=served, prefill_decode_vs_forward=consistency,
+                card_vs_cpu=card_vs_cpu, launches=launches, ok=ok), launches
 
 
 def training_setup(torch):
@@ -2865,14 +3066,7 @@ def main(argv=None) -> int:
     must = {"bernstein": ("block_agg", "round_select", "bitmap_active"),
             "anderson_dkw": ("block_agg", "round_select", "fused_fold",
                              "grouped_hist")}
-    counters = {"block_agg": kblock.block_agg,
-                "bitmap_active": kbit.active_blocks,
-                "bitmap_active_multi": kbit.active_blocks_multi,
-                "round_select": kbit.round_select,
-                "fused_fold": kfused.fused_fold,
-                "grouped_hist": khist.grouped_hist,
-                "selective_scan": kscan.selective_scan,
-                "selective_scan_bwd": kscan.selective_scan_bwd}
+    counters = kernel_counters()
     path_launches = {}
     truths, host_results = {}, {}
     for path, runs in paths.items():
@@ -3107,6 +3301,16 @@ def main(argv=None) -> int:
               total_s=time.perf_counter() - t_start))
     if not ev["ok"]:
         raise AssertionError(f"the Mamba1 eval path failed: {ev}")
+
+    # ---- 5c. the dense, vlm and MoE families' serving path -----------------
+    t0 = time.perf_counter()
+    dense, launches = dense_serve_phase(torch, np, counters)
+    path_launches["dense_serve"] = launches
+    emit(dict(phase="dense_serve", card=name, power_limit=power_limit,
+              **dense, phase_s=time.perf_counter() - t0,
+              total_s=time.perf_counter() - t_start))
+    if not dense["ok"]:
+        raise AssertionError(f"the dense serving path failed: {dense}")
 
     # ---- 6. the Mamba1 training path ----------------------------------------
     train, launches = train_phase(torch, np, counters)

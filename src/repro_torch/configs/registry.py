@@ -3,14 +3,16 @@
 
 The port of :mod:`repro.configs.registry`. It knows every id and alias of
 the reference, but only the architectures whose family the port runs have
-a config module here (:data:`PORTED_ARCH_IDS`); ``get`` of another raises
-``NotImplementedError``.
+a config module here (:data:`PORTED_ARCH_IDS`: the ssm, dense, vlm and
+moe families); ``get`` of another (the hybrid zamba2, the enc-dec
+seamless) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict
 
 from repro_torch.configs.base import ArchConfig
 
@@ -27,9 +29,18 @@ ARCH_IDS = (
     "falcon_mamba_7b",
 )
 
-# the ssm family (Mamba1) is ported; dense, moe, hybrid (Mamba2), vlm and
-# enc-dec come with ROADMAP queue 1 item 14
-PORTED_ARCH_IDS = ("falcon_mamba_7b",)
+# the ssm (Mamba1), dense, vlm and moe families are ported; the hybrid
+# (Mamba2) and enc-dec come with ROADMAP queue 1 item 14
+PORTED_ARCH_IDS = (
+    "stablelm_1_6b",
+    "qwen2_5_3b",
+    "phi3_mini_3_8b",
+    "qwen3_0_6b",
+    "dbrx_132b",
+    "arctic_480b",
+    "pixtral_12b",
+    "falcon_mamba_7b",
+)
 
 # accept dashed ids from the assignment table too
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -61,9 +72,16 @@ def get(arch_id: str, reduced: bool = False) -> ArchConfig:
     return reduce_config(cfg) if reduced else cfg
 
 
+def all_configs(reduced: bool = False) -> Dict[str, ArchConfig]:
+    """Every ported config by id, in :data:`ARCH_IDS`' order. The
+    reference's returns all ten ids; the hybrid (zamba2) and the enc-dec
+    (seamless) join here as their families are ported."""
+    return {i: get(i, reduced) for i in ARCH_IDS if i in PORTED_ARCH_IDS}
+
+
 def reduce_config(cfg: ArchConfig) -> ArchConfig:
     """Smoke-test-sized config of the same family: small widths/layers, few
-    experts, tiny vocab — runs a forward step on CPU in seconds."""
+    experts, tiny vocab — runs a forward/train step on CPU in seconds."""
     changes = dict(
         n_layers=min(cfg.n_layers, 4 if cfg.family not in ("hybrid",) else 7),
         d_model=128,

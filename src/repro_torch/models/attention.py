@@ -1,0 +1,243 @@
+"""GQA attention: train/prefill (full, causal, sliding-window, or
+bidirectional), decode with a KV cache, and cross-attention.
+
+The port of :mod:`repro.models.attention`. A layer's parameters live in
+:class:`Attention` under the reference's names and ``(in, out)``
+layouts; the functions take the module where the reference takes its
+dict. The reference computes attention as plain einsums outside any
+kernel, and so does the port: matmuls, a float32 softmax, and the
+probabilities cast to ``v``'s dtype before their product with ``v``.
+The scores are the reference's float32 contraction of the (bf16)
+operands, so ``q`` and ``k`` are widened to float32 first: the product
+of two bf16 values is exact in float32.
+
+Decode caches: ``{"k", "v"}`` of shape ``(B, S, K, hd)``, post-RoPE and
+before the GQA repeat. :func:`decode_attention` returns a new cache and
+leaves its input as it was. Its ``pos`` may be a Python int or a 0-d
+tensor on the cache's device, read without a host sync. The reference's
+``dynamic_update_slice`` clamps a ``pos`` past the cache's end and
+overwrites the last slot; the port raises ``ValueError`` for an int
+``pos`` out of range and clamps a tensor ``pos`` as the reference does
+(a check would cost a sync).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (dense_init, head_norm_apply,
+                                       param_dtype, rope_apply)
+
+_F32 = torch.float32
+
+
+class Attention(nn.Module):
+    """``wq`` (d, H·hd), ``wk`` / ``wv`` (d, K·hd), ``wo`` (H·hd, d); with
+    ``qkv_bias`` also ``bq`` / ``bk`` / ``bv`` (zeros), with ``qk_norm``
+    ``q_norm`` / ``k_norm`` (hd,) (ones)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        dt = param_dtype(cfg)
+        d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.wq = dense_init((d, h * hd), dt, generator, device=device)
+        self.wk = dense_init((d, k * hd), dt, generator, device=device)
+        self.wv = dense_init((d, k * hd), dt, generator, device=device)
+        self.wo = dense_init((h * hd, d), dt, generator, device=device)
+        if cfg.qkv_bias:
+            for name, n in (("bq", h * hd), ("bk", k * hd), ("bv", k * hd)):
+                setattr(self, name, nn.Parameter(
+                    torch.zeros(n, dtype=dt, device=device)))
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.ones(hd, dtype=dt,
+                                                  device=device))
+            self.k_norm = nn.Parameter(torch.ones(hd, dtype=dt,
+                                                  device=device))
+
+
+def attn_init(cfg: ArchConfig, generator: torch.Generator,
+              device=None) -> Attention:
+    return Attention(cfg, generator, device)
+
+
+def _project_q(p: Attention, cfg: ArchConfig, x: torch.Tensor):
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = head_norm_apply(p.q_norm, q)
+    return q
+
+
+def _project_kv(p: Attention, cfg: ArchConfig, x: torch.Tensor):
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        k = k + p.bk
+        v = v + p.bv
+    k = k.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = head_norm_apply(p.k_norm, k)
+    return k, v
+
+
+def _repeat_kv(cfg: ArchConfig, k: torch.Tensor) -> torch.Tensor:
+    """``jnp.repeat`` along the head axis: each kv head repeats in place,
+    (k0, k0, k1, k1, ...), not tiled."""
+    if cfg.n_kv_heads == cfg.n_heads:
+        return k
+    return k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=-2)
+
+
+def _sdpa(q, k, v, mask, head_dim: int) -> torch.Tensor:
+    """Scores and softmax in float32; q (B, T, H, hd), k / v (B, S, H,
+    hd), mask broadcastable to (B, H, T, S)."""
+    # a 0-d float32 tensor on the host, as the reference computes it
+    scale = 1.0 / torch.sqrt(torch.tensor(head_dim, dtype=_F32))
+    scores = torch.einsum("bthd,bshd->bhts", q.to(_F32), k.to(_F32)) * scale
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
+
+
+def _sdpa_chunked(q, k, v, positions, causal: bool, window: Optional[int],
+                  head_dim: int, qc: int) -> torch.Tensor:
+    """Q-chunked attention: never materializes the full (T, S) score
+    tensor, only (qc, S) a chunk. Where a gradient is wanted each chunk
+    is rematerialized in the backward pass."""
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    kpos = positions[:, None, None, :]              # (B, 1, 1, S)
+
+    def chunk(qi, pqi):                             # (B, qc, H, hd), (B, qc)
+        mask = torch.ones((B, 1, qc, S), dtype=torch.bool, device=q.device)
+        qpos = pqi[:, None, :, None]                # (B, 1, qc, 1)
+        if causal:
+            mask = qpos >= kpos
+        if window is not None:
+            mask = mask & (qpos - kpos < window)
+        return _sdpa(qi, k, v, mask, head_dim)
+
+    outs = []
+    for i in range(T // qc):
+        qi, pqi = q[:, i * qc:(i + 1) * qc], positions[:, i * qc:(i + 1) * qc]
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(chunk, qi, pqi, use_reentrant=False))
+        else:
+            outs.append(chunk(qi, pqi))
+    return torch.cat(outs, dim=1)
+
+
+def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, causal: bool = True,
+              window: Optional[int] = None,
+              memory: Optional[torch.Tensor] = None,
+              return_kv: bool = False):
+    """Full-sequence attention (train / prefill / encoder / cross).
+
+    memory: (B, M, d) for cross-attention (keys/values from memory,
+    bidirectional over memory, no RoPE). return_kv: also return the
+    ``{"k", "v"}`` pair (pre-GQA-repeat) so prefill can emit a decode
+    cache."""
+    B, T, _ = x.shape
+    q = _project_q(p, cfg, x)
+    chunked = bool(memory is None and cfg.attn_chunk
+                   and T > cfg.attn_chunk and T % cfg.attn_chunk == 0)
+    if memory is None:
+        k, v = _project_kv(p, cfg, x)
+        q = rope_apply(q, positions, cfg.rope_theta)
+        k = rope_apply(k, positions, cfg.rope_theta)
+        if not chunked:
+            qpos = positions[..., :, None]   # (B?, T, 1)
+            kpos = positions[..., None, :]   # (B?, 1, S)
+            mask = torch.ones((T, T), dtype=torch.bool, device=x.device)
+            if causal:
+                mask = qpos >= kpos
+            if window is not None:
+                mask = mask & (qpos - kpos < window)
+            if mask.ndim == 3:
+                mask = mask[:, None, :, :]
+    else:
+        k, v = _project_kv(p, cfg, memory)
+        mask = torch.ones((1, 1, T, memory.shape[1]), dtype=torch.bool,
+                          device=x.device)
+    kr = _repeat_kv(cfg, k)
+    vr = _repeat_kv(cfg, v)
+    if chunked:
+        out = _sdpa_chunked(q, kr, vr, positions, causal, window,
+                            cfg.head_dim, cfg.attn_chunk)
+    else:
+        out = _sdpa(q, kr, vr, mask, cfg.head_dim)
+    out = out.reshape(B, T, -1) @ p.wo
+    if return_kv:
+        return out, {"k": k, "v": v}
+    return out
+
+
+# -- decode path --------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+               device=None) -> Dict[str, torch.Tensor]:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def write_slot(buf: torch.Tensor, new: torch.Tensor,
+               pos: Union[int, torch.Tensor]) -> torch.Tensor:
+    """A copy of ``buf`` (B, S, ...) with ``new`` (B, 1, ...) written at
+    index ``pos`` of axis 1. An int ``pos`` outside ``[0, S)`` raises
+    ``ValueError``; a tensor ``pos`` is clamped into it on the card, as
+    the reference's ``dynamic_update_slice`` clamps (no host read)."""
+    S = buf.shape[1]
+    if isinstance(pos, torch.Tensor):
+        idx = pos.reshape(1).to(device=buf.device, dtype=torch.long)
+        return buf.index_copy(1, idx.clamp(0, S - 1), new)
+    if not 0 <= pos < S:
+        raise ValueError(f"decode position {pos} is outside the cache's "
+                         f"{S} slots")
+    out = buf.clone()
+    out[:, pos:pos + 1] = new
+    return out
+
+
+def positions_of(pos: Union[int, torch.Tensor], B: int,
+                 device) -> torch.Tensor:
+    """(B, 1) int32 positions of a one-token step at ``pos``."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1, 1).to(device=device,
+                                    dtype=torch.int32).expand(B, 1)
+    return torch.full((B, 1), pos, dtype=torch.int32, device=device)
+
+
+def decode_attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
+                     cache: Dict, pos, *, window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """One-token step. x: (B, 1, d); pos: int or 0-d int tensor, the
+    current index; cache k/v: (B, S, K, hd). Returns (out, new cache)."""
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    posb = positions_of(pos, B, x.device)
+    q = rope_apply(_project_q(p, cfg, x), posb, cfg.rope_theta)
+    k_new, v_new = _project_kv(p, cfg, x)
+    k_new = rope_apply(k_new, posb, cfg.rope_theta)
+    k_cache = write_slot(cache["k"], k_new, pos)
+    v_cache = write_slot(cache["v"], v_new, pos)
+    kpos = torch.arange(S, dtype=torch.int32, device=x.device).view(
+        1, 1, 1, S)
+    mask = kpos <= pos
+    if window is not None:
+        mask = mask & (kpos > pos - window)
+    out = _sdpa(q, _repeat_kv(cfg, k_cache), _repeat_kv(cfg, v_cache), mask,
+                cfg.head_dim)
+    out = out.reshape(B, 1, -1) @ p.wo
+    return out, {"k": k_cache, "v": v_cache}

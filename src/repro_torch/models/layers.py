@@ -1,13 +1,13 @@
-"""Shared neural layers: dtypes, the fan-in init and the norms.
+"""Shared neural layers: dtypes, the fan-in init, the norms, RoPE and the
+MLPs.
 
-The port of :mod:`repro.models.layers`, as far as the SSM family needs it
-(RoPE and the MLPs come with the dense families, ROADMAP queue 1 item 14).
-Weights are ``nn.Parameter``s kept in the reference's ``(in, out)``
-layout, so a layer computes ``x @ W`` exactly as the reference does and
-its parameters convert without transposes
-(:mod:`repro_torch.models.convert`). Random draws come from an explicit
-``torch.Generator``; the reference's ``jax.random`` keys give other
-numbers, so the tests hand both packages the reference's weights.
+The port of :mod:`repro.models.layers`. Weights are ``nn.Parameter``s
+kept in the reference's ``(in, out)`` layout, so a layer computes
+``x @ W`` exactly as the reference does and its parameters convert
+without transposes (:mod:`repro_torch.models.convert`). Random draws
+come from an explicit ``torch.Generator``; the reference's
+``jax.random`` keys give other numbers, so the tests hand both packages
+the reference's weights.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -82,3 +83,71 @@ def norm_apply(p: Norm, x: torch.Tensor, kind: str,
         ms = (xf * xf).mean(dim=-1, keepdim=True)
         out = xf * torch.rsqrt(ms + eps) * p.scale.to(torch.float32)
     return out.to(x.dtype)
+
+
+def head_norm_apply(scale: torch.Tensor, x: torch.Tensor,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm: RMS-normalize the head_dim axis in float32 (qwen3); eps
+    1e-6, not the norms' 1e-5."""
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)
+            * scale.to(torch.float32)).to(x.dtype)
+
+
+# -- RoPE --------------------------------------------------------------------
+
+
+def rope_apply(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """The half-split rotation. x: (..., seq, heads, head_dim); positions:
+    (..., seq) int. The angles are float32; ``x`` times them promotes to
+    float32 (bf16 included, as in JAX) and the result is cast back."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- MLP ---------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """The feed-forward block's parameters: ``w_gate``, ``w_up`` (d, ff)
+    and ``w_down`` (ff, d) for swiglu, ``w_up`` and ``w_down`` for gelu;
+    applied by :func:`mlp_apply`."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device=None, d: Optional[int] = None,
+                 ff: Optional[int] = None):
+        super().__init__()
+        d = d or cfg.d_model
+        ff = ff or cfg.d_ff
+        dt = param_dtype(cfg)
+        if cfg.act == "swiglu":
+            self.w_gate = dense_init((d, ff), dt, generator, device=device)
+        self.w_up = dense_init((d, ff), dt, generator, device=device)
+        self.w_down = dense_init((ff, d), dt, generator, device=device)
+
+
+def mlp_init(cfg: ArchConfig, generator: torch.Generator, device=None,
+             d: Optional[int] = None, ff: Optional[int] = None) -> MLP:
+    return MLP(cfg, generator, device, d, ff)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(p: MLP, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p.w_gate) * (x @ p.w_up)
+    else:
+        h = gelu(x @ p.w_up)
+    return h @ p.w_down

@@ -1,15 +1,21 @@
-"""Decoder-only LM, the ``ssm`` family (falcon-mamba).
+"""Unified decoder-only LM: the ``ssm`` (falcon-mamba), ``dense``,
+``vlm`` (pixtral) and ``moe`` (dbrx, arctic) families.
 
-The port of :mod:`repro.models.lm`, its ``family == "ssm"`` branches. The
-reference scans one layer body over stacked parameters; here the layers
-are an ``nn.ModuleList`` walked in order, each a pre-norm residual
-Mamba1 block. The dense, moe, hybrid (zamba2), vlm and enc-dec families
-are not ported yet and raise ``NotImplementedError`` (ROADMAP queue 1
-item 14).
+The port of :mod:`repro.models.lm`, its ``ssm`` branches and its dense
+``else`` branches. The reference scans one layer body over stacked
+parameters; here the layers are an ``nn.ModuleList`` walked in order:
+a pre-norm residual Mamba1 block (:class:`SSMLayer`) or a pre-norm
+attention block followed by an MLP or an MoE (:class:`DenseLayer`). The
+vlm family is the dense decoder behind a stubbed frontend: its patch
+embeddings come in as ``extra_embeds`` and are prepended. The hybrid
+(zamba2) and enc-dec families are not ported yet and raise
+``NotImplementedError`` (ROADMAP queue 1 item 14).
 
-Caches keep the reference's structure: ``{"layers": {"conv": (n_layers,
-B, K-1, din), "h": (n_layers, B, din, n)}}``, stacked on a leading layer
-axis. Each call returns a new cache and leaves its input as it was.
+Caches keep the reference's structure, stacked on a leading layer axis:
+``{"layers": {"conv": (n_layers, B, K-1, din), "h": (n_layers, B, din,
+n)}}`` for the ssm family, ``{"layers": {"k", "v"}}`` of shape
+``(n_layers, B, S, K, hd)`` (post-RoPE, before the GQA repeat) for the
+others. Each call returns a new cache and leaves its input as it was.
 """
 
 from __future__ import annotations
@@ -22,19 +28,24 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm
-from repro_torch.models.layers import (compute_dtype, dense_init, norm_apply,
-                                       norm_init, param_dtype)
+from repro_torch.models.attention import (attention, attn_init,
+                                          decode_attention, init_cache)
+from repro_torch.models.layers import (compute_dtype, dense_init, mlp_apply,
+                                       mlp_init, norm_apply, norm_init,
+                                       param_dtype)
+from repro_torch.models.moe import moe_apply, moe_init
 
 _F32 = torch.float32
+PORTED_FAMILIES = ("ssm", "dense", "vlm", "moe")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg``'s family is one the port runs (ssm)."""
-    if cfg.family != "ssm":
+    """Raise unless ``cfg``'s family is one the port runs."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            "runs the ssm family (Mamba1); the others come with ROADMAP "
-            "queue 1 item 14")
+            f"runs the {', '.join(PORTED_FAMILIES)} families; the hybrid "
+            "and enc-dec come with ROADMAP queue 1 item 14")
 
 
 # -- modules ------------------------------------------------------------------
@@ -49,6 +60,23 @@ class SSMLayer(nn.Module):
         super().__init__()
         self.ln = norm_init(cfg, device=device)
         self.mamba = ssm.mamba1_init(cfg, generator, device)
+
+
+class DenseLayer(nn.Module):
+    """One pre-norm attention layer: ``ln1``, ``attn``, ``ln2``, then
+    ``mlp`` or, for the moe family, ``moe`` (the reference's per-layer
+    dict)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        self.ln1 = norm_init(cfg, device=device)
+        self.ln2 = norm_init(cfg, device=device)
+        self.attn = attn_init(cfg, generator, device)
+        if cfg.family == "moe":
+            self.moe = moe_init(cfg, generator, device)
+        else:
+            self.mlp = mlp_init(cfg, generator, device)
 
 
 class LM(nn.Module):
@@ -66,7 +94,8 @@ class LM(nn.Module):
         self.embed = dense_init((cfg.vocab_padded, cfg.d_model), dt,
                                 generator, device=device)
         self.final_ln = norm_init(cfg, device=device)
-        self.layers = nn.ModuleList(SSMLayer(cfg, generator, device)
+        layer = SSMLayer if cfg.family == "ssm" else DenseLayer
+        self.layers = nn.ModuleList(layer(cfg, generator, device)
                                     for _ in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.lm_head = dense_init((cfg.d_model, cfg.vocab_padded), dt,
@@ -123,11 +152,24 @@ def lm_forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
     vlm/audio stubs (prepended). Returns (logits f32, aux_loss)."""
     require_ported(cfg)
     h = _embed(params, cfg, tokens, extra_embeds)
-    layer = _maybe_remat(cfg, _ssm_layer)
-    for lp in params.layers:
-        h = layer(lp, cfg, h)
     aux = torch.zeros((), dtype=_F32, device=h.device)
+    if cfg.family == "ssm":
+        layer = _maybe_remat(cfg, _ssm_layer)
+        for lp in params.layers:
+            h = layer(lp, cfg, h)
+    else:
+        positions = _positions(h)
+        layer = _maybe_remat(cfg, _dense_layer)
+        for lp in params.layers:
+            h, a = layer(lp, cfg, h, positions, window)
+            aux = aux + a
     return _logits(params, cfg, h), aux
+
+
+def _positions(h: torch.Tensor) -> torch.Tensor:
+    B, T = h.shape[:2]
+    return torch.arange(T, dtype=torch.int32, device=h.device)[None].expand(
+        B, T)
 
 
 def _ssm_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor
@@ -135,12 +177,30 @@ def _ssm_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor
     return h + ssm.mamba1_apply(lp.mamba, cfg, norm_apply(lp.ln, h, cfg.norm))
 
 
+def _mix(lp: DenseLayer, cfg: ArchConfig, h: torch.Tensor):
+    """The layer's MLP or MoE on ``ln2(h)``: (delta, aux)."""
+    x = norm_apply(lp.ln2, h, cfg.norm)
+    if cfg.family == "moe":
+        return moe_apply(lp.moe, cfg, x)
+    return mlp_apply(lp.mlp, cfg, x), torch.zeros((), dtype=_F32,
+                                                  device=h.device)
+
+
+def _dense_layer(lp: DenseLayer, cfg: ArchConfig, h: torch.Tensor,
+                 positions: torch.Tensor, window: Optional[int]):
+    h = h + attention(lp.attn, cfg, norm_apply(lp.ln1, h, cfg.norm),
+                      positions, causal=True, window=window)
+    m, aux = _mix(lp, cfg, h)
+    return h + m, aux
+
+
 def _maybe_remat(cfg: ArchConfig, fn):
     """Per-layer rematerialisation, the reference's ``jax.checkpoint`` with
     the ``"nothing"`` policy: where a gradient is wanted, a layer keeps
-    only its input and runs again in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant), so the scan kernel runs
-    twice a layer per step. The ``"dots"`` policy (keep the matmul
+    only its inputs and runs again in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant; the Mamba1 scan kernel
+    then runs twice a layer per step). ``fn`` takes the layer, the config
+    and tensors or constants. The ``"dots"`` policy (keep the matmul
     outputs) is not ported yet."""
     if not cfg.remat:
         return fn
@@ -150,10 +210,10 @@ def _maybe_remat(cfg: ArchConfig, fn):
             "rematerialises with the 'nothing' policy only (ROADMAP queue 1 "
             "item 14)")
 
-    def layer(lp, cfg_, h):
+    def layer(*args):
         if not torch.is_grad_enabled():
-            return fn(lp, cfg_, h)
-        return checkpoint(fn, lp, cfg_, h, use_reentrant=False)
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
     return layer
 
 
@@ -164,11 +224,24 @@ def lm_prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
                extra_embeds: Optional[torch.Tensor] = None,
                window: Optional[int] = None
                ) -> Tuple[torch.Tensor, Dict]:
-    """Forward pass that also materializes the decode cache (the final
-    recurrent states and conv tails). Returns (last-position logits
-    (B, 1, V), cache)."""
+    """Forward pass that also materializes the decode cache (KV for the
+    attention families, the final recurrent states and conv tails for the
+    ssm family). Returns (last-position logits (B, 1, V), cache)."""
     require_ported(cfg)
     h = _embed(params, cfg, tokens, extra_embeds)
+    if cfg.family != "ssm":
+        positions = _positions(h)
+        ks, vs = [], []
+        for lp in params.layers:
+            a, kv = attention(lp.attn, cfg, norm_apply(lp.ln1, h, cfg.norm),
+                              positions, causal=True, window=window,
+                              return_kv=True)
+            h = h + a
+            h = h + _mix(lp, cfg, h)[0]
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        new_cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        return _logits(params, cfg, h[:, -1:]), new_cache
     convs, states = [], []
     for lp in params.layers:
         y, cache = _ssm_prefill_layer(lp, cfg, h, ssm.mamba1_apply)
@@ -195,7 +268,10 @@ def lm_init_cache(cfg: ArchConfig, batch: int, max_len: int,
                   device=None) -> Dict:
     """Stacked per-layer caches (leading dim = layers)."""
     require_ported(cfg)
-    one = ssm.mamba1_cache(cfg, batch, compute_dtype(cfg), device)
+    if cfg.family != "ssm":
+        one = init_cache(cfg, batch, max_len, compute_dtype(cfg), device)
+    else:
+        one = ssm.mamba1_cache(cfg, batch, compute_dtype(cfg), device)
     return {"layers": {k: v[None].expand(cfg.n_layers, *v.shape).clone()
                        for k, v in one.items()}}
 
@@ -203,11 +279,26 @@ def lm_init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
                    cache: Dict, window: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Dict]:
-    """token: (B, 1) int; pos: scalar (unused by the ssm family). Returns
+    """token: (B, 1) int; pos: the token's position, an int or a 0-d int
+    tensor on the card (unused by the ssm family; see
+    :func:`repro_torch.models.attention.decode_attention`). Returns
     (logits (B, 1, V) f32, new cache)."""
     require_ported(cfg)
     h = params.embed[token.long()].to(compute_dtype(cfg))
     layers = cache["layers"]
+    if cfg.family != "ssm":
+        ks, vs = [], []
+        for i, lp in enumerate(params.layers):
+            a, cl = decode_attention(
+                lp.attn, cfg, norm_apply(lp.ln1, h, cfg.norm),
+                {"k": layers["k"][i], "v": layers["v"][i]}, pos,
+                window=window)
+            h = h + a
+            h = h + _mix(lp, cfg, h)[0]
+            ks.append(cl["k"])
+            vs.append(cl["v"])
+        new_cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        return _logits(params, cfg, h), new_cache
     convs, states = [], []
     for i, lp in enumerate(params.layers):
         y, cl = ssm.mamba1_decode(lp.mamba, cfg,

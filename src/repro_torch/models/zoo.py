@@ -17,9 +17,10 @@ pytree. ``init`` and ``init_cache`` take ``device=None``, meaning the card
 ``loss`` returns the cross-entropy plus the z-loss and the aux term, and
 in its metrics the per-token loss *moment state* (count / mean / m2 /
 min / max, :func:`repro_torch.core.state.moments_of_batch`): the mergeable
-CI state that :class:`repro_torch.evalx.ThresholdMonitor` takes. Its
-gradient runs through the selective-scan backward kernel on the
-``"pallas"`` path.
+CI state that :class:`repro_torch.evalx.ThresholdMonitor` takes. For the
+ssm family its gradient runs through the selective-scan backward kernel
+on the ``"pallas"`` path; the dense, vlm and moe families run plain
+PyTorch (the reference has no kernel there either).
 
 ``input_specs(cfg, shape)`` returns ``(shape, dtype)`` stand-ins for every
 model input of a workload shape; ``make_batch`` materializes small

@@ -940,6 +940,54 @@ def test_mamba1_lm_cuda_equals_cpu(cuda):
             w.abs().max())
 
 
+@pytest.mark.parametrize("arch_id", ["qwen3_0_6b", "qwen2_5_3b",
+                                     "stablelm_1_6b", "phi3_mini_3_8b",
+                                     "pixtral_12b", "dbrx_132b",
+                                     "arctic_480b"])
+def test_dense_lm_cuda_equals_cpu(cuda, arch_id):
+    """A reduced dense, vlm or MoE model in float32 with the same weights
+    on the card and on the CPU: forward, prefill and decode (at an int
+    position, and at a 0-d card tensor one) logits within 1e-4 of their
+    largest magnitude; no kernel launched (this family runs plain
+    PyTorch)."""
+    import dataclasses
+    from repro_torch.models import make_batch
+    from repro_torch.configs import SHAPES
+    cfg = dataclasses.replace(get_config(arch_id, reduced=True),
+                              param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    lm_cpu = model.init(0, device="cpu")
+    lm_gpu = model.init(0, device=cuda)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=64,
+                                global_batch=2)
+    batch = make_batch(cfg, shape, seed=1, device="cpu")
+    before = selective_scan.selective_scan.launches
+    outs = []
+    for lm, dev in ((lm_cpu, "cpu"), (lm_gpu, cuda)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            full, _ = model.forward(lm, b)
+        T = b["tokens"].shape[1]
+        cut = T // 2 if cfg.family == "moe" else T - 1
+        pre_b = {k: v for k, v in b.items() if k != "targets"}
+        pre_b["tokens"] = b["tokens"][:, :cut]
+        pre, cache = model.prefill(lm, pre_b)
+        S = cache["layers"]["k"].shape[2]
+        room = model.init_cache(2, S + 1, device=dev)
+        for k in ("k", "v"):
+            room["layers"][k][:, :, :S] = cache["layers"][k]
+        step = {"token": b["tokens"][:, cut:cut + 1]}
+        dec, _ = model.decode(lm, room, {**step, "pos": S})
+        dec_t, _ = model.decode(lm, room, {
+            **step, "pos": torch.tensor(S, dtype=torch.int32, device=dev)})
+        outs.append([full, pre, dec, dec_t])
+    assert selective_scan.selective_scan.launches == before
+    for g, w in zip(outs[1], outs[0]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+
+
 # -- the scan's backward ------------------------------------------------------
 
 # (B, L, din, n, tc): one channel cluster at n 8 over two chunks; a

@@ -48,6 +48,9 @@ import repro_torch.configs, repro_torch.configs.base
 import repro_torch.configs.registry, repro_torch.configs.falcon_mamba_7b
 import repro_torch.models, repro_torch.models.layers, repro_torch.models.ssm
 import repro_torch.models.lm, repro_torch.models.zoo
+import repro_torch.models.attention, repro_torch.models.moe
+from repro_torch.configs import all_configs
+all_configs()
 import repro_torch.models.convert
 import repro_torch.train, repro_torch.train.optimizer
 import repro_torch.train.trainer, repro_torch.data.tokens
@@ -198,13 +201,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros((1, 1, 8, 8)), x, torch.zeros((1, 8, 8)))
 
 
-def _tiny_model():
-    return build_model(get_config("falcon_mamba_7b", reduced=True))
+def _tiny_model(arch_id="falcon_mamba_7b"):
+    return build_model(get_config(arch_id, reduced=True))
 
 
-def test_model_init_needs_cuda_unless_cpu_is_asked(monkeypatch):
+def _init_needs_cuda(monkeypatch, arch_id):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    model = _tiny_model()
+    model = _tiny_model(arch_id)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init(0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -213,8 +216,52 @@ def test_model_init_needs_cuda_unless_cpu_is_asked(monkeypatch):
         model.init_cache(2, 16)
     lm = model.init(0, device="cpu")
     assert {p.device.type for p in lm.parameters()} == {"cpu"}
-    assert model.init_cache(2, 16, device="cpu")["layers"]["h"].device.type \
-        == "cpu"
+    cache = model.init_cache(2, 16, device="cpu")["layers"]
+    assert {c.device.type for c in cache.values()} == {"cpu"}
+
+
+def test_model_init_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    _init_needs_cuda(monkeypatch, "falcon_mamba_7b")
+
+
+@pytest.mark.parametrize("arch_id", ["qwen3_0_6b", "pixtral_12b",
+                                     "dbrx_132b"])
+def test_dense_model_init_needs_cuda_unless_cpu_is_asked(monkeypatch,
+                                                         arch_id):
+    _init_needs_cuda(monkeypatch, arch_id)
+
+
+def _counters():
+    kernels = (block_agg.block_agg, bitmap_active.active_blocks,
+               bitmap_active.active_blocks_multi, bitmap_active.round_select,
+               fused_fold.fused_fold, grouped_hist.grouped_hist,
+               selective_scan.selective_scan,
+               selective_scan.selective_scan_bwd)
+    return [k.launches for k in kernels]
+
+
+@pytest.mark.parametrize("arch_id", ["qwen2_5_3b", "arctic_480b"])
+def test_dense_loss_and_serving_touch_no_kernel(arch_id):
+    """The dense and MoE families run plain PyTorch (the reference has no
+    kernel there): their loss, gradient, prefill and decode on the CPU
+    move no kernel counter."""
+    model = _tiny_model(arch_id)
+    lm = model.init(0, device="cpu")
+    toks = torch.zeros((2, 32), dtype=torch.int32)
+    before = _counters()
+    loss, _ = model.loss(lm, {"tokens": toks, "targets": toks})
+    loss.backward()
+    _, cache = model.prefill(lm, {"tokens": toks})
+    model.decode(lm, model.init_cache(2, 33, device="cpu"),
+                 {"token": toks[:, :1], "pos": 32})
+    assert torch.isfinite(loss) and _counters() == before
+
+
+def test_hybrid_and_encdec_families_raise_not_implemented():
+    from repro_torch.configs import ArchConfig
+    for family in ("hybrid", "encdec"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+            build_model(ArchConfig(family=family))
 
 
 def test_model_loss_and_scan_backward_raise_not_implemented():

@@ -26,14 +26,15 @@ import torch
 
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import SHAPES as JAX_SHAPES
+from repro.configs import all_configs as jax_all_configs
 from repro.configs import get as jax_get
 from repro.models import build as jax_build
 from repro.models import input_specs as jax_input_specs
 from repro.models import make_batch as jax_make_batch
 from repro.models import ssm as jax_ssm
 from repro.models import window_for as jax_window_for
-from repro_torch.configs import ARCH_IDS, SHAPES, ArchConfig, get
-from repro_torch.configs import reduce_config
+from repro_torch.configs import (ARCH_IDS, PORTED_ARCH_IDS, SHAPES,
+                                 ArchConfig, all_configs, get, reduce_config)
 from repro_torch.models import (build, convert, input_specs, make_batch,
                                 window_for)
 from repro_torch.models import ssm
@@ -90,8 +91,32 @@ def test_falcon_mamba_config_matches_reference(reduced):
         k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
 
 
+@pytest.mark.parametrize("arch_id", PORTED_ARCH_IDS)
+def test_config_matches_reference(arch_id):
+    """Every ported id (and its dashed alias) gives the reference's
+    config, full and reduced, and builds."""
+    for reduced in (False, True):
+        for alias in (arch_id, arch_id.replace("_", "-")):
+            assert dataclasses.asdict(get(alias, reduced)) == \
+                dataclasses.asdict(jax_get(alias, reduced))
+    assert build(get(arch_id)).cfg == get(arch_id)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_all_configs_matches_reference(reduced):
+    """``all_configs`` gives the reference's configs of the ported ids, in
+    its order; the reference's other ids are the families still to
+    come."""
+    got, want = all_configs(reduced), jax_all_configs(reduced)
+    assert list(got) == [i for i in want if i in PORTED_ARCH_IDS]
+    assert sorted(set(want) - set(got)) == ["seamless_m4t_large_v2",
+                                            "zamba2_7b"]
+    for k, cfg in got.items():
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want[k])
+
+
 @pytest.mark.parametrize("arch_id", [a for a in JAX_ARCH_IDS
-                                     if a != "falcon_mamba_7b"])
+                                     if a not in PORTED_ARCH_IDS])
 def test_get_of_unported_family_raises(arch_id):
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         get(arch_id)
