@@ -132,6 +132,21 @@ one JSON line:
      against forward (2e-3) at full width in float32 (qwen3-0.6b at 4
      layers, dbrx at 2, dropless), the seven ids' reduced configs on the
      card against the CPU (1e-4), and no kernel counter moved;
+  5d. the hybrid and enc-dec families (plain PyTorch, no kernel):
+     zamba2-7b (81 Mamba2 layers, the shared attention block every 6)
+     and seamless-m4t-large-v2 (24 + 24 layers) at full width and depth
+     (``HYBRID_SERVE``; bf16, random weights from a seed) each serve 8
+     requests of 2048 positions (seamless: 1024 frame embeddings for its
+     encoder and 1024 text tokens; zamba2's prefill KV copied into a
+     cache with room) and 32 greedy decode steps (seamless's from each
+     request's first token at position 0 against its encoder memory),
+     twice, with finite logits and the same tokens both times; then at
+     full width in float32: zamba2's prefill + decode against forward
+     at 7 layers (2e-3), seamless's teacher-forced decode against
+     ``decode_train`` at 2 + 2 layers (2e-3), zamba2's ring cache (a
+     64-token window, 96 steps at a card tensor position) against a
+     full cache past the wrap (2e-3); both reduced configs on the card
+     against the CPU (1e-4); and no kernel counter moved;
   6. the Mamba1 training path: falcon-mamba-7b at full width, cut to 16
      layers, bf16, AdamW with float32 moments, remat, 2 microbatches of
      2 x 4096 tokens: one warm-up step and 3 timed steps on the same
@@ -734,16 +749,28 @@ def check_fused_fold(torch, timer, ref, kfused, kblock, G: int, exact: bool,
                 hist_d2h_pinned_ms=d2h_ms)
 
 
+PROFILER_TRACES = 3      # traces of one call before an empty one stands
+
+
 def cuda_activities(torch, fn):
     """Names of the device activities (kernels, memsets, copies) that one
-    call of ``fn`` makes, from a ``torch.profiler`` trace."""
-    torch.cuda.synchronize()
+    call of ``fn`` makes, from a ``torch.profiler`` trace, and how many
+    traces that took. ``fn`` always launches (its caller checks the
+    result), so a trace with no device activity at all is a window the
+    profiler missed (seen on the H100 beside bitwise results): the call
+    is traced again, up to PROFILER_TRACES times; an empty list after
+    that stands and fails the caller."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+    for traces in range(1, PROFILER_TRACES + 1):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names, traces
 
 
 def hist_inputs(torch, G: int, exact: bool, rows: int, nbins: int,
@@ -797,7 +824,8 @@ def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
                                     a, b, num_groups=G, nbins=nbins)
     want_dev = ref.grouped_hist_ref(values, gids, mask, a, b, num_groups=G,
                                     nbins=nbins)
-    names = cuda_activities(torch, lambda: khist.grouped_hist(*args))
+    names, traces = cuda_activities(torch,
+                                    lambda: khist.grouped_hist(*args))
     bitwise = (_bits_equal(torch, got, again)
                and _bits_equal(torch, got, want_cpu)
                and _bits_equal(torch, got, want_dev))
@@ -815,6 +843,7 @@ def check_grouped_hist(torch, timer, ref, khist, G: int, exact: bool,
                 ok=bitwise and launches_ok, bitwise=bitwise,
                 launches_ok=launches_ok, regime=plan.regime if plan else None,
                 cuda_launches=len(names), cuda_activities=names,
+                profiler_traces=traces,
                 max_abs_err=_max_abs_diff(torch, got, want_cpu), ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -2343,16 +2372,19 @@ def prefill_once(torch, model, lm, tokens):
     return logits, cache, time.perf_counter() - t0
 
 
-def decode_steps(torch, model, lm, cache, tok, pos: int, steps: int):
+def decode_steps(torch, model, lm, cache, tok, pos: int, steps: int,
+                 extra=None):
     """``steps`` greedy decode steps from ``tok`` at position ``pos``, each
-    feeding back the argmax on the card (no host sync inside). Returns
+    feeding back the argmax on the card (no host sync inside); ``extra``
+    joins every step's inputs (the enc-dec's ``memory``). Returns
     (generated tokens (B, steps), every logit finite (a card tensor),
     cache, host seconds)."""
     out, finite = [], torch.ones((), dtype=torch.bool, device=tok.device)
     t0 = time.perf_counter()
     for i in range(steps):
         logits, cache = model.decode(lm, cache, {"token": tok,
-                                                 "pos": pos + i})
+                                                 "pos": pos + i,
+                                                 **(extra or {})})
         finite &= torch.isfinite(logits).all()
         tok = logits[:, -1].argmax(-1, keepdim=True)
         out.append(tok)
@@ -2377,14 +2409,17 @@ def serve_once(torch, model, lm, tokens, steps: int):
 def with_room(model, cache, max_len: int):
     """An attention family's prefill cache (KV of the prompt's length)
     copied into a cache of ``max_len`` slots, the room to decode into
-    (tests/test_models_smoke.py's splice); an ssm cache as it is."""
-    if "k" not in cache["layers"]:
+    (tests/test_models_smoke.py's splice): the dense families'
+    ``layers``, the hybrid's ``attn`` beside its Mamba2 states as they
+    are; an ssm cache as it is."""
+    key = "attn" if "attn" in cache else "layers"
+    if "k" not in cache[key]:
         return cache
-    k = cache["layers"]["k"]
+    k = cache[key]["k"]
     room = model.init_cache(k.shape[1], max_len, device=k.device)
     for name in ("k", "v"):
-        room["layers"][name][:, :, :k.shape[2]] = cache["layers"][name]
-    return room
+        room[key][name][:, :, :k.shape[2]] = cache[key][name]
+    return {**cache, key: room[key]}
 
 
 def check_prefill_decode(torch, np, model, lm, B: int, T: int, seed: int):
@@ -2411,20 +2446,36 @@ def check_prefill_decode(torch, np, model, lm, B: int, T: int, seed: int):
 
 def check_card_vs_cpu_model(torch, np, model, B: int, T: int, seed: int):
     """The same weights on the CPU and on the card: forward, prefill and
-    decode logits within 1e-4 of their largest magnitude."""
+    decode logits within 1e-4 of their largest magnitude. An LM prefills
+    T-1 tokens and decodes token T-1; the enc-dec encodes T frame
+    embeddings (N(0, 0.02)), prefills T tokens and decodes its first
+    token at position 0 against the memory."""
     lm_cpu = model.init(seed, device="cpu")
     lm_gpu = model.init(seed, device="cuda")
     lm_gpu.load_state_dict(lm_cpu.state_dict())
-    toks = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, model.cfg.vocab, (B, T)))
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (B, T)))
+    encdec = model.cfg.family == "encdec"
+    if encdec:
+        frames = torch.from_numpy(rng.normal(
+            0, 0.02, (B, T, model.cfg.d_model)).astype(np.float32))
     outs = []
     for lm, dev in ((lm_cpu, "cpu"), (lm_gpu, "cuda")):
         t = toks.to(dev)
-        with torch.inference_mode():
-            full, _ = model.forward(lm, {"tokens": t})
-        pre, cache = model.prefill(lm, {"tokens": t[:, :T - 1]})
-        dec, _ = model.decode(lm, with_room(model, cache, T),
-                              {"token": t[:, T - 1:], "pos": T - 1})
+        if encdec:
+            batch = {"tokens": t, "frame_embeds": frames.to(dev)}
+            with torch.inference_mode():
+                full, _ = model.forward(lm, batch)
+            pre, cache = model.prefill(lm, batch)
+            dec, _ = model.decode(lm, model.init_cache(B, 2, device=dev),
+                                  {"token": t[:, :1], "pos": 0,
+                                   "memory": cache["memory"]})
+        else:
+            with torch.inference_mode():
+                full, _ = model.forward(lm, {"tokens": t})
+            pre, cache = model.prefill(lm, {"tokens": t[:, :T - 1]})
+            dec, _ = model.decode(lm, with_room(model, cache, T),
+                                  {"token": t[:, T - 1:], "pos": T - 1})
         outs.append((full, pre, dec))
     rel = {name: float((g.cpu() - w).abs().max()) / float(w.abs().max())
            for name, g, w in zip(("forward", "prefill", "decode"), outs[1],
@@ -2667,49 +2718,64 @@ DENSE_IDS = ("qwen3_0_6b", "qwen2_5_3b", "stablelm_1_6b", "phi3_mini_3_8b",
              "pixtral_12b", "dbrx_132b", "arctic_480b")
 
 
-def dense_request_batch(torch, np, cfg):
+def request_batch(torch, np, cfg):
     """SERVE_BATCH requests of PROMPT_LEN positions for ``cfg``, as
     ``input_specs`` lays them out: text tokens from MODEL_SEED and, for
-    the vlm, the stubbed frontend's patch embeddings (N(0, 0.02), drawn on
-    the card) before them."""
+    the vlm and the enc-dec, the stubbed frontend's patch or frame
+    embeddings (N(0, 0.02), drawn on the card): the vlm's before its
+    tokens, the enc-dec's half the positions for its encoder."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.models import input_specs
     specs = input_specs(cfg, ShapeConfig("serve", PROMPT_LEN, SERVE_BATCH,
                                          "prefill"))
     batch = {"tokens": torch.from_numpy(np.random.default_rng(
         MODEL_SEED).integers(0, cfg.vocab, specs["tokens"].shape)).cuda()}
-    if "extra_embeds" in specs:
-        gen = torch.Generator(device="cuda").manual_seed(MODEL_SEED)
-        e = specs["extra_embeds"]
-        batch["extra_embeds"] = (torch.randn(
-            e.shape, generator=gen, device="cuda") * 0.02).to(e.dtype)
+    for name in ("extra_embeds", "frame_embeds"):
+        if name in specs:
+            gen = torch.Generator(device="cuda").manual_seed(MODEL_SEED)
+            e = specs[name]
+            batch[name] = (torch.randn(e.shape, generator=gen,
+                                       device="cuda") * 0.02).to(e.dtype)
     return batch
 
 
-def dense_serve_once(torch, model, lm, batch, steps: int):
-    """One prefill of ``batch``, its KV copied into a cache with room for
-    ``steps`` more, and ``steps`` greedy decode steps."""
+def serve_batch_once(torch, model, lm, batch, steps: int):
+    """One prefill of ``batch`` and ``steps`` greedy decode steps. An LM's
+    prefill KV is copied into a cache with room for ``steps`` more and
+    decoding goes on from the prompt's last logits; the enc-dec decodes
+    from each request's first text token at position 0 against
+    ``init_cache(B, steps + 1)`` and the prefill's encoder memory (its
+    prefill emits no self-attention cache)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = model.prefill(lm, batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    T = cache["layers"]["k"].shape[2]
-    cache = with_room(model, cache, T + steps)
-    tok = logits[:, -1].argmax(-1, keepdim=True)
-    gen, finite, _, decode_s = decode_steps(torch, model, lm, cache, tok, T,
-                                            steps)
+    if "memory" in cache:
+        tok = batch["tokens"][:, :1]
+        room = model.init_cache(tok.shape[0], steps + 1)
+        gen, finite, _, decode_s = decode_steps(
+            torch, model, lm, room, tok, 0, steps,
+            extra={"memory": cache["memory"]})
+        tokens = gen
+    else:
+        T = cache["attn" if "attn" in cache else "layers"]["k"].shape[2]
+        cache = with_room(model, cache, T + steps)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        gen, finite, _, decode_s = decode_steps(torch, model, lm, cache,
+                                                tok, T, steps)
+        tokens = torch.cat([tok, gen], dim=1)
     finite &= torch.isfinite(logits).all()
-    return dict(tokens=torch.cat([tok, gen], dim=1).cpu(),
-                finite=bool(finite), prefill_s=prefill_s, decode_s=decode_s,
+    return dict(tokens=tokens.cpu(), finite=bool(finite),
+                prefill_s=prefill_s, decode_s=decode_s,
                 prefill_peak_gib=prefill_peak_gib)
 
 
-def dense_serving_model(torch, np, arch_id: str, layers=None):
-    """A model of DENSE_SERVE at full width (``layers`` of them, or the
-    config's own), bf16, its weights initialised on the card from
-    MODEL_SEED, and its requests. Returns (model, lm, batch, init_s)."""
+def serving_model_of(torch, np, arch_id: str, layers=None):
+    """A model at full width (``layers`` of them, or the config's own),
+    bf16, its weights initialised on the card from MODEL_SEED, and its
+    requests. Returns (model, module, batch, init_s)."""
     from repro_torch.configs import get as get_config
     from repro_torch.models import build as build_model
     cfg = get_config(arch_id)
@@ -2720,36 +2786,60 @@ def dense_serving_model(torch, np, arch_id: str, layers=None):
     lm = model.init(MODEL_SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    return model, lm, dense_request_batch(torch, np, cfg), init_s
+    return model, lm, request_batch(torch, np, cfg), init_s
 
 
-def dense_serve_model(torch, np, arch_id: str, layers, cut):
-    """One model of DENSE_SERVE: two serving runs. Returns its record."""
+def _family_fields(cfg) -> dict:
+    """The config's shape fields of its family, for a serving record."""
+    if cfg.family == "hybrid":
+        period = cfg.hybrid_attn_period
+        return dict(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+                    ssm_heads=cfg.ssm_heads, ssm_chunk=cfg.ssm_chunk,
+                    attn_period=period, n_groups=cfg.n_layers // period,
+                    tail_layers=cfg.n_layers % period)
+    if cfg.family == "encdec":
+        return dict(enc_layers=cfg.enc_layers, vocab_padded=cfg.vocab_padded)
+    return dict(n_experts=cfg.n_experts, top_k=cfg.top_k)
+
+
+def serve_model_twice(torch, np, arch_id: str, layers=None, cut=None):
+    """One model at full width served twice (bf16). Returns its
+    record."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    model, lm, batch, init_s = dense_serving_model(torch, np, arch_id,
-                                                   layers)
+    model, lm, batch, init_s = serving_model_of(torch, np, arch_id, layers)
     cfg = model.cfg
     weights_gib = (torch.cuda.memory_allocated() - base) / 2**30
-    runs = [dense_serve_once(torch, model, lm, batch, DECODE_STEPS)
+    t0 = time.perf_counter()
+    runs = [serve_batch_once(torch, model, lm, batch, DECODE_STEPS)
             for _ in range(2)]
+    serve_s = time.perf_counter() - t0
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     front = batch["extra_embeds"].shape[1] if "extra_embeds" in batch else 0
-    reduced = {"prefill_32k": "32 x 32768 -> 8 x 2048 positions",
-               "decode_32k": "batch 128 after a 32K context -> batch 8 "
-                             "after 2048 positions"}
+    if cfg.family == "encdec":
+        reduced = {"prefill_32k": "32 x 32768 -> 8 x 2048 positions (1024 "
+                                  "frame embeddings + 1024 tokens)",
+                   "decode_32k": "batch 128 against a 4096-frame memory "
+                                 "-> batch 8 against the prefill's "
+                                 "1024-frame memory, from position 0"}
+    else:
+        reduced = {"prefill_32k": "32 x 32768 -> 8 x 2048 positions",
+                   "decode_32k": "batch 128 after a 32K context -> batch 8 "
+                                 "after 2048 positions"}
     if cut:
         reduced["n_layers"] = cut
     record = dict(
         model=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
-        n_experts=cfg.n_experts, top_k=cfg.top_k,
-        param_dtype=cfg.param_dtype,
+        **_family_fields(cfg), param_dtype=cfg.param_dtype,
         params=sum(p.numel() for p in lm.parameters()), init_s=init_s,
         requests=SERVE_BATCH, prompt_positions=PROMPT_LEN,
-        frontend_positions=front, decode_steps=DECODE_STEPS,
+        frontend_positions=front,
+        frame_positions=(batch["frame_embeds"].shape[1]
+                         if "frame_embeds" in batch else 0),
+        decode_steps=DECODE_STEPS,
         runs=[dict(prefill_s=r["prefill_s"],
                    prefill_tokens_per_s=SERVE_BATCH * PROMPT_LEN
                    / r["prefill_s"],
@@ -2760,7 +2850,8 @@ def dense_serve_model(torch, np, arch_id: str, layers, cut):
                                            - base / 2**30),
                    finite=r["finite"]) for r in runs],
         tokens_repeat=torch.equal(runs[0]["tokens"], runs[1]["tokens"]),
-        weights_gib=weights_gib, peak_device_gib=peak_gib, reduced=reduced)
+        weights_gib=weights_gib, peak_device_gib=peak_gib, serve_s=serve_s,
+        reduced=reduced)
     record["ok"] = record["tokens_repeat"] and all(r["finite"]
                                                    for r in runs)
     del lm, model, batch
@@ -2779,7 +2870,7 @@ def dense_serve_phase(torch, np, counters):
     from repro_torch.models import build as build_model
     for c in counters.values():
         c.launches = 0
-    served = [dense_serve_model(torch, np, *m) for m in DENSE_SERVE]
+    served = [serve_model_twice(torch, np, *m) for m in DENSE_SERVE]
     consistency = []
     for arch_id, layers, B, T, cf in DENSE_CONSISTENCY:
         cfg = dataclasses.replace(get_config(arch_id), n_layers=layers,
@@ -2805,6 +2896,140 @@ def dense_serve_phase(torch, np, counters):
     ok = (all(r["ok"] for r in served + consistency + card_vs_cpu)
           and not stray)
     return dict(served=served, prefill_decode_vs_forward=consistency,
+                card_vs_cpu=card_vs_cpu, launches=launches, ok=ok), launches
+
+
+# -- phase 5d ----------------------------------------------------------------
+
+# The hybrid and enc-dec families' serving path (plain PyTorch, no kernel),
+# both at full width and depth: zamba2-7b (81 Mamba2 layers, the shared
+# attention block every 6) and seamless-m4t-large-v2 (24 + 24 layers).
+HYBRID_SERVE = ("zamba2_7b", "seamless_m4t_large_v2")
+# prefill + decode against forward in float32: zamba2 at 7 layers (one
+# group and one tail), B 2, T 256 (T 257 would break the ssm chunk of 256
+# in forward); seamless at 2 + 2 layers, teacher-forced decode steps
+# against decode_train at B 2, T 64
+HYBRID_CONSISTENCY = dict(layers=7, B=2, T=256)
+ENCDEC_CONSISTENCY = dict(enc_layers=2, layers=2, B=2, T=64)
+# the hybrid's ring cache past its wrap: zamba2 at full width, 7 layers,
+# float32, a 64-token window (a test setting; the config's is 4096) and
+# 96 decode steps through init_cache(2, 100_000), i.e. 64 slots
+RING_WINDOW = 64
+RING_STEPS = 96
+
+
+def _within(got, want, tol: float = 2e-3) -> bool:
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def check_teacher_forced(torch, np, model, lm, B: int, T: int, seed: int):
+    """tests/test_models_smoke.py's seamless contract on the card: T
+    tokens teacher-forced through decode steps against the encoder's
+    memory of T frame embeddings give ``decode_train``'s logits at every
+    position, ``|a - b| <= 2e-3 + 2e-3 |b|``."""
+    from repro_torch.models import encdec
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T))).cuda()
+    frames = torch.from_numpy(rng.normal(0, 0.02, (B, T, cfg.d_model))
+                              .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        memory = encdec.encode(lm, cfg, frames)
+        full = encdec.decode_train(lm, cfg, toks, memory)
+    cache, steps = model.init_cache(B, T), []
+    for t in range(T):
+        logits, cache = model.decode(lm, cache, {
+            "token": toks[:, t:t + 1], "pos": t, "memory": memory})
+        steps.append(logits[:, 0])
+    steps = torch.stack(steps, dim=1)
+    return dict(B=B, T=T, enc_layers=cfg.enc_layers, n_layers=cfg.n_layers,
+                d_model=cfg.d_model, param_dtype=cfg.param_dtype,
+                max_abs_err=float((steps - full).abs().max()),
+                ok=_within(steps, full))
+
+
+def check_ring(torch, np, model, lm, B: int, steps: int, window: int,
+               seed: int):
+    """The hybrid's ring cache on the card: ``steps`` teacher-forced
+    decode steps (seeded tokens) through ``init_cache(B, 100_000)`` (``window``
+    slots) at a 0-d card tensor position against the same steps through
+    a cache of ``steps`` slots at int positions, both with the window:
+    equal within 2e-3 at every step, past the wrap included."""
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab, (B, steps))).cuda()
+
+    def run(max_len, tensor_pos):
+        cache, out = model.init_cache(B, max_len), []
+        for t in range(steps):
+            pos = (torch.tensor(t, dtype=torch.int32, device="cuda")
+                   if tensor_pos else t)
+            logits, cache = model.decode(lm, cache, {
+                "token": toks[:, t:t + 1], "pos": pos}, window=window)
+            out.append(logits[:, 0])
+        return torch.stack(out, dim=1), cache["attn"]["k"].shape[2]
+    ring, slots = run(100_000, True)
+    full, full_slots = run(steps, False)
+    err = (ring - full).abs().amax(dim=(0, 2))
+    return dict(B=B, steps=steps, window=window, ring_slots=slots,
+                full_slots=full_slots, n_layers=model.cfg.n_layers,
+                d_model=model.cfg.d_model,
+                max_abs_err_below_wrap=float(err[:slots].max()),
+                max_abs_err_past_wrap=float(err[slots:].max()),
+                ok=slots == window and _within(ring, full))
+
+
+def hybrid_serve_phase(torch, np, counters):
+    """Phase 5d: the hybrid and enc-dec families. HYBRID_SERVE's models
+    served twice at full width and depth (bf16), then in float32 at full
+    width: zamba2's prefill + decode against forward, seamless's
+    teacher-forced decode against ``decode_train``, zamba2's ring cache
+    past its wrap against a full cache; then both reduced float32
+    configs on the card against the CPU. These families run plain
+    PyTorch: no kernel counter may move. Returns (record, launches)."""
+    from repro_torch.configs import get as get_config
+    from repro_torch.models import build as build_model
+    for c in counters.values():
+        c.launches = 0
+    served = [serve_model_twice(torch, np, arch_id)
+              for arch_id in HYBRID_SERVE]
+
+    def f32(arch_id, **kw):
+        cfg = dataclasses.replace(get_config(arch_id), param_dtype="float32",
+                                  compute_dtype="float32", **kw)
+        model = build_model(cfg)
+        return model, model.init(MODEL_SEED)
+    hc = HYBRID_CONSISTENCY
+    model, lm = f32("zamba2_7b", n_layers=hc["layers"])
+    consistency = [dict(model="zamba2_7b", **check_prefill_decode(
+        torch, np, model, lm, B=hc["B"], T=hc["T"], seed=1))]
+    del model, lm
+    ec = ENCDEC_CONSISTENCY
+    model, lm = f32("seamless_m4t_large_v2", enc_layers=ec["enc_layers"],
+                    n_layers=ec["layers"])
+    consistency.append(dict(model="seamless_m4t_large_v2",
+                            **check_teacher_forced(torch, np, model, lm,
+                                                   B=ec["B"], T=ec["T"],
+                                                   seed=1)))
+    del model, lm
+    model, lm = f32("zamba2_7b", n_layers=hc["layers"],
+                    sliding_window=RING_WINDOW)
+    ring = dict(model="zamba2_7b", reduced={
+        "n_layers": "81 -> 7", "sliding_window": "4096 -> 64 (a test "
+        "setting: the wrap after 64 steps)"},
+        **check_ring(torch, np, model, lm, B=2, steps=RING_STEPS,
+                     window=RING_WINDOW, seed=3))
+    del model, lm
+    torch.cuda.empty_cache()
+    card_vs_cpu = [dict(model=arch_id, **check_card_vs_cpu_model(
+        torch, np, build_model(dataclasses.replace(
+            get_config(arch_id, reduced=True), param_dtype="float32",
+            compute_dtype="float32")), B=2, T=32, seed=2))
+        for arch_id in HYBRID_SERVE]
+    launches = {k: c.launches for k, c in counters.items()}
+    stray = [k for k, v in launches.items() if v]
+    ok = (all(r["ok"] for r in served + consistency + card_vs_cpu)
+          and ring["ok"] and not stray)
+    return dict(served=served, consistency=consistency, ring=ring,
                 card_vs_cpu=card_vs_cpu, launches=launches, ok=ok), launches
 
 
@@ -3311,6 +3536,17 @@ def main(argv=None) -> int:
               total_s=time.perf_counter() - t_start))
     if not dense["ok"]:
         raise AssertionError(f"the dense serving path failed: {dense}")
+
+    # ---- 5d. the hybrid and enc-dec families' serving path ----------------
+    t0 = time.perf_counter()
+    hybrid, launches = hybrid_serve_phase(torch, np, counters)
+    path_launches["hybrid_serve"] = launches
+    emit(dict(phase="hybrid_serve", card=name, power_limit=power_limit,
+              **hybrid, phase_s=time.perf_counter() - t0,
+              total_s=time.perf_counter() - t_start))
+    if not hybrid["ok"]:
+        raise AssertionError(f"the hybrid / enc-dec serving path failed: "
+                             f"{hybrid}")
 
     # ---- 6. the Mamba1 training path ----------------------------------------
     train, launches = train_phase(torch, np, counters)

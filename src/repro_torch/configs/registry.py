@@ -1,11 +1,8 @@
 """Arch registry: ``get("<id>")`` returns the full assigned config,
 ``get("<id>", reduced=True)`` a smoke-test-sized config of the same family.
 
-The port of :mod:`repro.configs.registry`. It knows every id and alias of
-the reference, but only the architectures whose family the port runs have
-a config module here (:data:`PORTED_ARCH_IDS`: the ssm, dense, vlm and
-moe families); ``get`` of another (the hybrid zamba2, the enc-dec
-seamless) raises ``NotImplementedError``.
+The port of :mod:`repro.configs.registry`: every id and alias of the
+reference, each with its config module here.
 """
 
 from __future__ import annotations
@@ -29,18 +26,9 @@ ARCH_IDS = (
     "falcon_mamba_7b",
 )
 
-# the ssm (Mamba1), dense, vlm and moe families are ported; the hybrid
-# (Mamba2) and enc-dec come with ROADMAP queue 1 item 14
-PORTED_ARCH_IDS = (
-    "stablelm_1_6b",
-    "qwen2_5_3b",
-    "phi3_mini_3_8b",
-    "qwen3_0_6b",
-    "dbrx_132b",
-    "arctic_480b",
-    "pixtral_12b",
-    "falcon_mamba_7b",
-)
+# every family is ported: the ssm (Mamba1), dense, vlm, moe, hybrid
+# (Mamba2) and enc-dec
+PORTED_ARCH_IDS = ARCH_IDS
 
 # accept dashed ids from the assignment table too
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -62,21 +50,13 @@ def get(arch_id: str, reduced: bool = False) -> ArchConfig:
     key = _ALIASES.get(arch_id, arch_id)
     if key not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ALIASES)}")
-    if key not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {key!r} is not ported yet: the port runs "
-            f"{list(PORTED_ARCH_IDS)}; the other families come with ROADMAP "
-            "queue 1 item 14")
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     cfg: ArchConfig = mod.CONFIG
     return reduce_config(cfg) if reduced else cfg
 
 
 def all_configs(reduced: bool = False) -> Dict[str, ArchConfig]:
-    """Every ported config by id, in :data:`ARCH_IDS`' order. The
-    reference's returns all ten ids; the hybrid (zamba2) and the enc-dec
-    (seamless) join here as their families are ported."""
-    return {i: get(i, reduced) for i in ARCH_IDS if i in PORTED_ARCH_IDS}
+    return {i: get(i, reduced) for i in ARCH_IDS}
 
 
 def reduce_config(cfg: ArchConfig) -> ArchConfig:

@@ -18,7 +18,8 @@ tensor on the cache's device, read without a host sync. The reference's
 ``dynamic_update_slice`` clamps a ``pos`` past the cache's end and
 overwrites the last slot; the port raises ``ValueError`` for an int
 ``pos`` out of range and clamps a tensor ``pos`` as the reference does
-(a check would cost a sync).
+(a check would cost a sync). The hybrid's cache is a ring
+(``decode_attention(..., ring=True)``): every ``pos`` has its slot.
 """
 
 from __future__ import annotations
@@ -149,8 +150,8 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     cache."""
     B, T, _ = x.shape
     q = _project_q(p, cfg, x)
-    chunked = bool(memory is None and cfg.attn_chunk
-                   and T > cfg.attn_chunk and T % cfg.attn_chunk == 0)
+    chunked = (memory is None and cfg.attn_chunk != 0
+               and T > cfg.attn_chunk and T % cfg.attn_chunk == 0)
     if memory is None:
         k, v = _project_kv(p, cfg, x)
         q = rope_apply(q, positions, cfg.rope_theta)
@@ -220,21 +221,32 @@ def positions_of(pos: Union[int, torch.Tensor], B: int,
 
 
 def decode_attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
-                     cache: Dict, pos, *, window: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, Dict]:
+                     cache: Dict, pos, *, window: Optional[int] = None,
+                     ring: bool = False) -> Tuple[torch.Tensor, Dict]:
     """One-token step. x: (B, 1, d); pos: int or 0-d int tensor, the
-    current index; cache k/v: (B, S, K, hd). Returns (out, new cache)."""
+    current index; cache k/v: (B, S, K, hd). Returns (out, new cache).
+
+    ``ring=True`` (the hybrid's cache): the S slots are a ring. Position
+    ``pos`` goes to slot ``pos % S`` with its RoPE at ``pos``; slot ``j``
+    then holds the key of position ``pos - (pos - j) mod S``, attended
+    where that position is >= 0 and inside the window. Below the wrap
+    (``pos < S``) this is the plain cache's step."""
     B = x.shape[0]
     S = cache["k"].shape[1]
     posb = positions_of(pos, B, x.device)
     q = rope_apply(_project_q(p, cfg, x), posb, cfg.rope_theta)
     k_new, v_new = _project_kv(p, cfg, x)
     k_new = rope_apply(k_new, posb, cfg.rope_theta)
-    k_cache = write_slot(cache["k"], k_new, pos)
-    v_cache = write_slot(cache["v"], v_new, pos)
+    slot = pos % S if ring else pos
+    k_cache = write_slot(cache["k"], k_new, slot)
+    v_cache = write_slot(cache["v"], v_new, slot)
     kpos = torch.arange(S, dtype=torch.int32, device=x.device).view(
         1, 1, 1, S)
-    mask = kpos <= pos
+    if ring:
+        kpos = pos - torch.remainder(pos - kpos, S)
+        mask = kpos >= 0
+    else:
+        mask = kpos <= pos
     if window is not None:
         mask = mask & (kpos > pos - window)
     out = _sdpa(q, _repeat_kv(cfg, k_cache), _repeat_kv(cfg, v_cache), mask,

@@ -7,9 +7,11 @@ the tests can run both packages on the same weights. Imports nothing of
 JAX: the caller hands over numpy arrays.
 
 Layouts need no change: the port keeps the reference's ``(in, out)``
-weights (:mod:`repro_torch.models.layers`). Stacked layers, which carry a
-leading ``n_layers`` axis under ``"layers"``, split into the
-``ModuleList``'s entries (``layers.<i>.…``). Each leaf keeps its dtype:
+weights (:mod:`repro_torch.models.layers`). Stacked layers, which carry
+leading layer axes, split into the ``ModuleList``'s entries:
+``layers.<i>.…`` (``(n_layers,)``), the hybrid's ``layers.<g>.<i>.…``
+(``(n_groups, period)``) and ``tail_layers.<i>.…``, the enc-dec's
+``enc_layers.<i>.…`` and ``dec_layers.<i>.…``. Each leaf keeps its dtype:
 a bfloat16 array (numpy's ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects) travels as its 16-bit pattern.
 
@@ -20,13 +22,15 @@ step from the same state can run in both packages.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import itertools
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.lm import hybrid_layout
 from repro_torch.train.optimizer import leaf_shape, leaves, moment_shape
 
 
@@ -48,24 +52,42 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield name, v
 
 
+def _stacked_axes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """The leading axes of each stacked subtree of the reference's tree:
+    ``layers`` ``(n_layers,)``; the hybrid's ``layers`` ``(n_groups,
+    period)`` and ``tail_layers`` ``(tail,)``; the enc-dec's
+    ``enc_layers`` ``(enc_layers,)`` and ``dec_layers`` ``(n_layers,)``."""
+    if cfg.family == "hybrid":
+        period, n_groups, tail = hybrid_layout(cfg)
+        return {"layers": (n_groups, period), "tail_layers": (tail,)}
+    if cfg.family == "encdec":
+        return {"enc_layers": (cfg.enc_layers,),
+                "dec_layers": (cfg.n_layers,)}
+    return {"layers": (cfg.n_layers,)}
+
+
 def params_from_jax(params: Mapping, cfg: ArchConfig
                     ) -> Dict[str, torch.Tensor]:
     """State dict for :class:`repro_torch.models.lm.LM` (from the
-    reference's ``lm_init`` tree) or for
-    :class:`repro_torch.models.ssm.Mamba1Block` (from ``mamba1_init``'s
-    dict): load it with ``module.load_state_dict(...)``."""
+    reference's ``lm_init`` tree), :class:`repro_torch.models.encdec.
+    EncDec` (``encdec_init``) or a single block (e.g.
+    :class:`repro_torch.models.ssm.Mamba1Block` from ``mamba1_init``'s
+    dict): load it with ``module.load_state_dict(...)``. A stacked leaf
+    whose leading axes are not the config's raises ``ValueError``."""
+    stacks = _stacked_axes(cfg)
     out: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(params):
         t = _to_torch(leaf)
-        if name.startswith("layers."):
-            if t.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: leading axis {t.shape[0]} is not "
-                                 f"n_layers={cfg.n_layers}")
-            rest = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                out[f"layers.{i}.{rest}"] = t[i].clone()
-        else:
+        top, _, rest = name.partition(".")
+        lead = stacks.get(top) if rest else None
+        if lead is None:
             out[name] = t
+            continue
+        if tuple(t.shape[:len(lead)]) != lead:
+            raise ValueError(f"{name}: leading axes {tuple(t.shape)} are not "
+                             f"the config's {top} {lead}")
+        for idx in itertools.product(*map(range, lead)):
+            out[".".join([top, *map(str, idx), rest])] = t[idx].clone()
     return out
 
 

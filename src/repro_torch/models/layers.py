@@ -1,5 +1,5 @@
-"""Shared neural layers: dtypes, the fan-in init, the norms, RoPE and the
-MLPs.
+"""Shared neural layers: dtypes, the fan-in init, the norms, RoPE, the
+MLPs, the float32 output head and per-layer remat.
 
 The port of :mod:`repro.models.layers`. Weights are ``nn.Parameter``s
 kept in the reference's ``(in, out)`` layout, so a layer computes
@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -151,3 +152,48 @@ def mlp_apply(p: MLP, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = gelu(x @ p.w_up)
     return h @ p.w_down
+
+
+# -- output head and remat ---------------------------------------------------
+
+
+def _head_f32(owner: nn.Module, head: torch.Tensor) -> torch.Tensor:
+    """``head`` in float32. Where no gradient is wanted the copy is kept
+    on ``owner`` and made again only when the head's storage or version
+    changes (``load_state_dict``, ``.to``): the head of falcon-mamba-7b
+    or seamless-m4t is 1 GiB in float32, too much to convert every decode
+    step."""
+    if head.dtype == torch.float32 or (torch.is_grad_enabled()
+                                       and head.requires_grad):
+        return head.to(torch.float32)
+    key = (head.device, head.data_ptr(), head._version)
+    if getattr(owner, "_head_key", None) != key:
+        # a normal tensor even under inference_mode, so that a later
+        # forward outside it may use the copy
+        with torch.inference_mode(False), torch.no_grad():
+            owner._head_f32 = head.to(torch.float32)
+        owner._head_key = key
+    return owner._head_f32
+
+
+def output_logits(owner: nn.Module, final_ln: Norm, head: torch.Tensor,
+                  h: torch.Tensor, kind: str) -> torch.Tensor:
+    """``final_ln(h) @ head`` from float32 operands: the reference takes
+    this contraction from bf16 operands straight to float32
+    (``preferred_element_type``), with no bf16 rounding of the result.
+    ``owner`` keeps the head's float32 copy."""
+    h = norm_apply(final_ln, h, kind)
+    return h.to(torch.float32) @ _head_f32(owner, head)
+
+
+def remat(fn):
+    """``fn`` rematerialised where a gradient is wanted: the reference's
+    ``jax.checkpoint`` with the ``"nothing"`` policy. A call keeps only
+    its inputs and runs again in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); outside autograd it is
+    ``fn``. ``fn`` takes modules, the config and tensors or constants."""
+    def layer(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return layer

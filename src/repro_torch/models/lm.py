@@ -1,30 +1,44 @@
 """Unified decoder-only LM: the ``ssm`` (falcon-mamba), ``dense``,
-``vlm`` (pixtral) and ``moe`` (dbrx, arctic) families.
+``vlm`` (pixtral), ``moe`` (dbrx, arctic) and ``hybrid`` (zamba2)
+families.
 
-The port of :mod:`repro.models.lm`, its ``ssm`` branches and its dense
-``else`` branches. The reference scans one layer body over stacked
-parameters; here the layers are an ``nn.ModuleList`` walked in order:
-a pre-norm residual Mamba1 block (:class:`SSMLayer`) or a pre-norm
-attention block followed by an MLP or an MoE (:class:`DenseLayer`). The
-vlm family is the dense decoder behind a stubbed frontend: its patch
-embeddings come in as ``extra_embeds`` and are prepended. The hybrid
-(zamba2) and enc-dec families are not ported yet and raise
-``NotImplementedError`` (ROADMAP queue 1 item 14).
+The port of :mod:`repro.models.lm`. The reference scans one layer body
+over stacked parameters; here the layers are an ``nn.ModuleList`` walked
+in order: a pre-norm residual Mamba1 or Mamba2 block (:class:`SSMLayer`)
+or a pre-norm attention block followed by an MLP or an MoE
+(:class:`DenseLayer`). The vlm family is the dense decoder behind a
+stubbed frontend: its patch embeddings come in as ``extra_embeds`` and
+are prepended.
 
-Caches keep the reference's structure, stacked on a leading layer axis:
+The hybrid (zamba2): ``n_groups = n_layers // period`` groups, each the
+shared attention block (:class:`SharedBlock`) on ``concat(hidden,
+embeddings)`` and then ``period`` Mamba2 layers, plus ``n_layers %
+period`` trailing Mamba2 layers (``tail_layers``). The shared block's
+weights are shared across its calls; its KV caches are one a group.
+
+Caches keep the reference's structure, stacked on leading layer axes:
 ``{"layers": {"conv": (n_layers, B, K-1, din), "h": (n_layers, B, din,
-n)}}`` for the ssm family, ``{"layers": {"k", "v"}}`` of shape
+n)}}`` for the ssm family; ``{"layers": {"k", "v"}}`` of shape
 ``(n_layers, B, S, K, hd)`` (post-RoPE, before the GQA repeat) for the
-others. Each call returns a new cache and leaves its input as it was.
+dense ones; for the hybrid ``{"attn": {"k", "v"}: (n_groups, B, S, K,
+hd), "mamba": {...}: (n_groups, period, B, ...), "tail": {...}: (tail,
+B, ...)}``. Each call returns a new cache and leaves its input as it was.
+
+The hybrid's attention cache is a ring (:func:`lm_init_cache` gives it
+``min(max_len, sliding_window)`` slots from 100,000 positions on):
+position ``pos`` goes to slot ``pos % S`` with its RoPE at ``pos``, and a
+step attends to every filled slot whose key lies in ``(pos - window,
+pos]``. The reference passes ``pos % S`` itself as the position once it
+wraps (RoPE at the wrong position, and the previous lap's keys masked
+out); the port does not copy that.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm
@@ -32,20 +46,10 @@ from repro_torch.models.attention import (attention, attn_init,
                                           decode_attention, init_cache)
 from repro_torch.models.layers import (compute_dtype, dense_init, mlp_apply,
                                        mlp_init, norm_apply, norm_init,
-                                       param_dtype)
+                                       output_logits, param_dtype, remat)
 from repro_torch.models.moe import moe_apply, moe_init
 
 _F32 = torch.float32
-PORTED_FAMILIES = ("ssm", "dense", "vlm", "moe")
-
-
-def require_ported(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg``'s family is one the port runs."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            f"runs the {', '.join(PORTED_FAMILIES)} families; the hybrid "
-            "and enc-dec come with ROADMAP queue 1 item 14")
 
 
 # -- modules ------------------------------------------------------------------
@@ -53,13 +57,15 @@ def require_ported(cfg: ArchConfig) -> None:
 
 class SSMLayer(nn.Module):
     """One residual layer: ``h + mamba(norm(h))`` (the reference's
-    per-layer dict ``{"ln", "mamba"}``)."""
+    per-layer dict ``{"ln", "mamba"}``); the mixer is Mamba1 for the ssm
+    family, Mamba2 for the hybrid."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  device=None):
         super().__init__()
         self.ln = norm_init(cfg, device=device)
-        self.mamba = ssm.mamba1_init(cfg, generator, device)
+        init = ssm.mamba1_init if cfg.family == "ssm" else ssm.mamba2_init
+        self.mamba = init(cfg, generator, device)
 
 
 class DenseLayer(nn.Module):
@@ -79,24 +85,63 @@ class DenseLayer(nn.Module):
             self.mlp = mlp_init(cfg, generator, device)
 
 
-class LM(nn.Module):
-    """The LM's parameters: ``embed`` (vocab_padded, d), ``layers``,
-    ``final_ln`` and, unless embeddings are tied, ``lm_head`` (d,
-    vocab_padded). Built by :func:`lm_init`; run by :func:`lm_forward`,
-    :func:`lm_prefill` and :func:`lm_decode_step`."""
+class SharedBlock(nn.Module):
+    """The hybrid's shared attention block (the reference's
+    ``_shared_block_init``): ``in_proj`` (2d, d) from ``concat(hidden,
+    embeddings)``, then ``ln1``, ``attn``, ``ln2`` and ``mlp``."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator,
                  device=None):
         super().__init__()
-        require_ported(cfg)
+        d = cfg.d_model
+        self.in_proj = dense_init((2 * d, d), param_dtype(cfg), generator,
+                                  device=device)
+        self.ln1 = norm_init(cfg, device=device)
+        self.ln2 = norm_init(cfg, device=device)
+        self.attn = attn_init(cfg, generator, device)
+        self.mlp = mlp_init(cfg, generator, device)
+
+
+def hybrid_layout(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(period, n_groups, tail) of the hybrid's layers."""
+    period = cfg.hybrid_attn_period
+    n_groups = cfg.n_layers // period
+    return period, n_groups, cfg.n_layers - n_groups * period
+
+
+class LM(nn.Module):
+    """The LM's parameters: ``embed`` (vocab_padded, d), ``layers``,
+    ``final_ln`` and, unless embeddings are tied, ``lm_head`` (d,
+    vocab_padded); for the hybrid ``layers`` holds ``n_groups`` groups of
+    ``period`` layers, beside ``tail_layers`` (when the period does not
+    divide the depth) and ``shared``. Built by :func:`lm_init`; run by
+    :func:`lm_forward`, :func:`lm_prefill` and :func:`lm_decode_step`."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        if cfg.family == "encdec":
+            raise ValueError("the enc-dec family is an EncDec "
+                             "(repro_torch.models.encdec), not an LM")
         dt = param_dtype(cfg)
-        # draw order: embed, layers, head (each from the one generator)
+        # draw order: embed, layers, shared, head (from the one generator)
         self.embed = dense_init((cfg.vocab_padded, cfg.d_model), dt,
                                 generator, device=device)
         self.final_ln = norm_init(cfg, device=device)
-        layer = SSMLayer if cfg.family == "ssm" else DenseLayer
-        self.layers = nn.ModuleList(layer(cfg, generator, device)
-                                    for _ in range(cfg.n_layers))
+
+        def stack(layer, n):
+            return nn.ModuleList(layer(cfg, generator, device)
+                                 for _ in range(n))
+        if cfg.family == "hybrid":
+            period, n_groups, tail = hybrid_layout(cfg)
+            self.layers = nn.ModuleList(stack(SSMLayer, period)
+                                        for _ in range(n_groups))
+            if tail:
+                self.tail_layers = stack(SSMLayer, tail)
+            self.shared = SharedBlock(cfg, generator, device)
+        else:
+            self.layers = stack(SSMLayer if cfg.family == "ssm"
+                                else DenseLayer, cfg.n_layers)
         if not cfg.tie_embeddings:
             self.lm_head = dense_init((cfg.d_model, cfg.vocab_padded), dt,
                                       generator, device=device)
@@ -106,31 +151,9 @@ def lm_init(cfg: ArchConfig, generator: torch.Generator, device=None) -> LM:
     return LM(cfg, generator, device)
 
 
-def _head_f32(params: LM, cfg: ArchConfig) -> torch.Tensor:
-    """The output head in float32. Where no gradient is wanted the copy is
-    kept on the module and made again only when the head's storage or
-    version changes (``load_state_dict``, ``.to``): the head of
-    falcon-mamba-7b is 1 GiB in float32, too much to convert every decode
-    step."""
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    if head.dtype == _F32 or (torch.is_grad_enabled() and head.requires_grad):
-        return head.to(_F32)
-    key = (head.device, head.data_ptr(), head._version)
-    if getattr(params, "_head_key", None) != key:
-        # a normal tensor even under inference_mode, so that a later
-        # forward outside it may use the copy
-        with torch.inference_mode(False), torch.no_grad():
-            params._head_f32 = head.to(_F32)
-        params._head_key = key
-    return params._head_f32
-
-
 def _logits(params: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """``final_ln(h) @ head`` from float32 operands: the reference takes
-    this contraction from bf16 operands straight to float32
-    (``preferred_element_type``), with no bf16 rounding of the result."""
-    h = norm_apply(params.final_ln, h, cfg.norm)
-    return h.to(_F32) @ _head_f32(params, cfg)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return output_logits(params, params.final_ln, head, h, cfg.norm)
 
 
 def _embed(params: LM, cfg: ArchConfig, tokens, extra_embeds):
@@ -139,6 +162,19 @@ def _embed(params: LM, cfg: ArchConfig, tokens, extra_embeds):
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(cdt), h], dim=1)
     return h
+
+
+def _tail_layers(params: LM) -> nn.ModuleList:
+    return getattr(params, "tail_layers", nn.ModuleList())
+
+
+def _stack(caches: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Per-layer cache dicts stacked on a new leading axis."""
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _index(cache: Dict[str, torch.Tensor], *i) -> Dict[str, torch.Tensor]:
+    return {k: v[i] for k, v in cache.items()}
 
 
 # -- forward (train / prefill) ------------------------------------------------
@@ -150,12 +186,21 @@ def lm_forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T_text) int; extra_embeds: (B, T_front, d) for
     vlm/audio stubs (prepended). Returns (logits f32, aux_loss)."""
-    require_ported(cfg)
     h = _embed(params, cfg, tokens, extra_embeds)
     aux = torch.zeros((), dtype=_F32, device=h.device)
     if cfg.family == "ssm":
         layer = _maybe_remat(cfg, _ssm_layer)
         for lp in params.layers:
+            h = layer(lp, cfg, h)
+    elif cfg.family == "hybrid":
+        positions, emb0 = _positions(h), h
+        shared = _maybe_remat(cfg, _shared_block)
+        layer = _maybe_remat(cfg, _ssm_layer)
+        for group in params.layers:
+            h = shared(params.shared, cfg, h, emb0, positions, window)
+            for lp in group:
+                h = layer(lp, cfg, h)
+        for lp in _tail_layers(params):
             h = layer(lp, cfg, h)
     else:
         positions = _positions(h)
@@ -172,9 +217,13 @@ def _positions(h: torch.Tensor) -> torch.Tensor:
         B, T)
 
 
+def _ssm_apply(cfg: ArchConfig):
+    return ssm.mamba1_apply if cfg.family == "ssm" else ssm.mamba2_apply
+
+
 def _ssm_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor
                ) -> torch.Tensor:
-    return h + ssm.mamba1_apply(lp.mamba, cfg, norm_apply(lp.ln, h, cfg.norm))
+    return h + _ssm_apply(cfg)(lp.mamba, cfg, norm_apply(lp.ln, h, cfg.norm))
 
 
 def _mix(lp: DenseLayer, cfg: ArchConfig, h: torch.Tensor):
@@ -194,13 +243,32 @@ def _dense_layer(lp: DenseLayer, cfg: ArchConfig, h: torch.Tensor,
     return h + m, aux
 
 
+def _shared_in(sp: SharedBlock, h: torch.Tensor, emb: torch.Tensor):
+    return torch.cat([h, emb], dim=-1) @ sp.in_proj
+
+
+def _shared_out(sp: SharedBlock, cfg: ArchConfig, h: torch.Tensor,
+                u: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The shared block after its attention: ``h + u'`` where ``u' = u +
+    a`` plus the MLP of ``ln2(u')``."""
+    u = u + a
+    u = u + mlp_apply(sp.mlp, cfg, norm_apply(sp.ln2, u, cfg.norm))
+    return h + u
+
+
+def _shared_block(sp: SharedBlock, cfg: ArchConfig, h: torch.Tensor,
+                  emb: torch.Tensor, positions: torch.Tensor,
+                  window: Optional[int]) -> torch.Tensor:
+    u = _shared_in(sp, h, emb)
+    a = attention(sp.attn, cfg, norm_apply(sp.ln1, u, cfg.norm), positions,
+                  causal=True, window=window)
+    return _shared_out(sp, cfg, h, u, a)
+
+
 def _maybe_remat(cfg: ArchConfig, fn):
-    """Per-layer rematerialisation, the reference's ``jax.checkpoint`` with
-    the ``"nothing"`` policy: where a gradient is wanted, a layer keeps
-    only its inputs and runs again in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant; the Mamba1 scan kernel
-    then runs twice a layer per step). ``fn`` takes the layer, the config
-    and tensors or constants. The ``"dots"`` policy (keep the matmul
+    """Per-layer rematerialisation with the ``"nothing"`` policy
+    (:func:`repro_torch.models.layers.remat`; the Mamba1 scan kernel then
+    runs twice a layer per step). The ``"dots"`` policy (keep the matmul
     outputs) is not ported yet."""
     if not cfg.remat:
         return fn
@@ -209,12 +277,7 @@ def _maybe_remat(cfg: ArchConfig, fn):
             f"remat_policy={cfg.remat_policy!r} is not ported yet: the port "
             "rematerialises with the 'nothing' policy only (ROADMAP queue 1 "
             "item 14)")
-
-    def layer(*args):
-        if not torch.is_grad_enabled():
-            return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
-    return layer
+    return remat(fn)
 
 
 # -- prefill (forward + emit decode caches) -----------------------------------
@@ -226,54 +289,92 @@ def lm_prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
                ) -> Tuple[torch.Tensor, Dict]:
     """Forward pass that also materializes the decode cache (KV for the
     attention families, the final recurrent states and conv tails for the
-    ssm family). Returns (last-position logits (B, 1, V), cache)."""
-    require_ported(cfg)
+    ssm family, both for the hybrid). Returns (last-position logits (B,
+    1, V), cache)."""
     h = _embed(params, cfg, tokens, extra_embeds)
-    if cfg.family != "ssm":
-        positions = _positions(h)
-        ks, vs = [], []
+    positions = _positions(h)
+    if cfg.family == "ssm":
+        caches = []
+        for lp in params.layers:
+            y, c = _ssm_prefill_layer(lp, cfg, h)
+            h = h + y
+            caches.append(c)
+        new_cache = {"layers": _stack(caches)}
+    elif cfg.family == "hybrid":
+        sp, emb0 = params.shared, h
+        kvs, groups = [], []
+        for group in params.layers:
+            u = _shared_in(sp, h, emb0)
+            a, kv = attention(sp.attn, cfg, norm_apply(sp.ln1, u, cfg.norm),
+                              positions, causal=True, window=window,
+                              return_kv=True)
+            h = _shared_out(sp, cfg, h, u, a)
+            kvs.append(kv)
+            caches = []
+            for lp in group:
+                y, c = _ssm_prefill_layer(lp, cfg, h)
+                h = h + y
+                caches.append(c)
+            groups.append(_stack(caches))
+        new_cache = {"attn": _stack(kvs), "mamba": _stack(groups)}
+        caches = []
+        for lp in _tail_layers(params):
+            y, c = _ssm_prefill_layer(lp, cfg, h)
+            h = h + y
+            caches.append(c)
+        if caches:
+            new_cache["tail"] = _stack(caches)
+    else:
+        kvs = []
         for lp in params.layers:
             a, kv = attention(lp.attn, cfg, norm_apply(lp.ln1, h, cfg.norm),
                               positions, causal=True, window=window,
                               return_kv=True)
             h = h + a
             h = h + _mix(lp, cfg, h)[0]
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-        new_cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-        return _logits(params, cfg, h[:, -1:]), new_cache
-    convs, states = [], []
-    for lp in params.layers:
-        y, cache = _ssm_prefill_layer(lp, cfg, h, ssm.mamba1_apply)
-        h = h + y
-        convs.append(cache["conv"])
-        states.append(cache["h"])
-    new_cache = {"layers": {"conv": torch.stack(convs),
-                            "h": torch.stack(states)}}
+            kvs.append(kv)
+        new_cache = {"layers": _stack(kvs)}
     return _logits(params, cfg, h[:, -1:]), new_cache
 
 
-def _ssm_prefill_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor,
-                       apply_fn):
+def _ssm_prefill_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor):
     """Run the ssm layer, returning (delta, decode cache) — the cache is
-    the scan's final carry (conv tail + recurrent state)."""
+    the scan's final carry (conv tails + recurrent state)."""
     xin = norm_apply(lp.ln, h, cfg.norm)
-    return apply_fn(lp.mamba, cfg, xin, return_cache=True)
+    return _ssm_apply(cfg)(lp.mamba, cfg, xin, return_cache=True)
 
 
 # -- decode -------------------------------------------------------------------
 
 
+def _stacked(one: Dict[str, torch.Tensor], *lead: int
+             ) -> Dict[str, torch.Tensor]:
+    return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
+
+
 def lm_init_cache(cfg: ArchConfig, batch: int, max_len: int,
                   device=None) -> Dict:
-    """Stacked per-layer caches (leading dim = layers)."""
-    require_ported(cfg)
-    if cfg.family != "ssm":
-        one = init_cache(cfg, batch, max_len, compute_dtype(cfg), device)
-    else:
-        one = ssm.mamba1_cache(cfg, batch, compute_dtype(cfg), device)
-    return {"layers": {k: v[None].expand(cfg.n_layers, *v.shape).clone()
-                       for k, v in one.items()}}
+    """Stacked per-layer caches (leading dims = layers). The hybrid's
+    attention cache has ``min(max_len, sliding_window)`` slots (a ring)
+    from ``max_len`` 100,000 on, else ``max_len``, as in the
+    reference."""
+    cdt = compute_dtype(cfg)
+    if cfg.family == "ssm":
+        return {"layers": _stacked(ssm.mamba1_cache(cfg, batch, cdt, device),
+                                   cfg.n_layers)}
+    if cfg.family == "hybrid":
+        period, n_groups, tail = hybrid_layout(cfg)
+        attn_len = (min(max_len, cfg.sliding_window or max_len)
+                    if max_len >= 100_000 else max_len)
+        one = ssm.mamba2_cache(cfg, batch, cdt, device)
+        cache = {"mamba": _stacked(one, n_groups, period),
+                 "attn": _stacked(init_cache(cfg, batch, attn_len, cdt,
+                                             device), n_groups)}
+        if tail:
+            cache["tail"] = _stacked(one, tail)
+        return cache
+    return {"layers": _stacked(init_cache(cfg, batch, max_len, cdt, device),
+                               cfg.n_layers)}
 
 
 def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
@@ -281,33 +382,56 @@ def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
                    ) -> Tuple[torch.Tensor, Dict]:
     """token: (B, 1) int; pos: the token's position, an int or a 0-d int
     tensor on the card (unused by the ssm family; see
-    :func:`repro_torch.models.attention.decode_attention`). Returns
-    (logits (B, 1, V) f32, new cache)."""
-    require_ported(cfg)
+    :func:`repro_torch.models.attention.decode_attention`; the hybrid's
+    attention cache is a ring). Returns (logits (B, 1, V) f32, new
+    cache)."""
     h = params.embed[token.long()].to(compute_dtype(cfg))
-    layers = cache["layers"]
-    if cfg.family != "ssm":
-        ks, vs = [], []
+    if cfg.family == "ssm":
+        layers, caches = cache["layers"], []
         for i, lp in enumerate(params.layers):
-            a, cl = decode_attention(
-                lp.attn, cfg, norm_apply(lp.ln1, h, cfg.norm),
-                {"k": layers["k"][i], "v": layers["v"][i]}, pos,
-                window=window)
+            y, c = ssm.mamba1_decode(lp.mamba, cfg,
+                                     norm_apply(lp.ln, h, cfg.norm),
+                                     _index(layers, i))
+            h = h + y
+            caches.append(c)
+        new_cache = {"layers": _stack(caches)}
+    elif cfg.family == "hybrid":
+        sp, emb0 = params.shared, h
+        kvs, groups = [], []
+        for g, group in enumerate(params.layers):
+            u = _shared_in(sp, h, emb0)
+            a, kv = decode_attention(sp.attn, cfg,
+                                     norm_apply(sp.ln1, u, cfg.norm),
+                                     _index(cache["attn"], g), pos,
+                                     window=window, ring=True)
+            h = _shared_out(sp, cfg, h, u, a)
+            kvs.append(kv)
+            caches = []
+            for i, lp in enumerate(group):
+                y, c = ssm.mamba2_decode(lp.mamba, cfg,
+                                         norm_apply(lp.ln, h, cfg.norm),
+                                         _index(cache["mamba"], g, i))
+                h = h + y
+                caches.append(c)
+            groups.append(_stack(caches))
+        new_cache = {"mamba": _stack(groups), "attn": _stack(kvs)}
+        caches = []
+        for i, lp in enumerate(_tail_layers(params)):
+            y, c = ssm.mamba2_decode(lp.mamba, cfg,
+                                     norm_apply(lp.ln, h, cfg.norm),
+                                     _index(cache["tail"], i))
+            h = h + y
+            caches.append(c)
+        if caches:
+            new_cache["tail"] = _stack(caches)
+    else:
+        layers, kvs = cache["layers"], []
+        for i, lp in enumerate(params.layers):
+            a, kv = decode_attention(lp.attn, cfg,
+                                     norm_apply(lp.ln1, h, cfg.norm),
+                                     _index(layers, i), pos, window=window)
             h = h + a
             h = h + _mix(lp, cfg, h)[0]
-            ks.append(cl["k"])
-            vs.append(cl["v"])
-        new_cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-        return _logits(params, cfg, h), new_cache
-    convs, states = [], []
-    for i, lp in enumerate(params.layers):
-        y, cl = ssm.mamba1_decode(lp.mamba, cfg,
-                                  norm_apply(lp.ln, h, cfg.norm),
-                                  {"conv": layers["conv"][i],
-                                   "h": layers["h"][i]})
-        h = h + y
-        convs.append(cl["conv"])
-        states.append(cl["h"])
-    new_cache = {"layers": {"conv": torch.stack(convs),
-                            "h": torch.stack(states)}}
+            kvs.append(kv)
+        new_cache = {"layers": _stack(kvs)}
     return _logits(params, cfg, h), new_cache

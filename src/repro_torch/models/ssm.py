@@ -1,8 +1,9 @@
-"""Selective state-space layers: Mamba1 (falcon-mamba).
+"""Selective state-space layers: Mamba1 (falcon-mamba) and Mamba2 / SSD
+(the zamba2 hybrid's backbone).
 
-The port of :mod:`repro.models.ssm`, its Mamba1 half. A block's
-parameters live in :class:`Mamba1Block` under the reference's names and
-``(in, out)`` layouts; the functions below take the block where the
+The port of :mod:`repro.models.ssm`. A block's parameters live in
+:class:`Mamba1Block` / :class:`Mamba2Block` under the reference's names
+and ``(in, out)`` layouts; the functions below take the block where the
 reference takes its parameter dict, in the same argument order.
 
 Two prefill paths, picked by ``cfg.ssm_impl`` as in the reference:
@@ -20,10 +21,15 @@ Two prefill paths, picked by ``cfg.ssm_impl`` as in the reference:
 Decode is the O(1) recurrence in plain PyTorch, one step of
 :func:`_mamba1_core`, as the reference computes it outside any kernel.
 
-Caches: ``{"conv": (B, K-1, din), "h": (B, din, n) float32}``.
+Mamba2 is plain PyTorch, as the reference's is plain ``jnp`` (no
+kernel): :func:`mamba2_apply` is the chunked SSD form, a quadratic
+intra-chunk product plus a float32 state carried from chunk to chunk,
+and :func:`mamba2_decode` its O(1) recurrence.
 
-Mamba2 (the zamba2 hybrid's block) is not ported yet: its functions
-raise ``NotImplementedError`` (ROADMAP queue 1 item 14).
+Caches: Mamba1 ``{"conv": (B, K-1, din), "h": (B, din, n) float32}``;
+Mamba2 ``{"conv_x": (B, K-1, din), "conv_B" / "conv_C": (B, K-1, n),
+"h": (B, nh, hd, n) float32}``. Conv tails are copies, never views of a
+layer's input.
 """
 
 from __future__ import annotations
@@ -230,10 +236,172 @@ def _mamba1_apply_pallas(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
 # =============================== Mamba 2 (SSD) ===============================
 
 
-def _mamba2_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "Mamba2 (the zamba2 hybrid's SSD block) is not ported yet: it comes "
-        "with the hybrid family, ROADMAP queue 1 item 14")
+class Mamba2Block(nn.Module):
+    """One Mamba2 mixer's parameters, named and laid out as the
+    reference's ``mamba2_init`` dict: separate ``(in, out)`` projections
+    for x, z, B, C and dt, one depthwise conv each for x, B and C, the
+    gated norm's ``norm_scale`` and ``out_proj`` in the param dtype;
+    ``A_log`` (log of 1..16 spread over the heads), ``D`` and ``dt_bias``
+    per head in float32."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        dt = param_dtype(cfg)
+        d, din, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+        nh, K = cfg.ssm_heads, cfg.ssm_conv
+        kw = dict(generator=generator, device=device)
+        self.in_x = dense_init((d, din), dt, **kw)
+        self.in_z = dense_init((d, din), dt, **kw)
+        self.in_B = dense_init((d, n), dt, **kw)
+        self.in_C = dense_init((d, n), dt, **kw)
+        self.in_dt = dense_init((d, nh), dt, **kw)
+        for name, ch in (("x", din), ("B", n), ("C", n)):
+            setattr(self, f"conv_{name}_w",
+                    dense_init((K, ch), dt, in_axis=0, **kw))
+            setattr(self, f"conv_{name}_b", nn.Parameter(
+                torch.zeros(ch, dtype=dt, device=device)))
+        self.A_log = nn.Parameter(torch.log(torch.linspace(
+            1.0, 16.0, nh, dtype=_F32, device=device)))
+        self.D = nn.Parameter(torch.ones(nh, dtype=_F32, device=device))
+        self.dt_bias = nn.Parameter(torch.full((nh,), -2.2, dtype=_F32,
+                                               device=device))
+        self.norm_scale = nn.Parameter(torch.ones(din, dtype=dt,
+                                                  device=device))
+        self.out_proj = dense_init((din, d), dt, **kw)
 
 
-mamba2_init = mamba2_apply = mamba2_cache = mamba2_decode = _mamba2_not_ported
+def mamba2_init(cfg: ArchConfig, generator: torch.Generator,
+                device=None) -> Mamba2Block:
+    return Mamba2Block(cfg, generator, device)
+
+
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """``y * silu(z)`` RMS-normalised over all of ``d_inner``, in
+    float32 (``y`` is float32)."""
+    y = y * F.silu(z.to(_F32))
+    ms = (y * y).mean(dim=-1, keepdim=True)
+    return y * torch.rsqrt(ms + eps) * scale.to(_F32)
+
+
+def _mamba2_convs(p: Mamba2Block, xin_x, xin_b, xin_c):
+    """The three causal depthwise convs and their SiLU, in float32."""
+    return (F.silu(_causal_conv_chunk(xin_x, p.conv_x_w, p.conv_x_b)),
+            F.silu(_causal_conv_chunk(xin_b, p.conv_B_w, p.conv_B_b)),
+            F.silu(_causal_conv_chunk(xin_c, p.conv_C_w, p.conv_C_b)))
+
+
+def _tail(xin: torch.Tensor, K: int) -> torch.Tensor:
+    # a copy: a view would keep the whole left-extended input alive
+    return xin[:, -(K - 1):].clone()
+
+
+def mamba2_apply(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
+                 return_cache: bool = False):
+    """Chunked SSD. x: (B, L, d) -> (B, L, d); L must divide by
+    min(cfg.ssm_chunk, L). With return_cache=True also returns the decode
+    cache (final conv tails + state) from the chunk carry.
+
+    Each chunk of Lc steps: ``y = (C Bᵀ ∘ seg ∘ dt) x`` within the chunk
+    plus ``C S exp(cum)`` from the carried state ``S``, which then decays
+    by the chunk's whole ``exp(cum[-1])`` and gains the chunk's
+    contributions. ``seg`` is ``exp`` of the masked exponent: entries
+    above the diagonal get -30 before the ``exp`` (then times the mask),
+    so that none can overflow and poison a gradient with ``0 * inf``."""
+    B, L, d = x.shape
+    din, n = cfg.d_inner, cfg.ssm_state
+    nh, hd, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
+    Lc = min(cfg.ssm_chunk, L)
+    if L % Lc:
+        raise ValueError(f"mamba2_apply: L={L} is not a multiple of the "
+                         f"chunk {Lc}")
+    z = x @ p.in_z
+    xr = x @ p.in_x
+    Bm = x @ p.in_B
+    Cm = x @ p.in_C
+    dt_raw = x @ p.in_dt
+    A = -torch.exp(p.A_log.to(_F32))                      # (nh,)
+    idx = torch.arange(Lc, device=x.device)
+    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]   # (1,Lc,Lc,1)
+    S = torch.zeros((B, nh, hd, n), dtype=_F32, device=x.device)
+    tx = torch.zeros((B, K - 1, din), dtype=x.dtype, device=x.device)
+    tb = torch.zeros((B, K - 1, n), dtype=x.dtype, device=x.device)
+    tc = torch.zeros((B, K - 1, n), dtype=x.dtype, device=x.device)
+    ys = []
+    for s in range(0, L, Lc):
+        xin_x = torch.cat([tx, xr[:, s:s + Lc]], dim=1)
+        xin_b = torch.cat([tb, Bm[:, s:s + Lc]], dim=1)
+        xin_c = torch.cat([tc, Cm[:, s:s + Lc]], dim=1)
+        xconv, Bc, Cc = _mamba2_convs(p, xin_x, xin_b, xin_c)
+        xc = xconv.reshape(B, Lc, nh, hd)
+        # bf16 + float32 promotes to float32, as in the reference
+        dt = _softplus(dt_raw[:, s:s + Lc] + p.dt_bias)     # (B, Lc, nh)
+        cum = torch.cumsum(dt * A, dim=1)
+        # intra-chunk quadratic form
+        CB = torch.einsum("bln,bmn->blm", Cc, Bc)
+        diff = torch.where(tri, cum[:, :, None, :] - cum[:, None, :, :],
+                           -30.0)
+        seg = torch.exp(diff) * tri
+        att = CB[..., None] * seg * dt[:, None, :, :]       # (B,Lc,Lc,nh)
+        y_intra = torch.einsum("blmh,bmhp->blhp", att, xc)
+        # inter-chunk via the carried state
+        y_inter = torch.einsum("bln,bhpn->blhp", Cc, S) \
+            * torch.exp(cum)[..., None]
+        # state update
+        w_last = torch.exp(cum[:, -1:, :] - cum) * dt        # (B, Lc, nh)
+        contrib = torch.einsum("blh,bln,blhp->bhpn", w_last, Bc, xc)
+        S = torch.exp(cum[:, -1])[:, :, None, None] * S + contrib
+        y = y_intra + y_inter + p.D[None, None, :, None] * xc
+        ys.append(y.reshape(B, Lc, din))
+        tx, tb, tc = xin_x[:, -(K - 1):], xin_b[:, -(K - 1):], \
+            xin_c[:, -(K - 1):]
+    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    y = _gated_rmsnorm(y, z, p.norm_scale)
+    out = y.to(x.dtype) @ p.out_proj
+    if return_cache:
+        return out, {"conv_x": tx.clone(), "conv_B": tb.clone(),
+                     "conv_C": tc.clone(), "h": S}
+    return out
+
+
+def mamba2_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype,
+                 device=None) -> Dict[str, torch.Tensor]:
+    n, K = cfg.ssm_state, cfg.ssm_conv
+    return {
+        "conv_x": torch.zeros((batch, K - 1, cfg.d_inner), dtype=dtype,
+                              device=device),
+        "conv_B": torch.zeros((batch, K - 1, n), dtype=dtype, device=device),
+        "conv_C": torch.zeros((batch, K - 1, n), dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
+                         dtype=_F32, device=device),
+    }
+
+
+def mamba2_decode(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, 1, d) one token; one step of the recurrence
+    ``h = exp(dt A) h + dt B x``, ``y = C h + D x``."""
+    B = x.shape[0]
+    din = cfg.d_inner
+    nh, hd, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
+    z = x @ p.in_z
+    xin_x = torch.cat([cache["conv_x"], x @ p.in_x], dim=1)
+    xin_b = torch.cat([cache["conv_B"], x @ p.in_B], dim=1)
+    xin_c = torch.cat([cache["conv_C"], x @ p.in_C], dim=1)
+    dt_raw = x @ p.in_dt
+    xconv, Bc, Cc = _mamba2_convs(p, xin_x, xin_b, xin_c)
+    xc = xconv[:, 0].reshape(B, nh, hd)
+    dt = _softplus(dt_raw[:, 0] + p.dt_bias)               # (B, nh)
+    A = -torch.exp(p.A_log.to(_F32))
+    decay = torch.exp(dt * A)                              # (B, nh)
+    contrib = dt[:, :, None, None] * Bc[:, 0, None, None, :] \
+        * xc[:, :, :, None]                                # (B, nh, hd, n)
+    h_new = decay[:, :, None, None] * cache["h"] + contrib
+    y = torch.einsum("bn,bhpn->bhp", Cc[:, 0], h_new) \
+        + p.D[None, :, None] * xc
+    y = _gated_rmsnorm(y.reshape(B, 1, din), z, p.norm_scale)
+    out = y.to(x.dtype) @ p.out_proj
+    return out, {"conv_x": _tail(xin_x, K), "conv_B": _tail(xin_b, K),
+                 "conv_C": _tail(xin_c, K), "h": h_new}

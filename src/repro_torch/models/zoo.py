@@ -1,26 +1,29 @@
-"""Model zoo facade: one uniform API over the ported architectures.
+"""Model zoo facade: one uniform API over all the architectures.
 
   model = build(cfg)
-  lm = model.init(seed)                          # the LM module, on the card
+  lm = model.init(seed)                          # the module, on the card
   loss, metrics = model.loss(lm, batch)          # train
   logits, cache = model.prefill(lm, batch)       # inference-prefill
   logits, cache = model.decode(lm, cache, batch) # one decode step
   logits, aux = model.forward(lm, batch)         # teacher-forced forward
 
 The port of :mod:`repro.models.zoo`: the callables keep the reference's
-names and argument order, with the LM module in place of the params
-pytree. ``init`` and ``init_cache`` take ``device=None``, meaning the card
-(:func:`repro_torch.device.resolve_device`), and raise without CUDA unless
-``device="cpu"`` is passed; the other calls run where the module lives.
-``prefill`` and ``decode`` run under ``torch.inference_mode()``.
+names and argument order, with the module (an ``LM``, or an ``EncDec``
+for the enc-dec family) in place of the params pytree. ``init`` and
+``init_cache`` take ``device=None``, meaning the card
+(:func:`repro_torch.device.resolve_device`), and raise without CUDA
+unless ``device="cpu"`` is passed; the other calls run where the module
+lives. ``prefill`` and ``decode`` run under ``torch.inference_mode()``.
 
 ``loss`` returns the cross-entropy plus the z-loss and the aux term, and
 in its metrics the per-token loss *moment state* (count / mean / m2 /
 min / max, :func:`repro_torch.core.state.moments_of_batch`): the mergeable
 CI state that :class:`repro_torch.evalx.ThresholdMonitor` takes. For the
 ssm family its gradient runs through the selective-scan backward kernel
-on the ``"pallas"`` path; the dense, vlm and moe families run plain
-PyTorch (the reference has no kernel there either).
+on the ``"pallas"`` path; the dense, vlm, moe, hybrid and enc-dec
+families run plain PyTorch (the reference has no kernel there either).
+The enc-dec's ``prefill`` returns ``{"memory": ...}`` and its ``decode``
+takes ``batch["memory"]`` and returns ``{"self": ...}``.
 
 ``input_specs(cfg, shape)`` returns ``(shape, dtype)`` stand-ins for every
 model input of a workload shape; ``make_batch`` materializes small
@@ -38,6 +41,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.state import moments_of_batch
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import compute_dtype
 
@@ -49,7 +53,7 @@ MOE_AUX_COEF = 1e-2
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
-    init: Callable          # (seed, device=None) -> LM module
+    init: Callable          # (seed, device=None) -> LM / EncDec module
     loss: Callable          # (module, batch) -> (loss, metrics)
     forward: Callable       # (module, batch) -> (logits, aux)
     prefill: Callable       # (module, batch) -> (logits, cache)
@@ -99,18 +103,24 @@ def _ce_loss(logits: torch.Tensor, targets: torch.Tensor, aux: torch.Tensor,
 
 
 def build(cfg: ArchConfig) -> Model:
-    lm_mod.require_ported(cfg)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
     return _build_lm(cfg)
 
 
-def _build_lm(cfg: ArchConfig) -> Model:
+def _initializer(make, cfg: ArchConfig):
     def init(seed: int = 0, device=None):
-        """The LM with weights drawn from a generator seeded with
+        """The module with weights drawn from a generator seeded with
         ``seed`` on ``device`` (the same seed gives other numbers on the
         card than on the CPU)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return lm_mod.lm_init(cfg, gen, dev)
+        return make(cfg, gen, dev)
+    return init
+
+
+def _build_lm(cfg: ArchConfig) -> Model:
+    init = _initializer(lm_mod.lm_init, cfg)
 
     def forward(params, batch, window=None):
         return lm_mod.lm_forward(params, cfg, batch["tokens"],
@@ -135,6 +145,43 @@ def _build_lm(cfg: ArchConfig) -> Model:
     def decode(params, cache, batch, window=None):
         return lm_mod.lm_decode_step(params, cfg, batch["token"],
                                      batch["pos"], cache, window=window)
+
+    return Model(cfg, init, loss, forward, prefill, init_cache, decode)
+
+
+def _build_encdec(cfg: ArchConfig) -> Model:
+    init = _initializer(encdec_mod.encdec_init, cfg)
+
+    def forward(params, batch, window=None):
+        return encdec_mod.encdec_forward(params, cfg, batch["frame_embeds"],
+                                         batch["tokens"])
+
+    def loss(params, batch, window=None):
+        logits, aux = forward(params, batch)
+        return _ce_loss(logits, batch["targets"], aux, cfg)
+
+    @torch.inference_mode()
+    def prefill(params, batch, window=None):
+        """The last position's logits and ``{"memory": encode(...)}``.
+        The reference computes the logits of every position and slices
+        the last; the head here sees the last position only, which gives
+        the same numbers (the norm and the head act a position at a time)
+        without the (B, T, vocab) float32 logits: 8.4 GB at 8 x 1024
+        positions of seamless-m4t's 256,256-token vocabulary."""
+        memory = encdec_mod.encode(params, cfg, batch["frame_embeds"])
+        logits = encdec_mod.decode_train(params, cfg, batch["tokens"],
+                                         memory, last_only=True)
+        return logits, {"memory": memory}
+
+    def init_cache(batch_size, max_len, device=None):
+        return encdec_mod.encdec_init_cache(cfg, batch_size, max_len,
+                                            resolve_device(device))
+
+    @torch.inference_mode()
+    def decode(params, cache, batch, window=None):
+        return encdec_mod.encdec_decode_step(params, cfg, batch["token"],
+                                             batch["pos"], cache,
+                                             batch["memory"])
 
     return Model(cfg, init, loss, forward, prefill, init_cache, decode)
 

@@ -988,6 +988,109 @@ def test_dense_lm_cuda_equals_cpu(cuda, arch_id):
             w.abs().max())
 
 
+def _kernel_launches():
+    return [k.launches for k in (
+        block_agg.block_agg, bitmap_active.active_blocks,
+        bitmap_active.active_blocks_multi, bitmap_active.round_select,
+        fused_fold.fused_fold, grouped_hist.grouped_hist,
+        selective_scan.selective_scan, selective_scan.selective_scan_bwd)]
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.mark.parametrize("arch_id", ["zamba2_7b", "seamless_m4t_large_v2"])
+def test_hybrid_and_encdec_cuda_equals_cpu(cuda, arch_id):
+    """The reduced zamba2 (two groups and a tail) or seamless in float32
+    with the same weights on the card and on the CPU: forward, prefill
+    (logits and every cache leaf) and decode (at an int position, and at
+    a 0-d card tensor one) within 1e-4 of their largest magnitude; no
+    kernel launched (both families run plain PyTorch)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch_id, reduced=True),
+                              param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    lm_cpu = model.init(0, device="cpu")
+    lm_gpu = model.init(0, device=cuda)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    rng = np.random.default_rng(1)
+    B, T = 2, 32
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T)))
+    frames = torch.from_numpy(rng.normal(0, 0.02, (B, T, cfg.d_model))
+                              .astype(np.float32))
+    before = _kernel_launches()
+    outs = []
+    for lm, dev in ((lm_cpu, "cpu"), (lm_gpu, cuda)):
+        t = toks.to(dev)
+        if cfg.family == "encdec":
+            b = {"tokens": t, "frame_embeds": frames.to(dev)}
+            with torch.inference_mode():
+                full, _ = model.forward(lm, b)
+            pre, cache = model.prefill(lm, b)
+            room, step = model.init_cache(B, 2, device=dev), {
+                "token": t[:, :1], "memory": cache["memory"]}
+            pos = 0
+        else:
+            with torch.inference_mode():
+                full, _ = model.forward(lm, {"tokens": t})
+            pre, cache = model.prefill(lm, {"tokens": t[:, :T - 1]})
+            room = model.init_cache(B, T, device=dev)
+            for k in ("k", "v"):
+                room["attn"][k][:, :, :T - 1] = cache["attn"][k]
+            room = {**cache, "attn": room["attn"]}
+            step, pos = {"token": t[:, T - 1:]}, T - 1
+        dec, _ = model.decode(lm, room, {**step, "pos": pos})
+        dec_t, _ = model.decode(lm, room, {**step, "pos": torch.tensor(
+            pos, dtype=torch.int32, device=dev)})
+        outs.append([full, pre, dec, dec_t] + [v for _, v in
+                                               sorted(_leaves(cache))])
+    assert _kernel_launches() == before
+    for g, w in zip(outs[1], outs[0]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+
+
+def test_hybrid_ring_past_the_wrap_on_card(cuda):
+    """The reduced zamba2 in float32 with an 8-token window: 20 decode
+    steps through the 8-slot ring (``init_cache(2, 100_000)``) at a 0-d
+    card tensor position equal the full-cache windowed decode
+    (``init_cache(2, 32)``) within 2e-3, and the CPU's ring within 1e-4
+    of its largest logit."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("zamba2_7b", reduced=True),
+                              param_dtype="float32", compute_dtype="float32",
+                              sliding_window=8)
+    model = build_model(cfg)
+    lm_cpu = model.init(0, device="cpu")
+    lm_gpu = model.init(0, device=cuda)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 20)))
+
+    def run(lm, dev, max_len, tensor_pos):
+        cache, out = model.init_cache(2, max_len, device=dev), []
+        for t in range(20):
+            pos = torch.tensor(t, dtype=torch.int32, device=dev) \
+                if tensor_pos else t
+            logits, cache = model.decode(lm, cache, {
+                "token": toks[:, t:t + 1].to(dev), "pos": pos}, window=8)
+            out.append(logits[:, 0].cpu())
+        return torch.stack(out, dim=1)
+    ring = run(lm_gpu, cuda, 100_000, True)
+    assert model.init_cache(2, 100_000, device=cuda)["attn"]["k"].shape[
+        2] == 8
+    full = run(lm_gpu, cuda, 32, False)
+    np.testing.assert_allclose(ring.numpy(), full.numpy(), rtol=2e-3,
+                               atol=2e-3)
+    cpu = run(lm_cpu, "cpu", 100_000, False)
+    assert float((ring - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
 # -- the scan's backward ------------------------------------------------------
 
 # (B, L, din, n, tc): one channel cluster at n 8 over two chunks; a

@@ -2,9 +2,11 @@
 nor the JAX package, no production module imports the test-only fault
 injection, entry points refuse to run on the CPU unless asked,
 the kernel wrappers launch or raise (no silent fallback), the
-Anderson/DKW path and the training path run on the CPU when asked, and
-the parts of the reference that later slices port raise
-NotImplementedError (among them the ``"dots"`` remat policy), and the
+Anderson/DKW path and the training path run on the CPU when asked,
+every model family (the hybrid and enc-dec included) runs on the CPU
+without moving a kernel counter, the parts of the reference that later
+slices port raise NotImplementedError (among them the ``"dots"`` remat
+policy), and the
 sharded scan's settings refuse, with the reference's ValueError, a
 process without a group of ranks."""
 
@@ -49,6 +51,8 @@ import repro_torch.configs.registry, repro_torch.configs.falcon_mamba_7b
 import repro_torch.models, repro_torch.models.layers, repro_torch.models.ssm
 import repro_torch.models.lm, repro_torch.models.zoo
 import repro_torch.models.attention, repro_torch.models.moe
+import repro_torch.models.encdec
+import repro_torch.configs.zamba2_7b, repro_torch.configs.seamless_m4t_large_v2
 from repro_torch.configs import all_configs
 all_configs()
 import repro_torch.models.convert
@@ -257,11 +261,31 @@ def test_dense_loss_and_serving_touch_no_kernel(arch_id):
     assert torch.isfinite(loss) and _counters() == before
 
 
-def test_hybrid_and_encdec_families_raise_not_implemented():
-    from repro_torch.configs import ArchConfig
-    for family in ("hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            build_model(ArchConfig(family=family))
+@pytest.mark.parametrize("arch_id", ["zamba2_7b", "seamless_m4t_large_v2"])
+def test_hybrid_and_encdec_loss_and_serving_touch_no_kernel(arch_id):
+    """The hybrid (Mamba2 / SSD, the shared attention block) and the
+    enc-dec run plain PyTorch (the reference has no kernel there): their
+    loss, gradient, prefill and decode on the CPU move no kernel
+    counter."""
+    model = _tiny_model(arch_id)
+    lm = model.init(0, device="cpu")
+    toks = torch.zeros((2, 32), dtype=torch.int32)
+    batch = {"tokens": toks, "targets": toks}
+    step = {"token": toks[:, :1], "pos": 31}
+    if model.cfg.family == "encdec":
+        batch["frame_embeds"] = torch.zeros((2, 32, model.cfg.d_model))
+        step = {"token": toks[:, :1], "pos": 0}
+    before = _counters()
+    loss, _ = model.loss(lm, batch)
+    loss.backward()
+    _, cache = model.prefill(lm, {k: v for k, v in batch.items()
+                                  if k != "targets"})
+    if "memory" in cache:
+        step["memory"] = cache["memory"]
+    logits, _ = model.decode(lm, model.init_cache(2, 33, device="cpu"),
+                             step)
+    assert torch.isfinite(loss) and torch.isfinite(logits).all()
+    assert _counters() == before
 
 
 def test_model_loss_and_scan_backward_raise_not_implemented():
