@@ -80,8 +80,8 @@ one JSON line:
      intervals covering the truth); a seeded trace over all six kinds,
      run twice to the same event log;
   3e. the sharded scan (``EngineConfig(shard_rows=True)``) on the first
-     blocks of phase 3b's scramble that hold 20M rows (``SHARD_ROWS``,
-     cut for the phase's time): the main process runs the Bernstein and
+     blocks of phase 3b's scramble that hold 10M rows (``SHARD_ROWS``,
+     cut for the smoke's time): the main process runs the Bernstein and
      the Anderson/DKW G 2,800 GROUP BY and phase 3c's ``shared_sig``
      batch through phases 3b / 3c's single-device paths and writes the
      blocks to files once; 2 spawned processes, each a rank of a gloo
@@ -115,7 +115,8 @@ one JSON line:
      float32, prefill + decode against forward (2e-3), and the reduced
      config on the card against the CPU (1e-4);
   5b. ``evalx.ApproxEval`` of the same model (64 layers, bf16) over a
-     scrambled eval set of 512 x 2048 tokens (``data.tokens.
+     scrambled eval set of 256 x 2048 tokens (cut from 512 for the
+     smoke's time) (``data.tokens.
      make_eval_scramble``), batches of 8, delta 1e-6, target width 0.1:
      it must stop early with a certificate covering the full set's mean
      clipped loss (one forward a batch over all 64 batches, float64),
@@ -158,6 +159,30 @@ one JSON line:
      states to a ``ThresholdMonitor`` (3 ln V, range [0, 4 ln V]), whose
      interval must hold the steps' mean loss, the step times to a
      ``StragglerMonitor``; their decisions printed;
+  6c. the dense, MoE, hybrid and enc-dec families' training path (plain
+     PyTorch, no kernel), bf16 at full width: qwen2.5-3b (36 layers, 2 x
+     4096 tokens, AdamW), dbrx-132b (2 of 40 layers, 4 x 4096 in its 4
+     microbatches, Adafactor over its stacked experts), zamba2-7b (33 of
+     81 layers, whole groups, 2 x 4096 in 2 microbatches) and
+     seamless-m4t-large-v2 (24 + 24 layers, train_4k's frames and
+     tokens for 2 sequences); each a warm-up and 3 timed steps on one
+     batch with phase 6's checks (finite, the loss falls every step, no
+     grad norm above 3x the first), no kernel counter moved; seamless's
+     loss and gradient again under the ``"dots"`` remat policy, its loss
+     and grad norm bit for bit the ``"nothing"`` policy's;
+  6d. the Mamba1 ``xla`` path's chunked associative scan:
+     falcon-mamba-7b at full width, 4 layers, float32 weights, 1 x 4096
+     tokens, one loss and gradient with the scan in float32 (against the
+     ``pallas`` path's kernels: loss 1e-5, each gradient 1e-4) and in
+     bfloat16 (against float32: 1.5e-2), times and peaks of the three;
+  6e. ``launch/train.py``'s driver (``repro_torch.launch.train.main``)
+     for qwen3-0.6b at full width: 8 steps of 8 x 1024 tokens, a
+     checkpoint every 4, the eval after step 8 (its certificate must
+     cover the eval set's full mean); the step-8 checkpoint deleted and
+     the run resumed to step 8: the same losses and state bit for bit;
+     ``compress_roundtrip`` of one step's gradients on the card bit for
+     bit on the CPU; the SIGTERM handler put back; no kernel counter
+     moved;
   7. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times (``grouped_hist``
      at the main path's G 14, with G 2800 beside it; the multi-query
@@ -172,6 +197,7 @@ with code 2 before any result. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1823,8 +1849,9 @@ def chaos_phase(torch, np, frame, burst, clean, cols, counters):
 # 100M rows the phase took 230 s alone (scripts/smoke_sharded_phase.py),
 # over its ~150 s budget, and 161 s at 40M inside the smoke, which then
 # took 942 s of its 1200; under gloo every K = 1 round waits for its two
-# staged all-reduces, so a round runs at ~19-80 rounds/s.
-SHARD_ROWS = 20_000_000
+# staged all-reduces, so a round runs at ~19-80 rounds/s. 20M rows took
+# 69 s inside the whole smoke; cut to 10M for the training phases 6c-6e.
+SHARD_ROWS = 10_000_000
 SHARD_RANKS = 2
 SHARD_MERGE_EVERY = (1, 4)
 SHARD_RUNS = ("groupby_origin_airline", "groupby_origin_airline-adkw")
@@ -2554,8 +2581,10 @@ def serve_phase(torch, np, counters):
 # -- phase 5b ----------------------------------------------------------------
 
 # launch/train.py's eval of the reference: 512 examples of the run's
-# sequence length, delta 1e-6, target width 0.1; batches of 8 (16 there)
-EVAL_EXAMPLES, EVAL_LEN, EVAL_BATCH = 512, PROMPT_LEN, 8
+# sequence length, delta 1e-6, target width 0.1; batches of 8 (16 there).
+# The set is cut to 256 examples for the training phases 6c-6e: the full
+# pass that gives the truth took 86 s of the phase's 104 at 512.
+EVAL_EXAMPLES, EVAL_LEN, EVAL_BATCH = 256, PROMPT_LEN, 8
 EVAL_DELTA, EVAL_WIDTH = 1e-6, 0.1
 # tests/test_train_stack.py's width, used (and said) only when the
 # certificate cannot reach EVAL_WIDTH within EVAL_EXAMPLES; delta stays
@@ -2696,7 +2725,9 @@ def eval_phase(torch, np, counters, model, lm, kscan, device="cuda"):
         full_mean_clipped_loss=full_mean, certificate_covers=covers,
         eval_losses_repeat=repeat, scan_launches_per_forward=sorted(
             set(forwards)), forwards=len(forwards), launches=launches,
-        reduced={"batch": "launch/train.py's 16 examples a round -> 8"},
+        reduced={"batch": "launch/train.py's 16 examples a round -> 8",
+                 "examples": f"launch/train.py's 512 -> {EVAL_EXAMPLES} "
+                             "(the smoke's time: the full pass)"},
         card_vs_cpu=small, ok=ok), launches
 
 
@@ -3066,9 +3097,11 @@ def training_setup(torch):
     return cfg, ocfg, state, batch, build_train_step(model, ocfg), init_s
 
 
-def train_step_once(torch, step, state, batch):
-    """One training step between two syncs: ``(state, record)`` with its
-    host-clock seconds and metrics as floats."""
+def train_step_once(torch, step, state, batch,
+                    tokens: int = TRAIN_BATCH * TRAIN_LEN):
+    """One training step between two syncs: ``(state, loss CI state,
+    record)``, the record with its host-clock seconds, tokens/s over
+    ``tokens`` and metrics as floats."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, met = step(state, batch)
@@ -3081,7 +3114,7 @@ def train_step_once(torch, step, state, batch):
         z_loss=float(met["z_loss"]), grad_norm=float(met["grad_norm"]),
         lr=float(met["lr"]), tokens=float(met["tokens"]),
         loss_ci_count=float(ci.count), loss_ci_mean=float(ci.mean),
-        seconds=secs, tokens_per_s=TRAIN_BATCH * TRAIN_LEN / secs)
+        seconds=secs, tokens_per_s=tokens / secs)
 
 
 def train_phase(torch, np, counters):
@@ -3167,6 +3200,430 @@ def train_phase(torch, np, counters):
                              "microbatches of 2 (time limit)"},
         ok=ok)
     return record, launches
+
+
+# -- phase 6c ----------------------------------------------------------------
+
+# The dense, MoE, hybrid and enc-dec families' training path, as phase 6
+# trains falcon-mamba: (id, layers or None for the config's own, batch,
+# why the depth is cut). Full width, bf16 parameters from MODEL_SEED on
+# the card, the config's optimizer (AdamW with float32 moments; dbrx's
+# Adafactor), microbatches and remat, TRAIN_LEN positions a sequence
+# (seamless's input_specs give half to its encoder's frames, half to
+# its decoder's tokens), one warm-up step and TRAIN_STEPS timed steps on
+# one batch at lr 3e-4. A parameter's state is 16 bytes under AdamW
+# (bf16 parameter and gradient, float32 accumulator, two float32
+# moments) and about 8 under Adafactor (its factored moments are small),
+# so dbrx's and zamba2's depth is cut to what fits in 80 GB beside the
+# activations; whole zamba2 groups are kept.
+FAMILY_TRAIN = (
+    ("qwen2_5_3b", None, 2, None),
+    ("dbrx_132b", 2, 4,
+     "40 -> 2 layers (about 8 bytes a parameter under Adafactor: 2 "
+     "layers and the embeddings are 7.7 B parameters, ~57 GiB; 40 layers "
+     "~132 B)"),
+    ("zamba2_7b", 33, 2,
+     "81 -> 33 layers, 5 groups of 6 and a tail of 3 (16 bytes a "
+     "parameter: 3.0 B parameters, ~45 GiB; 81 layers 6.8 B, ~101 GiB)"),
+    ("seamless_m4t_large_v2", None, 2, None),
+)
+FAMILY_TRAIN_CUT = ("batch 256 x 4096 -> {} x 4096 (the time limit)")
+
+
+def _loss_and_grads_timed(torch, model, lm, batch):
+    """One loss and its gradients between syncs: ``(loss, grads, s, peak
+    GiB)``, the peak from a reset."""
+    plist = list(lm.parameters())
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = model.loss(lm, batch)
+    grads = torch.autograd.grad(loss, plist)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return loss.detach(), grads, secs, peak
+
+
+def remat_policies(torch, cfg, lm, batch):
+    """The training step's loss and gradient (what remat changes) on the
+    same parameters and batch under the ``"nothing"`` and the ``"dots"``
+    policy: loss and grad norm bit for bit; seconds and peak of each."""
+    from repro_torch.models import build as build_model
+    from repro_torch.train.optimizer import global_norm
+    out, kept = {}, {}
+    for policy in ("nothing", "dots"):
+        model = build_model(dataclasses.replace(cfg, remat_policy=policy))
+        loss, grads, secs, peak = _loss_and_grads_timed(torch, model, lm,
+                                                        batch)
+        kept[policy] = (loss, global_norm(grads))
+        del grads
+        out[policy] = dict(loss=float(loss),
+                           grad_norm=float(kept[policy][1]),
+                           loss_and_grad_s=secs, peak_device_gib=peak)
+    (l0, g0), (l1, g1) = kept["nothing"], kept["dots"]
+    out["bitwise"] = bool(torch.equal(l0, l1) and torch.equal(g0, g1))
+    return out
+
+
+def train_family_model(torch, np, counters, arch_id: str, layers, batch_size,
+                       cut):
+    """One model of FAMILY_TRAIN: init, a warm-up step, TRAIN_STEPS timed
+    steps; for the enc-dec also :func:`remat_policies`. Returns its
+    record (with ``ok``)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs import get as get_config
+    from repro_torch.data.tokens import train_batch
+    from repro_torch.models import build as build_model
+    from repro_torch.train import OptConfig, build_train_step, init_state
+    cfg = get_config(arch_id)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg)
+    ocfg = OptConfig.for_arch(cfg, warmup_steps=1)   # as phase 6's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = init_state(model, MODEL_SEED, ocfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    shape = ShapeConfig("train_4k", TRAIN_LEN, batch_size, "train")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             train_batch(cfg, shape, 0, seed=MODEL_SEED).items()}
+    tokens = batch_size * TRAIN_LEN
+    step = build_train_step(model, ocfg)
+    for c in counters.values():
+        c.launches = 0
+    state, _, warm = train_step_once(torch, step, state, batch, tokens)
+    timed = []
+    for _ in range(TRAIN_STEPS):
+        state, _, rec = train_step_once(torch, step, state, batch, tokens)
+        timed.append(rec)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    policies = (remat_policies(torch, cfg, state["params"], batch)
+                if cfg.family == "encdec" else None)
+    launches = {k: c.launches for k, c in counters.items()}
+    del state, step, batch
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in timed]
+    norms = [r["grad_norm"] for r in timed]
+    finite = all(np.isfinite([r[k] for r in [warm] + timed
+                              for k in ("loss", "grad_norm")]))
+    falls = all(b < a for a, b in zip(losses, losses[1:]))
+    norm_bounded = max(norms) <= TRAIN_GRAD_NORM_GROWTH * norms[0]
+    stray = [k for k, v in launches.items() if v]
+    reduced = {"train_4k": FAMILY_TRAIN_CUT.format(batch_size)}
+    if cut:
+        reduced["n_layers"] = cut
+    return dict(
+        model=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, vocab=cfg.vocab, **_family_fields(cfg),
+        param_dtype=cfg.param_dtype, optimizer=ocfg.name,
+        moment_dtype=ocfg.moment_dtype, lr=ocfg.lr, remat=cfg.remat_policy,
+        microbatches=cfg.microbatches, params=n_params, init_s=init_s,
+        state_gib=state_gib, batch=batch_size, seq_len=TRAIN_LEN,
+        same_batch_every_step=True, warmup_step=warm, steps=timed,
+        mean_step_s=statistics.mean(r["seconds"] for r in timed),
+        tokens_per_s=tokens * TRAIN_STEPS
+        / sum(r["seconds"] for r in timed),
+        loss_falls_every_step=falls, grad_norm_bounded=norm_bounded,
+        launches=launches, peak_device_gib=peak_gib,
+        remat_policies=policies, reduced=reduced,
+        ok=bool(finite and falls and norm_bounded and not stray
+                and (policies is None or policies["bitwise"])))
+
+
+@contextlib.contextmanager
+def expandable_segments(torch):
+    """Inside, the caching allocator makes expandable segments (PyTorch's
+    ``expandable_segments``), which grow in place: a training step's many
+    temporaries of changing sizes then leave no reserved memory that no
+    request fits (on an H100 80GB, 8.2 GiB of it ran qwen2.5-3b's first
+    step out of memory at 68 GiB allocated). The cache is emptied on the
+    way in and out, so
+    the segments made inside are the expandable ones."""
+    setting = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    torch.cuda.empty_cache()
+    setting("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        setting("expandable_segments:False")
+
+
+def family_train_phase(torch, np, counters):
+    """Phase 6c: every model of FAMILY_TRAIN
+    (:func:`train_family_model`), under :func:`expandable_segments`; no
+    kernel counter may move (these families have no kernel). Returns
+    (record, launches)."""
+    with expandable_segments(torch):
+        models = [train_family_model(torch, np, counters, *spec)
+                  for spec in FAMILY_TRAIN]
+    launches = {k: sum(m["launches"][k] for m in models) for k in counters}
+    return dict(models=models, grad_norm_growth_limit=TRAIN_GRAD_NORM_GROWTH,
+                reduced={m["model"]: m["reduced"] for m in models},
+                ok=all(m["ok"] for m in models)), launches
+
+
+# -- phase 6d ----------------------------------------------------------------
+
+# The Mamba1 ``xla`` path's chunked scan (models/ssm.associative_scan,
+# chunks of ssm_chunk 256, the reference's recursion) on the card:
+# falcon-mamba-7b at full width, SCAN_LAYERS layers, one sequence of
+# TRAIN_LEN tokens (phase 6's microbatch is 2), remat as configured. One
+# loss-and-gradient call with the scan in float32 and one in bfloat16,
+# each beside the ``pallas`` path's (the two scan kernels) on the same
+# weights and batch. The parameters are float32 here, so that what the
+# comparison sees is the scan's own distance: bf16 weights would round
+# each layer's output to bf16 and flip last bits either way.
+SCAN_LAYERS, SCAN_BATCH = 4, 1
+# float32 scan against the kernels, relative to the largest |pallas|:
+# the loss 1e-5 and each parameter's gradient 1e-4
+# (tests/test_torch_train.py's scalar and block-against-reference
+# bounds; on the CPU one reduced block measured 6.1e-8 on its output and
+# 4.4e-7 on its gradients, pallas against xla)
+SCAN_LOSS_RTOL, SCAN_GRAD_RTOL = 1e-5, 1e-4
+# bf16 scan against the float32 scan: 1.5e-2 on the loss and on the
+# gradients' global norm of the difference over the gradients' norm (the
+# bf16 precedent; on the CPU one reduced block measured 2.1e-4 on its
+# output and 6.1e-3 on its largest per-parameter gradient difference,
+# the reference's own 2.1e-4 and 9.9e-3)
+SCAN_BF16_RTOL = 1.5e-2
+
+
+def mamba1_xla_scan_phase(torch, np, counters):
+    """Phase 6d. Returns (record, launches of the ``pallas`` run)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs import get as get_config
+    from repro_torch.data.tokens import train_batch
+    from repro_torch.models import build as build_model
+    base = dataclasses.replace(get_config("falcon_mamba_7b"),
+                               n_layers=SCAN_LAYERS, param_dtype="float32",
+                               compute_dtype="float32")
+    lm = build_model(base).init(MODEL_SEED)
+    names = [n for n, _ in lm.named_parameters()]
+    shape = ShapeConfig("train_4k", TRAIN_LEN, SCAN_BATCH, "train")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             train_batch(base, shape, 0, seed=MODEL_SEED).items()}
+    runs, launches = {}, {}
+    for name, impl, sdt in (("pallas", "pallas", "float32"),
+                            ("xla_float32", "xla", "float32"),
+                            ("xla_bfloat16", "xla", "bfloat16")):
+        model = build_model(dataclasses.replace(base, ssm_impl=impl,
+                                                ssm_scan_dtype=sdt))
+        for c in counters.values():
+            c.launches = 0
+        runs[name] = _loss_and_grads_timed(torch, model, lm, batch)
+        launches[name] = {k: c.launches for k, c in counters.items()}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def norm_rel(ga, gb):
+        num = sum(float(((a - b).double() ** 2).sum()) for a, b in
+                  zip(ga, gb))
+        den = sum(float((b.double() ** 2).sum()) for b in gb)
+        return math.sqrt(num / max(den, 1e-300))
+    (lp, gp, *_), (l32, g32, *_), (l16, g16, *_) = (
+        runs[k] for k in ("pallas", "xla_float32", "xla_bfloat16"))
+    grad_rel = {n: rel(a, b) for n, a, b in zip(names, g32, gp)}
+    f32 = dict(loss_rel=rel(l32, lp), grad_max_rel=max(grad_rel.values()),
+               grad_worst=max(grad_rel, key=grad_rel.get),
+               loss_rtol=SCAN_LOSS_RTOL, grad_rtol=SCAN_GRAD_RTOL)
+    bf16 = dict(loss_rel=rel(l16, l32), grad_norm_rel=norm_rel(g16, g32),
+                grad_max_rel=max(rel(a, b) for a, b in zip(g16, g32)),
+                rtol=SCAN_BF16_RTOL)
+    finite = all(bool(torch.isfinite(l)) and all(
+        bool(torch.isfinite(g).all()) for g in gs)
+        for l, gs, *_ in runs.values())
+    passes = SCAN_LAYERS
+    want = {"selective_scan": 2 * passes, "selective_scan_bwd": passes}
+    kernels_ok = (
+        all(launches["pallas"][k] == v for k, v in want.items())
+        and not any(v for k, v in launches["pallas"].items()
+                    if k not in want)
+        and not any(v for k in ("xla_float32", "xla_bfloat16")
+                    for v in launches[k].values()))
+    ok = (finite and kernels_ok
+          and f32["loss_rel"] <= SCAN_LOSS_RTOL
+          and f32["grad_max_rel"] <= SCAN_GRAD_RTOL
+          and bf16["loss_rel"] <= SCAN_BF16_RTOL
+          and bf16["grad_norm_rel"] <= SCAN_BF16_RTOL)
+    record = dict(
+        model=base.name, n_layers=SCAN_LAYERS, d_model=base.d_model,
+        d_inner=base.d_inner, ssm_state=base.ssm_state,
+        ssm_chunk=base.ssm_chunk, param_dtype=base.param_dtype,
+        remat=base.remat_policy, batch=SCAN_BATCH, seq_len=TRAIN_LEN,
+        runs={k: dict(loss=float(v[0]), loss_and_grad_s=v[2],
+                      peak_device_gib=v[3], launches=launches[k])
+              for k, v in runs.items()},
+        float32_vs_pallas=f32, bfloat16_vs_float32=bf16,
+        launches_expected_pallas=want,
+        reduced={"n_layers": "64 -> 4 (one layer's scan levels at a time "
+                             "under remat; the phase's time)",
+                 "train_4k": f"batch 256 x 4096 -> {SCAN_BATCH} x 4096",
+                 "param_dtype": "bfloat16 -> float32 (the scan's own "
+                                "distance, unrounded)"},
+        ok=bool(ok))
+    del runs, lm, batch
+    torch.cuda.empty_cache()
+    return record, launches["pallas"]
+
+
+# -- phase 6e ----------------------------------------------------------------
+
+# launch/train.py's driver at full width (qwen3-0.6b, bf16, AdamW, remat),
+# in-process: DRIVER_ARGS into a directory under build/, then the last
+# checkpoint deleted and the run resumed from the one before it.
+DRIVER_ARCH = "qwen3_0_6b"
+DRIVER_ARGS = ["--arch", DRIVER_ARCH, "--steps", "8", "--seq-len", "1024",
+               "--batch", "8", "--ckpt-every", "4", "--eval-every", "8"]
+
+
+def driver_phase(torch, np, counters):
+    """Phase 6e: ``repro_torch.launch.train.main`` twice (straight, then
+    resumed after the step-8 checkpoint is deleted): the resumed run's
+    losses and final parameters against the straight run's (bit for bit
+    expected), the eval's certificate against the eval set's full mean,
+    ``compress_roundtrip`` of one step's gradients on the card against
+    the CPU, the SIGTERM handler put back, and no kernel counter moved.
+    Returns (record, launches)."""
+    import shutil
+    import signal
+    from repro_torch.distributed import grad_compression as gc
+    from repro_torch.launch import train as drv
+
+    work = ROOT / "build" / "smoke_driver"
+    shutil.rmtree(work, ignore_errors=True)
+    args = DRIVER_ARGS + ["--ckpt-dir", str(work)]
+    losses, reports = [], []
+    build_step, run_eval = drv.build_train_step, drv.run_eval
+
+    def recording_step(model, ocfg):
+        fn = build_step(model, ocfg)
+
+        def step(state, batch):
+            state, met = fn(state, batch)
+            losses[-1].append(float(met["loss"]))
+            return state, met
+        return step
+
+    def recording_eval(model, cfg, state, a):
+        t0 = time.perf_counter()
+        rep = run_eval(model, cfg, state, a)
+        reports.append((rep, time.perf_counter() - t0, model, state))
+        return rep
+
+    handler = signal.getsignal(signal.SIGTERM)
+    for c in counters.values():
+        c.launches = 0
+    drv.build_train_step, drv.run_eval = recording_step, recording_eval
+    try:
+        losses.append([])
+        t0 = time.perf_counter()
+        straight = drv.main(args)
+        straight_s = time.perf_counter() - t0
+        ckpt_dir = work / DRIVER_ARCH
+        steps_saved = sorted(p.name for p in ckpt_dir.glob("step_*"))
+        shutil.rmtree(ckpt_dir / "step_00000008")
+        losses.append([])
+        t0 = time.perf_counter()
+        resumed = drv.main(args + ["--resume"])
+        resumed_s = time.perf_counter() - t0
+    finally:
+        drv.build_train_step, drv.run_eval = build_step, run_eval
+    handler_restored = signal.getsignal(signal.SIGTERM) is handler
+    launches = {k: c.launches for k, c in counters.items()}
+    a = dict(straight["params"].named_parameters())
+    b = dict(resumed["params"].named_parameters())
+    param_max_diff = max(float((a[n] - b[n]).detach().float().abs().max())
+                         for n in a)
+    bitwise = all(torch.equal(a[n], b[n]) for n in a) and all(
+        torch.equal(straight["opt"][k][n], resumed["opt"][k][n])
+        for k in ("m", "v") for n in a)
+    del resumed, b
+    # the eval: its certificate against the set's full mean clipped loss
+    rep, eval_s, model, _ = reports[0]
+    full = full_eval_mean(torch, np, model, straight["params"],
+                          rep.loss_clip, int(args[args.index("--seq-len")
+                                                   + 1]))
+    covers = rep.lo <= full["mean"] <= rep.hi
+    # one step's gradients through compress_roundtrip, card and CPU
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.tokens import train_batch
+    cfg = model.cfg
+    lm = straight["params"]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        cfg, ShapeConfig("cli", 1024, 8, "train"), 0).items()}
+    loss, _ = model.loss(lm, batch)
+    names = [n for n, _ in lm.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(loss, list(
+        lm.parameters()))))
+    del loss, batch
+    t0 = time.perf_counter()
+    dq, fb = gc.compress_roundtrip(grads, gc.init_error_feedback(grads))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = {n: g.cpu() for n, g in grads.items()}
+    t0 = time.perf_counter()
+    dq_c, fb_c = gc.compress_roundtrip(cpu, gc.init_error_feedback(cpu))
+    cpu_s = time.perf_counter() - t0
+    differ = [n for n in names if not (torch.equal(dq[n].cpu(), dq_c[n])
+                                       and torch.equal(fb[n].cpu(), fb_c[n]))]
+    compress_bitwise = not differ
+    del grads, dq, fb, cpu, dq_c, fb_c, straight, lm, reports
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stray = [k for k, v in launches.items() if v]
+    ok = (bitwise and losses[0][-1] == losses[1][-1] and covers
+          and rep.stopped_early and handler_restored and compress_bitwise
+          and steps_saved == ["step_00000004", "step_00000008"]
+          and len(losses[0]) == 8 and len(losses[1]) == 4
+          and all(np.isfinite(losses[0])) and not stray)
+    return dict(
+        arch=DRIVER_ARCH, argv=args, straight_s=straight_s,
+        resumed_s=resumed_s, steps_saved=steps_saved,
+        straight_losses=losses[0], resumed_losses=losses[1],
+        resumed_param_max_abs_diff=param_max_diff,
+        resumed_state_bitwise=bitwise,
+        eval=dict(report_dict(rep), eval_s=eval_s, full_mean=full["mean"],
+                  full_pass_s=full["seconds"], certificate_covers=covers),
+        compress=dict(bitwise=compress_bitwise, card_s=card_s, cpu_s=cpu_s,
+                      leaves=len(names), leaves_differing=differ[:8]),
+        sigterm_handler_restored=handler_restored, launches=launches,
+        reduced={"steps": "a run of 200 (the driver's default) -> 8, and "
+                          "4 resumed"},
+        ok=bool(ok)), launches
+
+
+def full_eval_mean(torch, np, model, lm, clip: float, seq_len: int):
+    """The driver's eval set's mean clipped per-token loss over every
+    example (its scramble, batches of its size, float64 on the host)."""
+    from repro_torch.data.tokens import make_eval_scramble
+    from repro_torch.launch import train as drv
+    sc = make_eval_scramble(model.cfg, n_examples=drv.EVAL_EXAMPLES,
+                            seq_len=seq_len)
+    total, count = 0.0, 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for b in sc.batches(drv.EVAL_BATCH):
+            toks = torch.from_numpy(b["tokens"]).cuda()
+            targets = torch.from_numpy(b["targets"]).cuda()
+            logits, _ = model.forward(lm, {"tokens": toks})
+            losses = torch.logsumexp(logits, dim=-1) - torch.gather(
+                logits, -1, targets.clamp(min=0).long()[..., None])[..., 0]
+            v = losses[targets >= 0].double().cpu().numpy()
+            total += float(np.clip(v, 0.0, clip).sum())
+            count += v.size
+            del logits, losses
+    return dict(mean=total / count, seconds=time.perf_counter() - t0)
 
 
 def main(argv=None) -> int:
@@ -3558,6 +4015,35 @@ def main(argv=None) -> int:
     # ---- 6b. the monitors' decisions over phase 6's steps ------------------
     emit(dict(phase="monitors", card=name, power_limit=power_limit,
               steps=TRAIN_STEPS + 1, **train["monitors"]))
+
+    # ---- 6c. the dense, MoE, hybrid and enc-dec families' training path --
+    t0 = time.perf_counter()
+    fam, launches = family_train_phase(torch, np, counters)
+    path_launches["family_train"] = launches
+    emit(dict(phase="family_train", card=name, power_limit=power_limit,
+              **fam, phase_s=time.perf_counter() - t0,
+              total_s=time.perf_counter() - t_start))
+    if not fam["ok"]:
+        raise AssertionError(f"the families' training path failed: {fam}")
+
+    # ---- 6d. the Mamba1 xla path's chunked scan against the kernels -------
+    t0 = time.perf_counter()
+    scan, launches = mamba1_xla_scan_phase(torch, np, counters)
+    emit(dict(phase="mamba1_xla_scan", card=name, power_limit=power_limit,
+              **scan, phase_s=time.perf_counter() - t0,
+              total_s=time.perf_counter() - t_start))
+    if not scan["ok"]:
+        raise AssertionError(f"the chunked scan failed: {scan}")
+
+    # ---- 6e. launch/train.py's driver: checkpoints, resume, eval ----------
+    t0 = time.perf_counter()
+    drive, launches = driver_phase(torch, np, counters)
+    path_launches["train_driver"] = launches
+    emit(dict(phase="train_driver", card=name, power_limit=power_limit,
+              **drive, phase_s=time.perf_counter() - t0,
+              total_s=time.perf_counter() - t_start))
+    if not drive["ok"]:
+        raise AssertionError(f"the training driver failed: {drive}")
 
     # ---- 7. the kernels line ------------------------------------------------
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])

@@ -43,11 +43,11 @@ def main() -> int:
         return 2
     print(smoke.nvidia_smi_line(), flush=True)
     cfg, _, state, batch, step, _ = smoke.training_setup(torch)
-    state, _ = smoke.train_step_once(torch, step, state, batch)  # warm up
+    state, _, _ = smoke.train_step_once(torch, step, state, batch)  # warm up
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        state, rec = smoke.train_step_once(torch, step, state, batch)
+        state, _, rec = smoke.train_step_once(torch, step, state, batch)
     # the optimizer's range is traced on the card too (a user annotation
     # spanning its kernels): keep it out of the kernel counts and sums
     events = prof.events()

@@ -6,9 +6,8 @@ defaults and derived properties, so a port config can be built from
 selectable by id (see :mod:`repro_torch.configs.registry`); each carries
 its own shape set (train_4k / prefill_32k / decode_32k / long_500k).
 
-``ssm_impl`` picks the Mamba1 scan: ``"xla"`` is the plain PyTorch
-sequential recurrence chunk by chunk (the reference's associative scan
-per chunk), ``"pallas"`` the hand-written selective-scan kernel — CUDA
+``ssm_impl`` picks the Mamba1 scan: ``"xla"`` is the reference's
+associative scan chunk by chunk in plain PyTorch, ``"pallas"`` the hand-written selective-scan kernel — CUDA
 on the card, its plain version on the CPU
 (:func:`repro_torch.kernels.ops.selective_scan`). The names are the
 reference's, kept so that configs carry over unchanged.

@@ -5,10 +5,7 @@ outputs as the JAX package's oracles in :mod:`repro.kernels.ref`. The
 CPU tests run them, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card. Nothing on the engine's path calls them for
 tensors that live on the card: :mod:`repro_torch.kernels.ops` launches
-the kernel there. The Mamba1 model calls the plain scan on the card on
-purpose, where the reference computes it outside any kernel: decode's
-one-step recurrence (:func:`selective_scan_step`) and the ``xla``
-prefill path.
+the kernel there.
 """
 
 from __future__ import annotations

@@ -87,7 +87,11 @@ def encdec_init(cfg: ArchConfig, generator: torch.Generator,
 
 
 def _remat(cfg: ArchConfig, fn):
-    return remat(fn) if cfg.remat else fn
+    """Per-layer remat under ``cfg.remat_policy``. The reference's
+    enc-dec rematerialises under ``"nothing"`` whatever the policy; the
+    policies give the same numbers bit for bit and differ only in memory
+    and time."""
+    return remat(fn, cfg.remat_policy) if cfg.remat else fn
 
 
 def _positions(B: int, T: int, device) -> torch.Tensor:

@@ -12,12 +12,14 @@ the reference's weights.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 
@@ -186,14 +188,38 @@ def output_logits(owner: nn.Module, final_ln: Norm, head: torch.Tensor,
     return h.to(torch.float32) @ _head_f32(owner, head)
 
 
-def remat(fn):
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of matrix products without batch dimensions (``mm``,
+    ``addmm``, and a ``bmm`` of batch 1, which is how ``torch.einsum``
+    lowers some unbatched products), recompute everything else, the
+    batched products (attention scores, ``bmm`` of batch > 1)
+    included."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, policy: str = "nothing"):
     """``fn`` rematerialised where a gradient is wanted: the reference's
-    ``jax.checkpoint`` with the ``"nothing"`` policy. A call keeps only
-    its inputs and runs again in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant); outside autograd it is
-    ``fn``. ``fn`` takes modules, the config and tensors or constants."""
+    ``jax.checkpoint`` with the ``"nothing"`` policy (a call keeps only
+    its inputs and runs again in the backward pass) or the ``"dots"``
+    policy (:func:`_dots_policy`: the unbatched matmuls' outputs are kept
+    and only the rest runs again). ``torch.utils.checkpoint``,
+    non-reentrant; outside autograd it is ``fn``. ``fn`` takes modules,
+    the config and tensors or constants. Neither policy changes a
+    number: gradients are bit for bit those without remat."""
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"remat policy {policy!r}: 'nothing' or 'dots'")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
     def layer(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return layer

@@ -266,18 +266,10 @@ def _shared_block(sp: SharedBlock, cfg: ArchConfig, h: torch.Tensor,
 
 
 def _maybe_remat(cfg: ArchConfig, fn):
-    """Per-layer rematerialisation with the ``"nothing"`` policy
-    (:func:`repro_torch.models.layers.remat`; the Mamba1 scan kernel then
-    runs twice a layer per step). The ``"dots"`` policy (keep the matmul
-    outputs) is not ported yet."""
-    if not cfg.remat:
-        return fn
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet: the port "
-            "rematerialises with the 'nothing' policy only (ROADMAP queue 1 "
-            "item 14)")
-    return remat(fn)
+    """Per-layer rematerialisation under ``cfg.remat_policy``
+    (:func:`repro_torch.models.layers.remat`; under ``"nothing"`` the
+    Mamba1 scan kernel runs twice a layer per step)."""
+    return remat(fn, cfg.remat_policy) if cfg.remat else fn
 
 
 # -- prefill (forward + emit decode caches) -----------------------------------

@@ -15,8 +15,10 @@ Two prefill paths, picked by ``cfg.ssm_impl`` as in the reference:
     (:func:`repro_torch.kernels.ops.selective_scan_bwd`) — the serving
     and training path;
   * ``"xla"``: plain PyTorch, chunk by chunk, each chunk's scan the
-    sequential recurrence (the reference runs an associative scan per
-    chunk), differentiated by autograd. Correct but not fast.
+    reference's associative scan (:func:`associative_scan`, its
+    state-expanded tensors in ``cfg.ssm_scan_dtype``, the carry in
+    float32), differentiated by autograd. Its levels are materialised:
+    (B, chunk, d_inner, n) tensors, several a level.
 
 Decode is the O(1) recurrence in plain PyTorch, one step of
 :func:`_mamba1_core`, as the reference computes it outside any kernel.
@@ -35,14 +37,13 @@ layer's input.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.selective_scan import make_trainable_scan
 from repro_torch.models.layers import dense_init, param_dtype
 
@@ -124,25 +125,84 @@ def _projections(p: Mamba1Block, conv_out: torch.Tensor):
     return dt, Bm, Cm, A
 
 
+def _sl(x: torch.Tensor, dim: int, start, stop, step=None) -> torch.Tensor:
+    idx = [slice(None)] * x.dim()
+    idx[dim] = slice(start, stop, step)
+    return x[tuple(idx)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """``a[0], b[0], a[1], b[1], ...`` along ``dim``; ``a`` has as many
+    entries as ``b`` or one more."""
+    n = b.shape[dim]
+    out = torch.stack([_sl(a, dim, 0, n), b], dim=dim + 1).flatten(dim,
+                                                                   dim + 1)
+    return out if a.shape[dim] == n else torch.cat([out, _sl(a, dim, n,
+                                                             None)], dim)
+
+
+def associative_scan(fn, elems: List[torch.Tensor], dim: int
+                     ) -> List[torch.Tensor]:
+    """Inclusive scan of the tensors ``elems`` along ``dim`` under the
+    associative ``fn(a_list, b_list) -> list``, by
+    ``jax.lax.associative_scan``'s recursion: combine adjacent pairs,
+    scan the pairs, combine each scanned pair with the next even
+    element, interleave. The same association order gives the same
+    roundings as the reference's, bf16 included. Differentiable by
+    autograd; its levels hold about twice the input's elements."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    pairs = fn([_sl(e, dim, 0, -1, 2) for e in elems],
+               [_sl(e, dim, 1, None, 2) for e in elems])
+    odd = associative_scan(fn, pairs, dim)
+    if n % 2 == 0:
+        even = fn([_sl(e, dim, 0, -1) for e in odd],
+                  [_sl(e, dim, 2, None, 2) for e in elems])
+    else:
+        even = fn(odd, [_sl(e, dim, 2, None, 2) for e in elems])
+    even = [torch.cat([_sl(e, dim, 0, 1), r], dim)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o, dim) for e, o in zip(even, odd)]
+
+
+def _muladd(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a + b * c`` rounded as XLA rounds it: one fused multiply-add in
+    float32, each operation rounded in bfloat16."""
+    if a.dtype == _F32:
+        return torch.addcmul(a, b, c)
+    return a + b * c
+
+
+def _comb(a, b):
+    """The linear recurrence's combine: ``(da, ua) then (db, ub)`` is
+    ``(da db, ub + db ua)``."""
+    (da, ua), (db, ub) = a, b
+    return [da * db, _muladd(ub, db, ua)]
+
+
 def _mamba1_core(p: Mamba1Block, cfg: ArchConfig, conv_out: torch.Tensor,
                  h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """conv_out: (B, L, din) f32 post-conv/silu; h: (B, din, n) carry.
-    Returns (y (B,L,din) f32, h_new). The scan is the plain sequential
-    recurrence in float32; ``y``'s sum over the states is taken in
-    float32 from float32 operands (the reference's einsum with
-    ``preferred_element_type=float32``)."""
-    if cfg.ssm_scan_dtype != "float32":
-        raise NotImplementedError(
-            f"ssm_scan_dtype={cfg.ssm_scan_dtype!r}: the port's plain scan "
-            "runs in float32 only")
+    Returns (y (B,L,din) f32, h_new).
+
+    The reference's chunk scan: the state-expanded ``decay`` and ``u``
+    (B, L, din, n) are built in ``cfg.ssm_scan_dtype`` and scanned over
+    L by :func:`associative_scan`; the carry ``h`` stays float32, so
+    rounding does not compound beyond a chunk. ``y``'s sum over the
+    states multiplies the states and ``C``, each rounded to the scan
+    dtype, in float32 (the reference's einsum with
+    ``preferred_element_type=float32``, which rounds no product)."""
     dt, Bm, Cm, A = _projections(p, conv_out)
-    ys = []
-    for t in range(conv_out.shape[1]):
-        y_t, h = _ref.selective_scan_step(conv_out[:, t], dt[:, t], Bm[:, t],
-                                          Cm[:, t], A, p.D, h)
-        ys.append(y_t)
-    y = ys[0][:, None] if len(ys) == 1 else torch.stack(ys, dim=1)
-    return y, h
+    sdt = torch.bfloat16 if cfg.ssm_scan_dtype == "bfloat16" else _F32
+    decay = torch.exp((dt[..., None] * A).to(_F32)).to(sdt)
+    u = (dt * conv_out)[..., None].to(sdt) * Bm[:, :, None, :].to(sdt)
+    dec_s, u_s = associative_scan(_comb, [decay, u], dim=1)
+    hs = torch.addcmul(u_s.to(_F32), dec_s.to(_F32), h[:, None])
+    y = torch.einsum("blin,bln->bli", hs.to(sdt).to(_F32),
+                     Cm.to(sdt).to(_F32)) + conv_out * p.D
+    return y, hs[:, -1]
 
 
 def mamba1_apply(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,

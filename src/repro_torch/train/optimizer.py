@@ -9,8 +9,8 @@ writes the new parameters and moments **in place** (no second copy of
 a 7B model's state) and returns ``(params, state, metrics)``. Each
 update is the reference's per-leaf formula, operation for operation.
 
-The optimizer-state sharding of the reference (``state_specs``) is not
-ported (ROADMAP queue 1 item 14).
+The optimizer-state sharding of the reference (``state_specs``) comes
+with the port of ``distributed/sharding.py``, the multi-card slice.
 
 Adafactor sees the leaves the reference sees. The reference stacks a
 layer parameter of every layer into one ``(n_layers, ...)`` leaf; the
@@ -21,13 +21,18 @@ shapes under those names, and :func:`apply` computes each leaf's update
 on the stack (a layer's vector is factored across the layer axis, and
 the update clip spans all layers), then writes each layer's slice back.
 The stack and the update's float32 temporaries are one leaf's size at
-a time, never the whole model's. Parameters outside the layers stay single
-leaves. AdamW is elementwise and works per tensor.
+a time, never the whole model's. A stacked leaf whose layers are
+matrices (dbrx's ``(n_layers, E, d, ff)`` experts) has per-layer
+factored moments, and only its update clip spans the stack: it is
+updated a layer at a time, in two passes (:func:`_adafactor_layers`),
+so its temporaries are one layer's. Parameters outside the layers stay
+single leaves. AdamW is elementwise and works per tensor.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import re
 from typing import Dict, List, Mapping, Tuple
@@ -37,6 +42,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 
 _F32 = torch.float32
+_B2 = 0.999           # Adafactor's second-moment decay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,41 +103,61 @@ def moment_shape(key: str, shape) -> Tuple[int, ...]:
     raise KeyError(f"no optimizer leaf {key!r}")
 
 
-_LAYER = re.compile(r"layers\.(\d+)\.(.+)")
+# a scan-stacked layer parameter: ``<stack>.<i>.<rest>``, or the
+# hybrid's ``layers.<group>.<i>.<rest>``
+_LAYER = re.compile(r"(layers|tail_layers|enc_layers|dec_layers)"
+                    r"\.(\d+)\.(?:(\d+)\.)?([^\d].*)")
+
+
+def _stack_index(name: str):
+    """``(leaf, index)`` of a stacked layer parameter (``index`` a tuple
+    of one or two layer indices), or ``None``."""
+    m = _LAYER.fullmatch(name)
+    if m is None:
+        return None
+    idx = (int(m.group(2)),) if m.group(3) is None else (int(m.group(2)),
+                                                        int(m.group(3)))
+    return f"{m.group(1)}.{m.group(4)}", idx
+
+
+def _grid(idx) -> Tuple[int, ...]:
+    return tuple(max(i[k] for i in idx) + 1 for k in range(len(idx[0])))
 
 
 def leaves(names) -> Dict[str, List[str]]:
     """The reference's optimizer leaves over the port's parameter names:
-    ``layers.<rest>`` -> ``[layers.0.<rest>, layers.1.<rest>, ...]`` (in
-    layer order) for a scan-stacked layer parameter, ``name -> [name]``
-    for any other. Raises ``ValueError`` if a stacked name misses a
-    layer."""
+    ``<stack>.<rest>`` -> its layers' ``<stack>.<i>.<rest>`` in layer
+    order for a scan-stacked layer parameter (the stacks ``layers``,
+    ``tail_layers``, ``enc_layers`` and ``dec_layers``; the hybrid's
+    ``layers.<group>.<i>.<rest>`` group by group), ``name -> [name]`` for
+    any other. Raises ``ValueError`` if a stack misses a layer."""
     out: Dict[str, List[str]] = {}
-    layer_of: Dict[str, Dict[int, str]] = {}
+    layer_of: Dict[str, Dict[Tuple[int, ...], str]] = {}
     for n in names:
-        m = _LAYER.fullmatch(n)
-        if m is None:
+        hit = _stack_index(n)
+        if hit is None:
             out[n] = [n]
             continue
-        leaf = f"layers.{m.group(2)}"
+        leaf, idx = hit
         out.setdefault(leaf, [])
-        layer_of.setdefault(leaf, {})[int(m.group(1))] = n
+        layer_of.setdefault(leaf, {})[idx] = n
     for leaf, by_layer in layer_of.items():
-        if sorted(by_layer) != list(range(len(by_layer))):
-            raise ValueError(f"{leaf}: layers {sorted(by_layer)} are not "
-                             f"0..{len(by_layer) - 1}")
-        out[leaf] = [by_layer[i] for i in range(len(by_layer))]
+        idx = sorted(by_layer)
+        if idx != list(itertools.product(*map(range, _grid(idx)))):
+            raise ValueError(f"{leaf}: layers {idx} are not a full grid")
+        out[leaf] = [by_layer[i] for i in idx]
     return out
 
 
 def leaf_shape(members, params: Mapping[str, torch.Tensor]
                ) -> Tuple[int, ...]:
     """Shape of the leaf of :func:`leaves`' ``members``: the reference's
-    stacked ``(n_layers, ...)`` for layer parameters, else the
-    parameter's own."""
+    stacked ``(n_layers, ...)`` (the hybrid's ``(n_groups, period,
+    ...)``) for layer parameters, else the parameter's own."""
     shape = tuple(params[members[0]].shape)
-    return (len(members),) + shape if _LAYER.fullmatch(members[0]) \
-        else shape
+    if _stack_index(members[0]) is None:
+        return shape
+    return _grid([_stack_index(n)[1] for n in members]) + shape
 
 
 def init(params: Mapping[str, torch.Tensor], ocfg: OptConfig) -> Dict:
@@ -184,27 +210,33 @@ def apply(params: Mapping[str, torch.Tensor],
         return params, opt_state, metrics
 
     # -- adafactor (factored 2nd moments, no 1st moment) ----------------------
-    b2 = 0.999
     for leaf, members in leaves(params).items():
         vr, vc = opt_state["vr"][leaf], opt_state["vc"][leaf]
         ps = [params[n] for n in members]
         shape = leaf_shape(members, params)
-        if len(shape) > ps[0].dim():      # stacked: one f32 buffer
+        lead = len(shape) - ps[0].dim()   # the stacked layer axes
+        if lead and _factored(ps[0].shape):
+            _adafactor_layers(ps, [grads[n] for n in members],
+                              vr.flatten(0, lead - 1),
+                              vc.flatten(0, lead - 1), scale, lr, ocfg)
+            continue
+        if lead:                          # stacked: one f32 buffer
             g = torch.empty(shape, dtype=_F32, device=ps[0].device)
+            flat = g.view(-1, *ps[0].shape)
             for i, n in enumerate(members):
-                g[i].copy_(grads[n])
+                flat[i].copy_(grads[n])
             g.mul_(scale)
         else:
             g = grads[members[0]].to(_F32) * scale
         g2 = g * g + 1e-30
         if _factored(shape):
-            vr2 = b2 * vr + (1 - b2) * g2.mean(dim=-1)
-            vc2 = b2 * vc + (1 - b2) * g2.mean(dim=-2)
+            vr2 = _B2 * vr + (1 - _B2) * g2.mean(dim=-1)
+            vc2 = _B2 * vc + (1 - _B2) * g2.mean(dim=-2)
             denom = torch.clamp(vr2.mean(dim=-1, keepdim=True), min=1e-30)
             vhat = (vr2[..., None] * vc2[..., None, :]) / denom[..., None]
             vc.copy_(vc2)
         else:
-            vr2 = b2 * vr + (1 - b2) * g2
+            vr2 = _B2 * vr + (1 - _B2) * g2
             vhat = vr2
         del g2
         u = g / (torch.sqrt(vhat) + 1e-30)
@@ -212,9 +244,56 @@ def apply(params: Mapping[str, torch.Tensor],
         # update clipping (Adafactor d=1.0), over the whole leaf
         rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
         u = u / torch.clamp(rms_u, min=1.0)
-        us = u.unbind(0) if len(shape) > ps[0].dim() else (u,)
+        us = u.reshape(-1, *ps[0].shape).unbind(0) if lead else (u,)
         for p, ui in zip(ps, us):
             ui = ui + ocfg.weight_decay * p.to(_F32)
             p.copy_(p.to(_F32) - lr * ui)
         vr.copy_(vr2)
     return params, opt_state, metrics
+
+
+def _adafactor_unclipped(g: torch.Tensor, vr: torch.Tensor,
+                         vc: torch.Tensor, scale: torch.Tensor):
+    """One matrix's (or one layer's stack of matrices') Adafactor update
+    before the clip, with its new row and column moments: the formula of
+    :func:`apply`'s stacked path on one slice, each operation the same,
+    in place where it can be, so that the float32 temporaries are two of
+    the slice's size at most."""
+    g = g.to(_F32) * scale
+    g2 = g * g
+    g2.add_(1e-30)
+    vr2 = _B2 * vr + (1 - _B2) * g2.mean(dim=-1)
+    vc2 = _B2 * vc + (1 - _B2) * g2.mean(dim=-2)
+    del g2
+    denom = torch.clamp(vr2.mean(dim=-1, keepdim=True), min=1e-30)
+    vhat = vr2[..., None] * vc2[..., None, :]
+    vhat.div_(denom[..., None])
+    u = g.div_(vhat.sqrt_().add_(1e-30))
+    return u, vr2, vc2
+
+
+def _adafactor_layers(ps, gs, vr, vc, scale, lr, ocfg: OptConfig) -> None:
+    """Adafactor on a stacked leaf whose layers are matrices (dbrx's
+    ``(n_layers, E, d, ff)`` experts), a layer at a time: their factored
+    moments are the layer's own, and only the update clip spans the
+    stack, so a first pass sums the updates' squares and a second
+    computes each update again (the same bits) and applies it clipped.
+    The float32 temporaries are one layer's, not the stack's."""
+    sq = torch.zeros((), dtype=_F32, device=vr.device)
+    new = []
+    for i, g in enumerate(gs):
+        u, vr2, vc2 = _adafactor_unclipped(g, vr[i], vc[i], scale)
+        sq += torch.sum(u.square_())
+        new.append((vr2, vc2))
+        del u
+    count = sum(g.numel() for g in gs)
+    clip = torch.clamp(torch.sqrt(sq / count + 1e-30), min=1.0)
+    for i, (p, g) in enumerate(zip(ps, gs)):
+        # u / clip + wd * p, times lr, off p: apply's operations in place
+        u = _adafactor_unclipped(g, vr[i], vc[i], scale)[0].div_(clip)
+        u.add_(p.to(_F32, copy=True).mul_(ocfg.weight_decay)).mul_(lr)
+        p.copy_(p.to(_F32, copy=True).sub_(u))
+        del u
+    for i, (vr2, vc2) in enumerate(new):
+        vr[i].copy_(vr2)
+        vc[i].copy_(vc2)

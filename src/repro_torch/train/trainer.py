@@ -90,14 +90,17 @@ def build_train_step(model: Model, ocfg: opt.OptConfig,
                 if g_acc is None:
                     g_acc = [gi.to(_F32) for gi in g]
                     metrics = m_i
-                    continue
-                for a, gi in zip(g_acc, g):
-                    a.add_(gi.to(_F32))
-                metrics = {
-                    **{k: metrics[k] + m_i[k]
-                       for k in ("loss", "z_loss", "aux_loss", "tokens")},
-                    "loss_ci_state": merge_moments(metrics["loss_ci_state"],
-                                                   m_i["loss_ci_state"])}
+                else:
+                    for a, gi in zip(g_acc, g):
+                        a.add_(gi.to(_F32))
+                    metrics = {
+                        **{k: metrics[k] + m_i[k]
+                           for k in ("loss", "z_loss", "aux_loss",
+                                     "tokens")},
+                        "loss_ci_state": merge_moments(
+                            metrics["loss_ci_state"],
+                            m_i["loss_ci_state"])}
+                # a microbatch's gradients go before the next one's come
                 del g
             grads = {n: a.div_(micro) for n, a in zip(names, g_acc)}
             metrics = {**{k: metrics[k] / micro

@@ -160,7 +160,18 @@ def op_collective_counts():
     return out
 
 
-OPS = {"scenario": op_scenario, "fold_bitwise": op_fold_bitwise,
+def op_compressed_psum(shape, seed: int):
+    """``grad_compression.compressed_psum`` of this rank's gradient, a
+    float32 normal draw of scale ``10 ** rank`` from ``(seed, rank)``:
+    the sum as a list, for the test to hold against the numpy formula."""
+    from repro_torch.distributed.grad_compression import compressed_psum
+    rank = dist.get_rank()
+    g = np.random.default_rng([seed, rank]).normal(
+        0.0, 10.0 ** rank, shape).astype(np.float32)
+    return compressed_psum(torch.from_numpy(g)).numpy().tolist()
+
+
+OPS = {"scenario": op_scenario, "compressed_psum": op_compressed_psum, "fold_bitwise": op_fold_bitwise,
        "collective_counts": op_collective_counts,
        "match_reference": op_match_reference,
        "fault_agreement": op_fault_agreement}

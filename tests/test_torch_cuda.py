@@ -1904,3 +1904,72 @@ def test_nccl_world1_sharded_fold_captured(cuda, tmp_path):
                 assert torch.equal(out[1], ref_h)
     finally:
         dist.destroy_process_group()
+
+
+# -- the training stack on the card ---------------------------------------------
+
+
+def test_compress_roundtrip_card_equals_cpu(cuda):
+    """``grad_compression.compress_roundtrip`` on the card bit for bit on
+    the CPU (the scale divides by a device tensor: the card's division by
+    a Python number is a product with its reciprocal)."""
+    from repro_torch.distributed import grad_compression as gc
+    rng = np.random.default_rng(0)
+    grads = {f"g{i}": torch.from_numpy(rng.normal(
+        0, 10.0 ** rng.uniform(-6, 2), (257, 33)).astype(np.float32))
+        for i in range(16)}
+    fb = gc.init_error_feedback(grads)
+    want = gc.compress_roundtrip(grads, fb)
+    got = gc.compress_roundtrip({k: v.to(cuda) for k, v in grads.items()},
+                                {k: v.to(cuda) for k, v in fb.items()})
+    for w, g in zip(want, got):
+        for k in grads:
+            assert torch.equal(g[k].cpu(), w[k]), k
+
+
+def test_checkpoint_restores_bfloat16_onto_the_card(cuda, tmp_path):
+    """A state on the card (bf16 parameters, float32 moments, the step)
+    saved with an async write and restored onto the card bit for bit."""
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.train import OptConfig, init_state
+    cfg = get_config("qwen3_0_6b", reduced=True)
+    model = build_model(cfg)
+    state = init_state(model, 0, OptConfig.for_arch(cfg), device="cuda")
+    ckpt.save_checkpoint(tmp_path, 1, state, async_write=True)()
+    like = init_state(model, 1, OptConfig.for_arch(cfg), device="cuda")
+    restored, _ = ckpt.restore_checkpoint(tmp_path, 1, like)
+    a, b = ckpt._leaves(state), ckpt._leaves(restored)
+    assert any(t.dtype == torch.bfloat16 for _, t in a)
+    for (name, x), (_, y) in zip(a, b):
+        assert y.device.type == "cuda", name
+        assert torch.equal(x.detach().view(torch.int16) if x.dtype ==
+                           torch.bfloat16 else x.detach(),
+                           y.detach().view(torch.int16) if y.dtype ==
+                           torch.bfloat16 else y.detach()), name
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
+def test_chunked_scan_card_equals_cpu(cuda, scan_dtype):
+    """The ``xla`` path's chunked scan of a reduced falcon-mamba block on
+    the card against the CPU, output and gradients within 1e-5 of their
+    largest (float32 scan) or 1.5e-2 (bf16)."""
+    import dataclasses
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b", reduced=True),
+                              param_dtype="float32",
+                              compute_dtype="float32", ssm_impl="xla",
+                              ssm_scan_dtype=scan_dtype)
+    tol = 1e-5 if scan_dtype == "float32" else 1.5e-2
+    blk = ssm.mamba1_init(cfg, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (2, 64, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        b = ssm.mamba1_init(cfg, torch.Generator().manual_seed(0)).to(dev)
+        b.load_state_dict(blk.state_dict())
+        y = ssm.mamba1_apply(b, cfg, x.to(dev))
+        grads = torch.autograd.grad((y ** 2).mean(), list(b.parameters()))
+        out[str(dev)] = [y.detach().cpu()] + [g.cpu() for g in grads]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), err

@@ -4,9 +4,7 @@ injection, entry points refuse to run on the CPU unless asked,
 the kernel wrappers launch or raise (no silent fallback), the
 Anderson/DKW path and the training path run on the CPU when asked,
 every model family (the hybrid and enc-dec included) runs on the CPU
-without moving a kernel counter, the parts of the reference that later
-slices port raise NotImplementedError (among them the ``"dots"`` remat
-policy), and the
+without moving a kernel counter (under both remat policies), and the
 sharded scan's settings refuse, with the reference's ValueError, a
 process without a group of ranks."""
 
@@ -63,6 +61,9 @@ import repro_torch.serve.checkpoint, repro_torch.serve.scheduler
 import repro_torch.testing, repro_torch.testing.faults
 import repro_torch.core.pathologies
 import repro_torch.distributed, repro_torch.distributed.straggler
+import repro_torch.distributed.checkpoint
+import repro_torch.distributed.grad_compression
+import repro_torch.launch, repro_torch.launch.train
 import repro_torch.evalx, repro_torch.evalx.monitors
 import repro_torch.evalx.approx_eval
 bad = sorted(m for m in sys.modules
@@ -91,6 +92,20 @@ def _imported_modules(tree: ast.AST):
             out.add(node.module)
             out.update(f"{node.module}.{a.name}" for a in node.names)
     return out
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    """``chip_smoke.py`` and the scripts that run its phases alone import
+    nothing of JAX or of the JAX package (the card's machine has
+    neither)."""
+    root = SRC.parent
+    files = [root / "chip_smoke.py"] + sorted(
+        (root / "scripts").glob("smoke_*_phase.py"))
+    assert len(files) >= 4
+    for path in files:
+        mods = _imported_modules(ast.parse(path.read_text()))
+        bad = sorted(m for m in mods if m.split(".")[0] in ("jax", "repro"))
+        assert bad == [], (path.name, bad)
 
 
 def test_production_modules_never_import_testing():
@@ -291,7 +306,8 @@ def test_hybrid_and_encdec_loss_and_serving_touch_no_kernel(arch_id):
 def test_model_loss_and_scan_backward_raise_not_implemented():
     """Training is ported: the loss and the scan's backward (kernel #6)
     run on the CPU with their plain versions and never touch the card's
-    counters; the reference's ``"dots"`` remat policy still raises."""
+    counters; so does the ``"dots"`` remat policy, whose loss and
+    gradients are the ``"nothing"`` policy's bit for bit."""
     import dataclasses
     model = _tiny_model()
     lm = model.init(0, device="cpu")
@@ -315,8 +331,17 @@ def test_model_loss_and_scan_backward_raise_not_implemented():
     assert x.grad.shape == (B, L, din) and torch.isfinite(dt.grad).all()
     assert (selective_scan.selective_scan.launches,
             selective_scan.selective_scan_bwd.launches) == before
-    dots = build_model(dataclasses.replace(
-        get_config("falcon_mamba_7b", reduced=True), remat_policy="dots"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        dots.loss(dots.init(0, device="cpu"),
-                  {"tokens": toks, "targets": toks})
+    runs = []
+    for policy in ("nothing", "dots"):
+        m = build_model(dataclasses.replace(
+            get_config("falcon_mamba_7b", reduced=True), remat=True,
+            remat_policy=policy))
+        lm = m.init(0, device="cpu")
+        loss, _ = m.loss(lm, {"tokens": toks, "targets": toks})
+        runs.append((loss, torch.autograd.grad(loss,
+                                               list(lm.parameters()))))
+    (l0, g0), (l1, g1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert (selective_scan.selective_scan.launches,
+            selective_scan.selective_scan_bwd.launches) == before
