@@ -80,7 +80,7 @@ one JSON line:
      intervals covering the truth); a seeded trace over all six kinds,
      run twice to the same event log;
   3e. the sharded scan (``EngineConfig(shard_rows=True)``) on the first
-     blocks of phase 3b's scramble that hold 10M rows (``SHARD_ROWS``,
+     blocks of phase 3b's scramble that hold 5M rows (``SHARD_ROWS``,
      cut for the smoke's time): the main process runs the Bernstein and
      the Anderson/DKW G 2,800 GROUP BY and phase 3c's ``shared_sig``
      batch through phases 3b / 3c's single-device paths and writes the
@@ -115,11 +115,11 @@ one JSON line:
      float32, prefill + decode against forward (2e-3), and the reduced
      config on the card against the CPU (1e-4);
   5b. ``evalx.ApproxEval`` of the same model (64 layers, bf16) over a
-     scrambled eval set of 256 x 2048 tokens (cut from 512 for the
+     scrambled eval set of 128 x 2048 tokens (cut from 512 for the
      smoke's time) (``data.tokens.
      make_eval_scramble``), batches of 8, delta 1e-6, target width 0.1:
      it must stop early with a certificate covering the full set's mean
-     clipped loss (one forward a batch over all 64 batches, float64),
+     clipped loss (one forward a batch over all 16 batches, float64),
      each forward launching the scan kernel once a layer; then at full
      width, 4 layers, float32, 32 examples of 256 tokens, card against
      CPU (per-token losses within 1e-4, the same rounds and examples);
@@ -162,7 +162,7 @@ one JSON line:
   6c. the dense, MoE, hybrid and enc-dec families' training path (plain
      PyTorch, no kernel), bf16 at full width: qwen2.5-3b (36 layers, 2 x
      4096 tokens, AdamW), dbrx-132b (2 of 40 layers, 4 x 4096 in its 4
-     microbatches, Adafactor over its stacked experts), zamba2-7b (33 of
+     microbatches, Adafactor over its stacked experts), zamba2-7b (9 of
      81 layers, whole groups, 2 x 4096 in 2 microbatches) and
      seamless-m4t-large-v2 (24 + 24 layers, train_4k's frames and
      tokens for 2 sequences); each a warm-up and 3 timed steps on one
@@ -183,6 +183,24 @@ one JSON line:
      ``compress_roundtrip`` of one step's gradients on the card bit for
      bit on the CPU; the SIGTERM handler put back; no kernel counter
      moved;
+  6f. the multi-card layout (``distributed/sharding.py``, the sharded
+     train step, the elastic checkpoint, the dry runs): qwen3-0.6b at
+     full width, 4 of 28 layers, float32, AdamW, 8 x 512 tokens; one
+     single-card step here, written to a file; four spawned gloo ranks
+     on the card on a (2, 2) ("data", "model") mesh: one
+     ``build_sharded_train_step`` step from the same state and batch
+     held to it (loss 1e-4; each rank's shards of the parameters within
+     rtol 2e-4, atol 2e-5, of the moments within 2e-4 of their leaf's
+     largest), every replica the same bits, each rank's bytes of
+     parameters and moments equal to ``launch.dryrun``'s accounting; the
+     state saved with its specs, restored onto (4, 1), one more step on
+     each layout (losses 1e-4). Beside the ranks a spawned process in a
+     ``fake`` group of 256, then 512 ranks runs ``dryrun_aqp`` on the
+     card (``block_agg`` launched) and ``LAYOUT_DRYRUN_CELLS`` at full
+     size on both production meshes (every cell ``ok``, every id and
+     shape). Then NCCL in a group of one rank: the sharded step on a
+     (1, 1) mesh against the single-card step (bit for bit or not,
+     printed);
   7. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times (``grouped_hist``
      at the main path's G 14, with G 2800 beside it; the multi-query
@@ -1070,20 +1088,55 @@ class StepClock:
         return out
 
 
+# The truths' group sums run on the card: at 100M rows numpy's int64 codes
+# and float64 bincounts took ~3 s a query (~55 s for phase 3's sixteen).
+# The card adds the float64 values in another order (atomics), ~1e-13
+# relative, far under every coverage tolerance (1e-4). Host columns are
+# copied to the card once and kept until ``release_card_columns``.
+_CARD_COLUMNS = {}
+
+
+def _card_column(np, arr):
+    import torch
+    hit = _CARD_COLUMNS.get(id(arr))
+    if hit is None or hit[0] is not arr:
+        hit = (arr, torch.from_numpy(np.ascontiguousarray(arr)).to("cuda"))
+        _CARD_COLUMNS[id(arr)] = hit
+    return hit[1]
+
+
+def release_card_columns() -> None:
+    _CARD_COLUMNS.clear()
+
+
+def group_sums(np, cols, value: str, group_cols, mask=None):
+    """``(count, float64 sum)`` of ``cols[value]`` per group code (the
+    group columns' mixed radix) over the rows ``mask`` keeps, as host
+    arrays, computed on the card."""
+    import torch
+    codes, G = None, 1
+    for c in group_cols:
+        col = _card_column(np, cols[c]).long()
+        card = int(col.max()) + 1
+        codes, G = (col if codes is None else codes * card + col), G * card
+    v = _card_column(np, cols[value]).double()
+    if codes is None:
+        codes = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    if mask is not None:
+        keep = torch.from_numpy(mask).to(v.device)
+        codes, v = codes[keep], v[keep]
+    cnt = torch.bincount(codes, minlength=G).double()
+    tot = torch.bincount(codes, weights=v, minlength=G)
+    return cnt.cpu().numpy(), tot.cpu().numpy()
+
+
 def truth_of(np, cols, q):
     """Per-group exact AVG in float64 from the unshuffled columns, and
     which groups exist."""
     mask = np.ones(len(cols["dep_delay"]), bool)
     for f in q.filters:
         mask &= f.evaluate(cols)
-    codes = np.zeros(mask.shape, np.int64)
-    G = 1
-    for c in q.group_cols:
-        card = int(cols[c].max()) + 1
-        codes, G = codes * card + cols[c], G * card
-    v = cols["dep_delay"].astype(np.float64)
-    cnt = np.bincount(codes[mask], minlength=G)
-    tot = np.bincount(codes[mask], weights=v[mask], minlength=G)
+    cnt, tot = group_sums(np, cols, "dep_delay", q.group_cols, mask)
     return tot / np.maximum(cnt, 1), cnt > 0
 
 
@@ -1662,13 +1715,7 @@ def scheduler_truth(np, cols, q, memo):
     if key not in memo:
         if q.filters:
             raise AssertionError(f"a burst query has filters: {q}")
-        codes, G = np.zeros(len(cols[q.column]), np.int64), 1
-        for c in q.group_cols:
-            card = int(cols[c].max()) + 1
-            codes, G = codes * card + cols[c], G * card
-        cnt = np.bincount(codes, minlength=G).astype(np.float64)
-        tot = np.bincount(codes, weights=cols[q.column].astype(np.float64),
-                          minlength=G)
+        cnt, tot = group_sums(np, cols, q.column, q.group_cols)
         memo[key] = ({"avg": tot / np.maximum(cnt, 1), "sum": tot,
                       "count": cnt}[q.agg], cnt > 0)
     return memo[key]
@@ -1850,8 +1897,9 @@ def chaos_phase(torch, np, frame, burst, clean, cols, counters):
 # over its ~150 s budget, and 161 s at 40M inside the smoke, which then
 # took 942 s of its 1200; under gloo every K = 1 round waits for its two
 # staged all-reduces, so a round runs at ~19-80 rounds/s. 20M rows took
-# 69 s inside the whole smoke; cut to 10M for the training phases 6c-6e.
-SHARD_ROWS = 10_000_000
+# 69 s inside the whole smoke; cut to 10M for the training phases 6c-6e,
+# then to 5M for the multi-card layout (phase 6f).
+SHARD_ROWS = 5_000_000
 SHARD_RANKS = 2
 SHARD_MERGE_EVERY = (1, 4)
 SHARD_RUNS = ("groupby_origin_airline", "groupby_origin_airline-adkw")
@@ -2584,7 +2632,7 @@ def serve_phase(torch, np, counters):
 # sequence length, delta 1e-6, target width 0.1; batches of 8 (16 there).
 # The set is cut to 256 examples for the training phases 6c-6e: the full
 # pass that gives the truth took 86 s of the phase's 104 at 512.
-EVAL_EXAMPLES, EVAL_LEN, EVAL_BATCH = 256, PROMPT_LEN, 8
+EVAL_EXAMPLES, EVAL_LEN, EVAL_BATCH = 128, PROMPT_LEN, 8
 EVAL_DELTA, EVAL_WIDTH = 1e-6, 0.1
 # tests/test_train_stack.py's width, used (and said) only when the
 # certificate cannot reach EVAL_WIDTH within EVAL_EXAMPLES; delta stays
@@ -3222,9 +3270,10 @@ FAMILY_TRAIN = (
      "40 -> 2 layers (about 8 bytes a parameter under Adafactor: 2 "
      "layers and the embeddings are 7.7 B parameters, ~57 GiB; 40 layers "
      "~132 B)"),
-    ("zamba2_7b", 33, 2,
-     "81 -> 33 layers, 5 groups of 6 and a tail of 3 (16 bytes a "
-     "parameter: 3.0 B parameters, ~45 GiB; 81 layers 6.8 B, ~101 GiB)"),
+    ("zamba2_7b", 9, 2,
+     "81 -> 9 layers, a group of 6 and a tail of 3 (the smoke's time "
+     "since phase 6f; 33 layers, 3.0 B parameters, ~45 GiB, until then; "
+     "81 layers 6.8 B, ~101 GiB at 16 bytes a parameter)"),
     ("seamless_m4t_large_v2", None, 2, None),
 )
 FAMILY_TRAIN_CUT = ("batch 256 x 4096 -> {} x 4096 (the time limit)")
@@ -3603,6 +3652,415 @@ def driver_phase(torch, np, counters):
         ok=bool(ok)), launches
 
 
+# Phase 6f: the multi-card layout. qwen3-0.6b at full width, cut to
+# LAYOUT_LAYERS of its 28 layers, float32 (as the reference's
+# distributed worker runs), AdamW at that worker's lr 1e-2 (warm-up 2 of
+# 20 steps), LAYOUT_BATCH x LAYOUT_LEN tokens (of train_4k's 256 x 4096:
+# the phase's time and four ranks' memory on one card).
+LAYOUT_ARCH = "qwen3_0_6b"
+LAYOUT_LAYERS = 4
+LAYOUT_BATCH, LAYOUT_LEN = 8, 512
+LAYOUT_RANKS = 4
+LAYOUT_MESHES = ((2, 2), (4, 1))
+LAYOUT_JOIN_TIMEOUT_S = 400
+# the reference worker's tolerances (tests/helpers/dist_train_worker.py):
+# loss 1e-4; parameters rtol 2e-4, atol 2e-5; the moments within 2e-4 of
+# their leaf's largest
+LAYOUT_LOSS_TOL, LAYOUT_RTOL, LAYOUT_ATOL = 1e-4, 2e-4, 2e-5
+# full-size dry-run cells (both production meshes), run beside the gloo
+# ranks: every id's decode_32k, both long_500k, four prefill_32k and one
+# train_4k, the cells whose meta step takes seconds (it is host-bound:
+# zamba2's and falcon-mamba's train_4k and prefill_32k take 4-6 min)
+LAYOUT_DRYRUN_CELLS = (
+    ("qwen3_0_6b", "train_4k"),
+    ("qwen3_0_6b", "prefill_32k"), ("seamless_m4t_large_v2", "prefill_32k"),
+    ("dbrx_132b", "prefill_32k"), ("arctic_480b", "prefill_32k"),
+    ("zamba2_7b", "long_500k"), ("falcon_mamba_7b", "long_500k")) + tuple(
+    (a, "decode_32k") for a in (
+        "seamless_m4t_large_v2", "stablelm_1_6b", "qwen2_5_3b",
+        "phi3_mini_3_8b", "qwen3_0_6b", "dbrx_132b", "arctic_480b",
+        "zamba2_7b", "pixtral_12b", "falcon_mamba_7b"))
+
+
+def layout_setup(torch):
+    """Phase 6f's config, model, optimizer settings and batch shape."""
+    from repro_torch.configs import ShapeConfig, get
+    from repro_torch.models import build
+    from repro_torch.train import OptConfig
+    cfg = dataclasses.replace(get(LAYOUT_ARCH), n_layers=LAYOUT_LAYERS,
+                              param_dtype="float32", compute_dtype="float32",
+                              remat=False)
+    ocfg = OptConfig.for_arch(cfg, lr=1e-2, warmup_steps=2, total_steps=20)
+    shape = ShapeConfig("layout", LAYOUT_LEN, LAYOUT_BATCH, "train")
+    return cfg, build(cfg), ocfg, shape
+
+
+def _layout_leaves(state) -> list:
+    """``[(name, tensor)]`` of a train state: ``params/<n>``, ``opt/m/<n>``,
+    ``opt/v/<n>``, ``step``."""
+    out = []
+
+    def walk(t, prefix):
+        if hasattr(t, "named_parameters"):
+            t = dict(t.named_parameters())
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{prefix}{k}/")
+        else:
+            out.append((prefix[:-1], t))
+    walk(state, "")
+    return out
+
+
+def _hold_to_single(torch, ref, name, got, fails, worst, idx):
+    """This rank's shard ``got`` (slices ``idx``) of one leaf of the
+    sharded state against the single-card step's: parameters within
+    rtol / atol, moments within ``LAYOUT_RTOL`` of the leaf's largest."""
+    whole = ref[name]
+    want = whole[idx].to(got.device)
+    if name == "step":
+        if not torch.equal(got.to(want.dtype), want):
+            fails.append(name)
+        return
+    err = float((got.float() - want.float()).abs().max())
+    top = max(float(whole.float().abs().max()), 1e-30)
+    if name.startswith("params/"):
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=LAYOUT_RTOL,
+                                 atol=LAYOUT_ATOL))
+    else:
+        ok = err <= LAYOUT_RTOL * top
+    key = name.split("/")[0] if name.startswith("params") else name[:5]
+    worst[key] = max(worst.get(key, 0.0), err / top)
+    if not ok:
+        fails.append(dict(leaf=name, max_abs=err, leaf_max=top))
+
+
+def _shard_crcs(torch, sh, state, mesh) -> dict:
+    """``{leaf: [slice bounds, crc32]}`` of this rank's shards."""
+    import zlib
+    out = {}
+    for name, t in _layout_leaves(state):
+        spec = sh.spec_of(mesh, t.placements, t.dim())
+        idx = sh.shard_slices(mesh, spec.padded(t.dim()), t.shape,
+                              mesh.get_coordinate())
+        loc = t.to_local().detach().reshape(-1).contiguous()
+        out[name] = [[[x.start, x.stop] for x in idx], zlib.crc32(
+            loc.view(torch.uint8).cpu().numpy().tobytes())]
+    return out
+
+
+def layout_rank_main(a: dict) -> None:
+    """Phase 6f's gloo rank ``a["rank"]`` of ``LAYOUT_RANKS`` on the card
+    (spawned): the sharded step on a (2, 2) mesh held to the single-card
+    step (``a["ref"]``, rank 0 compares), its shards' checksums and
+    bytes, the elastic checkpoint onto (4, 1) and one more step on each
+    layout. Writes its record to ``a["out"]``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path[:0] = [p for p in a["sys_path"] if p not in sys.path]
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import make_batch
+    from repro_torch.train import abstract_state, init_state
+    from repro_torch.train.trainer import build_sharded_train_step
+    rank = a["rank"]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(a["store"], LAYOUT_RANKS), rank=rank,
+        world_size=LAYOUT_RANKS,
+        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    rec = dict(rank=rank, fails=[])
+    cfg, model, ocfg, shape = layout_setup(torch)
+    batch = make_batch(cfg, shape, seed=0, device=dev)
+    abstract = abstract_state(model, ocfg)
+    states, steps, specs = {}, {}, {}
+    for mshape in LAYOUT_MESHES:
+        mesh = make_host_mesh(mshape, ("data", "model"))
+        specs[mshape] = (mesh, dryrun.state_spec(cfg, mesh, abstract, ocfg))
+    mesh, spec = specs[LAYOUT_MESHES[0]]
+    state = sh.distribute(mesh, spec, init_state(model, MODEL_SEED, ocfg,
+                                                 device=dev))
+    torch.cuda.empty_cache()
+    bspec = sh.batch_specs(cfg, mesh, shape, batch)
+    step = build_sharded_train_step(model, ocfg, mesh, spec, bspec)
+    rec["init_s"] = time.perf_counter() - t_start
+    c0 = dict(coll.COLLECTIVES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    rec["step_s"] = time.perf_counter() - t0
+    rec["collectives"] = {k: coll.COLLECTIVES[k] - c0[k] for k in c0}
+    rec["loss"], rec["grad_norm"] = float(met["loss"]), float(
+        met["grad_norm"])
+    # each rank holds its shards to the same slices of the single-card
+    # step's state (no gather)
+    t0 = time.perf_counter()
+    ref = torch.load(a["ref"], mmap=True)
+    worst = {}
+    for name, t in _layout_leaves(state):
+        leaf_spec = sh.spec_of(mesh, t.placements, t.dim())
+        idx = sh.shard_slices(mesh, leaf_spec.padded(t.dim()), t.shape,
+                              mesh.get_coordinate())
+        _hold_to_single(torch, ref, name, t.to_local(), rec["fails"], worst,
+                        idx)
+    d = abs(rec["loss"] - float(ref["metrics/loss"]))
+    rec["loss_diff"], rec["max_rel_err"] = d, worst
+    if d >= LAYOUT_LOSS_TOL:
+        rec["fails"].append(dict(check="loss", diff=d))
+    del ref
+    rec["compare_s"] = time.perf_counter() - t0
+    rec["crc_22"] = _shard_crcs(torch, sh, state, mesh)
+    # bytes: this rank's shards against the dry run's accounting
+    local = dryrun.tree_bytes({k: state[k] for k in ("params", "opt")})
+    want = (dryrun.device_bytes(mesh, spec["params"], abstract["params"])
+            + dryrun.device_bytes(mesh, spec["opt"], abstract["opt"]))
+    rec["bytes_22"] = dict(local=local, dryrun=want)
+    # the elastic checkpoint: saved from (2, 2) (rank 0 writes on a
+    # thread while the ranks take the next (2, 2) step), restored onto
+    # (4, 1)
+    t0 = time.perf_counter()
+    join = ckpt.save_checkpoint(a["ckpt"], 1, state, spec_tree=spec,
+                                async_write=True)
+    rec["save_gather_s"] = time.perf_counter() - t0
+    state, m1 = step(state, batch)
+    join()
+    rec["save_s"] = time.perf_counter() - t0
+    mesh2, spec2 = specs[LAYOUT_MESHES[1]]
+    t0 = time.perf_counter()
+    restored, _ = ckpt.restore_checkpoint(a["ckpt"], 1, abstract,
+                                          mesh=mesh2, spec_tree=spec2)
+    rec["restore_s"] = time.perf_counter() - t0
+    local2 = dryrun.tree_bytes({k: restored[k] for k in ("params", "opt")})
+    want2 = (dryrun.device_bytes(mesh2, spec2["params"], abstract["params"])
+             + dryrun.device_bytes(mesh2, spec2["opt"], abstract["opt"]))
+    rec["bytes_41"] = dict(local=local2, dryrun=want2)
+    step2 = build_sharded_train_step(model, ocfg, mesh2, spec2,
+                                     sh.batch_specs(cfg, mesh2, shape, batch))
+    t0 = time.perf_counter()
+    restored, m2 = step2(restored, batch)
+    torch.cuda.synchronize()
+    rec["step_41_s"] = time.perf_counter() - t0
+    rec["elastic_losses"] = [float(m1["loss"]), float(m2["loss"])]
+    rec["crc_41"] = _shard_crcs(torch, sh, restored, mesh2)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["rank_s"] = time.perf_counter() - t_start
+    Path(a["out"], f"layout{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def layout_nccl_world1(torch, host: dict, store: str) -> dict:
+    """Phase 6f's NCCL check, in this process: the sharded step in a
+    group of one rank on a (1, 1) mesh against the single-card step's
+    state (``host``), leaf by leaf; the group is left after."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import make_batch
+    from repro_torch.train import abstract_state, init_state
+    from repro_torch.train.trainer import build_sharded_train_step
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(store, 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    try:
+        cfg, model, ocfg, shape = layout_setup(torch)
+        batch = make_batch(cfg, shape, seed=0, device=dev)
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        spec = dryrun.state_spec(cfg, mesh, abstract_state(model, ocfg),
+                                 ocfg)
+        state = sh.distribute(mesh, spec, init_state(model, MODEL_SEED,
+                                                     ocfg, device=dev))
+        step = build_sharded_train_step(model, ocfg, mesh, spec,
+                                        sh.batch_specs(cfg, mesh, shape,
+                                                       batch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        rec = dict(world=1, backend=dist.get_backend(),
+                   step_s=time.perf_counter() - t0, loss=float(met["loss"]))
+        differ, worst = [], 0.0
+        for name, t in _layout_leaves(state):
+            got = t.to_local()
+            want = host[name].to(dev)
+            if not torch.equal(got.reshape(want.shape).to(want.dtype),
+                               want):
+                differ.append(name)
+                worst = max(worst, float((got.float() - want.float())
+                                         .abs().max()))
+        rec["loss_bitwise"] = rec["loss"] == float(host["metrics/loss"])
+        rec["leaves_differing"], rec["max_abs_diff"] = differ[:8], worst
+        rec["bitwise"] = not differ and rec["loss_bitwise"]
+        del state, step, batch
+        torch.cuda.empty_cache()
+        return rec
+    finally:
+        dist.destroy_process_group()
+
+
+def layout_dryrun_main(a: dict) -> None:
+    """Phase 6f's dry runs (spawned: a ``fake``-backend group of 256, then
+    512 ranks): ``dryrun_aqp`` on both meshes on the card (``block_agg``
+    launched), then ``LAYOUT_DRYRUN_CELLS`` at full size on both."""
+    import torch
+    sys.path[:0] = [p for p in a["sys_path"] if p not in sys.path]
+    from repro_torch.launch import dryrun, dryrun_aqp
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    aqp = [dryrun_aqp.run(mp, device="cuda") for mp in (False, True)]
+    aqp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cells = dryrun.run_cells(list(LAYOUT_DRYRUN_CELLS), [False, True],
+                             log=lambda s: None)
+    for c in cells:
+        c.pop("trace", None)
+        c.pop("null_reason", None)
+    Path(a["out"], "layout_dryrun.json").write_text(json.dumps(dict(
+        aqp=aqp, aqp_s=aqp_s, cells=cells,
+        cells_s=time.perf_counter() - t0)))
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def layout_phase(torch, np, counters):
+    """Phase 6f: the multi-card layout on one card. The single-card step
+    here (its result written for the ranks), then four spawned gloo ranks
+    (the sharded step, replicas, bytes, the elastic checkpoint) beside a
+    spawned dry-run process, then NCCL in a group of one rank here.
+    Returns (record, launches): ``launches`` the dry-run process's
+    ``block_agg`` launches (this process moves no kernel counter)."""
+    import shutil
+    import torch.multiprocessing as tmp
+    from repro_torch.models import make_batch
+    from repro_torch.train import build_train_step, init_state
+    ctx = tmp.get_context("spawn")
+    work = ROOT / "build" / "smoke_layout"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fails, rec = [], {}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    cfg, model, ocfg, shape = layout_setup(torch)
+    state = init_state(model, MODEL_SEED, ocfg, device="cuda")
+    batch = make_batch(cfg, shape, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, met = build_train_step(model, ocfg)(state, batch)
+    torch.cuda.synchronize()
+    rec["single_step_s"] = time.perf_counter() - t1
+    rec["single_loss"] = float(met["loss"])
+    rec["params"] = sum(p.numel() for p in state["params"].parameters())
+    host = {n: t.detach().cpu() for n, t in _layout_leaves(state)}
+    host["metrics/loss"] = met["loss"].detach().cpu()
+    torch.save(host, work / "single_step.pt")
+    del state, met, batch
+    torch.cuda.empty_cache()
+    rec["single_s"] = time.perf_counter() - t0
+    base = dict(store=str(work / "store"), out=str(work),
+                ref=str(work / "single_step.pt"), ckpt=str(work / "ckpt"),
+                sys_path=list(sys.path))
+    # the gloo ranks and, beside them, the dry runs
+    t0 = time.perf_counter()
+    dry = ctx.Process(target=layout_dryrun_main, args=(dict(base),))
+    dry.start()
+    codes = _spawn_ranks(ctx, layout_rank_main,
+                         [dict(base, rank=r) for r in range(LAYOUT_RANKS)],
+                         LAYOUT_JOIN_TIMEOUT_S)
+    rec["ranks_wall_s"] = time.perf_counter() - t0
+    dry.join(max(LAYOUT_JOIN_TIMEOUT_S - rec["ranks_wall_s"], 1.0))
+    if dry.is_alive():
+        dry.terminate()
+        dry.join(10)
+        if dry.is_alive():
+            dry.kill()
+            dry.join()
+    rec["dryrun_wall_s"] = time.perf_counter() - t0
+    rec["rank_exit_codes"], rec["dryrun_exit_code"] = codes, dry.exitcode
+    shutil.rmtree(work / "ckpt", ignore_errors=True)
+    if codes != [0] * LAYOUT_RANKS:
+        fails.append(dict(part="gloo ranks", exit_codes=codes))
+    else:
+        ranks = [json.loads((work / f"layout{r}.json").read_text())
+                 for r in range(LAYOUT_RANKS)]
+        for r in ranks:
+            fails += [dict(rank=r["rank"], fail=f) for f in r["fails"]]
+            for key in ("bytes_22", "bytes_41"):
+                if r[key]["local"] != r[key]["dryrun"]:
+                    fails.append(dict(rank=r["rank"], bytes=key, **r[key]))
+        a, b = ranks[0]["elastic_losses"]
+        if abs(a - b) >= LAYOUT_LOSS_TOL:
+            fails.append(dict(check="elastic losses", losses=[a, b]))
+        for key in ("crc_22", "crc_41"):
+            seen = {}
+            for r in ranks:
+                for leaf, (bounds, crc) in r[key].items():
+                    seen.setdefault((leaf, str(bounds)), set()).add(crc)
+            drift = [k for k, v in seen.items() if len(v) > 1]
+            rec[f"replicas_{key[4:]}"] = dict(
+                slices=len(seen), held_by_more_than_one=sum(
+                    1 for r in ranks for _ in r[key]) - len(seen),
+                differing=len(drift))
+            if drift:
+                fails.append(dict(check=f"replicas {key}", leaves=drift[:4]))
+        if len({tuple(r["elastic_losses"]) for r in ranks}) != 1 or len(
+                {r["loss"] for r in ranks}) != 1:
+            fails.append(dict(check="ranks report the same losses"))
+        rec["ranks"] = [{k: v for k, v in r.items()
+                         if not k.startswith("crc_")} for r in ranks]
+    if dry.exitcode != 0:
+        fails.append(dict(part="dry runs", exit_code=dry.exitcode))
+    else:
+        d = json.loads((work / "layout_dryrun.json").read_text())
+        rec["dryrun_aqp"] = d["aqp"]
+        rec["dryrun_aqp_s"], rec["dryrun_cells_s"] = d["aqp_s"], d["cells_s"]
+        rec["dryrun_cells"] = [
+            {k: c.get(k) for k in ("arch", "shape", "mesh", "ok", "error",
+                                   "flops", "step_s", "layout_s")}
+            | {"state_bytes_per_device": c.get("memory", {}).get(
+                "state_bytes_per_device")} for c in d["cells"]]
+        bad = [c for c in d["cells"] if not c["ok"]]
+        covered = ({c["arch"] for c in d["cells"]},
+                   {c["shape"] for c in d["cells"]})
+        if bad or len(covered[0]) != 10 or len(covered[1]) != 4:
+            fails.append(dict(check="dry-run cells", failed=bad[:3],
+                              ids=len(covered[0]), shapes=len(covered[1])))
+        if any(r["block_agg_launches"] < 1 for r in d["aqp"]):
+            fails.append(dict(check="dryrun_aqp launched no block_agg"))
+    launches = {k: 0 for k in counters}
+    launches["block_agg"] = sum(r["block_agg_launches"]
+                                for r in rec.get("dryrun_aqp", []))
+    # NCCL in a group of one rank (this process)
+    t0 = time.perf_counter()
+    rec["nccl_world1"] = layout_nccl_world1(torch, host,
+                                            str(work / "store_nccl"))
+    rec["nccl_wall_s"] = time.perf_counter() - t0
+    del host
+    stray = [k for k in counters if counters[k].launches]
+    if stray:
+        fails.append(dict(check="kernel counters moved here", kernels=stray))
+    shutil.rmtree(work, ignore_errors=True)
+    rec["fails"] = fails
+    rec["reduced"] = {
+        "layers": f"28 -> {LAYOUT_LAYERS}",
+        "tokens": f"train_4k's 256 x 4096 -> {LAYOUT_BATCH} x {LAYOUT_LEN}",
+        "why": "the phase's time and four ranks' memory on one card",
+        "dryrun_cells": f"{len(LAYOUT_DRYRUN_CELLS)} of the 32 (arch, "
+                        "shape) cells: every id and shape once or more"}
+    rec["ok"] = not fails
+    return rec, launches
+
+
 def full_eval_mean(torch, np, model, lm, clip: float, seq_len: int):
     """The driver's eval set's mean clipped per-token loss over every
     example (its scramble, batches of its size, float64 on the host)."""
@@ -3908,6 +4366,7 @@ def main(argv=None) -> int:
     if failures:
         raise AssertionError(f"sharded: {failures}")
     del sc, ds
+    release_card_columns()
     torch.cuda.empty_cache()
 
     # ---- 4. the port on the card against the port on the CPU ----------------
@@ -4045,6 +4504,17 @@ def main(argv=None) -> int:
     if not drive["ok"]:
         raise AssertionError(f"the training driver failed: {drive}")
 
+    # ---- 6f. the multi-card layout: sharded step, checkpoint, dry runs ---
+    t0 = time.perf_counter()
+    layout, launches = layout_phase(torch, np, counters)
+    path_launches["layout"] = launches
+    emit(dict(phase="layout", card=name, power_limit=power_limit,
+              **layout, phase_s=time.perf_counter() - t0,
+              total_s=time.perf_counter() - t_start))
+    if not layout["ok"]:
+        raise AssertionError(f"the multi-card layout failed: "
+                             f"{layout['fails']}")
+
     # ---- 7. the kernels line ------------------------------------------------
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])
     b = next(r for r in bit if r["W"] == PREFILTER_WORDS)
@@ -4070,6 +4540,7 @@ def main(argv=None) -> int:
              device_loop_launches=path_launches["device_loop"]["block_agg"],
              chaos_launches=path_launches["chaos"]["block_agg"],
              sharded_launches=path_launches["sharded"]["block_agg"],
+             layout_launches=path_launches["layout"]["block_agg"],
              max_abs_err=max(r["max_abs_err"] for r in agg),
              ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
              bound_by=a["bound_by"], library_ms=a["library_ms"]),

@@ -25,10 +25,18 @@ bit patterns with ``"dtype": "bfloat16"`` in the manifest and come back
 bit for bit. The reference writes them as ``ml_dtypes`` bfloat16, which
 ``np.load`` returns as raw ``|V2`` bytes that JAX cannot take back.
 
-Placement on a mesh (the reference's ``mesh=`` / ``spec_tree=``, an
-elastic reshard on restore) waits for the port of
-``distributed/sharding.py``: :func:`restore_checkpoint` puts each leaf
-on the device of the matching leaf of ``like_state``.
+Placement on a mesh, an elastic reshard: ``save_checkpoint(...,
+spec_tree=)`` writes each leaf's spec into the manifest (``"spec"``, the
+reference's ``spec_to_json`` form), and ``restore_checkpoint(...,
+mesh=, spec_tree=)`` lays each leaf out on ``mesh`` by its spec
+(replicated when it has none) as a DTensor
+(:func:`repro_torch.distributed.sharding.distribute_leaf`). A sharded
+state (DTensor leaves, one rank a device) is saved whole: every leaf's
+full tensor is gathered (:func:`~repro_torch.distributed.sharding.
+full_tensors`), rank 0 writes it, and every rank waits on the commit,
+so any layout restores onto any other. Without ``mesh``,
+:func:`restore_checkpoint` puts each leaf on the device of the matching
+leaf of ``like_state``.
 """
 
 from __future__ import annotations
@@ -43,6 +51,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.distributed.sharding import (P, distribute_leaf,
+                                              full_tensors)
 
 _COMMIT = "_COMMITTED"
 
@@ -72,17 +83,64 @@ def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save_checkpoint(directory, step: int, state,
+def spec_to_json(spec) -> list:
+    return [list(s) if isinstance(s, tuple) else s for s in spec]
+
+
+def _specs(spec_tree) -> Dict[str, Any]:
+    """``{leaf name: spec}`` of a spec tree shaped like the state."""
+    out = {}
+
+    def walk(tree, prefix: str):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}{k}/")
+        else:
+            out[prefix[:-1]] = tree
+    walk(spec_tree, "")
+    return out
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def save_checkpoint(directory, step: int, state, spec_tree=None,
                     meta: Optional[Dict[str, Any]] = None,
                     async_write: bool = False) -> Callable[[], None]:
     """Serialize ``state``; returns a ``join()`` that waits for the
-    write (at once when ``async_write`` is false)."""
+    write (at once when ``async_write`` is false). ``spec_tree`` (shaped
+    like the state) adds each leaf's spec to the manifest. A state with
+    DTensor leaves is gathered whole on every rank and written by rank 0;
+    the other ranks write nothing, and every rank's ``join()`` (or the
+    call itself, when not ``async_write``) waits until the step is
+    committed."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
     tmp = directory / f"step_{step:08d}.tmp"
-    # snapshot to host memory on the caller's thread (consistent)
-    host = [(name, *_to_host(t)) for name, t in _leaves(state)]
+    leaves = _leaves(state)
+    specs = _specs(spec_tree) if spec_tree is not None else None
+    sharded = any(_is_dtensor(t) for _, t in leaves)
+    if sharded:
+        import torch.distributed as dist
+        rank0 = dist.get_rank() == 0
+        host = []
+        for name, t in leaves:
+            # one leaf gathered at a time: its whole tensor is one leaf's
+            whole = full_tensors([t])[0] if _is_dtensor(t) else t
+            if rank0:
+                host.append((name, *_to_host(whole)))
+            del whole
+        if not rank0:
+            if async_write:
+                return dist.barrier
+            dist.barrier()
+            return lambda: None
+    else:
+        # snapshot to host memory on the caller's thread (consistent)
+        host = [(name, *_to_host(t)) for name, t in leaves]
+    directory.mkdir(parents=True, exist_ok=True)
 
     def write():
         if tmp.exists():
@@ -92,9 +150,11 @@ def save_checkpoint(directory, step: int, state,
         for i, (name, arr, dtype) in enumerate(host):
             fname = f"leaf_{i:05d}.npy"
             np.save(tmp / fname, arr, allow_pickle=False)
-            manifest["leaves"].append({
-                "name": name, "file": fname, "shape": list(arr.shape),
-                "dtype": dtype, "crc32": zlib.crc32(arr.tobytes())})
+            entry = {"name": name, "file": fname, "shape": list(arr.shape),
+                     "dtype": dtype, "crc32": zlib.crc32(arr.tobytes())}
+            if specs is not None:
+                entry["spec"] = spec_to_json(specs[name])
+            manifest["leaves"].append(entry)
         (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
         (tmp / _COMMIT).write_text("ok")
         if final.exists():
@@ -104,8 +164,18 @@ def save_checkpoint(directory, step: int, state,
     if async_write:
         t = threading.Thread(target=write, daemon=True)
         t.start()
-        return t.join
+        if not sharded:
+            return t.join
+        import torch.distributed as dist
+
+        def join():
+            t.join()
+            dist.barrier()
+        return join
     write()
+    if sharded:
+        import torch.distributed as dist
+        dist.barrier()
     return lambda: None
 
 
@@ -128,20 +198,27 @@ def _load(path: Path, entry: Dict, verify: bool) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore_checkpoint(directory, step: int, like_state,
-                       verify: bool = True) -> Tuple[Any, Dict]:
+def restore_checkpoint(directory, step: int, like_state, mesh=None,
+                       spec_tree=None, verify: bool = True
+                       ) -> Tuple[Any, Dict]:
     """Restore step ``step`` into the structure of ``like_state`` (every
     leaf by name, shapes equal): returns ``(state, meta)``. Tensor leaves
     come back as new tensors on the devices of ``like_state``'s; a
     module is filled in place (its parameters keep their identity) and
-    returned. Raises ``FileNotFoundError`` for an uncommitted step,
-    ``IOError`` on a checksum mismatch, ``ValueError`` on a shape or
-    dtype mismatch."""
+    returned. With ``mesh`` (a ``DeviceMesh``; one rank a device) every
+    leaf comes back as a DTensor laid out by its spec in ``spec_tree``
+    (replicated without one), a module as a ``{name: DTensor}`` dict:
+    the elastic reshard; a meta ``like_state`` (``abstract_state``) puts
+    the shards on the mesh's device. Raises ``FileNotFoundError`` for an uncommitted
+    step, ``IOError`` on a checksum mismatch, ``ValueError`` on a shape
+    or dtype mismatch."""
     path = Path(directory) / f"step_{step:08d}"
     if not (path / _COMMIT).exists():
         raise FileNotFoundError(f"no committed checkpoint at {path}")
     manifest = json.loads((path / "manifest.json").read_text())
     by_name = {e["name"]: e for e in manifest["leaves"]}
+
+    specs = _specs(spec_tree) if spec_tree is not None else {}
 
     def leaf(name: str, like: torch.Tensor) -> torch.Tensor:
         t = _load(path, by_name[name], verify)
@@ -149,9 +226,18 @@ def restore_checkpoint(directory, step: int, like_state,
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} in the "
                              f"checkpoint, {tuple(like.shape)} "
                              f"{like.dtype} in the state")
-        return t.to(like.device)
+        if mesh is None:
+            return t.to(like.device)
+        dev = like.to_local().device if _is_dtensor(like) else like.device
+        if dev.type == "meta":       # a shape-only like: the mesh's device
+            dev = torch.device(mesh.device_type, torch.cuda.current_device()
+                               if mesh.device_type == "cuda" else None)
+        return distribute_leaf(mesh, specs.get(name, P()), t.to(dev))
 
     def rebuild(like, prefix: str):
+        if isinstance(like, nn.Module) and mesh is not None:
+            return {k: leaf(prefix + k, v) for k, v in
+                    like.state_dict(keep_vars=True).items()}
         if isinstance(like, nn.Module):
             with torch.no_grad():
                 for k, v in like.state_dict(keep_vars=True).items():

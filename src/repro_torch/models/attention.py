@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.axisctx import constrain
 from repro_torch.models.layers import (dense_init, head_norm_apply,
                                        param_dtype, rope_apply)
 
@@ -72,6 +73,7 @@ def _project_q(p: Attention, cfg: ArchConfig, x: torch.Tensor):
     if cfg.qkv_bias:
         q = q + p.bq
     q = q.reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
+    q = constrain(q, "batch", "seq", "heads", None)
     if cfg.qk_norm:
         q = head_norm_apply(p.q_norm, q)
     return q
@@ -85,6 +87,8 @@ def _project_kv(p: Attention, cfg: ArchConfig, x: torch.Tensor):
         v = v + p.bv
     k = k.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
+    k = constrain(k, "batch", "seq", "kv_heads", None)
+    v = constrain(v, "batch", "seq", "kv_heads", None)
     if cfg.qk_norm:
         k = head_norm_apply(p.k_norm, k)
     return k, v
@@ -95,7 +99,8 @@ def _repeat_kv(cfg: ArchConfig, k: torch.Tensor) -> torch.Tensor:
     (k0, k0, k1, k1, ...), not tiled."""
     if cfg.n_kv_heads == cfg.n_heads:
         return k
-    return k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=-2)
+    k = k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=-2)
+    return constrain(k, "batch", "seq", "heads", None)
 
 
 def _sdpa(q, k, v, mask, head_dim: int) -> torch.Tensor:
@@ -104,9 +109,11 @@ def _sdpa(q, k, v, mask, head_dim: int) -> torch.Tensor:
     # a 0-d float32 tensor on the host, as the reference computes it
     scale = 1.0 / torch.sqrt(torch.tensor(head_dim, dtype=_F32))
     scores = torch.einsum("bthd,bshd->bhts", q.to(_F32), k.to(_F32)) * scale
+    scores = constrain(scores, "batch", "heads", None, None)
     scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
+    out = torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
+    return constrain(out, "batch", "seq", "heads", None)
 
 
 def _sdpa_chunked(q, k, v, positions, causal: bool, window: Optional[int],
@@ -178,6 +185,7 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     else:
         out = _sdpa(q, kr, vr, mask, cfg.head_dim)
     out = out.reshape(B, T, -1) @ p.wo
+    out = constrain(out, "batch", "seq", "embed")
     if return_kv:
         return out, {"k": k, "v": v}
     return out

@@ -23,14 +23,14 @@ step from the same state can run in both packages.
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.lm import hybrid_layout
+from repro_torch.distributed.sharding import stacked_axes
 from repro_torch.train.optimizer import leaf_shape, leaves, moment_shape
 
 
@@ -52,20 +52,6 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield name, v
 
 
-def _stacked_axes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
-    """The leading axes of each stacked subtree of the reference's tree:
-    ``layers`` ``(n_layers,)``; the hybrid's ``layers`` ``(n_groups,
-    period)`` and ``tail_layers`` ``(tail,)``; the enc-dec's
-    ``enc_layers`` ``(enc_layers,)`` and ``dec_layers`` ``(n_layers,)``."""
-    if cfg.family == "hybrid":
-        period, n_groups, tail = hybrid_layout(cfg)
-        return {"layers": (n_groups, period), "tail_layers": (tail,)}
-    if cfg.family == "encdec":
-        return {"enc_layers": (cfg.enc_layers,),
-                "dec_layers": (cfg.n_layers,)}
-    return {"layers": (cfg.n_layers,)}
-
-
 def params_from_jax(params: Mapping, cfg: ArchConfig
                     ) -> Dict[str, torch.Tensor]:
     """State dict for :class:`repro_torch.models.lm.LM` (from the
@@ -74,7 +60,7 @@ def params_from_jax(params: Mapping, cfg: ArchConfig
     :class:`repro_torch.models.ssm.Mamba1Block` from ``mamba1_init``'s
     dict): load it with ``module.load_state_dict(...)``. A stacked leaf
     whose leading axes are not the config's raises ``ValueError``."""
-    stacks = _stacked_axes(cfg)
+    stacks = stacked_axes(cfg)
     out: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(params):
         t = _to_torch(leaf)

@@ -22,6 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.axisctx import constrain
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -153,7 +154,10 @@ def mlp_apply(p: MLP, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(x @ p.w_gate) * (x @ p.w_up)
     else:
         h = gelu(x @ p.w_up)
-    return h @ p.w_down
+    if x.dim() == 3:
+        h = constrain(h, "batch", "seq", "ff")
+    out = h @ p.w_down
+    return constrain(out, "batch", "seq", "embed") if x.dim() == 3 else out
 
 
 # -- output head and remat ---------------------------------------------------

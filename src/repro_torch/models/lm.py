@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.axisctx import constrain
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention, attn_init,
                                           decode_attention, init_cache)
@@ -153,7 +154,8 @@ def lm_init(cfg: ArchConfig, generator: torch.Generator, device=None) -> LM:
 
 def _logits(params: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return output_logits(params, params.final_ln, head, h, cfg.norm)
+    return constrain(output_logits(params, params.final_ln, head, h,
+                                   cfg.norm), "batch", "seq", "vocab")
 
 
 def _embed(params: LM, cfg: ArchConfig, tokens, extra_embeds):
@@ -161,7 +163,7 @@ def _embed(params: LM, cfg: ArchConfig, tokens, extra_embeds):
     h = params.embed[tokens.long()].to(cdt)
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(cdt), h], dim=1)
-    return h
+    return constrain(h, "batch", "seq", "embed")
 
 
 def _tail_layers(params: LM) -> nn.ModuleList:

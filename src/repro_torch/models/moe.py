@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.axisctx import constrain
 from repro_torch.models.layers import (dense_init, gelu, mlp_apply, mlp_init,
                                        param_dtype)
 
@@ -103,13 +104,17 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
     combine = combine.to(x.dtype)
 
     xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    xin = constrain(xin, "batch", "experts", None, None)
     if cfg.act == "swiglu":
         h = F.silu(torch.einsum("gecd,edf->gecf", xin, p.w_gate)) \
             * torch.einsum("gecd,edf->gecf", xin, p.w_up)
     else:
         h = gelu(torch.einsum("gecd,edf->gecf", xin, p.w_up))
+    h = constrain(h, "batch", "experts", None, None)
     hout = torch.einsum("gecf,efd->gecd", h, p.w_down)
+    hout = constrain(hout, "batch", "experts", None, None)
     out = torch.einsum("gecd,gsec->gsd", hout, combine).reshape(B, T, d)
+    out = constrain(out, "batch", "seq", "embed")
     if cfg.moe_dense_residual:
         out = out + mlp_apply(p.dense, cfg, x)
     return out, aux.to(_F32)

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.axisctx import constrain
 from repro_torch.kernels.selective_scan import make_trainable_scan
 from repro_torch.models.layers import dense_init, param_dtype
 
@@ -221,8 +222,8 @@ def mamba1_apply(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
     if L % Lc:
         raise ValueError(f"mamba1_apply: L={L} is not a multiple of the "
                          f"chunk {Lc}")
-    xs = x @ p.in_x
-    z = x @ p.in_z
+    xs = constrain(x @ p.in_x, "batch", "seq", "inner")
+    z = constrain(x @ p.in_z, "batch", "seq", "inner")
     h = torch.zeros((B, din, cfg.ssm_state), dtype=_F32, device=x.device)
     tail = torch.zeros((B, K - 1, din), dtype=x.dtype, device=x.device)
     ys = []
@@ -233,7 +234,8 @@ def mamba1_apply(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
         y = y * F.silu(z[:, s:s + Lc].to(_F32))
         ys.append(y.to(x.dtype))
         tail = xin[:, -(K - 1):]
-    out = torch.cat(ys, dim=1) @ p.out_proj
+    y = constrain(torch.cat(ys, dim=1), "batch", "seq", "inner")
+    out = constrain(y @ p.out_proj, "batch", "seq", "embed")
     if return_cache:
         # a copy: the view would keep the last chunk's whole input alive
         return out, {"conv": tail.clone(), "h": h}
@@ -273,8 +275,8 @@ def _mamba1_apply_pallas(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
     512-step chunk from the chunk-start states the forward saved."""
     B, L, d = x.shape
     din, K, n = cfg.d_inner, cfg.ssm_conv, cfg.ssm_state
-    xs = x @ p.in_x
-    z = x @ p.in_z
+    xs = constrain(x @ p.in_x, "batch", "seq", "inner")
+    z = constrain(x @ p.in_z, "batch", "seq", "inner")
     xin = torch.cat([torch.zeros((B, K - 1, din), dtype=xs.dtype,
                                  device=x.device), xs], dim=1)
     conv = F.silu(_causal_conv_chunk(xin, p.conv_w, p.conv_b))
@@ -283,7 +285,7 @@ def _mamba1_apply_pallas(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
     scan = make_trainable_scan(din_tile=min(128, din), time_chunk=512)
     y, h_fin = scan(conv, dt, Bm, Cm, A, p.D.to(_F32), h0)
     y = y * F.silu(z.to(_F32))
-    out = y.to(x.dtype) @ p.out_proj
+    out = constrain(y.to(x.dtype) @ p.out_proj, "batch", "seq", "embed")
     if return_cache:
         # a copy: a view of the tail would keep the layer's whole
         # (B, K-1+L, din) input alive with the cache (17 GB over 64 layers
@@ -376,11 +378,11 @@ def mamba2_apply(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
     if L % Lc:
         raise ValueError(f"mamba2_apply: L={L} is not a multiple of the "
                          f"chunk {Lc}")
-    z = x @ p.in_z
-    xr = x @ p.in_x
+    z = constrain(x @ p.in_z, "batch", "seq", "inner")
+    xr = constrain(x @ p.in_x, "batch", "seq", "inner")
     Bm = x @ p.in_B
     Cm = x @ p.in_C
-    dt_raw = x @ p.in_dt
+    dt_raw = constrain(x @ p.in_dt, "batch", "seq", "ssm_heads")
     A = -torch.exp(p.A_log.to(_F32))                      # (nh,)
     idx = torch.arange(Lc, device=x.device)
     tri = (idx[:, None] >= idx[None, :])[None, :, :, None]   # (1,Lc,Lc,1)
@@ -416,9 +418,10 @@ def mamba2_apply(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
         ys.append(y.reshape(B, Lc, din))
         tx, tb, tc = xin_x[:, -(K - 1):], xin_b[:, -(K - 1):], \
             xin_c[:, -(K - 1):]
-    y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+    y = constrain(ys[0] if len(ys) == 1 else torch.cat(ys, dim=1),
+                  "batch", "seq", "inner")
     y = _gated_rmsnorm(y, z, p.norm_scale)
-    out = y.to(x.dtype) @ p.out_proj
+    out = constrain(y.to(x.dtype) @ p.out_proj, "batch", "seq", "embed")
     if return_cache:
         return out, {"conv_x": tx.clone(), "conv_B": tb.clone(),
                      "conv_C": tc.clone(), "h": S}

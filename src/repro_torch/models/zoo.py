@@ -12,8 +12,8 @@ names and argument order, with the module (an ``LM``, or an ``EncDec``
 for the enc-dec family) in place of the params pytree. ``init`` and
 ``init_cache`` take ``device=None``, meaning the card
 (:func:`repro_torch.device.resolve_device`), and raise without CUDA
-unless ``device="cpu"`` is passed; the other calls run where the module
-lives. ``prefill`` and ``decode`` run under ``torch.inference_mode()``.
+unless ``device="cpu"`` (or ``"meta"``, shapes only) is passed; the
+other calls run where the module lives. ``prefill`` and ``decode`` run under ``torch.inference_mode()``.
 
 ``loss`` returns the cross-entropy plus the z-loss and the aux term, and
 in its metrics the per-token loss *moment state* (count / mean / m2 /
@@ -112,9 +112,11 @@ def _initializer(make, cfg: ArchConfig):
     def init(seed: int = 0, device=None):
         """The module with weights drawn from a generator seeded with
         ``seed`` on ``device`` (the same seed gives other numbers on the
-        card than on the CPU)."""
+        card than on the CPU). On ``"meta"`` the weights have shapes and
+        dtypes only and nothing is drawn."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         return make(cfg, gen, dev)
     return init
 
@@ -228,8 +230,12 @@ def make_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
                device=None) -> Dict[str, torch.Tensor]:
     """Concrete random batch matching :func:`input_specs`, drawn from
     ``np.random.default_rng(seed)`` in the reference's order, so both
-    packages get the same tokens. ``device=None`` means the card."""
+    packages get the same tokens. ``device=None`` means the card; on
+    ``"meta"`` the batch is shapes and dtypes only, with no draw."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return {k: torch.empty(s.shape, dtype=s.dtype, device=dev)
+                for k, s in input_specs(cfg, shape).items()}
     rng = np.random.default_rng(seed)
     out = {}
     for k, s in input_specs(cfg, shape).items():

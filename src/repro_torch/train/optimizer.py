@@ -9,8 +9,18 @@ writes the new parameters and moments **in place** (no second copy of
 a 7B model's state) and returns ``(params, state, metrics)``. Each
 update is the reference's per-leaf formula, operation for operation.
 
-The optimizer-state sharding of the reference (``state_specs``) comes
-with the port of ``distributed/sharding.py``, the multi-card slice.
+:func:`state_specs` lays the optimizer state out from the parameter
+specs (:mod:`repro_torch.distributed.sharding`): AdamW's moments take
+their parameter's spec, Adafactor's row and column moments its stacked
+leaf's spec less the dim they average over. :func:`apply` takes the
+parameters, gradients and moments as tensors on one device or as
+DTensors laid out by those specs (one rank a device): the updates are
+elementwise on each rank's shards, and what spans the ranks that hold
+different parts of a leaf is reduced across them with
+:func:`repro_torch.distributed.collectives.sum_over` (the same bits on
+every rank): the global gradient norm (each shard counted once, on the
+first of its replicas), Adafactor's row and column means and its update
+clip. On one device the operations are what they were.
 
 Adafactor sees the leaves the reference sees. The reference stacks a
 layer parameter of every layer into one ``(n_layers, ...)`` leaf; the
@@ -35,11 +45,13 @@ import dataclasses
 import itertools
 import math
 import re
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import all_gather, sum_over
+from repro_torch.distributed.sharding import P
 
 _F32 = torch.float32
 _B2 = 0.999           # Adafactor's second-moment decay
@@ -175,10 +187,110 @@ def init(params: Mapping[str, torch.Tensor], ocfg: OptConfig) -> Dict:
                 for leaf, ms in groups.items()} for k in ("vr", "vc")}
 
 
+def state_specs(param_spec_tree: Mapping, params, ocfg: OptConfig) -> Dict:
+    """Optimizer-state specs from the parameter specs (``{name: spec}``,
+    :func:`repro_torch.distributed.sharding.param_specs`) and the
+    parameters (a module or ``{name: tensor}``): AdamW's ``m`` and ``v``
+    take each parameter's spec; Adafactor's leaves (:func:`leaves`) take
+    their stacked spec (``None`` on the stack's dims, the layer's spec
+    behind), ``vr`` less its last entry and ``vc`` less its second to
+    last when the leaf is factored, else ``vr`` all of it and ``vc``
+    ``P()`` (the reference's ``state_specs``)."""
+    if not isinstance(params, Mapping):
+        params = dict(params.named_parameters())
+    if ocfg.name == "adamw":
+        return {"m": dict(param_spec_tree), "v": dict(param_spec_tree)}
+    out: Dict[str, Dict[str, P]] = {"vr": {}, "vc": {}}
+    for leaf, members in leaves(params).items():
+        shape = leaf_shape(members, params)
+        nd = params[members[0]].dim()
+        parts = ([None] * (len(shape) - nd)
+                 + list(P(*param_spec_tree[members[0]]).padded(nd)))
+        if _factored(shape):
+            out["vr"][leaf] = P(*parts[:-1])
+            out["vc"][leaf] = P(*(parts[:-2] + parts[-1:]))
+        else:
+            out["vr"][leaf] = P(*parts)
+            out["vc"][leaf] = P()
+    return out
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (its storage: writes land in the
+    DTensor), or ``x``."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
+class _Layout:
+    """Where a leaf's dims are cut: on one device nothing, for a DTensor
+    the mesh dims that shard each of its dims. ``mean`` and ``total``
+    reduce across the ranks that hold different parts; ``owner`` is true
+    on one rank of each set of replicas of this rank's shard."""
+
+    def __init__(self, t: torch.Tensor):
+        self.mesh = None
+        self.by_dim: Dict[int, List[int]] = {}
+        self.owner = True
+        self.ndim = t.dim()
+        if not _is_dtensor(t):
+            return
+        self.mesh = t.device_mesh
+        coord = self.mesh.get_coordinate()
+        for k, pl in enumerate(t.placements):
+            if pl.is_shard():
+                # keyed from the end: a stacked leaf's stack dims come first
+                self.by_dim.setdefault(pl.dim % self.ndim - self.ndim,
+                                       []).append(k)
+            elif coord[k] != 0:
+                self.owner = False
+
+    def _dims(self, pdim: Optional[int] = None) -> List[int]:
+        if pdim is None:
+            return sorted(k for ks in self.by_dim.values() for k in ks)
+        return self.by_dim.get(pdim, [])
+
+    def _count(self, dims: List[int]) -> int:
+        return math.prod(self.mesh.shape[k] for k in dims)
+
+    def mean(self, x: torch.Tensor, dim: int, pdim: int,
+             keepdim: bool = False) -> torch.Tensor:
+        """``x.mean(dim)`` over the whole leaf, ``x``'s ``dim`` being the
+        leaf's dim ``pdim`` (negative: counted from the end, so a stack's
+        dims are never cut)."""
+        dims = self._dims(pdim)
+        if not dims:
+            return x.mean(dim=dim, keepdim=keepdim)
+        s = sum_over(x.sum(dim=dim, keepdim=keepdim), self.mesh, dims)
+        return s / (x.shape[dim] * self._count(dims))
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-shard sum summed over every part of the leaf."""
+        return sum_over(x, self.mesh, self._dims()) if self.mesh else x
+
+    def numel(self, local_numel: int) -> int:
+        return local_numel * (self._count(self._dims()) if self.mesh else 1)
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(_F32)))
-                          for x in tensors))
+    """sqrt of the sum of squares of every tensor, in float32. DTensors
+    (one rank a device): each rank sums the squares of the shards it
+    owns (the first replica of each), and the ranks' partial sums are
+    gathered and added in rank order, so every rank has the same
+    bits."""
+    tensors = list(tensors)
+    if not tensors or not _is_dtensor(tensors[0]):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(_F32)))
+                              for x in tensors))
+    part = torch.zeros((), dtype=_F32, device=_local(tensors[0]).device)
+    for x in tensors:
+        if _Layout(x).owner:
+            part = part + torch.sum(torch.square(_local(x).to(_F32)))
+    return torch.sqrt(all_gather(part).sum())
 
 
 @torch.no_grad()
@@ -187,9 +299,12 @@ def apply(params: Mapping[str, torch.Tensor],
           step: torch.Tensor, ocfg: OptConfig) -> Tuple[Dict, Dict, Dict]:
     """One update: clip by the global norm, then AdamW or Adafactor.
     ``params`` and ``opt_state`` are updated in place and returned with
-    the metrics ``{"grad_norm", "lr"}`` (0-d float32 tensors)."""
+    the metrics ``{"grad_norm", "lr"}`` (0-d float32 tensors). Leaves may
+    be DTensors laid out by :func:`state_specs` (the module docstring);
+    ``step`` a tensor or a replicated DTensor."""
     gnorm = global_norm(grads[n] for n in params)
     scale = torch.clamp(ocfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    step = _local(step)
     lr = lr_at(ocfg, step)
     metrics = {"grad_norm": gnorm, "lr": lr}
 
@@ -198,8 +313,9 @@ def apply(params: Mapping[str, torch.Tensor],
         bc1 = 1.0 - ocfg.b1 ** t
         bc2 = 1.0 - ocfg.b2 ** t
         for n, p in params.items():
-            m, v = opt_state["m"][n], opt_state["v"][n]
-            g = grads[n].to(_F32) * scale
+            p = _local(p)
+            m, v = _local(opt_state["m"][n]), _local(opt_state["v"][n])
+            g = _local(grads[n]).to(_F32) * scale
             m2 = ocfg.b1 * m.to(_F32) + (1 - ocfg.b1) * g
             v2 = ocfg.b2 * v.to(_F32) + (1 - ocfg.b2) * g * g
             u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + ocfg.eps)
@@ -211,28 +327,32 @@ def apply(params: Mapping[str, torch.Tensor],
 
     # -- adafactor (factored 2nd moments, no 1st moment) ----------------------
     for leaf, members in leaves(params).items():
-        vr, vc = opt_state["vr"][leaf], opt_state["vc"][leaf]
-        ps = [params[n] for n in members]
-        shape = leaf_shape(members, params)
-        lead = len(shape) - ps[0].dim()   # the stacked layer axes
+        lay = _Layout(params[members[0]])
+        vr = _local(opt_state["vr"][leaf])
+        vc = _local(opt_state["vc"][leaf])
+        ps = [_local(params[n]) for n in members]
+        gs = [_local(grads[n]) for n in members]
+        lead = len(leaf_shape(members, params)) - ps[0].dim()
+        shape = tuple(vr.shape[:lead]) + tuple(ps[0].shape)  # this shard's
+        factored = _factored(leaf_shape(members, params))
         if lead and _factored(ps[0].shape):
-            _adafactor_layers(ps, [grads[n] for n in members],
-                              vr.flatten(0, lead - 1),
-                              vc.flatten(0, lead - 1), scale, lr, ocfg)
+            _adafactor_layers(ps, gs, vr.flatten(0, lead - 1),
+                              vc.flatten(0, lead - 1), scale, lr, ocfg, lay)
             continue
         if lead:                          # stacked: one f32 buffer
             g = torch.empty(shape, dtype=_F32, device=ps[0].device)
             flat = g.view(-1, *ps[0].shape)
-            for i, n in enumerate(members):
-                flat[i].copy_(grads[n])
+            for i, gi in enumerate(gs):
+                flat[i].copy_(gi)
             g.mul_(scale)
         else:
-            g = grads[members[0]].to(_F32) * scale
+            g = gs[0].to(_F32) * scale
         g2 = g * g + 1e-30
-        if _factored(shape):
-            vr2 = _B2 * vr + (1 - _B2) * g2.mean(dim=-1)
-            vc2 = _B2 * vc + (1 - _B2) * g2.mean(dim=-2)
-            denom = torch.clamp(vr2.mean(dim=-1, keepdim=True), min=1e-30)
+        if factored:
+            vr2 = _B2 * vr + (1 - _B2) * lay.mean(g2, -1, -1)
+            vc2 = _B2 * vc + (1 - _B2) * lay.mean(g2, -2, -2)
+            denom = torch.clamp(lay.mean(vr2, -1, -2, keepdim=True),
+                                min=1e-30)
             vhat = (vr2[..., None] * vc2[..., None, :]) / denom[..., None]
             vc.copy_(vc2)
         else:
@@ -242,7 +362,11 @@ def apply(params: Mapping[str, torch.Tensor],
         u = g / (torch.sqrt(vhat) + 1e-30)
         del g, vhat
         # update clipping (Adafactor d=1.0), over the whole leaf
-        rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+        if lay.mesh is None:
+            rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
+        else:
+            rms_u = torch.sqrt(lay.total(torch.sum(u * u))
+                               / lay.numel(u.numel()) + 1e-30)
         u = u / torch.clamp(rms_u, min=1.0)
         us = u.reshape(-1, *ps[0].shape).unbind(0) if lead else (u,)
         for p, ui in zip(ps, us):
@@ -253,26 +377,28 @@ def apply(params: Mapping[str, torch.Tensor],
 
 
 def _adafactor_unclipped(g: torch.Tensor, vr: torch.Tensor,
-                         vc: torch.Tensor, scale: torch.Tensor):
+                         vc: torch.Tensor, scale: torch.Tensor,
+                         lay: _Layout):
     """One matrix's (or one layer's stack of matrices') Adafactor update
     before the clip, with its new row and column moments: the formula of
     :func:`apply`'s stacked path on one slice, each operation the same,
     in place where it can be, so that the float32 temporaries are two of
-    the slice's size at most."""
+    the slice's size at most. ``lay`` reduces the means across ranks."""
     g = g.to(_F32) * scale
     g2 = g * g
     g2.add_(1e-30)
-    vr2 = _B2 * vr + (1 - _B2) * g2.mean(dim=-1)
-    vc2 = _B2 * vc + (1 - _B2) * g2.mean(dim=-2)
+    vr2 = _B2 * vr + (1 - _B2) * lay.mean(g2, -1, -1)
+    vc2 = _B2 * vc + (1 - _B2) * lay.mean(g2, -2, -2)
     del g2
-    denom = torch.clamp(vr2.mean(dim=-1, keepdim=True), min=1e-30)
+    denom = torch.clamp(lay.mean(vr2, -1, -2, keepdim=True), min=1e-30)
     vhat = vr2[..., None] * vc2[..., None, :]
     vhat.div_(denom[..., None])
     u = g.div_(vhat.sqrt_().add_(1e-30))
     return u, vr2, vc2
 
 
-def _adafactor_layers(ps, gs, vr, vc, scale, lr, ocfg: OptConfig) -> None:
+def _adafactor_layers(ps, gs, vr, vc, scale, lr, ocfg: OptConfig,
+                      lay: _Layout) -> None:
     """Adafactor on a stacked leaf whose layers are matrices (dbrx's
     ``(n_layers, E, d, ff)`` experts), a layer at a time: their factored
     moments are the layer's own, and only the update clip spans the
@@ -282,15 +408,15 @@ def _adafactor_layers(ps, gs, vr, vc, scale, lr, ocfg: OptConfig) -> None:
     sq = torch.zeros((), dtype=_F32, device=vr.device)
     new = []
     for i, g in enumerate(gs):
-        u, vr2, vc2 = _adafactor_unclipped(g, vr[i], vc[i], scale)
+        u, vr2, vc2 = _adafactor_unclipped(g, vr[i], vc[i], scale, lay)
         sq += torch.sum(u.square_())
         new.append((vr2, vc2))
         del u
-    count = sum(g.numel() for g in gs)
-    clip = torch.clamp(torch.sqrt(sq / count + 1e-30), min=1.0)
+    count = lay.numel(sum(g.numel() for g in gs))
+    clip = torch.clamp(torch.sqrt(lay.total(sq) / count + 1e-30), min=1.0)
     for i, (p, g) in enumerate(zip(ps, gs)):
         # u / clip + wd * p, times lr, off p: apply's operations in place
-        u = _adafactor_unclipped(g, vr[i], vc[i], scale)[0].div_(clip)
+        u = _adafactor_unclipped(g, vr[i], vc[i], scale, lay)[0].div_(clip)
         u.add_(p.to(_F32, copy=True).mul_(ocfg.weight_decay)).mul_(lr)
         p.copy_(p.to(_F32, copy=True).sub_(u))
         del u

@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from tests.helpers import torch_sharded_scenarios as scen
+from tests.helpers import torch_sharded_train_ops
 from tests.helpers.torch_dist_world import MARK
 
 
@@ -175,6 +176,8 @@ OPS = {"scenario": op_scenario, "compressed_psum": op_compressed_psum, "fold_bit
        "collective_counts": op_collective_counts,
        "match_reference": op_match_reference,
        "fault_agreement": op_fault_agreement}
+# the multi-card layout's commands (tests/test_torch_sharded_train.py)
+OPS.update(torch_sharded_train_ops.OPS)
 
 
 def main(argv):

@@ -1973,3 +1973,88 @@ def test_chunked_scan_card_equals_cpu(cuda, scan_dtype):
     for got, want in zip(out[str(cuda)], out["cpu"]):
         err = float((got - want).abs().max())
         assert err <= tol * float(want.abs().max()), err
+
+
+# -- the multi-card layout on the card -----------------------------------------
+
+
+def test_sharded_step_nccl_world1_equals_single_step(cuda, tmp_path):
+    """Under NCCL in a group of one rank, on a (1, 1) mesh: the sharded
+    train step of reduced qwen3 (float32) equals the single-card step bit
+    for bit (every gradient all-reduced over one rank and divided by 1,
+    the norm's partial summed alone), and a checkpoint of the single-card
+    state restores onto the mesh from a meta ``abstract_state``, bit for
+    bit."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import make_batch
+    from repro_torch.train import (OptConfig, abstract_state,
+                                   build_train_step, init_state)
+    from repro_torch.train.trainer import build_sharded_train_step
+    if not dist.is_nccl_available() or dist.is_initialized():
+        pytest.skip("needs NCCL and no process group in this process")
+    cfg = dataclasses.replace(get_config("qwen3_0_6b", reduced=True),
+                              param_dtype="float32", compute_dtype="float32",
+                              remat=False)
+    model = build_model(cfg)
+    ocfg = OptConfig.for_arch(cfg, lr=1e-2, warmup_steps=2, total_steps=20)
+    shape = ShapeConfig("t", 64, 8, "train")
+    batch = make_batch(cfg, shape, seed=0, device=cuda)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        abstract = abstract_state(model, ocfg)
+        spec = dryrun.state_spec(cfg, mesh, abstract, ocfg)
+        ref = init_state(model, 0, ocfg, device=cuda)
+        ckpt.save_checkpoint(tmp_path / "ck", 0, ref)
+        state, _ = ckpt.restore_checkpoint(tmp_path / "ck", 0, abstract,
+                                           mesh=mesh, spec_tree=spec)
+        named = dict(ref["params"].named_parameters())
+        for n, t in state["params"].items():
+            assert torch.equal(t.to_local(), named[n]), n
+        step = build_sharded_train_step(model, ocfg, mesh, spec,
+                                        sh.batch_specs(cfg, mesh, shape,
+                                                       batch))
+        ref_step = build_train_step(model, ocfg)
+        for _ in range(2):
+            ref, rm = ref_step(ref, batch)
+            state, sm = step(state, batch)
+            assert torch.equal(sm["loss"], rm["loss"])
+            assert torch.equal(sm["grad_norm"], rm["grad_norm"])
+        named = dict(ref["params"].named_parameters())
+        for n, t in state["params"].items():
+            assert torch.equal(t.to_local(), named[n]), n
+            assert torch.equal(state["opt"]["m"][n].to_local(),
+                               ref["opt"]["m"][n]), n
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dryrun_aqp_launches_block_agg_on_the_card(cuda, tmp_path):
+    """``python -m repro_torch.launch.dryrun_aqp --both`` on the card:
+    one ``block_agg`` launch a mesh's round, 64K rows a device, two
+    all-reduces of 20,480 bytes (a fake group moves nothing)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "aqp.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_aqp", "--both",
+         "--out", str(out)], cwd=tmp_path, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(root / "src")}, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    recs = json.loads(out.read_text())
+    assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
+    for r in recs:
+        assert r["device"].startswith("cuda")
+        assert r["block_agg_launches"] == 1
+        assert r["collective_bytes"] == 5 * 1024 * 4

@@ -1,0 +1,181 @@
+"""The port's meta-device dry runs (``repro_torch.launch.dryrun`` and
+``dryrun_aqp``) on the CPU.
+
+  * ``python -m repro_torch.launch.dryrun`` in a subprocess (it joins a
+    ``fake``-backend group of 256, then 512 ranks): qwen3-0.6b's
+    ``train_4k`` and ``decode_32k`` at full size on both production
+    meshes come back ``ok``, with the per-device bytes of parameters,
+    optimizer state, batch and cache equal to the arithmetic on the
+    REFERENCE's specs and shapes (each leaf's size over the product of
+    its spec's axis sizes) and the fields XLA's HLO gave ``null``;
+  * a reduced cell's FLOPs on meta equal ``FlopCounterMode``'s count of
+    the same step on real CPU tensors, exactly (train, prefill and decode
+    of reduced qwen3, train of reduced zamba2 and seamless);
+  * ``dryrun_aqp`` on the CPU under the fake group: the round's input
+    bytes (64K rows x 12 B), its two all-reduces' bytes (``(3 + 2) x
+    1024`` float32: the sums, then the minima and negated maxima) and
+    the three terms, on both meshes.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import get as jget
+from repro.distributed import sharding as jsh
+from repro.models import build as jbuild
+from repro.models import input_specs as jinput_specs
+from repro.train import OptConfig as JOptConfig
+from repro.train import abstract_state as jabstract_state
+from repro.train import optimizer as jopt
+from repro_torch.configs import ShapeConfig, get
+from repro_torch.launch import dryrun
+from repro_torch.models import build
+from tests.helpers.torch_parity import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+class FakeMesh:
+    def __init__(self, shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+MESHES = {"16x16": FakeMesh({"data": 16, "model": 16}),
+          "2x16x16": FakeMesh({"pod": 2, "data": 16, "model": 16})}
+
+
+def _run(args, tmp_path, timeout=600):
+    out = tmp_path / "out.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "2"}
+    proc = subprocess.run([sys.executable, "-m", *args, "--out", str(out)],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return json.loads(out.read_text())
+
+
+def _ref_bytes(mesh, spec_tree, shape_tree) -> int:
+    """Per-device bytes of a reference tree laid out by its specs."""
+    specs = jax.tree.leaves(spec_tree, is_leaf=lambda x: isinstance(
+        x, jax.sharding.PartitionSpec))
+    leaves = jax.tree.leaves(shape_tree)
+    assert len(specs) == len(leaves)
+    total = 0
+    for spec, leaf in zip(specs, leaves):
+        n = math.prod(leaf.shape)
+        for want in spec:
+            if want is not None:
+                axes = (want,) if isinstance(want, str) else want
+                n //= math.prod(mesh.shape[a] for a in axes)
+        total += n * np.dtype(leaf.dtype).itemsize
+    return total
+
+
+@pytest.fixture(scope="module")
+def qwen_records(tmp_path_factory):
+    recs = []
+    for shape in ("train_4k", "decode_32k"):
+        recs += _run(["repro_torch.launch.dryrun", "--arch", "qwen3_0_6b",
+                      "--shape", shape, "--both-meshes"],
+                     tmp_path_factory.mktemp(shape))
+    return {(r["shape"], r["mesh"]): r for r in recs}
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_qwen3_cells_ok_with_reference_bytes(qwen_records, shape, mesh):
+    rec = qwen_records[(shape, mesh)]
+    assert rec["ok"], rec.get("error")
+    assert rec["n_devices"] == (512 if mesh == "2x16x16" else 256)
+    fm = MESHES[mesh]
+    cfg = jget("qwen3_0_6b")
+    model = jbuild(cfg)
+    jshape = JSHAPES[shape]
+    mem = rec["memory"]
+    specs = jinput_specs(cfg, jshape)
+    assert mem["batch_bytes"] == _ref_bytes(
+        fm, jsh.batch_specs(cfg, fm, jshape, specs), specs)
+    if shape == "train_4k":
+        ocfg = JOptConfig.for_arch(cfg)
+        state = jabstract_state(model, ocfg)
+        pspecs = jsh.param_specs(cfg, fm, state["params"])
+        assert mem["param_bytes"] == _ref_bytes(fm, pspecs, state["params"])
+        assert mem["opt_bytes"] == _ref_bytes(
+            fm, jopt.state_specs(pspecs, state["params"], ocfg),
+            state["opt"])
+        assert mem["cache_bytes"] == 0
+        assert rec["flops"] > 6 * 0.6e9 * 4096 * 256   # the 6 N T floor
+    else:
+        params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+        assert mem["param_bytes"] == _ref_bytes(
+            fm, jsh.param_specs(cfg, fm, params), params)
+        cache = jax.eval_shape(lambda: model.init_cache(
+            jshape.global_batch, jshape.seq_len))
+        assert mem["cache_bytes"] == _ref_bytes(
+            fm, jsh.cache_specs(cfg, fm, jshape, cache), cache)
+        assert mem["opt_bytes"] == 0
+    assert mem["state_bytes_per_device"] == sum(
+        mem[k] for k in ("batch_bytes", "param_bytes", "opt_bytes",
+                         "cache_bytes"))
+    assert mem["temp_bytes"] is None and rec["collective_bytes"] is None
+    assert "hlo_cost" in rec["null_reason"]
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("qwen3_0_6b", "train"), ("qwen3_0_6b", "prefill"),
+    ("qwen3_0_6b", "decode"), ("zamba2_7b", "train"),
+    ("seamless_m4t_large_v2", "train")])
+def test_meta_flops_equal_real_cpu_flops(one_torch_thread, arch, kind):
+    """The dry run's count on meta is the count of the same step on real
+    tensors (reduced config, 2 x 64 tokens; decode at a 64-slot
+    cache)."""
+    model = build(get(arch, reduced=True))
+    shape = ShapeConfig("t", 64, 2, kind)
+    meta = dryrun.count_flops(dryrun.step_trees(model, shape, "meta")[1])
+    real = dryrun.count_flops(dryrun.step_trees(model, shape, "cpu")[1])
+    assert meta == real > 0
+
+
+def test_dryrun_aqp_records_bytes_and_terms(tmp_path):
+    recs = _run(["repro_torch.launch.dryrun_aqp", "--both", "--device",
+                 "cpu"], tmp_path)
+    assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
+    for r in recs:
+        assert r["ok"] and r["device"] == "cpu"
+        assert r["rows_per_device"] == 65536 and r["groups"] == 1024
+        assert r["input_bytes_per_device"] == 65536 * 12
+        assert r["collective_calls"] == 2
+        assert r["collective_bytes"] == (3 + 2) * 1024 * 4
+        assert r["out_shape"] == [1024]
+        terms = r["terms_s"]
+        assert terms["memory"]["s"] == 65536 * 12 / 3.35e12
+        assert terms["collective"]["s"] == (3 + 2) * 1024 * 4 / 450e9
+        assert terms["compute"]["ops"] == 6 * 65536
+        assert "move nothing" in r["note"]
+    assert recs[0]["total_rows"] == 16 * 65536
+    assert recs[1]["total_rows"] == 32 * 65536
+
+
+def test_dryrun_cli_records_a_failing_cell(tmp_path):
+    """A cell that cannot run is recorded with its error and the run goes
+    on (the exit code says that not every cell passed)."""
+    out = tmp_path / "out.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3_0_6b", "--shape", "long_500k", "--out", str(out)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1, proc.stderr[-2000:]
+    (rec,) = json.loads(out.read_text())
+    assert not rec["ok"] and "skips long_500k" in rec["error"]
