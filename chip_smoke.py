@@ -64,7 +64,12 @@ one JSON line:
      ``QueryScheduler`` burst of 8 (cut from 16: ``reduced``) of
      ``benchmarks/bench_scheduler.py``'s non-probe mix, 8 slots, chunks
      of 4 rounds, a checkpoint every step, on a ``SimClock``: every
-     ticket done and bit for bit its solo run at its anchor, a second
+     ticket done; one alone in its slot or in a non-probe slot bit for
+     bit its solo run at its anchor; tickets that share a probe slot
+     (one grouped signature: the slot selects with the union of their
+     activity flags, the reference's contract) covering the truth and
+     bit for bit both the second run's and a served batch of the slot's
+     queries from its anchor (``shared_probe_slot``); a second
      run with the same event log, and a pass with a mid-scan join,
      resumed from a checkpoint taken after it, equal to the
      uninterrupted pass (its joiners bit for bit their solo runs);
@@ -198,9 +203,18 @@ one JSON line:
      ``fake`` group of 256, then 512 ranks runs ``dryrun_aqp`` on the
      card (``block_agg`` launched) and ``LAYOUT_DRYRUN_CELLS`` at full
      size on both production meshes (every cell ``ok``, every id and
-     shape). Then NCCL in a group of one rank: the sharded step on a
-     (1, 1) mesh against the single-card step (bit for bit or not,
-     printed);
+     shape), each record with its ``step_cost``, after
+     ``launch/step_cost.py``'s predictions on meta, as rank 0 of fake
+     groups of 4 and 1: the ranks' sharded step (rank 0's collective
+     calls and bytes must equal its prediction exactly) and NCCL's
+     below; ``dryrun_aqp``'s ``block_agg`` report must carry phase 2's
+     bound bytes for its shape. A fresh single-card step on the card
+     under ``step_cost`` with ``FlopCounterMode`` inside: the two FLOP
+     counts equal. Then NCCL in a group of one rank: the sharded step on
+     a (1, 1) mesh against the single-card step (bit for bit or not,
+     printed), its ``max_memory_allocated`` (peak reset just before it,
+     less the process's other tensors) within 10 % of the predicted
+     ``peak_bytes``;
   7. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times (``grouped_hist``
      at the main path's G 14, with G 2800 beside it; the multi-query
@@ -326,6 +340,13 @@ def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fold_bytes(rows: int, budget: int, G: int) -> int:
+    """Bytes a fold of ``rows`` rows in ``budget`` blocks must move: each
+    row's value, group id and mask (12 B) and each lane's block id and
+    flag read once, the (5, G) float32 result written once."""
+    return rows * 12 + budget * 8 + 5 * G * 4
 
 
 class Timer:
@@ -459,7 +480,7 @@ def check_block_agg(torch, timer, ref, kblock, G: int, exact: bool,
     lib_ms = timer(lambda: torch.zeros((G, 3), device="cuda").index_add_(
         0, gl, cols))
     rows = budget * block_rows
-    bound_ms, bound_by = bound(rows * 12 + budget * 8 + 5 * G * 4, rows * 9)
+    bound_ms, bound_by = bound(fold_bytes(rows, budget, G), rows * 9)
     # the scratch one call touches, against the rows' own 12 bytes each
     _, lane_mode, buckets, tiles = kblock.plan(budget, block_rows, G)
     scratch = kblock.scratch_bytes(buckets, tiles)
@@ -780,7 +801,7 @@ def check_fused_fold(torch, timer, ref, kfused, kblock, G: int, exact: bool,
         torch.zeros((G, 3), device="cuda").index_add_(0, gl, cols)))
     d2h_ms = timer(lambda: pinned.copy_(got[3], non_blocking=True))
     rows = budget * block_rows
-    bound_ms, bound_by = bound(rows * 12 + budget * 8 + 5 * G * 4
+    bound_ms, bound_by = bound(fold_bytes(rows, budget, G)
                                + G * nbins * 4, rows * 14)
     return dict(G=G, exact_data=exact, nbins=nbins, budget=budget,
                 block_rows=block_rows, ok=ok,
@@ -1491,6 +1512,48 @@ def trace_pass(torch, prof, server, queries, filters):
         "copies_per_round")}
 
 
+def check_tickets(np, frame, server, burst, a, b, cols):
+    """Phase 3c's hold on the burst's done tickets (scheduler runs ``a``
+    and ``b`` of ``burst``): one alone in its slot, or in a non-probe
+    slot, against its solo run at the slot's anchor; one that shares a
+    probe slot (a grouped signature under skipping sampling: the slot
+    selects with the union of its queries' activity flags, the
+    reference's contract) against the truth, its bits in ``b`` and those
+    of a served batch of the slot's queries from its anchor. Returns
+    ``(not bitwise to solo, shared-slot rows, anchors)``."""
+    nb = frame.scramble.n_blocks
+    mates, unions, truths = {}, {}, {}
+    for i, tk in enumerate(a.tickets):
+        mates.setdefault(id(tk._qc.slot), []).append(i)
+    not_solo, shared, anchors = [], [], set()
+    for i, (tk, q) in enumerate(zip(a.tickets, burst)):
+        if tk.status != "done":
+            continue
+        slot = tk._qc.slot              # the slot's fold state
+        anchors.add(int(slot.anchor))
+        start = (a.start_block + slot.anchor) % nb
+        group = mates[id(slot)]
+        if slot.group_bm is None or len(group) == 1:
+            want = frame.run(q, sampling="active_peek", seed=1,
+                             start_block=start)
+            if not same_result(np, tk.result, want):
+                not_solo.append(i)
+            continue
+        if id(slot) not in unions:
+            unions[id(slot)] = server.run_batch(
+                [burst[j] for j in group], sampling="active_peek", seed=1,
+                start_block=start)
+        miss = uncovered(np, tk.result,
+                         *scheduler_truth(np, cols, q, truths))
+        shared.append(dict(
+            ticket=i, slot_tickets=group, anchor=int(slot.anchor),
+            uncovered=len(miss),
+            rerun_bitwise=same_result(np, tk.result, b.tickets[i].result),
+            union_bitwise=same_result(np, tk.result,
+                                      unions[id(slot)][group.index(i)])))
+    return not_solo, shared, anchors
+
+
 def serving_phase(torch, np, T, opt, frame, batch, solo, truths, cols,
                   counters):
     """Phase 3c: shared-scan serving on phase 3b's frame through the
@@ -1595,8 +1658,12 @@ def serving_phase(torch, np, T, opt, frame, batch, solo, truths, cols,
             failures.append(dict(part=wname, uncovered=bad))
     rec["fan_out"] = fan
 
-    # 3. the scheduler on a SimClock: a burst, bitwise to solo at each
-    # slot's anchor, replayed to the same event log
+    # 3. the scheduler on a SimClock: a burst replayed to the same event
+    # log; a ticket alone in its slot, or in a non-probe slot, bitwise
+    # its solo run at the slot's anchor; tickets that share a probe slot
+    # (a grouped signature: the slot selects with the union of their
+    # activity flags) held to coverage, to the rerun's bits and to the
+    # bits of a served batch of the slot's queries from its anchor
     rng = np.random.default_rng(SCHED_SEED)
     burst = [scheduler_query(T, opt, rng, i) for i in range(SCHED_BURST)]
 
@@ -1622,19 +1689,12 @@ def serving_phase(torch, np, T, opt, frame, batch, solo, truths, cols,
         torch.cuda.synchronize()
     rerun_wall = time.perf_counter() - t0
     not_done = [i for i, tk in enumerate(a.tickets) if tk.status != "done"]
-    not_solo = []
-    anchors = set()
     t0 = time.perf_counter()
-    for i, (tk, q) in enumerate(zip(a.tickets, burst)):
-        if tk.status != "done":
-            continue
-        anchor = tk._qc.slot.anchor
-        anchors.add(int(anchor))
-        with solos:
-            want = frame.run(q, sampling="active_peek", seed=1,
-                             start_block=(a.start_block + anchor) % nb)
-        if not same_result(np, tk.result, want):
-            not_solo.append(i)
+    with solos:
+        not_solo, shared, anchors = check_tickets(np, frame, server, burst,
+                                                  a, b, cols)
+    shared_bad = [r for r in shared if r["uncovered"] or not (
+        r["rerun_bitwise"] and r["union_bitwise"])]
     solo_wall = time.perf_counter() - t0
     same_log = [tuple(e) for e in a.log] == [tuple(e) for e in b.log]
     admits = sum(1 for e in a.log if e[2] == "admit")
@@ -1675,17 +1735,19 @@ def serving_phase(torch, np, T, opt, frame, batch, solo, truths, cols,
         checkpoints=sum(1 for e in a.log if e[2] == "checkpoint"),
         admits=admits, retires=retires,
         events=len(a.log), anchors=sorted(anchors), not_done=not_done,
-        not_bitwise_to_solo=not_solo, same_event_log=same_log,
+        not_bitwise_to_solo=not_solo,
+        shared_probe_slot=shared, same_event_log=same_log,
         resumed_equals_uninterrupted=resumed_equal,
         late_join_anchor=late_anchor, late_joiners_bitwise_to_solo=late_solo,
         **stats)
     # the burst must have run a pass of several slots through several
     # membership epochs (loops)
-    if (not_done or not_solo or not same_log or not resumed_equal
-            or not late_solo or late_anchor == 0
+    if (not_done or not_solo or shared_bad or not same_log
+            or not resumed_equal or not late_solo or late_anchor == 0
             or stats["most_slots"] < 2 or stats["loops_built"] < 2):
         failures.append(dict(part="scheduler", not_done=not_done,
-                             not_solo=not_solo, same_log=same_log,
+                             not_solo=not_solo, shared_probe_slot=shared_bad,
+                             same_log=same_log,
                              resumed=resumed_equal, late_solo=late_solo,
                              late_anchor=late_anchor,
                              most_slots=stats["most_slots"],
@@ -3695,6 +3757,42 @@ def layout_setup(torch):
     return cfg, build(cfg), ocfg, shape
 
 
+# step_cost's peak prediction against the card's max_memory_allocated
+LAYOUT_PEAK_TOL = 0.10
+
+
+def layout_meta_step(torch, mshape):
+    """``(run, inputs)`` of the sharded step of phase 6f's config on meta
+    tensors, as rank 0 of the default group (a ``fake`` one) on a mesh
+    of shape ``mshape``: the prediction's program."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import make_batch
+    from repro_torch.train import abstract_state
+    from repro_torch.train.trainer import build_sharded_train_step
+    cfg, model, ocfg, shape = layout_setup(torch)
+    mesh = make_host_mesh(mshape, ("data", "model"), device_type="cpu")
+    abstract = abstract_state(model, ocfg)
+    spec = dryrun.state_spec(cfg, mesh, abstract, ocfg)
+    state = sh.distribute(mesh, spec, abstract)
+    batch = make_batch(cfg, shape, seed=0, device="meta")
+    step = build_sharded_train_step(model, ocfg, mesh, spec,
+                                    sh.batch_specs(cfg, mesh, shape, batch))
+    return (lambda: step(state, batch)), (state, batch)
+
+
+def storage_bytes(torch, tree) -> int:
+    """Bytes of the distinct storages under a state / batch tree (a
+    DTensor by its shard)."""
+    seen = {}
+    for _, t in _layout_leaves(tree):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        st = t.untyped_storage()
+        seen[id(st)] = (st, st.nbytes())
+    return sum(n for _, n in seen.values())
+
+
 def _layout_leaves(state) -> list:
     """``[(name, tensor)]`` of a train state: ``params/<n>``, ``opt/m/<n>``,
     ``opt/v/<n>``, ``step``."""
@@ -3882,12 +3980,21 @@ def layout_nccl_world1(torch, host: dict, store: str) -> dict:
         step = build_sharded_train_step(model, ocfg, mesh, spec,
                                         sh.batch_specs(cfg, mesh, shape,
                                                        batch))
+        inputs = storage_bytes(torch, {"state": state, "batch": batch})
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, met = step(state, batch)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         rec = dict(world=1, backend=dist.get_backend(),
-                   step_s=time.perf_counter() - t0, loss=float(met["loss"]))
+                   step_s=time.perf_counter() - t0, loss=float(met["loss"]),
+                   memory=dict(max_memory_allocated=peak,
+                               allocated_before=base, input_bytes=inputs,
+                               # the process's other tensors on the card
+                               other_bytes=base - inputs,
+                               step_peak_bytes=peak - (base - inputs)))
         differ, worst = [], 0.0
         for name, t in _layout_leaves(state):
             got = t.to_local()
@@ -3907,14 +4014,51 @@ def layout_nccl_world1(torch, host: dict, store: str) -> dict:
         dist.destroy_process_group()
 
 
+def layout_flops_on_card(torch, model, ocfg, cfg, shape) -> dict:
+    """One single-card step of phase 6f's config from a fresh state,
+    under :func:`step_cost.analyze` with ``FlopCounterMode`` inside it:
+    both counts and the step's seconds (under both modes)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import step_cost
+    from repro_torch.models import make_batch
+    from repro_torch.train import build_train_step, init_state
+    state = init_state(model, MODEL_SEED, ocfg, device="cuda")
+    batch = make_batch(cfg, shape, seed=0, device="cuda")
+    step = build_train_step(model, ocfg)
+    counted = {}
+
+    def run():
+        with FlopCounterMode(display=False) as fc:
+            step(state, batch)
+        counted["flops"] = int(fc.get_total_flops())
+    t0 = time.perf_counter()
+    cost = step_cost.analyze(run, inputs=(state, batch))
+    torch.cuda.synchronize()
+    out = dict(step_cost=cost["flops"], flop_counter_mode=counted["flops"],
+               s=time.perf_counter() - t0, peak_bytes=cost["peak_bytes"])
+    del state, batch, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def layout_dryrun_main(a: dict) -> None:
     """Phase 6f's dry runs (spawned: a ``fake``-backend group of 256, then
     512 ranks): ``dryrun_aqp`` on both meshes on the card (``block_agg``
     launched), then ``LAYOUT_DRYRUN_CELLS`` at full size on both."""
     import torch
     sys.path[:0] = [p for p in a["sys_path"] if p not in sys.path]
-    from repro_torch.launch import dryrun, dryrun_aqp
+    from repro_torch.launch import dryrun, dryrun_aqp, step_cost
     torch.cuda.set_device(0)
+    # step_cost's predictions of the ranks' and NCCL's sharded steps, on
+    # meta in fake groups of their sizes, as rank 0
+    t0 = time.perf_counter()
+    pred = {}
+    for world, mshape in ((LAYOUT_RANKS, LAYOUT_MESHES[0]), (1, (1, 1))):
+        dryrun.join_fake_group(world)
+        run, inputs = layout_meta_step(torch, mshape)
+        pred[world] = step_cost.analyze(run, inputs=inputs)
+        del run, inputs
+    pred_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     aqp = [dryrun_aqp.run(mp, device="cuda") for mp in (False, True)]
     aqp_s = time.perf_counter() - t0
@@ -3925,11 +4069,21 @@ def layout_dryrun_main(a: dict) -> None:
         c.pop("trace", None)
         c.pop("null_reason", None)
     Path(a["out"], "layout_dryrun.json").write_text(json.dumps(dict(
-        aqp=aqp, aqp_s=aqp_s, cells=cells,
+        aqp=aqp, aqp_s=aqp_s, cells=cells, pred=pred, pred_s=pred_s,
         cells_s=time.perf_counter() - t0)))
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def _stop(proc) -> None:
+    """End a spawned process that is still running."""
+    if proc.is_alive():
+        proc.terminate()
+        proc.join(10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
 
 
 def layout_phase(torch, np, counters):
@@ -3950,42 +4104,54 @@ def layout_phase(torch, np, counters):
     fails, rec = [], {}
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
-    cfg, model, ocfg, shape = layout_setup(torch)
-    state = init_state(model, MODEL_SEED, ocfg, device="cuda")
-    batch = make_batch(cfg, shape, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    state, met = build_train_step(model, ocfg)(state, batch)
-    torch.cuda.synchronize()
-    rec["single_step_s"] = time.perf_counter() - t1
-    rec["single_loss"] = float(met["loss"])
-    rec["params"] = sum(p.numel() for p in state["params"].parameters())
-    host = {n: t.detach().cpu() for n, t in _layout_leaves(state)}
-    host["metrics/loss"] = met["loss"].detach().cpu()
-    torch.save(host, work / "single_step.pt")
-    del state, met, batch
-    torch.cuda.empty_cache()
-    rec["single_s"] = time.perf_counter() - t0
     base = dict(store=str(work / "store"), out=str(work),
                 ref=str(work / "single_step.pt"), ckpt=str(work / "ckpt"),
                 sys_path=list(sys.path))
-    # the gloo ranks and, beside them, the dry runs
-    t0 = time.perf_counter()
+    # the dry runs (host-bound) start first and run beside everything
+    t_dry = time.perf_counter()
     dry = ctx.Process(target=layout_dryrun_main, args=(dict(base),))
     dry.start()
-    codes = _spawn_ranks(ctx, layout_rank_main,
-                         [dict(base, rank=r) for r in range(LAYOUT_RANKS)],
-                         LAYOUT_JOIN_TIMEOUT_S)
-    rec["ranks_wall_s"] = time.perf_counter() - t0
-    dry.join(max(LAYOUT_JOIN_TIMEOUT_S - rec["ranks_wall_s"], 1.0))
-    if dry.is_alive():
-        dry.terminate()
-        dry.join(10)
-        if dry.is_alive():
-            dry.kill()
-            dry.join()
-    rec["dryrun_wall_s"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        cfg, model, ocfg, shape = layout_setup(torch)
+        state = init_state(model, MODEL_SEED, ocfg, device="cuda")
+        batch = make_batch(cfg, shape, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = build_train_step(model, ocfg)(state, batch)
+        torch.cuda.synchronize()
+        rec["single_step_s"] = time.perf_counter() - t1
+        rec["single_loss"] = float(met["loss"])
+        rec["params"] = sum(p.numel()
+                            for p in state["params"].parameters())
+        host = {n: t.detach().cpu() for n, t in _layout_leaves(state)}
+        host["metrics/loss"] = met["loss"].detach().cpu()
+        torch.save(host, work / "single_step.pt")
+        del state, met, batch
+        torch.cuda.empty_cache()
+        rec["single_s"] = time.perf_counter() - t0
+        # step_cost's FLOPs of a fresh single-card step on the card
+        # against FlopCounterMode's count of the same call
+        rec["flops_on_card"] = layout_flops_on_card(torch, model, ocfg,
+                                                    cfg, shape)
+        if rec["flops_on_card"]["step_cost"] != \
+                rec["flops_on_card"]["flop_counter_mode"]:
+            fails.append(dict(check="step_cost FLOPs on the card",
+                              **rec["flops_on_card"]))
+        # the gloo ranks, beside the dry runs
+        t0 = time.perf_counter()
+        codes = _spawn_ranks(
+            ctx, layout_rank_main,
+            [dict(base, rank=r) for r in range(LAYOUT_RANKS)],
+            LAYOUT_JOIN_TIMEOUT_S)
+        rec["ranks_wall_s"] = time.perf_counter() - t0
+    except BaseException:   # stopped, whatever ended the phase
+        _stop(dry)
+        raise
+    dry.join(max(LAYOUT_JOIN_TIMEOUT_S - (time.perf_counter() - t_dry),
+                 1.0))
+    _stop(dry)
+    rec["dryrun_wall_s"] = time.perf_counter() - t_dry
     rec["rank_exit_codes"], rec["dryrun_exit_code"] = codes, dry.exitcode
     shutil.rmtree(work / "ckpt", ignore_errors=True)
     if codes != [0] * LAYOUT_RANKS:
@@ -4001,6 +4167,7 @@ def layout_phase(torch, np, counters):
         a, b = ranks[0]["elastic_losses"]
         if abs(a - b) >= LAYOUT_LOSS_TOL:
             fails.append(dict(check="elastic losses", losses=[a, b]))
+        rank0 = next(r for r in ranks if r["rank"] == 0)
         for key in ("crc_22", "crc_41"):
             seen = {}
             for r in ranks:
@@ -4018,17 +4185,23 @@ def layout_phase(torch, np, counters):
             fails.append(dict(check="ranks report the same losses"))
         rec["ranks"] = [{k: v for k, v in r.items()
                          if not k.startswith("crc_")} for r in ranks]
+    pred = None
     if dry.exitcode != 0:
         fails.append(dict(part="dry runs", exit_code=dry.exitcode))
     else:
         d = json.loads((work / "layout_dryrun.json").read_text())
         rec["dryrun_aqp"] = d["aqp"]
         rec["dryrun_aqp_s"], rec["dryrun_cells_s"] = d["aqp_s"], d["cells_s"]
+        pred, rec["predictions_s"] = d["pred"], d["pred_s"]
         rec["dryrun_cells"] = [
             {k: c.get(k) for k in ("arch", "shape", "mesh", "ok", "error",
-                                   "flops", "step_s", "layout_s")}
-            | {"state_bytes_per_device": c.get("memory", {}).get(
-                "state_bytes_per_device")} for c in d["cells"]]
+                                   "flops", "step_s", "layout_s",
+                                   "collective_bytes")}
+            | {k: c.get("memory", {}).get(k) for k in (
+                "state_bytes_per_device", "temp_bytes",
+                "peak_bytes_per_device")}
+            | {"step_cost_scope": c.get("step_cost", {}).get("scope")}
+            for c in d["cells"]]
         bad = [c for c in d["cells"] if not c["ok"]]
         covered = ({c["arch"] for c in d["cells"]},
                    {c["shape"] for c in d["cells"]})
@@ -4037,6 +4210,27 @@ def layout_phase(torch, np, counters):
                               ids=len(covered[0]), shapes=len(covered[1])))
         if any(r["block_agg_launches"] < 1 for r in d["aqp"]):
             fails.append(dict(check="dryrun_aqp launched no block_agg"))
+        # block_agg's report carries phase 2's bound bytes for its shape
+        # (one block of the rank's rows, every lane valid)
+        reports = [dict(mesh=r["mesh"], want=fold_bytes(
+            r["rows_per_device"], 1, r["groups"]),
+            got=r["step_cost"]["kernels"].get("block_agg", {}).get("bytes"))
+            for r in d["aqp"]]
+        rec["block_agg_report"] = reports
+        if any(x["got"] != x["want"] for x in reports):
+            fails.append(dict(check="block_agg report bytes", rows=reports))
+        # the gloo ranks' collectives against the meta prediction
+        if codes == [0] * LAYOUT_RANKS:
+            p4 = pred[str(LAYOUT_RANKS)]
+            got = {k: rank0["collectives"][k] for k in ("calls", "bytes")}
+            want = dict(calls=sum(c["count"] for c in
+                                  p4["collectives"].values()),
+                        bytes=p4["collective_bytes"])
+            rec["collectives_predicted"] = dict(
+                rank0=got, step_cost=want, kinds=p4["collectives"])
+            if got != want:
+                fails.append(dict(check="collectives against step_cost",
+                                  rank0=got, step_cost=want))
     launches = {k: 0 for k in counters}
     launches["block_agg"] = sum(r["block_agg_launches"]
                                 for r in rec.get("dryrun_aqp", []))
@@ -4045,6 +4239,20 @@ def layout_phase(torch, np, counters):
     rec["nccl_world1"] = layout_nccl_world1(torch, host,
                                             str(work / "store_nccl"))
     rec["nccl_wall_s"] = time.perf_counter() - t0
+    if pred is not None:
+        # step_cost's peak of the same step on meta (fake group of one)
+        mem = rec["nccl_world1"]["memory"]
+        want = pred["1"]["peak_bytes"]
+        gap = want / mem["step_peak_bytes"] - 1.0
+        rec["peak_predicted"] = dict(
+            step_cost_peak_bytes=want,
+            step_cost_temp_bytes=pred["1"]["temp_bytes"],
+            card_step_peak_bytes=mem["step_peak_bytes"],
+            card_max_memory_allocated=mem["max_memory_allocated"],
+            gap=gap, tol=LAYOUT_PEAK_TOL)
+        if abs(gap) > LAYOUT_PEAK_TOL:
+            fails.append(dict(check="peak against step_cost",
+                              **rec["peak_predicted"]))
     del host
     stray = [k for k in counters if counters[k].launches]
     if stray:

@@ -467,8 +467,9 @@ def full_tensors(dts: Sequence, out: Optional[list] = None) -> list:
     spans the default group), on every rank: all-gathers of the shards
     (:mod:`repro_torch.distributed.collectives`; leaves of one dtype
     together, up to :data:`GATHER_CHUNK_BYTES` of this rank's a call),
-    then each rank's shard put in its place, in new tensors or in
-    ``out``'s (of the global shapes)."""
+    then each distinct shard put in its place once (replicas hold the
+    same bits), in new tensors or in ``out``'s (of the global
+    shapes)."""
     out = [None] * len(dts) if out is None else list(out)
     by_dtype: Dict[torch.dtype, list] = {}
     for i, t in enumerate(dts):
@@ -499,8 +500,13 @@ def _gather_into(dts: Sequence, idx: list, out: list) -> None:
             out[i] = torch.empty(tuple(t.shape), dtype=t.dtype,
                                  device=locs[j].device)
         n = locs[j].numel()
+        # one copy a distinct shard: its replicas' ranks hold the same
+        # one (the last rank's is put, as a copy a rank would leave it)
+        last = {}
+        for r, coord in coords.items():
+            idx_ = shard_slices(mesh, spec, t.shape, coord)
+            last[tuple((x.start, x.stop) for x in idx_)] = (idx_, r)
         with torch.no_grad():
-            for r, coord in coords.items():
-                out[i][shard_slices(mesh, spec, t.shape, coord)] = \
-                    every[r, lo:lo + n].view(locs[j].shape)
+            for idx_, r in last.values():
+                out[i][idx_] = every[r, lo:lo + n].view(locs[j].shape)
         lo += n

@@ -135,6 +135,20 @@ def build() -> Path:
     return lib
 
 
+#: the running cost analyses' callbacks (:func:`repro_torch.launch.
+#: step_cost.analyze` adds one while its step runs)
+LAUNCH_REPORTS: List = []
+
+
+def report(name: str, read_bytes: int, write_bytes: int) -> None:
+    """Tell every running cost analysis that kernel ``name`` launched,
+    reading ``read_bytes`` and writing ``write_bytes`` (each input read
+    once, each output written once). A wrapper calls it where it counts
+    the launch: a ``ctypes`` call is out of the dispatcher's sight."""
+    for fn in LAUNCH_REPORTS:
+        fn(name, read_bytes, write_bytes)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib

@@ -41,6 +41,31 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"active_blocks: {msg}")
 
 
+def probe_traffic(words: torch.Tensor, masks: torch.Tensor,
+                  win: Optional[torch.Tensor] = None):
+    """``(read, written)`` bytes of one probe of the rows of ``words``
+    (those of ``win`` when given) against ``masks``, a ``(W,)`` mask or a
+    ``(Q, W)`` stack: the rows' words, the masks and the row ids read,
+    ``Q`` int32 flags a row written."""
+    n = words.shape[0] if win is None else win.shape[0]
+    q = masks.shape[0] if masks.dim() == 2 else 1
+    return (n * words.shape[1] * 4 + masks.numel() * 4
+            + (0 if win is None else n * 4), q * n * 4)
+
+
+def head_traffic(words: torch.Tensor, active_words: torch.Tensor, *,
+                 window: int, budget: int, probe: bool):
+    """``(read, written)`` bytes of one round head: the window's
+    ``order_pad`` entries and ``static_ok`` bytes (with ``probe`` also
+    their rows' words and the masks) read; ``ok`` and ``flags`` (a byte
+    a position), the lanes' int32 ``blk`` and bool ``tvalid`` and the
+    int64 ``new_pos`` written."""
+    read = window * (4 + 1)
+    if probe:
+        read += window * words.shape[1] * 4 + active_words.numel() * 4
+    return read, 2 * window + budget * 5 + 8
+
+
 def active_blocks(words: torch.Tensor, active_words: torch.Tensor,
                   win: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Probe rows of ``words`` (``(nb, W)`` int32 on a CUDA device)
@@ -75,6 +100,7 @@ def active_blocks(words: torch.Tensor, active_words: torch.Tensor,
         out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "bitmap_active launch")
     active_blocks.launches += 1
+    _build.report("active_blocks", *probe_traffic(words, active_words, win))
     return out
 
 
@@ -119,6 +145,7 @@ def active_blocks_multi(words: torch.Tensor, stack: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "bitmap_active_multi launch")
     active_blocks_multi.launches += 1
+    _build.report("active_blocks_multi", *probe_traffic(words, stack, win))
     return out
 
 
@@ -217,6 +244,8 @@ def round_select(order_pad: torch.Tensor, static_ok: torch.Tensor,
         buf.data_ptr() + o_tvalid, status.data_ptr(), dev.index, stream)
     _build.check(rc, "round_select launch")
     round_select.launches += 1
+    _build.report("round_select", *head_traffic(
+        words, active_words, window=window, budget=budget, probe=probe))
     return (buf[o_ok:o_ok + window].view(torch.bool),
             buf[o_flags:o_flags + window].view(torch.bool),
             buf[:8].view(torch.int64).reshape(()),

@@ -132,6 +132,16 @@ def prepare(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
                       out)
 
 
+def traffic(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
+            budget: int, num_groups: int):
+    """``(read, written)`` bytes of one fold of ``budget`` blocks of the
+    slabs: the selected blocks' rows of ``values``, ``gids`` and
+    ``mask``, the int32 ``blk`` and ``tvalid`` lanes, and the ``(5, G)``
+    float32 result."""
+    row = sum(t.element_size() for t in (values, gids, mask))
+    return budget * values.shape[-1] * row + budget * 8, 5 * num_groups * 4
+
+
 def block_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
               blk: torch.Tensor, tvalid: torch.Tensor, center: float,
               num_groups: int):
@@ -158,6 +168,8 @@ def block_agg(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "block_agg launch")
     block_agg.launches += 1
+    _build.report("block_agg", *traffic(values, gids, mask, blk.shape[0],
+                                        num_groups))
     return fl.outs
 
 

@@ -23,7 +23,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import block_agg as _block_agg
 from repro_torch.kernels.block_agg import _fail, prepare
+
+
+def traffic(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
+            budget: int, num_groups: int, nbins: int):
+    """``(read, written)`` bytes: :func:`repro_torch.kernels.block_agg.
+    traffic`'s and the ``(G, nbins)`` float32 histogram written."""
+    read, written = _block_agg.traffic(values, gids, mask, budget,
+                                       num_groups)
+    return read, written + num_groups * nbins * 4
 
 
 def fused_fold(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
@@ -56,6 +66,8 @@ def fused_fold(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fused_fold launch")
     fused_fold.launches += 1
+    _build.report("fused_fold", *traffic(values, gids, mask, blk.shape[0],
+                                         num_groups, nbins))
     return (*fl.outs, hist)
 
 

@@ -117,6 +117,14 @@ def _private_counters(dev: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
+def traffic(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
+            num_groups: int, nbins: int):
+    """``(read, written)`` bytes: every row of ``values``, ``gids`` and
+    ``mask`` read, the ``(G, nbins)`` float32 histogram written."""
+    return (sum(t.numel() * t.element_size() for t in (values, gids, mask)),
+            num_groups * nbins * 4)
+
+
 def grouped_hist(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
                  a: float, b: float, num_groups: int,
                  nbins: int) -> torch.Tensor:
@@ -162,6 +170,8 @@ def grouped_hist(values: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor,
         p.scratch_bytes, dev.index, stream)
     _build.check(rc, "grouped_hist launch")
     grouped_hist.launches += 1
+    _build.report("grouped_hist", *traffic(values, gids, mask, num_groups,
+                                           nbins))
     return hist
 
 

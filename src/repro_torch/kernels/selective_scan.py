@@ -101,6 +101,26 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"selective_scan: {msg}")
 
 
+def traffic(B: int, L: int, din: int, n: int, tc: int):
+    """``(read, written)`` bytes of the forward: ``x``, ``dt`` ``(B, L,
+    din)``, ``b``, ``c`` ``(B, L, n)``, ``a`` ``(din, n)``, ``d``, ``h0``
+    read; ``y``, ``hout`` and ``hseg`` written; all float32."""
+    read = 4 * (2 * B * L * din + 2 * B * L * n + din * n + din
+                + B * din * n)
+    return read, 4 * (B * L * din + B * din * n + B * (L // tc) * din * n)
+
+
+def bwd_traffic(B: int, L: int, din: int, n: int, tc: int):
+    """``(read, written)`` bytes of the backward: the forward's inputs
+    but ``h0``, ``hseg``, ``ybar`` and ``houtbar`` read; ``dx``, ``ddt``,
+    ``dB``, ``dC``, ``dA``, ``dD`` and ``dh0`` written (its scratch
+    partials not counted); all float32."""
+    read = 4 * (3 * B * L * din + 2 * B * L * n + din * n + din
+                + B * (L // tc) * din * n + B * din * n)
+    return read, 4 * (2 * B * L * din + 2 * B * L * n + din * n + din
+                      + B * din * n)
+
+
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                    h0: torch.Tensor, time_chunk: int = TIME_CHUNK
@@ -152,6 +172,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "selective_scan launch")
     selective_scan.launches += 1
+    _build.report("selective_scan", *traffic(B, L, din, n, tc))
     return y, hout, hseg
 
 
@@ -225,6 +246,7 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "selective_scan_bwd launch")
     selective_scan_bwd.launches += 1
+    _build.report("selective_scan_bwd", *bwd_traffic(B, L, din, n, tc))
     return outs
 
 

@@ -4,8 +4,8 @@ size on the ``meta`` device.
 The port of :mod:`repro.launch.dryrun`. For each cell the step
 (``train_step``, ``prefill`` or ``decode``) runs once on meta tensors
 (shapes and dtypes only, no storage) under
-:class:`torch.utils.flop_counter.FlopCounterMode` and the activation
-rules (:mod:`repro_torch.distributed.axisctx`): the state from
+:func:`repro_torch.launch.step_cost.analyze` and the activation rules
+(:mod:`repro_torch.distributed.axisctx`): the state from
 :func:`repro_torch.train.abstract_state` or ``model.init(device=
 "meta")``, the batch from :func:`repro_torch.models.make_batch` and the
 decode cache from ``model.init_cache`` on meta. Then the specs of the
@@ -18,18 +18,31 @@ joined by this process, and each record has:
   * ``params``, ``active_params``;
   * per-device bytes of the parameters, optimizer state, batch and cache
     (from the local shapes) and their sum;
-  * ``flops``: the global matmul FLOPs of one step (FlopCounterMode
-    counts matrix products and attention, as the reference's
+  * ``flops``: the global matmul FLOPs of one step, the step run whole
+    on one device (``FlopCounterMode``'s formulas, as the reference's
     ``hlo_cost`` counts dots; eager meta runs every layer, so no loop
-    trip count is needed);
+    trip count is needed); ``step_cost.flops`` is its own scope's;
+  * ``step_cost``: :func:`repro_torch.launch.step_cost.analyze` of one
+    step (FLOPs, bytes, collectives by kind, peak and temp bytes), the
+    counterpart of the reference's ``hlo_cost`` and memory analysis,
+    with its ``scope``:
+
+      - a train cell: ``"per_device"``, the program of one device, as
+        the reference's post-SPMD module is: rank 0's
+        :func:`repro_torch.train.trainer.build_sharded_train_step` on
+        meta DTensors laid out by the cell's specs, in the fake group.
+        It fills ``memory.temp_bytes``, ``memory.peak_bytes_per_device``
+        and ``collective_bytes``;
+      - a prefill or decode cell: ``"global"``, the step as it runs
+        whole on one device (the port has no sharded serving step), so
+        those three fields stay ``null`` and ``null_reason`` says why;
   * ``seconds`` of the step and of the layout, and ``ok``; a failing
     cell records its error and the sweep goes on.
 
-What the reference read from XLA's compiled HLO has no counterpart
-here: ``temp_bytes`` (the compiler's scratch) and the collective bytes
-are written as ``null`` with the reason. The meta program does not
-depend on the mesh, so ``--both-meshes`` runs each (arch, shape) step
-once and lays its state out on both meshes.
+A serving cell's meta program does not depend on the mesh, so
+``--both-meshes`` runs its step once and lays its trees out on both
+meshes; a train cell runs its global step once and its sharded step on
+each mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_0_6b \\
       --shape train_4k [--multi-pod | --both-meshes] [--out PATH]
@@ -52,24 +65,24 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
-from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import SHAPES, get
 from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.axisctx import default_rules, logical_axis_rules
+from repro_torch.launch import step_cost
 from repro_torch.launch.mesh import SINGLE_POD, make_production_mesh
 from repro_torch.models import build, make_batch
 from repro_torch.models.zoo import window_for
 from repro_torch.train import (OptConfig, abstract_state, build_train_step,
                                init_state)
 from repro_torch.train import optimizer as opt_mod
+from repro_torch.train.trainer import build_sharded_train_step
 
-NO_HLO = ("no torch counterpart: XLA's compiled memory analysis and HLO "
-          "collectives (repro/launch/hlo_cost.py is not ported); the "
-          "port's sharded step gathers parameters whole and all-reduces "
-          "gradients, counted at run time by "
-          "repro_torch.distributed.collectives.COLLECTIVES")
+SERVE_NULL = ("the port has no sharded serving step, so step_cost is the "
+              "global step run whole on one device (scope 'global'): "
+              "per-device scratch, peak and collectives are unknown until "
+              "the serving layout exists")
 
 
 class MeshShape:
@@ -137,8 +150,12 @@ class Cell:
     kind: str
     trees: Dict            # "state" / "params", "batch", "cache"
     ocfg: Optional[OptConfig]
-    flops: int
+    cost: Dict             # step_cost of the global step
     step_s: float
+
+    @property
+    def flops(self) -> int:
+        return self.cost["flops"]
 
 
 def step_trees(model, shape, device: str = "meta", seed: int = 0):
@@ -165,16 +182,9 @@ def step_trees(model, shape, device: str = "meta", seed: int = 0):
             lambda: model.decode(params, cache, batch, window))
 
 
-def count_flops(run) -> int:
-    """The matmul FLOPs of ``run()`` by FlopCounterMode."""
-    with FlopCounterMode(display=False) as counter:
-        run()
-    return int(counter.get_total_flops())
-
-
 def run_step(arch_id: str, shape_name: str, overrides=None) -> Cell:
     """Build the cell's meta trees and run its step once under
-    FlopCounterMode and the single pod's activation rules."""
+    :func:`step_cost.analyze` and the single pod's activation rules."""
     cfg = get(arch_id)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -187,10 +197,25 @@ def run_step(arch_id: str, shape_name: str, overrides=None) -> Cell:
     trees, run = step_trees(build(cfg), shape)
     with logical_axis_rules(rules_mesh, default_rules(
             rules_mesh, shard_activations=cfg.shard_activations)):
-        flops = count_flops(run)
+        cost = step_cost.analyze(run, inputs=trees)
     ocfg = OptConfig.for_arch(cfg) if shape.kind == "train" else None
-    return Cell(arch_id, shape_name, cfg, shape.kind, trees, ocfg, flops,
+    return Cell(arch_id, shape_name, cfg, shape.kind, trees, ocfg, cost,
                 time.perf_counter() - t0)
+
+
+def sharded_step_cost(cell: Cell, mesh, sspec: Dict, bspec: Dict) -> Dict:
+    """step_cost of this rank's sharded train step on ``mesh`` (a mesh
+    over the fake group): the cell's meta state laid out by ``sspec`` as
+    meta DTensors, the whole meta batch."""
+    shape = SHAPES[cell.shape]
+    model = build(cell.cfg)
+    state = sh.distribute(mesh, sspec, cell.trees["state"])
+    batch = cell.trees["batch"]
+    step = build_sharded_train_step(
+        model, cell.ocfg, mesh, sspec, bspec,
+        window=window_for(cell.cfg, shape.seq_len))
+    return step_cost.analyze(lambda: step(state, batch),
+                             inputs=(state, batch))
 
 
 def layout(cell: Cell, mesh, multi_pod: bool) -> Dict:
@@ -206,6 +231,8 @@ def layout(cell: Cell, mesh, multi_pod: bool) -> Dict:
                                           t["state"]["params"])
         mem["opt_bytes"] = device_bytes(mesh, sspec["opt"],
                                         t["state"]["opt"])
+        cost = dict(sharded_step_cost(cell, mesh, sspec, bspec),
+                    scope="per_device")
     else:
         mem["param_bytes"] = device_bytes(
             mesh, sh.param_specs(cfg, mesh, t["params"]), t["params"])
@@ -213,15 +240,23 @@ def layout(cell: Cell, mesh, multi_pod: bool) -> Dict:
     mem["cache_bytes"] = (device_bytes(mesh, sh.cache_specs(
         cfg, mesh, shape, t["cache"]), t["cache"]) if "cache" in t else 0)
     mem["state_bytes_per_device"] = sum(mem.values())
-    mem["temp_bytes"] = None
+    if cell.kind == "train":
+        mem["temp_bytes"] = cost["temp_bytes"]
+        mem["peak_bytes_per_device"] = cost["peak_bytes"]
+        coll_bytes, null_reason = cost["collective_bytes"], None
+    else:
+        cost = dict(cell.cost, scope="global")
+        mem["temp_bytes"] = mem["peak_bytes_per_device"] = None
+        coll_bytes, null_reason = None, SERVE_NULL
     return {
         "arch": cell.arch, "shape": cell.shape, "mesh": mesh_name(multi_pod),
         "n_devices": int(mesh.size()), "kind": cell.kind,
         "seq_len": shape.seq_len, "global_batch": shape.global_batch,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
-        "memory": mem, "flops": cell.flops,
-        "collective_bytes": None, "null_reason": NO_HLO,
+        "memory": mem, "flops": cell.flops, "flops_scope": "global",
+        "step_cost": cost, "collective_bytes": coll_bytes,
+        "null_reason": null_reason,
         "step_s": cell.step_s, "layout_s": time.perf_counter() - t0,
         "ok": True}
 

@@ -16,12 +16,19 @@ record holds shapes and byte counts, never merged values:
   * the bytes handed to collectives in the round
     (:data:`repro_torch.kernels.fused_scan.COLLECTIVES`): O(groups),
     whatever the rows;
-  * three terms at the NVIDIA H100 SXM data sheet's rates, each named
-    beside it: memory (input bytes over HBM3's 3.35e12 B/s), compute
-    (``OPS_PER_ROW`` float32 operations a row over 67e12 op/s, the
-    non-tensor fp32 peak) and collective (the all-reduce bytes over one
-    direction of NVLink's 450e9 B/s);
-  * the fold's kernel launches and its host seconds.
+  * ``step_cost``: :func:`repro_torch.launch.step_cost.analyze` of a
+    second call of the round (on the card ``block_agg``'s launch with
+    the bytes it reports, on the CPU its plain version's ops; the two
+    all-reduces by kind);
+  * three hand terms at the NVIDIA H100 SXM data sheet's rates (700 W),
+    each named beside it: memory (input bytes over HBM3's 3.35e12 B/s),
+    compute (``OPS_PER_ROW`` float32 operations a row over 67e12 op/s,
+    the non-tensor fp32 peak) and collective (the all-reduce bytes over
+    one direction of NVLink's 450e9 B/s); ``card`` is the name and power
+    limit that ``nvidia-smi`` gives for the card the round ran on
+    (``None`` on the CPU): a card set below 700 W runs slower than the
+    terms;
+  * the fold's kernel launches and its host seconds (the first call).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun_aqp [--multi-pod |
       --both] [--device cpu] [--out build/dryrun/dryrun_aqp.json]
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 from pathlib import Path
 
@@ -43,6 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import mesh_dp_axes
 from repro_torch.kernels import block_agg as kblock
 from repro_torch.kernels import fused_scan
+from repro_torch.launch import step_cost
 from repro_torch.launch.dryrun import join_fake_group, mesh_name
 from repro_torch.launch.mesh import make_production_mesh
 
@@ -55,6 +64,18 @@ NVLINK_BYTES_PER_S = 450e9
 # three adds into count, dsum and dsq
 OPS_PER_ROW = 6
 CENTER = 870.0
+
+
+def card_line(dev: torch.device):
+    """``nvidia-smi``'s name and power limit of the card, ``None`` off
+    the card."""
+    if dev.type != "cuda":
+        return None
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", str(dev.index or 0)],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def run(multi_pod: bool, rows_per_device: int = 64 * 1024,
@@ -81,8 +102,12 @@ def run(multi_pod: bool, rows_per_device: int = 64 * 1024,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     fold_s = time.perf_counter() - t0
+    calls, coll_bytes = (coll["calls"] - c0["calls"],
+                         coll["bytes"] - c0["bytes"])
+    launches = kblock.block_agg.launches - launches0
+    cost = step_cost.analyze(lambda: fold(values, gids, mask),
+                             inputs=(values, gids, mask))
     in_bytes = sum(t.numel() * t.element_size() for t in (values, gids, mask))
-    coll_bytes = coll["bytes"] - c0["bytes"]
     ops = OPS_PER_ROW * rows_per_device
     return {
         "cell": "aqp_scan_round", "mesh": mesh_name(multi_pod),
@@ -90,10 +115,10 @@ def run(multi_pod: bool, rows_per_device: int = 64 * 1024,
         "device": str(dev), "rows_per_device": rows_per_device,
         "total_rows": rows_per_device * n_dp, "groups": groups,
         "input_bytes_per_device": in_bytes,
-        "collective_calls": coll["calls"] - c0["calls"],
+        "collective_calls": calls,
         "collective_bytes": coll_bytes,
-        "block_agg_launches": kblock.block_agg.launches - launches0,
-        "fold_s": fold_s,
+        "block_agg_launches": launches,
+        "fold_s": fold_s, "step_cost": cost, "card": card_line(dev),
         "out_shape": list(state.count.shape),
         "terms_s": {
             "memory": {"s": in_bytes / HBM_BYTES_PER_S,

@@ -13,8 +13,8 @@ redundant. :class:`FrameServer` amortizes it three ways:
      planned into one *pass*: one round advances every distinct
      ``(column, group-by)`` *slot* of the pass. Each slot walks its OWN
      cursor with its OWN activity flags (the union over the slot's
-     queries), so a slot's selection / fold sequence is the solo run's,
-     whatever else is co-resident; what is amortized is the dispatch,
+     queries), so a slot's selection / fold sequence does not depend on
+     the other slots of the pass; what is amortized is the dispatch,
      the shared mask / prefilter buffers and the materialization.
   3. **Fold sharing** — queries with equal scan signatures map to the
      same slot and share one :class:`~repro_torch.aqp.engine._ScanViews`
@@ -32,10 +32,16 @@ cursor walk:
     anchor + n_blocks)`` and the block under position ``p`` is
     ``order[p % n_blocks]``. The scan order is a rotation for every
     anchor and every slot selects with its own flags at its own cursor,
-    so a slot's lap replays the solo scan ``engine.run(start_block=(start
-    + anchor) % n_blocks)``: every finished query's
-    :class:`~repro_torch.aqp.query.QueryResult` is bitwise identical to
-    that solo run.
+    so a slot's lap replays the scan from ``(start + anchor) %
+    n_blocks``. The contract of the reference's tests: a finished
+    query that is alone in its slot, or in a non-probe slot (no GROUP
+    BY, or sampling that skips nothing, where selection does not depend
+    on the slot's members), has a :class:`~repro_torch.aqp.query.
+    QueryResult` bitwise identical to its solo ``engine.run(start_block=
+    (start + anchor) % n_blocks)``. Queries that share a probe slot
+    select with the UNION of their activity flags, so each is bitwise
+    the slot's run (``run_batch`` of the slot's queries from that
+    start), not its own solo run, and its interval stays sound.
   * ``step`` runs one round (host loop) or one chunk of rounds (device
     loop), snapshotting each query's result the moment it finishes.
   * ``retire`` drops slots whose queries have all finished.

@@ -79,14 +79,16 @@ real timestamps for production use; nothing in the loop sleeps, and
 deadline events fire through the same heap (requeued behind the next
 actionable event until the wall clock actually reaches them).
 
-Bitwise guarantee: a query served through the scheduler whose slot
-selection is membership-independent (non-probe slots — e.g. no GROUP BY
-under skipping sampling — or probe slots whose co-resident queries share
-one activity evolution) returns a :class:`~repro_torch.aqp.query.QueryResult`
-bitwise identical to its solo ``engine.run`` with the rotated start
-``(start + anchor) % n_blocks`` (property-tested in
-``tests/test_torch_serve_property.py``); checkpoint-restore preserves
-it (``tests/test_torch_scheduler.py``).
+Bitwise guarantee (the reference's tests' contract): a query served
+through the scheduler that is alone in its slot, or in a non-probe slot
+(no GROUP BY, or sampling that skips nothing), returns a
+:class:`~repro_torch.aqp.query.QueryResult` bitwise identical to its
+solo ``engine.run`` with the rotated start ``(start + anchor) %
+n_blocks`` (property-tested in ``tests/test_torch_serve_property.py``);
+queries that share a probe slot select with the union of their activity
+flags, so each is bitwise the slot's run from that start, not its own
+solo run (``tests/test_torch_scheduler.py``); checkpoint-restore
+preserves either (``tests/test_torch_scheduler.py``).
 """
 
 from __future__ import annotations

@@ -231,6 +231,37 @@ def op_mesh_checks():
     return out
 
 
+def sharded_step(arch: str, device: str):
+    """``(run, inputs)`` of one sharded step of ``arch``'s config on a
+    (2, 2) mesh over the default group (4 ranks), on ``device``: the
+    state from seed 0 (``meta``: its shapes), the batch of ``SHAPE``."""
+    cfg = config(arch)
+    model = build(cfg)
+    ocfg = OptConfig.for_arch(cfg, lr=1e-2, warmup_steps=2, total_steps=20)
+    batch = make_batch(cfg, SHAPE, seed=0, device=device)
+    mesh = make_host_mesh((2, 2), ("data", "model"), device_type="cpu")
+    whole = init_state(model, 0, ocfg, device=device)
+    spec = _spec_tree(cfg, mesh, whole["params"], ocfg)
+    state = sh.distribute(mesh, spec, whole)
+    del whole
+    step = build_sharded_train_step(model, ocfg, mesh, spec,
+                                    sh.batch_specs(cfg, mesh, SHAPE, batch))
+    return (lambda: step(state, batch)), (state, batch)
+
+
+def op_step_cost(arch: str):
+    """``step_cost`` of one sharded step on this rank's CPU tensors, and
+    what ``collectives.COLLECTIVES`` tallied in it."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import step_cost
+    run, inputs = sharded_step(arch, "cpu")
+    c0 = dict(coll.COLLECTIVES)
+    cost = step_cost.analyze(run, inputs=inputs)
+    return {"cost": cost, "rank": dist.get_rank(),
+            "tally": {k: coll.COLLECTIVES[k] - c0[k]
+                      for k in ("calls", "bytes")}}
+
+
 OPS = {"sharded_train": op_sharded_train, "mesh_checks": op_mesh_checks,
        "multi_axis_order": op_multi_axis_order,
-       "constrain": op_constrain}
+       "constrain": op_constrain, "step_cost": op_step_cost}

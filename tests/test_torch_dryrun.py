@@ -7,14 +7,19 @@
     meshes come back ``ok``, with the per-device bytes of parameters,
     optimizer state, batch and cache equal to the arithmetic on the
     REFERENCE's specs and shapes (each leaf's size over the product of
-    its spec's axis sizes) and the fields XLA's HLO gave ``null``;
-  * a reduced cell's FLOPs on meta equal ``FlopCounterMode``'s count of
-    the same step on real CPU tensors, exactly (train, prefill and decode
-    of reduced qwen3, train of reduced zamba2 and seamless);
+    its spec's axis sizes);
+  * a reduced cell's FLOPs on meta (``step_cost``, the dry run's count)
+    equal the count of the same step on real CPU tensors, exactly
+    (train, prefill and decode of reduced qwen3, train of reduced zamba2
+    and seamless);
   * ``dryrun_aqp`` on the CPU under the fake group: the round's input
     bytes (64K rows x 12 B), its two all-reduces' bytes (``(3 + 2) x
     1024`` float32: the sums, then the minima and negated maxima) and
-    the three terms, on both meshes.
+    the three terms, on both meshes;
+  * each record's ``step_cost``: a train cell's the sharded step's, per
+    device (its all-reduce and all-gather bytes by the arithmetic of
+    the step), a serving cell's the global step's, with the per-device
+    memory fields ``null`` and the reason.
 """
 
 import json
@@ -37,7 +42,7 @@ from repro.train import OptConfig as JOptConfig
 from repro.train import abstract_state as jabstract_state
 from repro.train import optimizer as jopt
 from repro_torch.configs import ShapeConfig, get
-from repro_torch.launch import dryrun
+from repro_torch.launch import dryrun, step_cost
 from repro_torch.models import build
 from tests.helpers.torch_parity import one_torch_thread  # noqa: F401
 
@@ -128,8 +133,43 @@ def test_qwen3_cells_ok_with_reference_bytes(qwen_records, shape, mesh):
     assert mem["state_bytes_per_device"] == sum(
         mem[k] for k in ("batch_bytes", "param_bytes", "opt_bytes",
                          "cache_bytes"))
-    assert mem["temp_bytes"] is None and rec["collective_bytes"] is None
-    assert "hlo_cost" in rec["null_reason"]
+    cost = rec["step_cost"]
+    if shape == "train_4k":
+        assert cost["scope"] == "per_device" and rec["null_reason"] is None
+        assert mem["temp_bytes"] == cost["temp_bytes"] > 0
+        assert mem["peak_bytes_per_device"] == cost["peak_bytes"] > \
+            mem["state_bytes_per_device"]
+        assert rec["collective_bytes"] == cost["collective_bytes"] > 0
+    else:
+        # no sharded serving step: the step's cost is the global one
+        assert cost["scope"] == "global"
+        assert cost["flops"] == rec["flops"] and cost["temp_bytes"] > 0
+        assert mem["temp_bytes"] is None
+        assert mem["peak_bytes_per_device"] is None
+        assert rec["collective_bytes"] is None
+        assert "no sharded serving step" in rec["null_reason"]
+        assert cost["collective_bytes"] == 0
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+def test_qwen3_train_step_cost_per_device(qwen_records, mesh):
+    """The sharded step's collectives: one all-reduce of every gradient
+    in float32 with the five loss metrics; all-gathers of this rank's
+    parameter shards, of the five fields of the loss CI state and of
+    the gradient norm's partial sum (float32)."""
+    rec = qwen_records[("train_4k", mesh)]
+    colls = rec["step_cost"]["collectives"]
+    n_params = sum(p.numel() for p in build(get("qwen3_0_6b")).init(
+        0, device="meta").parameters())
+    assert colls["all-reduce"] == {"count": 1,
+                                   "bytes": (n_params + 5) * 4}
+    assert colls["all-gather"]["bytes"] == \
+        rec["memory"]["param_bytes"] + 5 * 4 + 4
+    assert all(colls[k]["count"] == 0 for k in (
+        "reduce-scatter", "all-to-all", "collective-permute"))
+    # data parallel over "data" (and "pod"): a rank runs its dp slice
+    n_dp = rec["n_devices"] // 16
+    assert rec["step_cost"]["flops"] * n_dp == rec["flops"]
 
 
 @pytest.mark.parametrize("arch,kind", [
@@ -142,9 +182,9 @@ def test_meta_flops_equal_real_cpu_flops(one_torch_thread, arch, kind):
     cache)."""
     model = build(get(arch, reduced=True))
     shape = ShapeConfig("t", 64, 2, kind)
-    meta = dryrun.count_flops(dryrun.step_trees(model, shape, "meta")[1])
-    real = dryrun.count_flops(dryrun.step_trees(model, shape, "cpu")[1])
-    assert meta == real > 0
+    meta = step_cost.analyze(dryrun.step_trees(model, shape, "meta")[1])
+    real = step_cost.analyze(dryrun.step_trees(model, shape, "cpu")[1])
+    assert meta["flops"] == real["flops"] > 0
 
 
 def test_dryrun_aqp_records_bytes_and_terms(tmp_path):
@@ -163,6 +203,11 @@ def test_dryrun_aqp_records_bytes_and_terms(tmp_path):
         assert terms["collective"]["s"] == (3 + 2) * 1024 * 4 / 450e9
         assert terms["compute"]["ops"] == 6 * 65536
         assert "move nothing" in r["note"]
+        cost = r["step_cost"]
+        assert cost["collectives"]["all-reduce"] == {
+            "count": 2, "bytes": (3 + 2) * 1024 * 4}
+        assert cost["kernels"] == {} and r["card"] is None
+        assert cost["input_bytes"] == 65536 * 12
     assert recs[0]["total_rows"] == 16 * 65536
     assert recs[1]["total_rows"] == 32 * 65536
 

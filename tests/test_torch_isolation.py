@@ -67,6 +67,7 @@ import repro_torch.launch, repro_torch.launch.train
 import repro_torch.distributed.sharding, repro_torch.distributed.axisctx
 import repro_torch.distributed.collectives, repro_torch.launch.mesh
 import repro_torch.launch.dryrun, repro_torch.launch.dryrun_aqp
+import repro_torch.launch.step_cost
 import repro_torch.evalx, repro_torch.evalx.monitors
 import repro_torch.evalx.approx_eval
 bad = sorted(m for m in sys.modules

@@ -401,3 +401,106 @@ def test_scheduler_rerun_builds_no_new_pass_loop(scramble):
     for ta, tb in zip(a.tickets, b.tickets):
         assert ta.status == tb.status == "done"
         assert_bitwise_equal(ta.result, tb.result)
+
+
+# -- a shared probe slot: the reference's contract ----------------------------
+
+
+def _shared_probe_slot(AggQ, Width, frame, server, sched_cls, clock):
+    """Two ``AVG(dep_delay) GROUP BY airline`` queries with eps 4 and 8,
+    admitted at one boundary: one scan signature, one probe slot. Returns
+    the scheduler, the queries and each ticket's solo run at its
+    anchor."""
+    qs = [AggQ(agg="avg", column="dep_delay", group_by="airline",
+               stop=Width(eps=eps), delta=1e-9) for eps in (4.0, 8.0)]
+    sched = sched_cls(server, clock, seed=1, round_cost_s=1e-3, max_slots=4)
+    for q in qs:
+        sched.submit(q, at=0.0)
+    sched.run_until_idle()
+    nb = frame.scramble.n_blocks
+    solo = [frame.run(q, sampling="active_peek", seed=1,
+                      start_block=tk._qc.slot.anchor % nb)
+            for q, tk in zip(qs, sched.tickets)]
+    return sched, qs, solo
+
+
+def _bitwise(a, b) -> bool:
+    try:
+        assert_bitwise_equal(a, b)
+    except AssertionError:
+        return False
+    return True
+
+
+def test_shared_probe_slot_takes_the_union_as_the_reference():
+    """The bitwise-to-solo guarantee holds for a non-probe query or a
+    query alone in its slot (the reference's own tests say so,
+    ``tests/test_scheduler.py``): queries of one grouped scan signature
+    share a probe slot, which selects with the UNION of their activity
+    flags. Two such queries through the reference's ``QueryScheduler``
+    and the port's (host pass loops, one scramble of integer data, so
+    the f32 folds are exact): the port's tickets equal the reference's
+    bit for bit, and in BOTH packages the eps-8 ticket differs from its
+    own solo run (which skips blocks whose airlines it has decided; the
+    union with the eps-4 query's flags folds them), while each ticket's
+    interval covers the truth and each equals a served batch of the
+    slot's two queries from its anchor."""
+    import repro.aqp as R
+    from repro.core import optstop as Ropt
+    from repro.serve import FrameServer as RFrameServer
+    from repro.serve import QueryScheduler as RQueryScheduler
+    from repro.serve import SimClock as RSimClock
+    from tests.helpers.torch_parity import (exact_flights_columns,
+                                            port_scramble)
+    # 40 airlines in blocks of 128 rows: an airline is missing from many
+    # blocks, so a query that has decided the common ones skips blocks
+    data = flights.generate(n_rows=100_000, n_airports=80, n_airlines=40,
+                            seed=3)
+    cols = exact_flights_columns(data.columns)
+    catalog = dict(data.catalog, dep_delay=(0.0, 16.0))
+    rsc = R.build_scramble(cols, catalog=catalog, block_rows=128, seed=4)
+    cfg = dict(CFG, device_loop=False)
+    r_frame = R.FastFrame(rsc, R.EngineConfig(**{
+        k: v for k, v in cfg.items() if k != "device_loop"}))
+    t_frame = FastFrame(port_scramble(rsc), EngineConfig(**cfg),
+                        device="cpu")
+    r_sched, _, r_solo = _shared_probe_slot(
+        R.AggQuery, Ropt.AbsoluteWidth, r_frame, RFrameServer(r_frame),
+        RQueryScheduler, RSimClock())
+    t_sched, qs, t_solo = _shared_probe_slot(
+        AggQuery, AbsoluteWidth, t_frame, FrameServer(t_frame),
+        QueryScheduler, SimClock())
+    for sched in (r_sched, t_sched):
+        a, b = sched.tickets
+        assert a.status == b.status == "done"
+        assert a._qc.slot is b._qc.slot
+    for tt, rt in zip(t_sched.tickets, r_sched.tickets):
+        assert_bitwise_equal(tt.result, rt.result)
+    port_solo = [_bitwise(tk.result, s)
+                 for tk, s in zip(t_sched.tickets, t_solo)]
+    ref_solo = [_bitwise(tk.result, s)
+                for tk, s in zip(r_sched.tickets, r_solo)]
+    assert port_solo == ref_solo == [True, False]
+    # each is bit for bit the slot's run: a batch of its queries from
+    # the slot's anchor
+    nb = t_frame.scramble.n_blocks
+    union = FrameServer(t_frame).run_batch(
+        qs, sampling="active_peek", seed=1,
+        start_block=t_sched.tickets[0]._qc.slot.anchor % nb)
+    for tk, res in zip(t_sched.tickets, union):
+        assert_bitwise_equal(tk.result, res)
+    # the solo run skipped blocks that the shared slot folded
+    assert t_solo[1].blocks_skipped_active > \
+        t_sched.tickets[1].result.blocks_skipped_active
+    # coverage: every group's interval holds its true mean, within the
+    # f32 fold's rounding of an exact view (1e-4 relative, as the smoke)
+    val, air = cols["dep_delay"].astype(np.float64), data.columns["airline"]
+    cnt = np.bincount(air, minlength=40)
+    truth = np.bincount(air, weights=val, minlength=40) / np.maximum(cnt, 1)
+    for tk in t_sched.tickets:
+        res = tk.result
+        ok = res.nonempty
+        want = truth[np.asarray(res.group_codes)[ok]]
+        tol = 1e-4 * np.maximum(np.abs(want), 1.0)
+        assert np.all(res.lo[ok] - tol <= want)
+        assert np.all(want <= res.hi[ok] + tol)
