@@ -203,7 +203,8 @@ one JSON line:
      ``fake`` group of 256, then 512 ranks runs ``dryrun_aqp`` on the
      card (``block_agg`` launched) and ``LAYOUT_DRYRUN_CELLS`` at full
      size on both production meshes (every cell ``ok``, every id and
-     shape), each record with its ``step_cost``, after
+     shape, every record per device: the serving cells through the
+     sharded prefill / decode), each record with its ``step_cost``, after
      ``launch/step_cost.py``'s predictions on meta, as rank 0 of fake
      groups of 4 and 1: the ranks' sharded step (rank 0's collective
      calls and bytes must equal its prediction exactly) and NCCL's
@@ -215,6 +216,29 @@ one JSON line:
      printed), its ``max_memory_allocated`` (peak reset just before it,
      less the process's other tensors) within 10 % of the predicted
      ``peak_bytes``;
+  6g. the sharded serving steps (``models/zoo.build_sharded_serve``: the
+     sharded prefill and decode on one held copy of the weights), float32
+     at full width: qwen2.5-3b at 4
+     of 36 layers on (2, 2) (its 2 kv heads over "model": the heads
+     rule) and (1, 4) (the sequence rule), falcon-mamba-7b at 4 of 64 on
+     (2, 2) (Mamba1 channels over "model"; the selective-scan kernel in
+     each rank's prefill) and zamba2-7b at 7 of 81 on (1, 4) (Mamba2
+     heads, the shared attention's heads), each a batch of 8 x 2048
+     prompt positions and 32 teacher-forced decode steps at a card-tensor
+     position. The single-card prefill + decode here, written to a file;
+     four spawned gloo ranks on the card run every config (the prefills
+     in turns): each rank's logits within 1e-4 of the largest of the
+     single card's, its cache shards of their local shapes and within
+     1e-4 of the single card's slices, replicas the same bits, rank 0's
+     collectives by kind of a steady prefill and decode step equal to
+     ``dryrun.sharded_serve_cost``'s meta prediction (made here in a
+     fake group of 4 while the ranks run), rank 0's peak of each
+     (``max_memory_allocated`` less its other tensors) within 10 % of
+     the prediction's (falcon-mamba's prefill, whose kernel has no meta
+     counterpart, apart); then NCCL in a group of one rank: the sharded
+     steps bit for bit the single card's. Prints the prefill s and the
+     decode ms a step, sharded and single-card, and the collective calls
+     and bytes a decode step;
   7. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times (``grouped_hist``
      at the main path's G 14, with G 2800 beside it; the multi-query
@@ -3888,13 +3912,13 @@ def layout_rank_main(a: dict) -> None:
     bspec = sh.batch_specs(cfg, mesh, shape, batch)
     step = build_sharded_train_step(model, ocfg, mesh, spec, bspec)
     rec["init_s"] = time.perf_counter() - t_start
-    c0 = dict(coll.COLLECTIVES)
+    c0 = coll.tally()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, met = step(state, batch)
     torch.cuda.synchronize()
     rec["step_s"] = time.perf_counter() - t0
-    rec["collectives"] = {k: coll.COLLECTIVES[k] - c0[k] for k in c0}
+    rec["collectives"] = coll.tally(since=c0)
     rec["loss"], rec["grad_norm"] = float(met["loss"]), float(
         met["grad_norm"])
     # each rank holds its shards to the same slices of the single-card
@@ -4086,11 +4110,28 @@ def _stop(proc) -> None:
             proc.join()
 
 
-def layout_phase(torch, np, counters):
+def start_layout_dryruns():
+    """Phase 6f's dry-run process (host-bound: meta steps), spawned ahead
+    of the phase so that it runs beside the phases before it too.
+    Returns ``(process, its start time)``."""
+    import shutil
+    import torch.multiprocessing as tmp
+    work = ROOT / "build" / "smoke_layout"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dry = tmp.get_context("spawn").Process(
+        target=layout_dryrun_main,
+        args=(dict(out=str(work), sys_path=list(sys.path)),))
+    dry.start()
+    return dry, time.perf_counter()
+
+
+def layout_phase(torch, np, counters, dry=None):
     """Phase 6f: the multi-card layout on one card. The single-card step
     here (its result written for the ranks), then four spawned gloo ranks
     (the sharded step, replicas, bytes, the elastic checkpoint) beside a
-    spawned dry-run process, then NCCL in a group of one rank here.
+    spawned dry-run process (``dry``, from :func:`start_layout_dryruns`,
+    started here when not given), then NCCL in a group of one rank here.
     Returns (record, launches): ``launches`` the dry-run process's
     ``block_agg`` launches (this process moves no kernel counter)."""
     import shutil
@@ -4099,18 +4140,14 @@ def layout_phase(torch, np, counters):
     from repro_torch.train import build_train_step, init_state
     ctx = tmp.get_context("spawn")
     work = ROOT / "build" / "smoke_layout"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    # the dry runs (host-bound) start first and run beside everything
+    dry, t_dry = dry or start_layout_dryruns()
     fails, rec = [], {}
     for c in counters.values():
         c.launches = 0
     base = dict(store=str(work / "store"), out=str(work),
                 ref=str(work / "single_step.pt"), ckpt=str(work / "ckpt"),
                 sys_path=list(sys.path))
-    # the dry runs (host-bound) start first and run beside everything
-    t_dry = time.perf_counter()
-    dry = ctx.Process(target=layout_dryrun_main, args=(dict(base),))
-    dry.start()
     try:
         t0 = time.perf_counter()
         cfg, model, ocfg, shape = layout_setup(torch)
@@ -4202,7 +4239,13 @@ def layout_phase(torch, np, counters):
                 "peak_bytes_per_device")}
             | {"step_cost_scope": c.get("step_cost", {}).get("scope")}
             for c in d["cells"]]
-        bad = [c for c in d["cells"] if not c["ok"]]
+        # every cell per device: the serving cells through the sharded
+        # prefill / decode
+        bad = [c for c in d["cells"] if not c["ok"] or c.get(
+            "step_cost", {}).get("scope") != "per_device" or any(
+            c["memory"].get(k) is None
+            for k in ("temp_bytes", "peak_bytes_per_device"))
+            or c.get("collective_bytes") is None]
         covered = ({c["arch"] for c in d["cells"]},
                    {c["shape"] for c in d["cells"]})
         if bad or len(covered[0]) != 10 or len(covered[1]) != 4:
@@ -4265,6 +4308,509 @@ def layout_phase(torch, np, counters):
         "why": "the phase's time and four ranks' memory on one card",
         "dryrun_cells": f"{len(LAYOUT_DRYRUN_CELLS)} of the 32 (arch, "
                         "shape) cells: every id and shape once or more"}
+    rec["ok"] = not fails
+    return rec, launches
+
+
+# -- phase 6g ----------------------------------------------------------------
+
+# Phase 6g: the sharded serving steps. Each run: (arch, layers, mesh),
+# float32 at full width (SERVE_SHARD_LAYERS' depth), a batch of
+# SERVE_SHARD_BATCH x SERVE_SHARD_LEN prompt positions, then
+# SERVE_SHARD_STEPS teacher-forced decode steps at a card-tensor
+# position. qwen2.5-3b's 2 kv heads divide the (2, 2) mesh's 2 "model"
+# ranks (the heads rule) and not the (1, 4) mesh's 4 (the sequence
+# rule); falcon-mamba-7b cuts its Mamba1 channels and launches the
+# selective-scan kernel in each rank's prefill; zamba2-7b cuts its
+# Mamba2 heads and its shared attention's 32 kv heads.
+SERVE_SHARD_RUNS = (("qwen2_5_3b", 4, (2, 2)), ("qwen2_5_3b", 4, (1, 4)),
+                    ("falcon_mamba_7b", 4, (2, 2)), ("zamba2_7b", 7, (1, 4)))
+SERVE_SHARD_BATCH, SERVE_SHARD_LEN, SERVE_SHARD_STEPS = 8, 2048, 32
+SERVE_SHARD_RANKS = 4
+SERVE_SHARD_JOIN_TIMEOUT_S = 600
+# logits against the single-card run, relative to the largest: float32
+# on the card; a sharded step differs from the single-card one only in
+# the order of some sums (the heads' matmuls of other shapes, the
+# sequence rule's softmax merged from four partials)
+SERVE_SHARD_TOL = 1e-4
+SERVE_SHARD_PEAK_TOL = 0.10
+
+
+def serve_shard_model(torch, arch: str, layers: int):
+    """A 6g run's float32 config (the Mamba1 scan on its kernel) and
+    model."""
+    from repro_torch.configs import get
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get(arch), n_layers=layers,
+                              param_dtype="float32", compute_dtype="float32")
+    if cfg.family == "ssm":
+        cfg = dataclasses.replace(cfg, ssm_impl="pallas")
+    return cfg, build(cfg)
+
+
+def serve_shard_inputs(torch, np, cfg, dev):
+    """The prompt batch ``{"tokens"}`` (B, SERVE_SHARD_LEN) and the
+    decode steps' tokens (B, SERVE_SHARD_STEPS), from MODEL_SEED."""
+    rng = np.random.default_rng(MODEL_SEED)
+    shape = (SERVE_SHARD_BATCH, SERVE_SHARD_LEN + SERVE_SHARD_STEPS)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, shape)).to(dev)
+    return {"tokens": toks[:, :SERVE_SHARD_LEN]}, toks[:, SERVE_SHARD_LEN:]
+
+
+def serve_shard_steps(torch, decode, toks, cache, start: int = 0):
+    """Decode steps ``start`` .. SERVE_SHARD_STEPS - 1 of ``decode(cache,
+    batch)`` (token ``toks[:, i]`` at position SERVE_SHARD_LEN + i, a
+    0-d card tensor: no host read). Returns (logits (B, steps, V), cache,
+    each step's seconds)."""
+    out, secs = [], []
+    for i in range(start, SERVE_SHARD_STEPS):
+        pos = torch.tensor(SERVE_SHARD_LEN + i, dtype=torch.int32,
+                           device=toks.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(cache, {"token": toks[:, i:i + 1],
+                                       "pos": pos})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out.append(logits)
+    return torch.cat(out, dim=1), cache, secs
+
+
+def serve_shard_single(torch, np, arch: str, layers: int, path) -> dict:
+    """The single-card prefill (with room for the steps) and the decode
+    steps of ``arch`` at ``layers``: its logits and final cache written
+    to ``path`` for the ranks; returns the times and, on the host, the
+    logits and cache for the NCCL check."""
+    from repro_torch.models.zoo import cache_with_room
+    cfg, model = serve_shard_model(torch, arch, layers)
+    lm = model.init(MODEL_SEED, device="cuda")
+    pre, toks = serve_shard_inputs(torch, np, cfg, "cuda")
+    model.prefill(lm, pre)     # warm-up: the first kernels of these shapes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(lm, pre)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache = cache_with_room(cfg, cache, SERVE_SHARD_LEN + SERVE_SHARD_STEPS)
+    steps, cache, secs = serve_shard_steps(
+        torch, lambda c, b: model.decode(lm, c, b), toks, cache)
+    host = {"logits": torch.cat([logits, steps], dim=1).cpu(),
+            "cache": {k: ({n: t.cpu() for n, t in v.items()}
+                          if isinstance(v, dict) else v.cpu())
+                      for k, v in cache.items()}}
+    torch.save(host, path)
+    del lm, cache, logits, steps
+    torch.cuda.empty_cache()
+    return dict(prefill_s=prefill_s, decode_ms=1e3 * statistics.median(
+        secs[1:]), first_decode_ms=1e3 * secs[0], host=host)
+
+
+def _tree_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _serve_inputs_bytes(torch, trees) -> int:
+    """Bytes of the distinct storages of DTensor shards, tensors and
+    modules in ``trees``."""
+    seen = {}
+    for tree in trees:
+        if hasattr(tree, "parameters"):
+            leaves = list(tree.parameters())
+        elif isinstance(tree, dict):
+            leaves = [v for _, v in _tree_leaves(tree)]
+        else:
+            leaves = [tree]
+        for t in leaves:
+            if not isinstance(t, torch.Tensor):
+                continue
+            t = t.to_local() if hasattr(t, "to_local") else t
+            st = t.untyped_storage()
+            seen[id(st)] = (st, st.nbytes())
+    return sum(n for _, n in seen.values())
+
+
+def _peak_of(torch, call, inputs) -> tuple:
+    """``call()`` with the card's peak reset just before: (its result,
+    the peak less the process's other tensors, i.e. the peak that the
+    call's inputs and temporaries reached)."""
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - inputs
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - other
+
+
+def serve_shard_rank_main(a: dict) -> None:
+    """Phase 6g's gloo rank ``a["rank"]`` of ``SERVE_SHARD_RANKS`` on the
+    card (spawned): each run of SERVE_SHARD_RUNS, its sharded prefill
+    (the ranks in turns: one card's memory) and decode steps held to the
+    single-card run's file. Writes its record to ``a["out"]``."""
+    import datetime
+    import zlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path[:0] = [p for p in a["sys_path"] if p not in sys.path]
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import selective_scan as kscan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import make_batch
+    from repro_torch.models.zoo import build_sharded_serve
+    rank = a["rank"]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(a["store"], SERVE_SHARD_RANKS),
+        rank=rank, world_size=SERVE_SHARD_RANKS,
+        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    runs = []
+
+    def crc(t):
+        return zlib.crc32(t.detach().contiguous().reshape(-1).view(
+            torch.uint8).cpu().numpy().tobytes())
+
+    def kinds(c0):
+        return coll.tally(since=c0)["by_kind"]
+    for i, (arch, layers, mshape) in enumerate(SERVE_SHARD_RUNS):
+        t_run = time.perf_counter()
+        rec = dict(arch=arch, layers=layers, mesh=list(mshape), fails=[])
+        cfg, model = serve_shard_model(torch, arch, layers)
+        mesh = make_host_mesh(mshape, ("data", "model"))
+        S = SERVE_SHARD_LEN + SERVE_SHARD_STEPS
+        lm = model.init(MODEL_SEED, device=dev)
+        pspec = sh.param_specs(cfg, mesh, lm)
+        params = sh.distribute(mesh, pspec, lm)
+        del lm
+        torch.cuda.empty_cache()
+        pre, toks = serve_shard_inputs(torch, np, cfg, dev)
+        pshape = ShapeConfig("6g", SERVE_SHARD_LEN, SERVE_SHARD_BATCH,
+                             "prefill")
+        dshape = ShapeConfig("6g", S, SERVE_SHARD_BATCH, "decode")
+        bspec = sh.batch_specs(cfg, mesh, pshape, pre)
+        dbatch = make_batch(cfg, dshape, device="meta")
+        cspec = sh.cache_specs(cfg, mesh, dshape,
+                               model.init_cache(SERVE_SHARD_BATCH, S,
+                                                device="meta"))
+        prefill, decode = build_sharded_serve(
+            model, mesh, pspec,
+            {**bspec, **sh.batch_specs(cfg, mesh, dshape, dbatch)}, cspec,
+            max_len=S)
+        c0 = coll.tally()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill.load(params)
+        torch.cuda.synchronize()
+        rec["gather_s"] = time.perf_counter() - t0
+        rec["gather_collectives"] = kinds(c0)
+        # the prefill, one rank at a time (one card's memory)
+        for r in range(SERVE_SHARD_RANKS):
+            if r == rank:
+                prefill(params, pre)       # warm-up, as the single card's
+                torch.cuda.empty_cache()
+                c0 = coll.tally()
+                scans = kscan.selective_scan.launches
+                inputs = _serve_inputs_bytes(torch, (params, pre,
+                                                     prefill.module))
+                t0 = time.perf_counter()
+                (logits, cache), peak = _peak_of(
+                    torch, lambda: prefill(params, pre), inputs)
+                rec["prefill_s"] = time.perf_counter() - t0
+                rec["prefill_peak_bytes"] = peak
+                rec["prefill_collectives"] = kinds(c0)
+                rec["scan_launches"] = kscan.selective_scan.launches - scans
+                torch.cuda.empty_cache()
+            dist.barrier()
+        rows = sh.shard_slices(mesh, sh.P(*bspec["tokens"]).padded(2),
+                               pre["tokens"].shape, mesh.get_coordinate())[0]
+        rows = [rows.start or 0, SERVE_SHARD_BATCH if rows.stop is None
+                else rows.stop]
+        rec["rows"] = rows
+        # the first step alone: its collectives and peak
+        c0 = coll.tally()
+        pos = torch.tensor(SERVE_SHARD_LEN, dtype=torch.int32, device=dev)
+        inputs = _serve_inputs_bytes(torch, (params, cache, prefill.module))
+        (first, cache), peak = _peak_of(torch, lambda: decode(
+            params, cache, {"token": toks[:, :1], "pos": pos}), inputs)
+        rec["decode_peak_bytes"] = peak
+        rec["decode_collectives"] = kinds(c0)
+        rest, cache, secs = serve_shard_steps(
+            torch, lambda c, b: decode(params, c, b), toks, cache, start=1)
+        got = torch.cat([logits, first, rest], dim=1)
+        rec["decode_ms"] = 1e3 * statistics.median(secs)
+        ref = torch.load(a["refs"][i], mmap=True)
+        want = ref["logits"][rows[0]:rows[1]].to(dev)
+        rec["max_abs_err"] = float((got - want).abs().max())
+        rec["logits_max"] = float(want.abs().max())
+        if rec["max_abs_err"] > SERVE_SHARD_TOL * rec["logits_max"]:
+            rec["fails"].append(dict(check="logits", err=rec["max_abs_err"],
+                                     scale=rec["logits_max"]))
+        rec["finite"] = bool(torch.isfinite(got).all())
+        rec["logits_crc"] = crc(got)
+        flat_spec = dict(_tree_leaves(cspec))
+        flat_ref = dict(_tree_leaves(ref["cache"]))
+        rec["shard_crcs"], worst = {}, 0.0
+        for name, t in _tree_leaves(cache):
+            spec = sh.P(*flat_spec[name]).padded(t.dim())
+            idx = sh.shard_slices(mesh, spec, t.shape, mesh.get_coordinate())
+            loc = t.to_local()
+            if tuple(loc.shape) != sh.local_shape(mesh, spec, t.shape):
+                rec["fails"].append(dict(check="local shape", leaf=name))
+                continue
+            w = flat_ref[name][idx].to(dev)
+            err = float((loc.float() - w.float()).abs().max())
+            top = max(float(flat_ref[name].float().abs().max()), 1e-30)
+            worst = max(worst, err / top)
+            if err > SERVE_SHARD_TOL * top:
+                rec["fails"].append(dict(check="cache shard", leaf=name,
+                                         err=err, leaf_max=top))
+            rec["shard_crcs"][name] = [[[x.start, x.stop] for x in idx],
+                                       crc(loc)]
+        rec["cache_max_rel_err"] = worst
+        rec["run_s"] = time.perf_counter() - t_run
+        runs.append(rec)
+        del params, cache, logits, first, rest, got, prefill, decode, ref
+        torch.cuda.empty_cache()
+        dist.barrier()
+    Path(a["out"], f"serve{rank}.json").write_text(json.dumps(runs))
+    dist.destroy_process_group()
+
+
+def serve_shard_predictions(torch) -> dict:
+    """``dryrun.sharded_serve_cost`` of each run's steady prefill and
+    decode step on meta, as rank 0 of a ``fake`` group of
+    SERVE_SHARD_RANKS: ``{run index: {"prefill", "decode"}}``."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    dryrun.join_fake_group(SERVE_SHARD_RANKS)
+    out = {}
+    try:
+        S = SERVE_SHARD_LEN + SERVE_SHARD_STEPS
+        for i, (arch, layers, mshape) in enumerate(SERVE_SHARD_RUNS):
+            cfg, _ = serve_shard_model(torch, arch, layers)
+            # the Mamba1 kernel has no meta counterpart: its plain path
+            # (the same collectives: none in a prefill)
+            cfg = dataclasses.replace(cfg, ssm_impl="xla")
+            model = build(cfg)
+            mesh = make_host_mesh(mshape, ("data", "model"),
+                                  device_type="cpu")
+            out[i] = {}
+            for kind, shape, room in (
+                    ("prefill", ShapeConfig("6g", SERVE_SHARD_LEN,
+                                            SERVE_SHARD_BATCH, "prefill"),
+                     S),
+                    ("decode", ShapeConfig("6g", S, SERVE_SHARD_BATCH,
+                                           "decode"), None)):
+                trees, _ = dryrun.step_trees(model, shape, "meta")
+                trees["batch"].pop("targets", None)
+                cell = dryrun.Cell(arch, "6g", cfg, kind, trees, None, {},
+                                   0.0)
+                out[i][kind] = dryrun.sharded_serve_cost(cell, mesh, shape,
+                                                         max_len=room)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def serve_shard_nccl_world1(torch, np, singles: dict, store: str) -> list:
+    """Phase 6g's NCCL check, in this process: each arch's sharded prefill
+    and decode steps in a group of one rank on a (1, 1) mesh against its
+    single-card run, bit for bit; the group is left after."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import make_batch
+    from repro_torch.models.zoo import build_sharded_serve
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(store, 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+    out = []
+    try:
+        S = SERVE_SHARD_LEN + SERVE_SHARD_STEPS
+        for (arch, layers), single in singles.items():
+            cfg, model = serve_shard_model(torch, arch, layers)
+            mesh = make_host_mesh((1, 1), ("data", "model"))
+            lm = model.init(MODEL_SEED, device=dev)
+            pspec = sh.param_specs(cfg, mesh, lm)
+            params = sh.distribute(mesh, pspec, lm)
+            del lm
+            pre, toks = serve_shard_inputs(torch, np, cfg, dev)
+            dshape = ShapeConfig("6g", S, SERVE_SHARD_BATCH, "decode")
+            cspec = sh.cache_specs(cfg, mesh, dshape, model.init_cache(
+                SERVE_SHARD_BATCH, S, device="meta"))
+            pshape = ShapeConfig("6g", SERVE_SHARD_LEN, SERVE_SHARD_BATCH,
+                                 "prefill")
+            prefill, decode = build_sharded_serve(
+                model, mesh, pspec,
+                {**sh.batch_specs(cfg, mesh, pshape, pre),
+                 **sh.batch_specs(cfg, mesh, dshape, make_batch(
+                     cfg, dshape, device="meta"))}, cspec, max_len=S)
+            logits, cache = prefill(params, pre)
+            steps, cache, _ = serve_shard_steps(
+                torch, lambda c, b: decode(params, c, b), toks, cache)
+            got = torch.cat([logits, steps], dim=1).cpu()
+            differ = [name for name, t in _tree_leaves(cache)
+                      if not torch.equal(t.to_local().cpu(), dict(
+                          _tree_leaves(single["host"]["cache"]))[name])]
+            out.append(dict(arch=arch, layers=layers, world=1,
+                            backend=dist.get_backend(),
+                            logits_bitwise=bool(torch.equal(
+                                got, single["host"]["logits"])),
+                            cache_leaves_differing=differ))
+            del params, cache, logits, steps, prefill, decode
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def serve_shard_phase(torch, np, counters):
+    """Phase 6g: the sharded serving steps on one card. Each arch's
+    single-card run here (its logits and cache written for the ranks),
+    then four spawned gloo ranks running SERVE_SHARD_RUNS while this
+    process makes the meta predictions in a fake group, then NCCL in a
+    group of one rank here. Returns (record, launches): ``launches`` the
+    ranks' selective-scan launches in their sharded prefills."""
+    import shutil
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    work = ROOT / "build" / "smoke_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fails, rec = [], {}
+    singles = {}
+    t0 = time.perf_counter()
+    for arch, layers, _ in SERVE_SHARD_RUNS:
+        if (arch, layers) not in singles:
+            singles[(arch, layers)] = serve_shard_single(
+                torch, np, arch, layers, work / f"{arch}.pt")
+    rec["single_s"] = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    base = dict(store=str(work / "store"), out=str(work),
+                refs=[str(work / f"{a}.pt") for a, _, _ in SERVE_SHARD_RUNS],
+                sys_path=list(sys.path))
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=serve_shard_rank_main,
+                         args=(dict(base, rank=r),))
+             for r in range(SERVE_SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        t1 = time.perf_counter()
+        pred = serve_shard_predictions(torch)
+        rec["predictions_s"] = time.perf_counter() - t1
+    finally:
+        codes = []
+        for p in procs:
+            p.join(max(SERVE_SHARD_JOIN_TIMEOUT_S
+                       - (time.perf_counter() - t0), 1.0))
+            _stop(p)
+            codes.append(p.exitcode)
+    rec["ranks_wall_s"] = time.perf_counter() - t0
+    rec["rank_exit_codes"] = codes
+    launches = {k: 0 for k in counters}
+    if codes != [0] * SERVE_SHARD_RANKS:
+        fails.append(dict(part="gloo ranks", exit_codes=codes))
+        rec["runs"] = []
+    else:
+        ranks = [json.loads((work / f"serve{r}.json").read_text())
+                 for r in range(SERVE_SHARD_RANKS)]
+        rec["runs"] = []
+        for i, (arch, layers, mshape) in enumerate(SERVE_SHARD_RUNS):
+            per = [r[i] for r in ranks]
+            r0 = per[0]
+            single = singles[(arch, layers)]
+            p = pred[i]
+            run = dict(arch=arch, layers=layers, mesh=list(mshape),
+                       single_prefill_s=single["prefill_s"],
+                       single_decode_ms=single["decode_ms"],
+                       prefill_s=[x["prefill_s"] for x in per],
+                       decode_ms=[x["decode_ms"] for x in per],
+                       gather_s=r0["gather_s"],
+                       max_abs_err=max(x["max_abs_err"] for x in per),
+                       logits_max=r0["logits_max"],
+                       cache_max_rel_err=max(x["cache_max_rel_err"]
+                                             for x in per),
+                       scan_launches=[x["scan_launches"] for x in per],
+                       decode_step_collectives=r0["decode_collectives"],
+                       gather_collectives=r0["gather_collectives"])
+            for k, x in enumerate(per):
+                fails += [dict(run=i, rank=k, fail=f) for f in x["fails"]]
+                if not x["finite"]:
+                    fails.append(dict(run=i, rank=k, check="finite"))
+            # replicas: the ranks of one dp coordinate hold the same bits
+            by_rows, by_slice = {}, {}
+            for x in per:
+                by_rows.setdefault(str(x["rows"]), set()).add(
+                    x["logits_crc"])
+                for leaf, (bounds, c) in x["shard_crcs"].items():
+                    by_slice.setdefault((leaf, str(bounds)), set()).add(c)
+            run["replicas_differing"] = sum(
+                len(v) > 1 for v in list(by_rows.values())
+                + list(by_slice.values()))
+            if run["replicas_differing"]:
+                fails.append(dict(run=i, check="replicas"))
+            # rank 0's collectives against the meta prediction
+            for kind in ("prefill", "decode"):
+                got = r0[f"{kind}_collectives"]
+                want = {k: p[kind]["collectives"][k] for k in got}
+                others = sum(v["count"] for k, v in
+                             p[kind]["collectives"].items() if k not in got)
+                run[f"{kind}_collectives_predicted"] = got == want \
+                    and not others
+                if got != want or others:
+                    fails.append(dict(run=i, check=f"{kind} collectives",
+                                      rank0=got, step_cost=want))
+            # the card's peak against the prediction (the Mamba1 prefill's
+            # kernel has no meta counterpart: its plain version's peak)
+            for kind in ("prefill", "decode"):
+                if kind == "prefill" and arch == "falcon_mamba_7b":
+                    continue
+                want = p[kind]["peak_bytes"]
+                gap = want / r0[f"{kind}_peak_bytes"] - 1.0
+                run[f"{kind}_peak"] = dict(card=r0[f"{kind}_peak_bytes"],
+                                           step_cost=want, gap=gap)
+                if abs(gap) > SERVE_SHARD_PEAK_TOL:
+                    fails.append(dict(run=i, check=f"{kind} peak",
+                                      **run[f"{kind}_peak"]))
+            if arch == "falcon_mamba_7b":
+                if min(run["scan_launches"]) < 1:
+                    fails.append(dict(run=i, check="no selective_scan "
+                                      "launch in a rank's prefill"))
+                launches["selective_scan"] += sum(run["scan_launches"])
+            rec["runs"].append(run)
+    t0 = time.perf_counter()
+    rec["nccl_world1"] = serve_shard_nccl_world1(torch, np, singles,
+                                                 str(work / "store_nccl"))
+    rec["nccl_wall_s"] = time.perf_counter() - t0
+    for r in rec["nccl_world1"]:
+        if not r["logits_bitwise"] or r["cache_leaves_differing"]:
+            fails.append(dict(check="NCCL world 1 bit for bit", **r))
+    stray = [k for k in counters if counters[k].launches
+             and k != "selective_scan"]
+    if stray:
+        fails.append(dict(check="kernel counters moved here", kernels=stray))
+    del singles
+    shutil.rmtree(work, ignore_errors=True)
+    rec["fails"] = fails
+    rec["reduced"] = {
+        "layers": {f"{a} {m[0]}x{m[1]}": f"{n} layers"
+                   for a, n, m in SERVE_SHARD_RUNS},
+        "dtype": "float32 (a sharded step is held to the single card's)",
+        "why": "four ranks' weights, caches and prefills on one card"}
     rec["ok"] = not fails
     return rec, launches
 
@@ -4693,28 +5239,36 @@ def main(argv=None) -> int:
     if not fam["ok"]:
         raise AssertionError(f"the families' training path failed: {fam}")
 
-    # ---- 6d. the Mamba1 xla path's chunked scan against the kernels -------
-    t0 = time.perf_counter()
-    scan, launches = mamba1_xla_scan_phase(torch, np, counters)
-    emit(dict(phase="mamba1_xla_scan", card=name, power_limit=power_limit,
-              **scan, phase_s=time.perf_counter() - t0,
-              total_s=time.perf_counter() - t_start))
-    if not scan["ok"]:
-        raise AssertionError(f"the chunked scan failed: {scan}")
+    # phase 6f's dry runs (meta steps on the host) start here, beside 6d
+    # and 6e (6c's steps need the card's memory)
+    layout_dry = start_layout_dryruns()
+    try:
+        # ---- 6d. the Mamba1 xla path's chunked scan against the kernels ---
+        t0 = time.perf_counter()
+        scan, launches = mamba1_xla_scan_phase(torch, np, counters)
+        emit(dict(phase="mamba1_xla_scan", card=name,
+                  power_limit=power_limit,
+                  **scan, phase_s=time.perf_counter() - t0,
+                  total_s=time.perf_counter() - t_start))
+        if not scan["ok"]:
+            raise AssertionError(f"the chunked scan failed: {scan}")
 
-    # ---- 6e. launch/train.py's driver: checkpoints, resume, eval ----------
-    t0 = time.perf_counter()
-    drive, launches = driver_phase(torch, np, counters)
-    path_launches["train_driver"] = launches
-    emit(dict(phase="train_driver", card=name, power_limit=power_limit,
-              **drive, phase_s=time.perf_counter() - t0,
-              total_s=time.perf_counter() - t_start))
-    if not drive["ok"]:
-        raise AssertionError(f"the training driver failed: {drive}")
+        # ---- 6e. launch/train.py's driver: checkpoints, resume, eval ------
+        t0 = time.perf_counter()
+        drive, launches = driver_phase(torch, np, counters)
+        path_launches["train_driver"] = launches
+        emit(dict(phase="train_driver", card=name, power_limit=power_limit,
+                  **drive, phase_s=time.perf_counter() - t0,
+                  total_s=time.perf_counter() - t_start))
+        if not drive["ok"]:
+            raise AssertionError(f"the training driver failed: {drive}")
+    except BaseException:   # the dry-run process is stopped, then re-raise
+        _stop(layout_dry[0])
+        raise
 
     # ---- 6f. the multi-card layout: sharded step, checkpoint, dry runs ---
     t0 = time.perf_counter()
-    layout, launches = layout_phase(torch, np, counters)
+    layout, launches = layout_phase(torch, np, counters, layout_dry)
     path_launches["layout"] = launches
     emit(dict(phase="layout", card=name, power_limit=power_limit,
               **layout, phase_s=time.perf_counter() - t0,
@@ -4722,6 +5276,17 @@ def main(argv=None) -> int:
     if not layout["ok"]:
         raise AssertionError(f"the multi-card layout failed: "
                              f"{layout['fails']}")
+
+    # ---- 6g. the sharded serving steps: prefill and decode on a mesh -----
+    t0 = time.perf_counter()
+    serve_sh, launches = serve_shard_phase(torch, np, counters)
+    path_launches["serve_sharded"] = launches
+    emit(dict(phase="serve_sharded", card=name, power_limit=power_limit,
+              **serve_sh, phase_s=time.perf_counter() - t0,
+              total_s=time.perf_counter() - t_start))
+    if not serve_sh["ok"]:
+        raise AssertionError(f"the sharded serving steps failed: "
+                             f"{serve_sh['fails']}")
 
     # ---- 7. the kernels line ------------------------------------------------
     a = next(r for r in agg if r["G"] == 2800 and not r["exact_data"])
@@ -4810,6 +5375,8 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/selective_scan.py:102",
              launches=path_launches["mamba1_serve"]["selective_scan"],
              eval_launches=path_launches["mamba1_eval"]["selective_scan"],
+             serve_sharded_launches=path_launches["serve_sharded"][
+                 "selective_scan"],
              max_abs_err=max(r["max_abs_err"] for r in scn),
              ms=sf["ms"], plain_ms=sf["plain_ms"], bound_ms=sf["bound_ms"],
              bound_by=sf["bound_by"], library_ms=None),

@@ -4,8 +4,8 @@ default group, with a tally.
 Gloo takes only host tensors for an all-gather, so a card tensor is
 staged through host memory there (a copy each way, a sync); under NCCL
 the card's tensors go as they are. Every call adds to
-:data:`COLLECTIVES`: calls, bytes handed in (this rank's input) and the
-host seconds inside it.
+:data:`COLLECTIVES`, by kind: calls and bytes handed in (this rank's
+input), and the host seconds inside them; :func:`tally` reads it.
 
 :func:`sum_over` sums a tensor over the ranks that differ from this one
 only on some mesh dims, in a fixed order (an all-gather, then a sum in
@@ -14,39 +14,67 @@ group of ranks holding the same inputs, gets the same bits. A plain
 all-reduce may give each rank its own rounding (DTensor's two
 sequential all-reduces over a 2-axis-sharded tensor do), which would
 let replicated leaves drift apart.
+
+:class:`ModelShard` is a rank's place on the ``"model"`` axis in the
+sharded serving steps (:mod:`repro_torch.models.zoo`): the models' decode
+functions take it to work on their shard of a cache and to gather the
+small activations that need every channel or head, over the mesh's
+``"model"`` subgroup, in its rank order. Where a step cuts nothing a
+layer reads, the layer runs the same code on :data:`WHOLE`, whose part
+is the whole tensor and whose gather is the identity.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-COLLECTIVES = {"calls": 0, "bytes": 0, "seconds": 0.0}
+#: the kinds of :data:`COLLECTIVES`, under ``step_cost``'s names
+KINDS = ("all-gather", "all-reduce")
+COLLECTIVES = {**{k: {"count": 0, "bytes": 0} for k in KINDS},
+               "seconds": 0.0}
 
 
 def _staged(t: torch.Tensor, group=None) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _tally(t: torch.Tensor, t0: float) -> None:
-    COLLECTIVES["seconds"] += time.perf_counter() - t0
-    COLLECTIVES["calls"] += 1
-    COLLECTIVES["bytes"] += t.numel() * t.element_size()
+def _tally(t: torch.Tensor, t0: float, kind: str) -> None:
+    n = t.numel() * t.element_size()
+    # a host clock read around an eager collective: no device sync
+    COLLECTIVES["seconds"] += time.perf_counter() - t0  # aqplint: disable=AQP101(eager host clock)
+    COLLECTIVES[kind]["count"] += 1
+    COLLECTIVES[kind]["bytes"] += n
+
+
+def tally(since: Optional[Dict] = None) -> Dict:
+    """:data:`COLLECTIVES` as ``{"calls", "bytes", "seconds", "by_kind"}``
+    (calls and bytes summed over the kinds), less ``since`` (an earlier
+    ``tally()``) where given."""
+    by_kind = {k: {f: COLLECTIVES[k][f] - (since["by_kind"][k][f]
+                                           if since else 0)
+                   for f in ("count", "bytes")} for k in KINDS}
+    return {"calls": sum(v["count"] for v in by_kind.values()),
+            "bytes": sum(v["bytes"] for v in by_kind.values()),
+            "seconds": COLLECTIVES["seconds"] - (since["seconds"]
+                                                 if since else 0.0),
+            "by_kind": by_kind}
 
 
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` (one shape on every rank), stacked in rank
     order: ``(world, *t.shape)`` on ``t``'s device."""
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # aqplint: disable=AQP101(eager host clock)
     src = t.detach()
     src = (src.cpu() if _staged(t, group) else src).contiguous()
     outs = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(outs, src, group=group)
     out = torch.stack(outs).to(t.device)
-    _tally(src, t0)
+    _tally(src, t0, "all-gather")
     return out
 
 
@@ -60,7 +88,7 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
         t.copy_(host)
     else:
         dist.all_reduce(t, group=group)
-    _tally(t, t0)
+    _tally(t, t0, "all-reduce")
     return t
 
 
@@ -87,3 +115,62 @@ def sum_over(t: torch.Tensor, mesh, mesh_dims: Sequence[int]
     for r in ranks[1:]:
         out += every[r]
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """This rank's place in a sharded serving step: rank ``index`` of the
+    ``count`` ranks of ``group`` (the mesh's ``"model"`` subgroup).
+    ``cuts`` names the cache leaves that ``sharding.cache_specs`` cuts
+    over them, each with the dim it cuts counted from the leaf's end
+    (the attention's ``k`` / ``v``: -3 the sequence, -2 the kv heads).
+    ``batch_groups`` are the subgroups of the dp axes that cut the
+    batch, outermost first (an MoE layer whose dispatch groups span
+    more rows than this rank's gathers its input over them)."""
+    index: int = 0
+    count: int = 1
+    group: object = None
+    cuts: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    batch_groups: Tuple = ()
+
+    def bounds(self, size: int) -> Tuple[int, int]:
+        """This rank's ``[lo, hi)`` of a dim of ``size`` cut in
+        ``count`` equal parts."""
+        n = size // self.count
+        return self.index * n, (self.index + 1) * n
+
+    def part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's part of ``t`` along ``dim`` (a view)."""
+        lo, hi = self.bounds(t.shape[dim])
+        return t.narrow(dim, lo, hi - lo)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` of the group joined along ``dim`` in rank
+        order: the whole of what :meth:`part` cut (one all-gather; ``t``
+        itself on one rank)."""
+        if self.count == 1:
+            return t
+        # a mesh subgroup of torch.distributed, not a JAX collective
+        every = all_gather(t, group=self.group)  # aqplint: disable=AQP402(torch)
+        return torch.cat(every.unbind(0), dim=dim)
+
+    def gather_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s rows of every dp rank, in the global batch's order (an
+        all-gather a dp axis, the innermost first)."""
+        for g in reversed(self.batch_groups):
+            # a mesh subgroup of torch.distributed, not a JAX collective
+            every = all_gather(t, group=g)  # aqplint: disable=AQP402(torch)
+            t = torch.cat(every.unbind(0), dim=0)
+        return t
+
+
+#: one rank holding everything: its part is the whole, its gather none
+WHOLE = ModelShard()
+
+
+def cut_of(shard: Optional[ModelShard], leaf: str) -> ModelShard:
+    """``shard`` where it cuts the cache leaf ``leaf`` over more than one
+    rank, else :data:`WHOLE`."""
+    if shard is None or shard.count == 1 or leaf not in shard.cuts:
+        return WHOLE
+    return shard

@@ -37,7 +37,6 @@ which chunk differs; ``tests/test_torch_sharding.py`` pins it.
 
 from __future__ import annotations
 
-import itertools
 import math
 import re
 from typing import Dict, Mapping, Optional, Sequence, Tuple
@@ -451,13 +450,6 @@ def spec_of(mesh, placements_, ndim: int) -> P:
     return P(*(tuple(p) if p else None for p in parts))
 
 
-def _coords(mesh) -> Dict[int, Tuple[int, ...]]:
-    """Mesh coordinate of every global rank of ``mesh``."""
-    grid = mesh.mesh
-    return {int(grid[idx]): idx
-            for idx in itertools.product(*map(range, grid.shape))}
-
-
 #: local bytes gathered in one all-gather by :func:`full_tensors`
 GATHER_CHUNK_BYTES = 256 << 20
 
@@ -491,22 +483,48 @@ def _gather_into(dts: Sequence, idx: list, out: list) -> None:
     locs = [dts[i].to_local().detach() for i in idx]
     every = all_gather(torch.cat([t.reshape(-1) for t in locs]))
     mesh = dts[idx[0]].device_mesh
-    coords = _coords(mesh)
+    order = mesh.mesh.reshape(-1)
+    if not torch.equal(order, torch.arange(order.numel())):
+        every = every[order.to(every.device)]      # mesh-major rows
     lo = 0
     for j, i in enumerate(idx):
         t = dts[i]
-        spec = spec_of(t.device_mesh, t.placements, t.dim())
         if out[i] is None:
             out[i] = torch.empty(tuple(t.shape), dtype=t.dtype,
                                  device=locs[j].device)
         n = locs[j].numel()
-        # one copy a distinct shard: its replicas' ranks hold the same
-        # one (the last rank's is put, as a copy a rank would leave it)
-        last = {}
-        for r, coord in coords.items():
-            idx_ = shard_slices(mesh, spec, t.shape, coord)
-            last[tuple((x.start, x.stop) for x in idx_)] = (idx_, r)
         with torch.no_grad():
-            for idx_, r in last.values():
-                out[i][idx_] = every[r, lo:lo + n].view(locs[j].shape)
+            _place(every[:, lo:lo + n], t, out[i])
         lo += n
+
+
+def _place(rows: torch.Tensor, t, dst: torch.Tensor) -> None:
+    """Every rank's shard of DTensor ``t`` (``rows``, one a rank in the
+    mesh's row-major order) put in its place in ``dst`` in one copy:
+    each distinct shard once (a dim replicated over a mesh dim takes the
+    last rank's copy, as a copy a rank would leave it; replicas hold
+    the same bits). The source, viewed as (mesh dims..., local dims),
+    goes into ``dst`` viewed as each dim split into its mesh chunks
+    (mesh-dim-major, DTensor's order) and its local part."""
+    mesh_shape = tuple(t.device_mesh.mesh.shape)
+    local = tuple(t.to_local().shape)
+    src = rows.reshape(*mesh_shape, *local)
+    by_dim = [[] for _ in local]
+    for m, pl in enumerate(t.placements):
+        if pl.is_shard():
+            by_dim[pl.dim % len(local)].append(m)
+    cut = [m for ms in by_dim for m in ms]
+    # the replicated mesh dims: the last index
+    src = src[tuple(slice(None) if m in cut else -1
+                    for m in range(len(mesh_shape)))]
+    kept = [m for m in range(len(mesh_shape)) if m in cut]  # src's order
+    split, where = [], {}
+    for d, ms in enumerate(by_dim):
+        for m in ms:
+            where[m] = len(split)
+            split.append(mesh_shape[m])
+        where[("local", d)] = len(split)
+        split.append(local[d])
+    perm = [where[m] for m in kept] + [where[("local", d)]
+                                        for d in range(len(local))]
+    dst.view(split).permute(perm).copy_(src)

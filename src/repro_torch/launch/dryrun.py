@@ -33,16 +33,20 @@ joined by this process, and each record has:
         meta DTensors laid out by the cell's specs, in the fake group.
         It fills ``memory.temp_bytes``, ``memory.peak_bytes_per_device``
         and ``collective_bytes``;
-      - a prefill or decode cell: ``"global"``, the step as it runs
-        whole on one device (the port has no sharded serving step), so
-        those three fields stay ``null`` and ``null_reason`` says why;
+      - a prefill or decode cell: ``"per_device"`` too, a steady call
+        of rank 0's :func:`repro_torch.models.zoo.build_sharded_prefill`
+        / ``build_sharded_decode`` on meta DTensors laid out by the
+        cell's parameter, batch and cache specs (the second call, once
+        the step holds the gathered parameters): the rank's dp slice of
+        the batch, its cache shard, and the all-gathers of small
+        activations over ``"model"``. It fills the same three fields;
+        the one-time gather of the parameters is beside it, as
+        ``step_cost.param_gather`` (its collectives and bytes);
   * ``seconds`` of the step and of the layout, and ``ok``; a failing
     cell records its error and the sweep goes on.
 
-A serving cell's meta program does not depend on the mesh, so
-``--both-meshes`` runs its step once and lays its trees out on both
-meshes; a train cell runs its global step once and its sharded step on
-each mesh.
+Every cell runs its global step once and its sharded step on each
+mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_0_6b \\
       --shape train_4k [--multi-pod | --both-meshes] [--out PATH]
@@ -73,16 +77,12 @@ from repro_torch.distributed.axisctx import default_rules, logical_axis_rules
 from repro_torch.launch import step_cost
 from repro_torch.launch.mesh import SINGLE_POD, make_production_mesh
 from repro_torch.models import build, make_batch
-from repro_torch.models.zoo import window_for
+from repro_torch.models.zoo import (build_sharded_decode,
+                                    build_sharded_prefill, window_for)
 from repro_torch.train import (OptConfig, abstract_state, build_train_step,
                                init_state)
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.trainer import build_sharded_train_step
-
-SERVE_NULL = ("the port has no sharded serving step, so step_cost is the "
-              "global step run whole on one device (scope 'global'): "
-              "per-device scratch, peak and collectives are unknown until "
-              "the serving layout exists")
 
 
 class MeshShape:
@@ -218,6 +218,41 @@ def sharded_step_cost(cell: Cell, mesh, sspec: Dict, bspec: Dict) -> Dict:
                              inputs=(state, batch))
 
 
+def sharded_serve_cost(cell: Cell, mesh, shape=None,
+                       max_len: Optional[int] = None) -> Dict:
+    """step_cost of a steady call of this rank's sharded prefill or
+    decode on ``mesh`` (a mesh over the fake group): the cell's meta
+    parameters (and decode cache) laid out by their specs as meta
+    DTensors, the whole meta batch. The step first holds the gathered
+    parameters (``step.load``, whose collectives and bytes come back
+    under ``param_gather``); the call measured is the next one.
+    ``shape``: the cell's ``ShapeConfig`` where it is not one of
+    ``SHAPES``; ``max_len``: the prefill's room (its cache's slots)."""
+    cfg, shape = cell.cfg, shape or SHAPES[cell.shape]
+    model = build(cfg)
+    t = cell.trees
+    window = window_for(cfg, shape.seq_len)
+    pspec = sh.param_specs(cfg, mesh, t["params"])
+    params = sh.distribute(mesh, pspec, t["params"])
+    batch = t["batch"]
+    bspec = sh.batch_specs(cfg, mesh, shape, batch)
+    if cell.kind == "prefill":
+        step = build_sharded_prefill(model, mesh, pspec, bspec,
+                                     window=window, max_len=max_len)
+        args = (params, batch)
+    else:
+        cspec = sh.cache_specs(cfg, mesh, shape, t["cache"])
+        step = build_sharded_decode(model, mesh, pspec, bspec, cspec,
+                                    window=window)
+        args = (params, sh.distribute(mesh, cspec, t["cache"]), batch)
+    gather = step_cost.analyze(lambda: step.load(params), inputs=params)
+    cost = step_cost.analyze(lambda: step(*args),
+                             inputs=(args, step.module))
+    cost["param_gather"] = {k: gather[k] for k in (
+        "collectives", "collective_bytes", "peak_bytes", "temp_bytes")}
+    return cost
+
+
 def layout(cell: Cell, mesh, multi_pod: bool) -> Dict:
     """The cell's record on ``mesh``: per-device bytes of each tree."""
     t0 = time.perf_counter()
@@ -237,17 +272,12 @@ def layout(cell: Cell, mesh, multi_pod: bool) -> Dict:
         mem["param_bytes"] = device_bytes(
             mesh, sh.param_specs(cfg, mesh, t["params"]), t["params"])
         mem["opt_bytes"] = 0
+        cost = dict(sharded_serve_cost(cell, mesh), scope="per_device")
     mem["cache_bytes"] = (device_bytes(mesh, sh.cache_specs(
         cfg, mesh, shape, t["cache"]), t["cache"]) if "cache" in t else 0)
     mem["state_bytes_per_device"] = sum(mem.values())
-    if cell.kind == "train":
-        mem["temp_bytes"] = cost["temp_bytes"]
-        mem["peak_bytes_per_device"] = cost["peak_bytes"]
-        coll_bytes, null_reason = cost["collective_bytes"], None
-    else:
-        cost = dict(cell.cost, scope="global")
-        mem["temp_bytes"] = mem["peak_bytes_per_device"] = None
-        coll_bytes, null_reason = None, SERVE_NULL
+    mem["temp_bytes"] = cost["temp_bytes"]
+    mem["peak_bytes_per_device"] = cost["peak_bytes"]
     return {
         "arch": cell.arch, "shape": cell.shape, "mesh": mesh_name(multi_pod),
         "n_devices": int(mesh.size()), "kind": cell.kind,
@@ -255,8 +285,8 @@ def layout(cell: Cell, mesh, multi_pod: bool) -> Dict:
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
         "memory": mem, "flops": cell.flops, "flops_scope": "global",
-        "step_cost": cost, "collective_bytes": coll_bytes,
-        "null_reason": null_reason,
+        "step_cost": cost, "collective_bytes": cost["collective_bytes"],
+        "null_reason": None,
         "step_s": cell.step_s, "layout_s": time.perf_counter() - t0,
         "ok": True}
 

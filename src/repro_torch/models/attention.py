@@ -20,6 +20,17 @@ overwrites the last slot; the port raises ``ValueError`` for an int
 ``pos`` out of range and clamps a tensor ``pos`` as the reference does
 (a check would cost a sync). The hybrid's cache is a ring
 (``decode_attention(..., ring=True)``): every ``pos`` has its slot.
+
+Sharded decode (``decode_attention(..., shard=ModelShard)``, the sharded
+serving step's): the cache is this rank's shard, cut over the mesh's
+``"model"`` ranks by heads (``shard.cuts["k"]`` -2: this rank's kv heads
+and their q groups, the head outputs all-gathered before ``wo``) or by
+sequence (-3: slots ``[r S/M, (r+1) S/M)``, the owner of the new
+position's slot writes it, each rank's softmax partials ``(m, l, o)``
+all-gathered and merged in rank order). No cache leaf is ever gathered.
+The heads rule and the whole cache run one code path (the whole cache's
+part is all of it, its gather none), so without a shard the step's bits
+are those of the single card.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.axisctx import constrain
+from repro_torch.distributed.collectives import cut_of
 from repro_torch.models.layers import (dense_init, head_norm_apply,
                                        param_dtype, rope_apply)
 
@@ -230,7 +242,8 @@ def positions_of(pos: Union[int, torch.Tensor], B: int,
 
 def decode_attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
                      cache: Dict, pos, *, window: Optional[int] = None,
-                     ring: bool = False) -> Tuple[torch.Tensor, Dict]:
+                     ring: bool = False, shard=None
+                     ) -> Tuple[torch.Tensor, Dict]:
     """One-token step. x: (B, 1, d); pos: int or 0-d int tensor, the
     current index; cache k/v: (B, S, K, hd). Returns (out, new cache).
 
@@ -238,18 +251,43 @@ def decode_attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     ``pos`` goes to slot ``pos % S`` with its RoPE at ``pos``; slot ``j``
     then holds the key of position ``pos - (pos - j) mod S``, attended
     where that position is >= 0 and inside the window. Below the wrap
-    (``pos < S``) this is the plain cache's step."""
+    (``pos < S``) this is the plain cache's step.
+
+    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`
+    that cuts ``k`` over more than one rank): ``cache`` is this rank's
+    shard (the module docstring)."""
+    heads = cut_of(shard, "k")
+    if heads.cuts.get("k") == -3:
+        return _decode_seq(p, cfg, x, cache, pos, window, ring, heads)
     B = x.shape[0]
     S = cache["k"].shape[1]
-    posb = positions_of(pos, B, x.device)
-    q = rope_apply(_project_q(p, cfg, x), posb, cfg.rope_theta)
-    k_new, v_new = _project_kv(p, cfg, x)
-    k_new = rope_apply(k_new, posb, cfg.rope_theta)
+    q, k_new, v_new = _new_qkv(p, cfg, x, pos)
     slot = pos % S if ring else pos
-    k_cache = write_slot(cache["k"], k_new, slot)
-    v_cache = write_slot(cache["v"], v_new, slot)
+    k_cache = write_slot(cache["k"], heads.part(k_new, 2), slot)
+    v_cache = write_slot(cache["v"], heads.part(v_new, 2), slot)
     kpos = torch.arange(S, dtype=torch.int32, device=x.device).view(
         1, 1, 1, S)
+    mask = _slot_mask(kpos, pos, S, window, ring)
+    out = _sdpa(heads.part(q, 2), _repeat_kv(cfg, k_cache),
+                _repeat_kv(cfg, v_cache), mask, cfg.head_dim)
+    out = heads.gather(out, 2).reshape(B, 1, -1) @ p.wo
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def _new_qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor, pos):
+    """The new token's q (B, 1, H, hd) and k / v (B, 1, K, hd), RoPE'd
+    at ``pos``."""
+    posb = positions_of(pos, x.shape[0], x.device)
+    q = rope_apply(_project_q(p, cfg, x), posb, cfg.rope_theta)
+    k_new, v_new = _project_kv(p, cfg, x)
+    return q, rope_apply(k_new, posb, cfg.rope_theta), v_new
+
+
+def _slot_mask(kpos: torch.Tensor, pos, S: int, window: Optional[int],
+               ring: bool):
+    """The attended slots among those at global indices ``kpos`` of an
+    ``S``-slot cache (a ring's slot ``j`` holds position ``pos - (pos -
+    j) mod S``)."""
     if ring:
         kpos = pos - torch.remainder(pos - kpos, S)
         mask = kpos >= 0
@@ -257,7 +295,66 @@ def decode_attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
         mask = kpos <= pos
     if window is not None:
         mask = mask & (kpos > pos - window)
-    out = _sdpa(q, _repeat_kv(cfg, k_cache), _repeat_kv(cfg, v_cache), mask,
-                cfg.head_dim)
-    out = out.reshape(B, 1, -1) @ p.wo
-    return out, {"k": k_cache, "v": v_cache}
+    return mask
+
+
+def _write_owned(buf: torch.Tensor, new: torch.Tensor, local):
+    """``buf`` (B, S_r, ...) with ``new`` at local slot ``local`` where
+    ``0 <= local < S_r``, else ``buf`` as it is (a tensor ``local`` is
+    resolved on the device: the slot's old value is written back)."""
+    S_r = buf.shape[1]
+    if not isinstance(local, torch.Tensor):
+        return write_slot(buf, new, local) if 0 <= local < S_r else buf
+    idx = local.reshape(1).to(device=buf.device, dtype=torch.long)
+    at = idx.clamp(0, S_r - 1)
+    owned = ((idx >= 0) & (idx < S_r)).view(1, 1, *([1] * (buf.dim() - 2)))
+    return buf.index_copy(1, at, torch.where(owned, new,
+                                             buf.index_select(1, at)))
+
+
+def _decode_seq(p: Attention, cfg: ArchConfig, x: torch.Tensor,
+                cache: Dict, pos, window, ring: bool, shard):
+    """The sequence rule: every head of this rank's slots, the softmax
+    partials merged across ranks."""
+    B = x.shape[0]
+    S_r = cache["k"].shape[1]
+    S = S_r * shard.count
+    lo = shard.index * S_r
+    q, k_new, v_new = _new_qkv(p, cfg, x, pos)
+    if ring:
+        slot = pos % S
+    elif isinstance(pos, torch.Tensor):
+        slot = pos.clamp(0, S - 1)    # write_slot's clamp, on the device
+    elif not 0 <= pos < S:
+        raise ValueError(f"decode position {pos} is outside the cache's "
+                         f"{S} slots")
+    else:
+        slot = pos
+    k_cache = _write_owned(cache["k"], k_new, slot - lo)
+    v_cache = _write_owned(cache["v"], v_new, slot - lo)
+    kpos = torch.arange(lo, lo + S_r, dtype=torch.int32,
+                        device=x.device).view(1, 1, 1, S_r)
+    mask = _slot_mask(kpos, pos, S, window, ring)       # (1|B, 1, 1, S_r)
+    scale = 1.0 / torch.sqrt(torch.tensor(cfg.head_dim, dtype=_F32))
+    kr, vr = _repeat_kv(cfg, k_cache), _repeat_kv(cfg, v_cache)
+    scores = torch.einsum("bthd,bshd->bhts", q.to(_F32), kr.to(_F32)) \
+        * scale
+    scores = torch.where(mask, scores, -1e30)
+    m = scores.amax(dim=-1, keepdim=True)               # (B, H, 1, 1)
+    # a shard with every slot masked adds nothing: l and o are 0 there
+    w = torch.where(mask, torch.exp(scores - m), 0.0)
+    # the weights rounded to v's dtype and multiplied in it, as _sdpa
+    # rounds its probabilities (the same bits in float32)
+    o = torch.einsum("bhts,bshd->bhd", w.to(vr.dtype), vr)
+    part = torch.cat([m[:, :, 0], w.sum(dim=-1), o.to(_F32)],
+                     dim=-1)                            # (B, H, 2 + hd)
+    every = shard.gather(part[None], 0)                 # (M, B, H, 2+hd)
+    top = every[:, :, :, :1].amax(dim=0)
+    l_sum = o_sum = None
+    for r in range(shard.count):          # rank order: the same bits
+        f = torch.exp(every[r, :, :, :1] - top)
+        l_r, o_r = f * every[r, :, :, 1:2], f * every[r, :, :, 2:]
+        l_sum = l_r if l_sum is None else l_sum + l_r
+        o_sum = o_r if o_sum is None else o_sum + o_r
+    out = (o_sum / l_sum).to(v_cache.dtype)             # (B, H, hd)
+    return out.reshape(B, 1, -1) @ p.wo, {"k": k_cache, "v": v_cache}

@@ -170,11 +170,12 @@ def encdec_init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def encdec_decode_step(params: EncDec, cfg: ArchConfig, token: torch.Tensor,
-                       pos, cache: Dict, memory: torch.Tensor
+                       pos, cache: Dict, memory: torch.Tensor, shard=None
                        ) -> Tuple[torch.Tensor, Dict]:
     """token (B, 1); pos an int or a 0-d int tensor; memory (B, M, d) the
     precomputed encoder output. Returns (logits (B, 1, V) f32, ``{"self":
-    new cache}``)."""
+    new cache}``). ``shard``: the self-attention cache is this rank's
+    shard (:func:`repro_torch.models.attention.decode_attention`)."""
     h = params.embed[token.long()].to(compute_dtype(cfg))
     posb = positions_of(pos, h.shape[0], h.device)
     ks, vs = [], []
@@ -182,7 +183,7 @@ def encdec_decode_step(params: EncDec, cfg: ArchConfig, token: torch.Tensor,
         a, kv = decode_attention(lp.self_attn, cfg,
                                  norm_apply(lp.ln1, h, cfg.norm),
                                  {k: v[i] for k, v in cache["self"].items()},
-                                 pos)
+                                 pos, shard=shard)
         h = _cross_mlp(lp, cfg, h + a, posb, memory)
         ks.append(kv["k"])
         vs.append(kv["v"])

@@ -228,13 +228,41 @@ def _ssm_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor
     return h + _ssm_apply(cfg)(lp.mamba, cfg, norm_apply(lp.ln, h, cfg.norm))
 
 
-def _mix(lp: DenseLayer, cfg: ArchConfig, h: torch.Tensor):
-    """The layer's MLP or MoE on ``ln2(h)``: (delta, aux)."""
+def _mix(lp: DenseLayer, cfg: ArchConfig, h: torch.Tensor, shard=None):
+    """The layer's MLP or MoE on ``ln2(h)``: (delta, aux). ``shard``: a
+    sharded serving step's (:func:`_moe_of_slice`)."""
     x = norm_apply(lp.ln2, h, cfg.norm)
     if cfg.family == "moe":
+        if shard is not None and shard.batch_groups:
+            return _moe_of_slice(lp, cfg, x, shard)
         return moe_apply(lp.moe, cfg, x)
     return mlp_apply(lp.mlp, cfg, x), torch.zeros((), dtype=_F32,
                                                   device=h.device)
+
+
+def _moe_of_slice(lp: DenseLayer, cfg: ArchConfig, x: torch.Tensor, shard):
+    """The MoE of this dp slice's rows ``x`` (B_r, T, d) with the dispatch
+    groups of the whole batch, as the single-card step forms them
+    (``min(moe_group_size, B T)`` consecutive tokens): where this
+    slice's tokens are not whole groups, the rows of every dp rank are
+    gathered and the groups that cover this slice's tokens run here.
+    The aux loss is that of the groups run."""
+    B_r, T, d = x.shape
+    n_dp = 1
+    for g in shard.batch_groups:
+        n_dp *= torch.distributed.get_world_size(g)
+    Sg = min(cfg.moe_group_size, B_r * n_dp * T)
+    if (B_r * T) % Sg == 0:
+        return moe_apply(lp.moe, cfg, x)
+    every = shard.gather_batch(x).reshape(-1, d)
+    idx = 0
+    for g in shard.batch_groups:    # this rank's place in the gather
+        idx = idx * torch.distributed.get_world_size(g) + \
+            torch.distributed.get_rank(g)
+    t0, t1 = idx * B_r * T, (idx + 1) * B_r * T
+    a, b = t0 // Sg * Sg, -(-t1 // Sg) * Sg
+    out, aux = moe_apply(lp.moe, cfg, every[a:b][None])
+    return out[0, t0 - a:t1 - a].reshape(B_r, T, d), aux
 
 
 def _dense_layer(lp: DenseLayer, cfg: ArchConfig, h: torch.Tensor,
@@ -279,12 +307,15 @@ def _maybe_remat(cfg: ArchConfig, fn):
 
 def lm_prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
                extra_embeds: Optional[torch.Tensor] = None,
-               window: Optional[int] = None
+               window: Optional[int] = None, shard=None
                ) -> Tuple[torch.Tensor, Dict]:
     """Forward pass that also materializes the decode cache (KV for the
     attention families, the final recurrent states and conv tails for the
     ssm family, both for the hybrid). Returns (last-position logits (B,
-    1, V), cache)."""
+    1, V), cache). ``shard``: a sharded prefill's
+    :class:`repro_torch.distributed.collectives.ModelShard`, whose
+    ``batch_groups`` an MoE layer reads (:func:`_moe_of_slice`); the
+    rest of the pass runs on this rank's rows as they are."""
     h = _embed(params, cfg, tokens, extra_embeds)
     positions = _positions(h)
     if cfg.family == "ssm":
@@ -325,7 +356,7 @@ def lm_prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
                               positions, causal=True, window=window,
                               return_kv=True)
             h = h + a
-            h = h + _mix(lp, cfg, h)[0]
+            h = h + _mix(lp, cfg, h, shard)[0]
             kvs.append(kv)
         new_cache = {"layers": _stack(kvs)}
     return _logits(params, cfg, h[:, -1:]), new_cache
@@ -372,20 +403,23 @@ def lm_init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
-                   cache: Dict, window: Optional[int] = None
+                   cache: Dict, window: Optional[int] = None, shard=None
                    ) -> Tuple[torch.Tensor, Dict]:
     """token: (B, 1) int; pos: the token's position, an int or a 0-d int
     tensor on the card (unused by the ssm family; see
     :func:`repro_torch.models.attention.decode_attention`; the hybrid's
     attention cache is a ring). Returns (logits (B, 1, V) f32, new
-    cache)."""
+    cache). ``shard`` (a :class:`repro_torch.distributed.collectives.
+    ModelShard`): ``cache`` is this rank's shard, every leaf keeping
+    its stack dims whole, and each layer works on its part
+    (``decode_attention``, ``mamba1_decode``, ``mamba2_decode``)."""
     h = params.embed[token.long()].to(compute_dtype(cfg))
     if cfg.family == "ssm":
         layers, caches = cache["layers"], []
         for i, lp in enumerate(params.layers):
             y, c = ssm.mamba1_decode(lp.mamba, cfg,
                                      norm_apply(lp.ln, h, cfg.norm),
-                                     _index(layers, i))
+                                     _index(layers, i), shard)
             h = h + y
             caches.append(c)
         new_cache = {"layers": _stack(caches)}
@@ -397,14 +431,14 @@ def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
             a, kv = decode_attention(sp.attn, cfg,
                                      norm_apply(sp.ln1, u, cfg.norm),
                                      _index(cache["attn"], g), pos,
-                                     window=window, ring=True)
+                                     window=window, ring=True, shard=shard)
             h = _shared_out(sp, cfg, h, u, a)
             kvs.append(kv)
             caches = []
             for i, lp in enumerate(group):
                 y, c = ssm.mamba2_decode(lp.mamba, cfg,
                                          norm_apply(lp.ln, h, cfg.norm),
-                                         _index(cache["mamba"], g, i))
+                                         _index(cache["mamba"], g, i), shard)
                 h = h + y
                 caches.append(c)
             groups.append(_stack(caches))
@@ -413,7 +447,7 @@ def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
         for i, lp in enumerate(_tail_layers(params)):
             y, c = ssm.mamba2_decode(lp.mamba, cfg,
                                      norm_apply(lp.ln, h, cfg.norm),
-                                     _index(cache["tail"], i))
+                                     _index(cache["tail"], i), shard)
             h = h + y
             caches.append(c)
         if caches:
@@ -423,9 +457,10 @@ def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
         for i, lp in enumerate(params.layers):
             a, kv = decode_attention(lp.attn, cfg,
                                      norm_apply(lp.ln1, h, cfg.norm),
-                                     _index(layers, i), pos, window=window)
+                                     _index(layers, i), pos, window=window,
+                                     shard=shard)
             h = h + a
-            h = h + _mix(lp, cfg, h)[0]
+            h = h + _mix(lp, cfg, h, shard)[0]
             kvs.append(kv)
         new_cache = {"layers": _stack(kvs)}
     return _logits(params, cfg, h), new_cache

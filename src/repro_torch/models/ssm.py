@@ -45,6 +45,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.axisctx import constrain
+from repro_torch.distributed.collectives import cut_of
 from repro_torch.kernels.selective_scan import make_trainable_scan
 from repro_torch.models.layers import dense_init, param_dtype
 
@@ -196,13 +197,20 @@ def _mamba1_core(p: Mamba1Block, cfg: ArchConfig, conv_out: torch.Tensor,
     dtype, in float32 (the reference's einsum with
     ``preferred_element_type=float32``, which rounds no product)."""
     dt, Bm, Cm, A = _projections(p, conv_out)
+    return _scan_core(cfg, conv_out, dt, Bm, Cm, A, p.D, h)
+
+
+def _scan_core(cfg: ArchConfig, conv_out, dt, Bm, Cm, A, D, h):
+    """:func:`_mamba1_core` after its projections: ``conv_out``, ``dt``,
+    ``A``, ``D`` and ``h`` of any set of channels (a sharded decode's),
+    ``Bm`` / ``Cm`` of every channel."""
     sdt = torch.bfloat16 if cfg.ssm_scan_dtype == "bfloat16" else _F32
     decay = torch.exp((dt[..., None] * A).to(_F32)).to(sdt)
     u = (dt * conv_out)[..., None].to(sdt) * Bm[:, :, None, :].to(sdt)
     dec_s, u_s = associative_scan(_comb, [decay, u], dim=1)
     hs = torch.addcmul(u_s.to(_F32), dec_s.to(_F32), h[:, None])
     y = torch.einsum("blin,bln->bli", hs.to(sdt).to(_F32),
-                     Cm.to(sdt).to(_F32)) + conv_out * p.D
+                     Cm.to(sdt).to(_F32)) + conv_out * D
     return y, hs[:, -1]
 
 
@@ -253,17 +261,29 @@ def mamba1_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype,
 
 
 def mamba1_decode(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
-                  cache: Dict[str, torch.Tensor]
+                  cache: Dict[str, torch.Tensor], shard=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, 1, d) one token."""
+    """x: (B, 1, d) one token.
+
+    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`)
+    that cuts ``h`` (``cache_specs``' rule; the conv tail's channels,
+    of the same width, with it): the cache holds this rank's channels
+    ``[lo, hi)``; the rank steps their conv tail and state, and
+    all-gathers the activations that need every channel, the conv
+    output before the projections and ``y`` before ``out_proj``.
+    Without one ``[lo, hi)`` is every channel and nothing is
+    gathered."""
+    ch = cut_of(shard, "h")
+    lo, hi = ch.bounds(cfg.d_inner)
     K = cfg.ssm_conv
-    xs = x @ p.in_x
-    z = x @ p.in_z
-    xin = torch.cat([cache["conv"], xs], dim=1)            # (B, K, din)
-    conv = F.silu(_causal_conv_chunk(xin, p.conv_w, p.conv_b))
-    y, h_new = _mamba1_core(p, cfg, conv, cache["h"])
-    y = y * F.silu(z.to(_F32))
-    out = y.to(x.dtype) @ p.out_proj
+    xin = torch.cat([cache["conv"], (x @ p.in_x)[..., lo:hi]], dim=1)
+    conv = F.silu(_causal_conv_chunk(xin, p.conv_w[:, lo:hi],
+                                     p.conv_b[lo:hi]))  # (B, 1, hi - lo)
+    dt, Bm, Cm, A = _projections(p, ch.gather(conv, -1))
+    y, h_new = _scan_core(cfg, conv, dt[..., lo:hi], Bm, Cm, A[lo:hi],
+                          p.D[lo:hi], cache["h"])
+    y = y * F.silu((x @ p.in_z)[..., lo:hi].to(_F32))
+    out = ch.gather(y.to(x.dtype), -1) @ p.out_proj
     return out, {"conv": xin[:, -(K - 1):], "h": h_new}
 
 
@@ -441,29 +461,54 @@ def mamba2_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype,
     }
 
 
+def _conv_step(tail: torch.Tensor, new: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor, ch):
+    """One step of a Mamba2 depthwise conv on the channels of ``ch``
+    (:func:`repro_torch.distributed.collectives.cut_of` of the tail's
+    leaf), whose outputs it all-gathers: ``(out (B, 1, C) float32 of
+    every channel, the left-extended input whose tail is the new cache
+    leaf)``."""
+    lo, hi = ch.bounds(new.shape[-1])
+    xin = torch.cat([tail, new[..., lo:hi]], dim=1)
+    out = F.silu(_causal_conv_chunk(xin, w[:, lo:hi], b[lo:hi]))
+    return ch.gather(out, -1), xin
+
+
 def mamba2_decode(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
-                  cache: Dict[str, torch.Tensor]
+                  cache: Dict[str, torch.Tensor], shard=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, 1, d) one token; one step of the recurrence
-    ``h = exp(dt A) h + dt B x``, ``y = C h + D x``."""
+    ``h = exp(dt A) h + dt B x``, ``y = C h + D x``.
+
+    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`)
+    that cuts cache leaves (``cache_specs``' rule: ``h``'s heads, each
+    conv tail's channels where they divide): the rank steps its heads
+    and channels and all-gathers the activations that need all of them,
+    each conv's output and ``y`` before the gated norm. Without one it
+    steps all of them and gathers nothing."""
     B = x.shape[0]
     din = cfg.d_inner
     nh, hd, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
     z = x @ p.in_z
-    xin_x = torch.cat([cache["conv_x"], x @ p.in_x], dim=1)
-    xin_b = torch.cat([cache["conv_B"], x @ p.in_B], dim=1)
-    xin_c = torch.cat([cache["conv_C"], x @ p.in_C], dim=1)
+    xconv, xin_x = _conv_step(cache["conv_x"], x @ p.in_x, p.conv_x_w,
+                              p.conv_x_b, cut_of(shard, "conv_x"))
+    Bc, xin_b = _conv_step(cache["conv_B"], x @ p.in_B, p.conv_B_w,
+                           p.conv_B_b, cut_of(shard, "conv_B"))
+    Cc, xin_c = _conv_step(cache["conv_C"], x @ p.in_C, p.conv_C_w,
+                           p.conv_C_b, cut_of(shard, "conv_C"))
     dt_raw = x @ p.in_dt
-    xconv, Bc, Cc = _mamba2_convs(p, xin_x, xin_b, xin_c)
-    xc = xconv[:, 0].reshape(B, nh, hd)
-    dt = _softplus(dt_raw[:, 0] + p.dt_bias)               # (B, nh)
-    A = -torch.exp(p.A_log.to(_F32))
-    decay = torch.exp(dt * A)                              # (B, nh)
+    heads = cut_of(shard, "h")
+    lo, hi = heads.bounds(nh)
+    xc = xconv[:, 0].reshape(B, nh, hd)[:, lo:hi]
+    dt = _softplus(dt_raw[:, 0] + p.dt_bias)[:, lo:hi]     # (B, nh_r)
+    A = -torch.exp(p.A_log.to(_F32))[lo:hi]
+    decay = torch.exp(dt * A)                              # (B, nh_r)
     contrib = dt[:, :, None, None] * Bc[:, 0, None, None, :] \
-        * xc[:, :, :, None]                                # (B, nh, hd, n)
+        * xc[:, :, :, None]                                # (B, nh_r, hd, n)
     h_new = decay[:, :, None, None] * cache["h"] + contrib
     y = torch.einsum("bn,bhpn->bhp", Cc[:, 0], h_new) \
-        + p.D[None, :, None] * xc
+        + p.D[lo:hi][None, :, None] * xc
+    y = heads.gather(y, 1)                                 # (B, nh, hd)
     y = _gated_rmsnorm(y.reshape(B, 1, din), z, p.norm_scale)
     out = y.to(x.dtype) @ p.out_proj
     return out, {"conv_x": _tail(xin_x, K), "conv_B": _tail(xin_b, K),

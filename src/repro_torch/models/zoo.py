@@ -28,19 +28,35 @@ takes ``batch["memory"]`` and returns ``{"self": ...}``.
 ``input_specs(cfg, shape)`` returns ``(shape, dtype)`` stand-ins for every
 model input of a workload shape; ``make_batch`` materializes small
 concrete batches from a numpy RNG, the same numbers as the reference's.
+
+On a mesh (the counterparts of the reference's prefill and decode jitted
+with ``in_shardings`` from its parameter, batch and cache specs):
+
+  prefill = build_sharded_prefill(model, mesh, pspec, bspec, max_len=S)
+  logits, cache = prefill(params, batch)     # this rank's rows and shards
+  decode = build_sharded_decode(model, mesh, pspec, bspec, cspec)
+  logits, cache = decode(params, cache, batch)
+
+``build_sharded_serve`` builds the two on one held copy of the weights.
+
+``cache_with_room`` puts a prefill's cache in the slots of a longer one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.state import moments_of_batch
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.collectives import ModelShard
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import compute_dtype
@@ -186,6 +202,310 @@ def _build_encdec(cfg: ArchConfig) -> Model:
                                              batch["memory"])
 
     return Model(cfg, init, loss, forward, prefill, init_cache, decode)
+
+
+# -- serving on a mesh --------------------------------------------------------
+
+
+def cache_with_room(cfg: ArchConfig, cache: Dict, max_len: int) -> Dict:
+    """A prefill's cache in the slots of ``init_cache(B, max_len)``: the
+    attention KV of the prompt's ``T`` positions (``layers``, the
+    hybrid's ``attn``) at slots ``0 .. T-1``, or, in the hybrid's ring
+    (``max_len`` 100,000 on), the last ``S`` positions at slot ``p %
+    S``; the SSM states and the enc-dec's ``{"memory"}`` as they are."""
+    key = "attn" if "attn" in cache else "layers"
+    if key not in cache or "k" not in cache[key]:
+        return cache
+    k = cache[key]["k"]
+    B, T = k.shape[-4], k.shape[-3]
+    room = lm_mod.lm_init_cache(cfg, B, max_len, k.device)[key]
+    S = room["k"].shape[-3]
+    if S == max_len and T > S:            # not a ring: no room
+        raise ValueError(f"a prefill of {T} positions does not fit a "
+                         f"cache of {max_len}")
+    first = max(T - S, 0)
+    pos = torch.arange(first, T, device=k.device)
+    for name in ("k", "v"):
+        room[name][..., pos % S, :, :] = cache[key][name][..., first:, :, :]
+    return {**cache, key: room}
+
+
+def _model_dim(spec) -> Optional[int]:
+    """The dim that a leaf's spec cuts over ``"model"``, counted from the
+    leaf's end, or ``None``."""
+    spec = tuple(spec)
+    return next((d - len(spec) for d, entry in enumerate(spec)
+                 if entry is not None and "model" in sh._axes(entry)), None)
+
+
+def _leaves(tree: Dict):
+    """``(name, leaf)`` of every leaf of ``tree`` (nested dicts)."""
+    for k, v in tree.items():
+        yield from _leaves(v) if isinstance(v, dict) else [(k, v)]
+
+
+def _map(fn, tree: Dict, *others: Dict) -> Dict:
+    """``fn(name, leaf, *the others' leaves)`` over the leaves of
+    ``tree`` (nested dicts) and of trees of the same keys."""
+    return {k: _map(fn, v, *(o[k] for o in others)) if isinstance(v, dict)
+            else fn(k, v, *(o[k] for o in others)) for k, v in tree.items()}
+
+
+class _ServeOnMesh:
+    """What the sharded prefill and decode share: the mesh and its
+    groups, the parameters gathered whole into a module held here, and
+    this rank's dp slice of a batch."""
+
+    def __init__(self, model: Model, mesh, param_spec: Dict,
+                 batch_spec: Dict, window: Optional[int],
+                 held: Optional[Dict] = None):
+        self.model, self.cfg, self.mesh = model, model.cfg, mesh
+        self.param_spec, self.batch_spec = param_spec, batch_spec
+        self.window = window
+        # the held module, in a holder that the steps of one
+        # build_sharded_serve share
+        self._held = {} if held is None else held
+        sizes = sh.axis_sizes(mesh)
+        names = list(sizes)
+        self.coord = tuple(mesh.get_coordinate())
+        dp = next((sh._axes(s[0]) for s in batch_spec.values()
+                   if len(s) and s[0] is not None), ())
+        self.batch_groups = tuple(mesh.get_group(a) for a in names
+                                  if a in dp and sizes[a] > 1)
+        self.n_model = sizes.get("model", 1)
+        self.model_index = (self.coord[names.index("model")]
+                            if "model" in sizes else 0)
+        self.model_group = (mesh.get_group("model") if self.n_model > 1
+                            else None)
+
+    @property
+    def module(self) -> Optional[nn.Module]:
+        """The parameters gathered whole (``None`` before the first
+        call)."""
+        return self._held.get("module")
+
+    def shard(self, cache_spec: Optional[Dict] = None) -> ModelShard:
+        """This rank's :class:`ModelShard`, cutting the leaves that
+        ``cache_spec`` cuts over ``"model"``."""
+        cuts = {name: d for name, s in _leaves(cache_spec or {})
+                if (d := _model_dim(s)) is not None}
+        return ModelShard(self.model_index, self.n_model, self.model_group,
+                          cuts, self.batch_groups)
+
+    def load(self, params: Dict) -> nn.Module:
+        """The module of the whole parameters: on the first call each
+        DTensor of ``params`` is checked against its spec and gathered
+        whole (``sharding.full_tensors``) into a module held here; later
+        calls return it as it is."""
+        if self.module is not None:
+            return self.module
+        for n, p in params.items():
+            want = sh.placements(self.mesh, sh.P(*self.param_spec[n]))
+            if tuple(p.placements) != want:
+                raise ValueError(f"{n} is laid out {p.placements}, not by "
+                                 f"its spec {want}")
+        names = list(params)
+        dev = params[names[0]].to_local().device
+        module = self.model.init(0, device="meta").to_empty(device=dev)
+        named = dict(module.named_parameters())
+        if list(named) != names:
+            raise ValueError("the parameters are not the model's")
+        sh.full_tensors([params[n] for n in names],
+                        out=[named[n].data for n in names])
+        self._held["module"] = module
+        return module
+
+    def local_batch(self, batch: Dict) -> Dict:
+        """This rank's dp slice of each entry: a DTensor's shard, a whole
+        tensor cut by its spec, anything else as it is."""
+        out = {}
+        for k, v in batch.items():
+            if hasattr(v, "to_local"):
+                out[k] = v.to_local()
+            elif isinstance(v, torch.Tensor) and v.dim():
+                spec = sh.P(*self.batch_spec.get(k, ())).padded(v.dim())
+                out[k] = v[sh.shard_slices(self.mesh, spec, v.shape,
+                                           self.coord)]
+            else:
+                out[k] = v
+        return out
+
+    def part_of(self, spec: sh.P, local: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a cache leaf that holds this rank's rows
+        whole: the dims ``spec`` cuts over ``"model"`` narrowed (a copy,
+        so that the whole leaf can go)."""
+        d = _model_dim(spec)
+        if d is None or self.n_model == 1:
+            return local
+        return self.shard().part(local, d).clone()
+
+    def distributed(self, spec: sh.P, local: torch.Tensor) -> torch.Tensor:
+        """``local`` (this rank's shard) as a DTensor of the global
+        shape."""
+        shape = list(local.shape)
+        for d, entry in enumerate(spec):
+            if entry is not None:
+                shape[d] *= math.prod(sh.axis_sizes(self.mesh)[a]
+                                      for a in sh._axes(entry))
+        return sh.from_local(self.mesh, spec, local, tuple(shape))
+
+
+def build_sharded_prefill(model: Model, mesh, param_spec: Dict,
+                          batch_spec: Dict, window: Optional[int] = None,
+                          max_len: Optional[int] = None) -> Callable:
+    """The prefill on a mesh, one rank a device (the counterpart of the
+    reference's prefill jitted with ``in_shardings`` from
+    ``param_specs`` and ``batch_specs``). Every rank of ``mesh`` (a
+    ``DeviceMesh`` over the whole default group) calls
+    ``prefill(params, batch)`` with its shards of the parameters, laid
+    out by ``param_spec`` (DTensors, :func:`repro_torch.distributed.
+    sharding.distribute`), and the same whole ``batch``:
+
+      * the parameters are checked against their specs and gathered whole
+        into a module held by the step on its first call
+        (``prefill.load(params)`` does only that); later calls reuse it.
+        A server's weights do not change between calls: after they do,
+        build a new step;
+      * the rank's dp slice of the batch (``batch_spec``; ranks of one dp
+        coordinate take the same one, and every rank the whole batch
+        where ``batch_axis`` gives ``None``) runs through the
+        single-card prefill (``lm_prefill``; the enc-dec's encoder and
+        ``decode_train``), its MoE layers on the whole batch's dispatch
+        groups;
+      * its cache, given ``max_len`` slots by :func:`cache_with_room`
+        when asked (the room to decode into), is cut to this rank's
+        shard by ``sharding.cache_specs`` of the whole batch: the whole
+        slice's cache exists only inside the call.
+
+    Returns the slice's last-position logits (B_r, 1, V) and the cache
+    as DTensors of the global shapes, each holding this rank's shard.
+    ``prefill.module`` is the held module; ``prefill.cache_spec`` the
+    last call's cache specs. A server that also decodes builds the two
+    steps with :func:`build_sharded_serve`, on one held module."""
+    return _ShardedPrefill(model, mesh, param_spec, batch_spec, window,
+                           max_len)
+
+
+class _ShardedPrefill(_ServeOnMesh):
+
+    def __init__(self, model, mesh, param_spec, batch_spec, window,
+                 max_len, held=None):
+        super().__init__(model, mesh, param_spec, batch_spec, window, held)
+        self.max_len = max_len
+        self.cache_spec = None
+
+    def __call__(self, params: Dict, batch: Dict):
+        module = self.load(params)
+        cfg = self.cfg
+        mine = self.local_batch(batch)
+        with torch.no_grad():
+            if cfg.family == "encdec":
+                memory = encdec_mod.encode(module, cfg, mine["frame_embeds"])
+                logits = encdec_mod.decode_train(module, cfg, mine["tokens"],
+                                                 memory, last_only=True)
+                cache = {"memory": memory}
+            else:
+                logits, cache = lm_mod.lm_prefill(
+                    module, cfg, mine["tokens"],
+                    extra_embeds=mine.get("extra_embeds"),
+                    window=self.window, shard=self.shard())
+                if self.max_len is not None:
+                    cache = cache_with_room(cfg, cache, self.max_len)
+            B = next(v.shape[0] for v in batch.values() if v.dim())
+            T = _cache_len(cache)
+            # the whole batch's cache (the enc-dec's memory: its spec does
+            # not depend on its shape)
+            like = (cache if cfg.family == "encdec"
+                    else self.model.init_cache(B, T, device="meta"))
+            self.cache_spec = sh.cache_specs(
+                cfg, self.mesh, ShapeConfig("prefill", T, B, "prefill"),
+                like)
+            cache = _map(lambda k, v, s: self.part_of(
+                sh.P(*s).padded(v.dim()), v), cache, self.cache_spec)
+        return logits, _map(lambda k, v, s: self.distributed(
+            sh.P(*s).padded(v.dim()), v), cache, self.cache_spec)
+
+
+def _cache_len(cache: Dict) -> int:
+    """The slots of a prefill cache's attention KV (0 for one without)."""
+    kv = cache.get("attn", cache.get("layers", {}))
+    return int(kv["k"].shape[-3]) if "k" in kv else 0
+
+
+def build_sharded_decode(model: Model, mesh, param_spec: Dict,
+                         batch_spec: Dict, cache_spec: Dict,
+                         window: Optional[int] = None) -> Callable:
+    """One decode step on a mesh, one rank a device (the counterpart of
+    the reference's decode jitted with ``in_shardings`` from
+    ``param_specs``, ``cache_specs`` and ``batch_specs``). Every rank of
+    ``mesh`` calls ``decode(params, cache, batch)`` with its shards of
+    the parameters (as :func:`build_sharded_prefill` takes and holds
+    them), its shards of the cache (DTensors laid out by ``cache_spec``,
+    ``sharding.cache_specs``' rules: batch over dp, kv heads over
+    ``"model"`` where they divide and else the sequence, SSM channels
+    and heads over ``"model"``) and the same whole batch (a DTensor
+    entry, the prefill's ``memory``, is taken as its shard).
+
+    No cache leaf is gathered. Each layer works on its shard
+    (:func:`repro_torch.models.attention.decode_attention`,
+    :func:`repro_torch.models.ssm.mamba1_decode` / ``mamba2_decode``
+    with a :class:`repro_torch.distributed.collectives.ModelShard`) and
+    all-gathers small activations over the mesh's ``"model"`` subgroup,
+    merged in rank order, so that every rank of one dp coordinate ends
+    with the same bits. Returns the slice's logits (B_r, 1, V) and the
+    new cache, laid out as the old."""
+    return _ShardedDecode(model, mesh, param_spec, batch_spec, cache_spec,
+                          window)
+
+
+class _ShardedDecode(_ServeOnMesh):
+
+    def __init__(self, model, mesh, param_spec, batch_spec, cache_spec,
+                 window, held=None):
+        super().__init__(model, mesh, param_spec, batch_spec, window, held)
+        self.cache_spec = cache_spec
+
+    def __call__(self, params: Dict, cache: Dict, batch: Dict):
+        module = self.load(params)
+        cfg = self.cfg
+
+        def local(name, v, spec):
+            want = sh.placements(self.mesh, sh.P(*spec))
+            if tuple(v.placements) != want:
+                raise ValueError(f"cache leaf {name} is laid out "
+                                 f"{v.placements}, not by its spec {want}")
+            return v.to_local()
+        mine = self.local_batch(batch)
+        shard = self.shard(self.cache_spec)
+        with torch.no_grad():
+            loc = _map(local, cache, self.cache_spec)
+            if cfg.family == "encdec":
+                logits, new = encdec_mod.encdec_decode_step(
+                    module, cfg, mine["token"], mine["pos"], loc,
+                    mine["memory"], shard=shard)
+            else:
+                logits, new = lm_mod.lm_decode_step(
+                    module, cfg, mine["token"], mine["pos"], loc,
+                    window=self.window, shard=shard)
+        return logits, _map(lambda k, v, old, s: sh.from_local(
+            self.mesh, sh.P(*s), v, tuple(old.shape)), new, cache,
+            self.cache_spec)
+
+
+def build_sharded_serve(model: Model, mesh, param_spec: Dict,
+                        batch_spec: Dict, cache_spec: Dict,
+                        window: Optional[int] = None,
+                        max_len: Optional[int] = None) -> Tuple:
+    """``(prefill, decode)``: :func:`build_sharded_prefill` and
+    :func:`build_sharded_decode` on one held module, so that a server
+    keeps one copy of the weights a rank. ``batch_spec`` holds the
+    specs of the prefill's inputs and of the decode's (one global
+    batch)."""
+    held: Dict = {}
+    return (_ShardedPrefill(model, mesh, param_spec, batch_spec, window,
+                            max_len, held),
+            _ShardedDecode(model, mesh, param_spec, batch_spec, cache_spec,
+                           window, held))
 
 
 # -- input specs / batches ----------------------------------------------------

@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 
 from tests.helpers import torch_sharded_scenarios as scen
-from tests.helpers import torch_sharded_train_ops
+from tests.helpers import torch_sharded_serve_ops, torch_sharded_train_ops
 from tests.helpers.torch_dist_world import MARK
 
 
@@ -178,6 +178,8 @@ OPS = {"scenario": op_scenario, "compressed_psum": op_compressed_psum, "fold_bit
        "fault_agreement": op_fault_agreement}
 # the multi-card layout's commands (tests/test_torch_sharded_train.py)
 OPS.update(torch_sharded_train_ops.OPS)
+# the sharded serving steps' commands (tests/test_torch_sharded_serve.py)
+OPS.update(torch_sharded_serve_ops.OPS)
 
 
 def main(argv):

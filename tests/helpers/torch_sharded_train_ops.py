@@ -255,11 +255,11 @@ def op_step_cost(arch: str):
     from repro_torch.distributed import collectives as coll
     from repro_torch.launch import step_cost
     run, inputs = sharded_step(arch, "cpu")
-    c0 = dict(coll.COLLECTIVES)
+    c0 = coll.tally()
     cost = step_cost.analyze(run, inputs=inputs)
+    got = coll.tally(since=c0)
     return {"cost": cost, "rank": dist.get_rank(),
-            "tally": {k: coll.COLLECTIVES[k] - c0[k]
-                      for k in ("calls", "bytes")}}
+            "tally": {k: got[k] for k in ("calls", "bytes")}}
 
 
 OPS = {"sharded_train": op_sharded_train, "mesh_checks": op_mesh_checks,
