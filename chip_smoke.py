@@ -120,31 +120,32 @@ one JSON line:
      float32, prefill + decode against forward (2e-3), and the reduced
      config on the card against the CPU (1e-4);
   5b. ``evalx.ApproxEval`` of the same model (64 layers, bf16) over a
-     scrambled eval set of 128 x 2048 tokens (cut from 512 for the
+     scrambled eval set of 48 x 2048 tokens (cut from 512 for the
      smoke's time) (``data.tokens.
      make_eval_scramble``), batches of 8, delta 1e-6, target width 0.1:
      it must stop early with a certificate covering the full set's mean
-     clipped loss (one forward a batch over all 16 batches, float64),
+     clipped loss (one forward a batch over all 6 batches, float64),
      each forward launching the scan kernel once a layer; then at full
-     width, 4 layers, float32, 32 examples of 256 tokens, card against
+     width, 4 layers, float32, 16 examples of 256 tokens, card against
      CPU (per-token losses within 1e-4, the same rounds and examples);
   5c. the dense, vlm and MoE families (plain PyTorch, no kernel):
-     qwen2.5-3b and pixtral-12b at full width and depth, dbrx-132b at
-     full width and 4 of its 40 layers (``DENSE_SERVE``; bf16, random
+     qwen2.5-3b at full width and 18 of its 36 layers, pixtral-12b at 20
+     of 40, dbrx-132b at 4 of 40 (``DENSE_SERVE``; bf16, random
      weights from a seed) each serve 8 requests of 2048 positions
-     (pixtral's first 512 its stubbed frontend's patch embeddings) and 32
+     (pixtral's first 512 its stubbed frontend's patch embeddings) and 16
      greedy decode steps from a cache with room for them, twice, with
      finite logits and the same tokens both times; then prefill + decode
      against forward (2e-3) at full width in float32 (qwen3-0.6b at 4
      layers, dbrx at 2, dropless), the seven ids' reduced configs on the
      card against the CPU (1e-4), and no kernel counter moved;
   5d. the hybrid and enc-dec families (plain PyTorch, no kernel):
-     zamba2-7b (81 Mamba2 layers, the shared attention block every 6)
-     and seamless-m4t-large-v2 (24 + 24 layers) at full width and depth
-     (``HYBRID_SERVE``; bf16, random weights from a seed) each serve 8
+     zamba2-7b (42 of its 81 Mamba2 layers: 7 groups, the shared
+     attention block every 6) and seamless-m4t-large-v2 (24 + 24
+     layers) at full width (``HYBRID_SERVE``; bf16, random weights from
+     a seed) each serve 8
      requests of 2048 positions (seamless: 1024 frame embeddings for its
      encoder and 1024 text tokens; zamba2's prefill KV copied into a
-     cache with room) and 32 greedy decode steps (seamless's from each
+     cache with room) and 16 greedy decode steps (seamless's from each
      request's first token at position 0 against its encoder memory),
      twice, with finite logits and the same tokens both times; then at
      full width in float32: zamba2's prefill + decode against forward
@@ -165,12 +166,12 @@ one JSON line:
      interval must hold the steps' mean loss, the step times to a
      ``StragglerMonitor``; their decisions printed;
   6c. the dense, MoE, hybrid and enc-dec families' training path (plain
-     PyTorch, no kernel), bf16 at full width: qwen2.5-3b (36 layers, 2 x
+     PyTorch, no kernel), bf16 at full width: qwen2.5-3b (18 of 36, 2 x
      4096 tokens, AdamW), dbrx-132b (2 of 40 layers, 4 x 4096 in its 4
-     microbatches, Adafactor over its stacked experts), zamba2-7b (9 of
-     81 layers, whole groups, 2 x 4096 in 2 microbatches) and
-     seamless-m4t-large-v2 (24 + 24 layers, train_4k's frames and
-     tokens for 2 sequences); each a warm-up and 3 timed steps on one
+     microbatches, Adafactor over its stacked experts), zamba2-7b (7 of
+     81 layers, a group and a tail layer, 2 x 4096 in 2 microbatches)
+     and seamless-m4t-large-v2 (24 + 24 layers, train_4k's frames and
+     tokens for 2 sequences); each a warm-up and 2 timed steps on one
      batch with phase 6's checks (finite, the loss falls every step, no
      grad norm above 3x the first), no kernel counter moved; seamless's
      loss and gradient again under the ``"dots"`` remat policy, its loss
@@ -181,16 +182,17 @@ one JSON line:
      ``pallas`` path's kernels: loss 1e-5, each gradient 1e-4) and in
      bfloat16 (against float32: 1.5e-2), times and peaks of the three;
   6e. ``launch/train.py``'s driver (``repro_torch.launch.train.main``)
-     for qwen3-0.6b at full width: 8 steps of 8 x 1024 tokens, a
-     checkpoint every 4, the eval after step 8 (its certificate must
-     cover the eval set's full mean); the step-8 checkpoint deleted and
-     the run resumed to step 8: the same losses and state bit for bit;
+     for qwen3-0.6b at full width and 2 of its 28 layers: 4 steps of 8 x
+     1024 tokens, a checkpoint every 2, the eval after step 4 (its
+     certificate must cover the eval set's full mean); the step-4
+     checkpoint deleted and the run resumed from step 2 to step 4: the
+     same losses and state bit for bit;
      ``compress_roundtrip`` of one step's gradients on the card bit for
      bit on the CPU; the SIGTERM handler put back; no kernel counter
      moved;
   6f. the multi-card layout (``distributed/sharding.py``, the sharded
      train step, the elastic checkpoint, the dry runs): qwen3-0.6b at
-     full width, 4 of 28 layers, float32, AdamW, 8 x 512 tokens; one
+     full width, 2 of 28 layers, float32, AdamW, 8 x 512 tokens; one
      single-card step here, written to a file; four spawned gloo ranks
      on the card on a (2, 2) ("data", "model") mesh: one
      ``build_sharded_train_step`` step from the same state and batch
@@ -217,35 +219,43 @@ one JSON line:
      less the process's other tensors) within 10 % of the predicted
      ``peak_bytes``;
   6g. the sharded serving steps (``models/zoo.build_sharded_serve``: the
-     sharded prefill and decode on one held copy of the weights), float32
-     at full width: qwen2.5-3b at 4
-     of 36 layers on (2, 2) (its 2 kv heads over "model": the heads
-     rule) and (1, 4) (the sequence rule), falcon-mamba-7b at 4 of 64 on
-     (2, 2) (Mamba1 channels over "model"; the selective-scan kernel in
-     each rank's prefill) and zamba2-7b at 7 of 81 on (1, 4) (Mamba2
-     heads, the shared attention's heads), each a batch of 8 x 2048
-     prompt positions and 32 teacher-forced decode steps at a card-tensor
-     position. The single-card prefill + decode here, written to a file;
-     four spawned gloo ranks on the card run every config (the prefills
-     in turns): each rank's logits within 1e-4 of the largest of the
-     single card's, its cache shards of their local shapes and within
-     1e-4 of the single card's slices, replicas the same bits, rank 0's
-     collectives by kind of a steady prefill and decode step equal to
+     prefill and decode, tensor parallel over "model", on one held copy
+     of each rank's "model" cut of the weights), float32 at full width:
+     qwen2.5-3b at 4 of 36 layers on (2, 2) (its 2 kv heads over
+     "model": the heads rule) and (1, 4) (the sequence rule),
+     falcon-mamba-7b at 4 of 64 on (2, 2) (Mamba1 channels over "model";
+     the selective-scan kernel on d_inner / 2 of them in each rank's
+     prefill), zamba2-7b at 7 of 81 on (1, 4) (Mamba2 heads, the shared
+     attention's heads) and dbrx-132b at 2 of 40 on (1, 4) (4 of its 16
+     experts a rank), each a batch of 8 x 2048 prompt positions and 32
+     teacher-forced decode steps at a card-tensor position. The
+     single-card prefill + decode here, written to a file; four spawned
+     gloo ranks on the card run every config (drawing the weights in
+     turns, prefilling together): each rank's held parameter bytes equal
+     to its "model" cut by ``param_specs`` and loaded by all-gathers over
+     "data" (and an all-to-all over "model" a leaf cut over both) alone,
+     its logits within 1e-4 of the largest of the single card's, its
+     cache shards of their local shapes and within 1e-4 of the single
+     card's slices, replicas the same bits, rank 0's collectives by kind
+     of its prefill and a decode step equal to
      ``dryrun.sharded_serve_cost``'s meta prediction (made here in a
-     fake group of 4 while the ranks run), rank 0's peak of each
+     fake group of 4 while the ranks run; the scan kernel's outputs
+     stand for it on meta), rank 0's peak of each
      (``max_memory_allocated`` less its other tensors) within 10 % of
-     the prediction's (falcon-mamba's prefill, whose kernel has no meta
-     counterpart, apart); then NCCL in a group of one rank: the sharded
-     steps bit for bit the single card's. Prints the prefill s and the
-     decode ms a step, sharded and single-card, and the collective calls
-     and bytes a decode step;
+     the prediction's; then NCCL in a group of one rank: the sharded
+     steps bit for bit the single card's. Prints the load s, the prefill
+     s and the decode ms a step, sharded and single-card, and the
+     collective calls and bytes of each;
   7. a ``kernels`` line: each ported kernel with its main-path launches,
      worst difference from its plain version and times (``grouped_hist``
      at the main path's G 14, with G 2800 beside it; the multi-query
      probe at the serving host loop's window, Q 8, W 88).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the exit code is not 0 and that line is not printed. Without
+raises, so the exit code is not 0 and that line is not printed. Every
+wait on a spawned process and every process group's timeout ends by
+SMOKE_DEADLINE_S after the start; a phase stopped by it records
+``{"check": "smoke deadline", "phase", "elapsed_s"}`` and fails. Without
 CUDA, or without the rest of the repository beside it, the script exits
 with code 2 before any result. Imports nothing of JAX.
 """
@@ -261,6 +271,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -290,12 +301,16 @@ HIST_PATH_GROUPS = 14
 # the sampled runs' 1e-4 is for folds of 64 blocks. Phase 3 prints the
 # measured error (exact_view_max_rel_err).
 EXACT_SWEEP_RTOL = 1e-3
-REPS = 30                # timed calls per kernel measurement
+REPS = 15                # timed calls per kernel measurement (cut from
+#                          30 for the smoke's time: a median of 15)
 PLAIN_SCAN_REPS = 3      # the plain scan is ~2k small launches a call
 # The Mamba1 serving path (phase 5)
 SERVE_BATCH = 8          # requests
 PROMPT_LEN = 2048        # prompt tokens each
 DECODE_STEPS = 32        # greedy decode steps after the prefill
+# 5c / 5d's (dense, vlm, MoE, hybrid, enc-dec): cut from 32 for the
+# smoke's time; each model still serves twice (the same tokens twice)
+FAMILY_DECODE_STEPS = 16
 MODEL_SEED = 0
 # The Mamba1 training path (phase 6): falcon-mamba-7b at full width, cut
 # to TRAIN_LAYERS layers, TRAIN_BATCH sequences of TRAIN_LEN tokens in the
@@ -356,6 +371,57 @@ def kernel_counters() -> dict:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+#: the whole run's own limit, counted from ``main``'s start: every wait on
+#: a spawned process and every process group's timeout ends by then, so
+#: that a stalled phase fails inside the caller's time limit and names
+#: itself instead of being cut with the rest of the run
+SMOKE_DEADLINE_S = 1100
+_CLOCK = {"start": None, "deadline": float("inf")}
+
+
+def set_deadline(at: float, start: Optional[float] = None) -> None:
+    """Put the run's deadline at ``time.perf_counter()`` value ``at``
+    (``main``: its start plus SMOKE_DEADLINE_S)."""
+    _CLOCK["start"] = time.perf_counter() if start is None else start
+    _CLOCK["deadline"] = at
+
+
+def time_left() -> float:
+    """Seconds until the run's deadline (``inf`` when none is set)."""
+    return _CLOCK["deadline"] - time.perf_counter()
+
+
+def capped(limit_s: float) -> float:
+    """``limit_s``, cut to the time left before the deadline (at least
+    one second, so that a wait or a group timeout is never zero)."""
+    return max(min(limit_s, time_left()), 1.0)
+
+
+def deadline_fail(phase: str) -> dict:
+    """The failure a phase records when the run's deadline stopped it."""
+    start = _CLOCK["start"]
+    return dict(check="smoke deadline", phase=phase,
+                elapsed_s=None if start is None
+                else time.perf_counter() - start)
+
+
+def join_all(procs, timeout_s: float, phase: str, fails: list) -> list:
+    """Join ``procs`` within ``capped(timeout_s)`` in all; a process still
+    running then is stopped (:func:`_stop`), and where the deadline was
+    the cause, :func:`deadline_fail` joins ``fails``. Returns the exit
+    codes (a stopped process's is its signal's, negative)."""
+    until = time.perf_counter() + capped(timeout_s)
+    stopped = False
+    for p in procs:
+        p.join(max(until - time.perf_counter(), 0.1))
+        if p.is_alive():
+            stopped = True
+            _stop(p)
+    if stopped and time_left() <= 0:
+        fails.append(deadline_fail(phase))
+    return [p.exitcode for p in procs]
 
 
 def bound(bytes_moved: float, ops: float):
@@ -2090,7 +2156,7 @@ def shard_rank_main(a: dict) -> None:
     dist.init_process_group(
         a["backend"], store=dist.FileStore(a["store"], world), rank=rank,
         world_size=world,
-        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=a["group_timeout_s"]))
     rec = dict(rank=rank, world=world, backend=a["backend"],
                device=str(dev), init_s=time.perf_counter() - t_start)
     # gloo takes the card's tensors by staging them through host memory
@@ -2216,7 +2282,7 @@ def nccl_world1_main(a: dict) -> None:
     torch.cuda.set_device(dev)
     dist.init_process_group(
         "nccl", store=dist.FileStore(a["store"], 1), rank=0, world_size=1,
-        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=a["group_timeout_s"]))
     rec = dict(world=1, backend=dist.get_backend())
     rng = np.random.default_rng(7)
     G, nb, br, center = 2800, 64, 1024, 2.0
@@ -2258,27 +2324,16 @@ def nccl_world1_main(a: dict) -> None:
     dist.destroy_process_group()
 
 
-def _spawn_ranks(ctx, target, argss, timeout_s):
-    """Start one process per argument dict, join each within the time
-    limit; a process still running then is killed. Returns the exit
-    codes (None for a killed one)."""
+def _spawn_ranks(ctx, target, argss, timeout_s, phase: str, fails: list):
+    """Start one process per argument, join them within the time limit,
+    cut to the run's deadline (:func:`join_all`); a process still
+    running then is stopped. Returns the exit codes (a stopped
+    process's is negative); a stop at the deadline joins ``fails``,
+    under ``phase``."""
     procs = [ctx.Process(target=target, args=(a,)) for a in argss]
     for p in procs:
         p.start()
-    deadline = time.perf_counter() + timeout_s
-    codes = []
-    for p in procs:
-        p.join(max(deadline - time.perf_counter(), 1.0))
-        if p.is_alive():
-            p.terminate()
-            p.join(10)
-            if p.is_alive():
-                p.kill()
-                p.join()
-            codes.append(None)
-        else:
-            codes.append(p.exitcode)
-    return codes
+    return join_all(procs, timeout_s, phase, fails)
 
 
 def _cut_scramble(np, T, sc, rows: int):
@@ -2347,11 +2402,12 @@ def sharded_phase(torch, np, T, opt, sc, rows: int):
         base = dict(world=SHARD_RANKS, store=str(tdir / "store"),
                     data=str(data), out=str(tdir), backend="gloo",
                     device_index=0, merge_every=list(SHARD_MERGE_EVERY),
-                    sys_path=list(sys.path))
+                    sys_path=list(sys.path),
+                    group_timeout_s=capped(SHARD_GROUP_TIMEOUT_S))
         t0 = time.perf_counter()
         codes = _spawn_ranks(ctx, shard_rank_main,
                              [dict(base, rank=r) for r in range(SHARD_RANKS)],
-                             SHARD_JOIN_TIMEOUT_S)
+                             SHARD_JOIN_TIMEOUT_S, "sharded", failures)
         rec["ranks_wall_s"] = time.perf_counter() - t0
         rec["rank_exit_codes"] = codes
         if codes != [0] * SHARD_RANKS:
@@ -2429,11 +2485,12 @@ def sharded_phase(torch, np, T, opt, sc, rows: int):
             base = dict(world=world, store=str(tdir / "store_nccl"),
                         data=str(data), out=str(tdir / "nccl"),
                         backend="nccl", merge_every=[1],
-                        only=[SHARD_RUNS[0]], sys_path=list(sys.path))
+                        only=[SHARD_RUNS[0]], sys_path=list(sys.path),
+                        group_timeout_s=capped(SHARD_GROUP_TIMEOUT_S))
             (tdir / "nccl").mkdir()
             codes = _spawn_ranks(ctx, shard_rank_main, [
                 dict(base, rank=r, device_index=r) for r in range(world)],
-                SHARD_JOIN_TIMEOUT_S)
+                SHARD_JOIN_TIMEOUT_S, "sharded", failures)
             rec["nccl_world"] = world
             rec["nccl_exit_codes"] = codes
             if codes != [0] * world:
@@ -2447,7 +2504,9 @@ def sharded_phase(torch, np, T, opt, sc, rows: int):
         t0 = time.perf_counter()
         codes = _spawn_ranks(ctx, nccl_world1_main, [dict(
             store=str(tdir / "store_nccl1"), out=str(tdir),
-            sys_path=list(sys.path))], SHARD_JOIN_TIMEOUT_S)
+            sys_path=list(sys.path),
+            group_timeout_s=capped(SHARD_GROUP_TIMEOUT_S))],
+            SHARD_JOIN_TIMEOUT_S, "sharded", failures)
         nccl = dict(exit_codes=codes, wall_s=time.perf_counter() - t0)
         ok = False
         if codes == [0]:
@@ -2718,14 +2777,15 @@ def serve_phase(torch, np, counters):
 # sequence length, delta 1e-6, target width 0.1; batches of 8 (16 there).
 # The set is cut to 256 examples for the training phases 6c-6e: the full
 # pass that gives the truth took 86 s of the phase's 104 at 512.
-EVAL_EXAMPLES, EVAL_LEN, EVAL_BATCH = 128, PROMPT_LEN, 8
+EVAL_EXAMPLES, EVAL_LEN, EVAL_BATCH = 48, PROMPT_LEN, 8
 EVAL_DELTA, EVAL_WIDTH = 1e-6, 0.1
 # tests/test_train_stack.py's width, used (and said) only when the
 # certificate cannot reach EVAL_WIDTH within EVAL_EXAMPLES; delta stays
 EVAL_WIDTH_FALLBACK = 0.5
 # the card-vs-CPU check: full width, 4 layers, float32, 32 examples of
 # 256 tokens in batches of 4, stopping at width 1.0
-EVAL_SMALL = dict(layers=4, examples=32, tokens=256, batch=4, width=1.0)
+# (cut from 32 examples for the smoke's time: the CPU's forwards)
+EVAL_SMALL = dict(layers=4, examples=16, tokens=256, batch=4, width=1.0)
 EVAL_LOSS_RTOL = 1e-4
 
 
@@ -2870,8 +2930,10 @@ def eval_phase(torch, np, counters, model, lm, kscan, device="cuda"):
 # The dense families' serving path: (id, layers served or None for the
 # config's own, why cut). dbrx's experts are 6.3 GB a layer in bf16, so
 # its 40 layers (~265 GB) are cut to 4.
-DENSE_SERVE = (("qwen2_5_3b", None, None),
-               ("pixtral_12b", None, None),
+DENSE_SERVE = (("qwen2_5_3b", 18, "36 -> 18 layers (the smoke's "
+                                  "time)"),
+               ("pixtral_12b", 20, "40 -> 20 layers (the smoke's "
+                                   "time)"),
                ("dbrx_132b", 4, "40 -> 4 layers (its experts are 6.3 GB a "
                                 "layer in bf16: 40 layers ~265 GB)"))
 # prefill + decode = forward at full width in float32: (id, layers, B, T,
@@ -2977,7 +3039,7 @@ def serve_model_twice(torch, np, arch_id: str, layers=None, cut=None):
     cfg = model.cfg
     weights_gib = (torch.cuda.memory_allocated() - base) / 2**30
     t0 = time.perf_counter()
-    runs = [serve_batch_once(torch, model, lm, batch, DECODE_STEPS)
+    runs = [serve_batch_once(torch, model, lm, batch, FAMILY_DECODE_STEPS)
             for _ in range(2)]
     serve_s = time.perf_counter() - t0
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
@@ -2992,6 +3054,8 @@ def serve_model_twice(torch, np, arch_id: str, layers=None, cut=None):
         reduced = {"prefill_32k": "32 x 32768 -> 8 x 2048 positions",
                    "decode_32k": "batch 128 after a 32K context -> batch 8 "
                                  "after 2048 positions"}
+    reduced["decode_steps"] = (f"{DECODE_STEPS} -> {FAMILY_DECODE_STEPS} "
+                               "(the smoke's time)")
     if cut:
         reduced["n_layers"] = cut
     record = dict(
@@ -3004,12 +3068,13 @@ def serve_model_twice(torch, np, arch_id: str, layers=None, cut=None):
         frontend_positions=front,
         frame_positions=(batch["frame_embeds"].shape[1]
                          if "frame_embeds" in batch else 0),
-        decode_steps=DECODE_STEPS,
+        decode_steps=FAMILY_DECODE_STEPS,
         runs=[dict(prefill_s=r["prefill_s"],
                    prefill_tokens_per_s=SERVE_BATCH * PROMPT_LEN
                    / r["prefill_s"],
-                   decode_ms_per_step=r["decode_s"] / DECODE_STEPS * 1e3,
-                   decode_tokens_per_s=SERVE_BATCH * DECODE_STEPS
+                   decode_ms_per_step=r["decode_s"] / FAMILY_DECODE_STEPS
+                   * 1e3,
+                   decode_tokens_per_s=SERVE_BATCH * FAMILY_DECODE_STEPS
                    / r["decode_s"],
                    peak_gib_after_prefill=(r["prefill_peak_gib"]
                                            - base / 2**30),
@@ -3069,7 +3134,10 @@ def dense_serve_phase(torch, np, counters):
 # The hybrid and enc-dec families' serving path (plain PyTorch, no kernel),
 # both at full width and depth: zamba2-7b (81 Mamba2 layers, the shared
 # attention block every 6) and seamless-m4t-large-v2 (24 + 24 layers).
-HYBRID_SERVE = ("zamba2_7b", "seamless_m4t_large_v2")
+# (id, layers, cut): zamba2 at 7 of its 13 groups of 6 and no tail
+HYBRID_SERVE = (("zamba2_7b", 42, "81 -> 42 layers, 7 whole groups (the "
+                                  "smoke's time)"),
+                ("seamless_m4t_large_v2", None, None))
 # prefill + decode against forward in float32: zamba2 at 7 layers (one
 # group and one tail), B 2, T 256 (T 257 would break the ssm chunk of 256
 # in forward); seamless at 2 + 2 layers, teacher-forced decode steps
@@ -3155,8 +3223,7 @@ def hybrid_serve_phase(torch, np, counters):
     from repro_torch.models import build as build_model
     for c in counters.values():
         c.launches = 0
-    served = [serve_model_twice(torch, np, arch_id)
-              for arch_id in HYBRID_SERVE]
+    served = [serve_model_twice(torch, np, *m) for m in HYBRID_SERVE]
 
     def f32(arch_id, **kw):
         cfg = dataclasses.replace(get_config(arch_id), param_dtype="float32",
@@ -3189,7 +3256,7 @@ def hybrid_serve_phase(torch, np, counters):
         torch, np, build_model(dataclasses.replace(
             get_config(arch_id, reduced=True), param_dtype="float32",
             compute_dtype="float32")), B=2, T=32, seed=2))
-        for arch_id in HYBRID_SERVE]
+        for arch_id, _, _ in HYBRID_SERVE]
     launches = {k: c.launches for k, c in counters.items()}
     stray = [k for k, v in launches.items() if v]
     ok = (all(r["ok"] for r in served + consistency + card_vs_cpu)
@@ -3351,18 +3418,22 @@ def train_phase(torch, np, counters):
 # so dbrx's and zamba2's depth is cut to what fits in 80 GB beside the
 # activations; whole zamba2 groups are kept.
 FAMILY_TRAIN = (
-    ("qwen2_5_3b", None, 2, None),
+    ("qwen2_5_3b", 18, 2, "36 -> 18 layers (the smoke's time; 36 to PR "
+                          "30)"),
     ("dbrx_132b", 2, 4,
      "40 -> 2 layers (about 8 bytes a parameter under Adafactor: 2 "
      "layers and the embeddings are 7.7 B parameters, ~57 GiB; 40 layers "
      "~132 B)"),
-    ("zamba2_7b", 9, 2,
-     "81 -> 9 layers, a group of 6 and a tail of 3 (the smoke's time "
-     "since phase 6f; 33 layers, 3.0 B parameters, ~45 GiB, until then; "
-     "81 layers 6.8 B, ~101 GiB at 16 bytes a parameter)"),
+    ("zamba2_7b", 7, 2,
+     "81 -> 7 layers, a group of 6 and a tail of 1 (the smoke's time; "
+     "9 layers before, 33 layers, 3.0 B parameters, ~45 GiB, before "
+     "that; 81 layers 6.8 B, ~101 GiB at 16 bytes a parameter)"),
     ("seamless_m4t_large_v2", None, 2, None),
 )
 FAMILY_TRAIN_CUT = ("batch 256 x 4096 -> {} x 4096 (the time limit)")
+# timed steps after the warm-up step (cut from TRAIN_STEPS, 3, for
+# the smoke's time: the loss still falls from one to the next)
+FAMILY_STEPS = 2
 
 
 def _loss_and_grads_timed(torch, model, lm, batch):
@@ -3404,9 +3475,9 @@ def remat_policies(torch, cfg, lm, batch):
 
 def train_family_model(torch, np, counters, arch_id: str, layers, batch_size,
                        cut):
-    """One model of FAMILY_TRAIN: init, a warm-up step, TRAIN_STEPS timed
-    steps; for the enc-dec also :func:`remat_policies`. Returns its
-    record (with ``ok``)."""
+    """One model of FAMILY_TRAIN: init, a warm-up step, FAMILY_STEPS
+    timed steps; for the enc-dec also :func:`remat_policies`. Returns
+    its record (with ``ok``)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.configs import get as get_config
     from repro_torch.data.tokens import train_batch
@@ -3435,7 +3506,7 @@ def train_family_model(torch, np, counters, arch_id: str, layers, batch_size,
         c.launches = 0
     state, _, warm = train_step_once(torch, step, state, batch, tokens)
     timed = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(FAMILY_STEPS):
         state, _, rec = train_step_once(torch, step, state, batch, tokens)
         timed.append(rec)
     torch.cuda.synchronize()
@@ -3452,7 +3523,9 @@ def train_family_model(torch, np, counters, arch_id: str, layers, batch_size,
     falls = all(b < a for a, b in zip(losses, losses[1:]))
     norm_bounded = max(norms) <= TRAIN_GRAD_NORM_GROWTH * norms[0]
     stray = [k for k, v in launches.items() if v]
-    reduced = {"train_4k": FAMILY_TRAIN_CUT.format(batch_size)}
+    reduced = {"train_4k": FAMILY_TRAIN_CUT.format(batch_size),
+               "steps": f"{TRAIN_STEPS} -> {FAMILY_STEPS} timed steps "
+                        "(the smoke's time)"}
     if cut:
         reduced["n_layers"] = cut
     return dict(
@@ -3464,7 +3537,7 @@ def train_family_model(torch, np, counters, arch_id: str, layers, batch_size,
         state_gib=state_gib, batch=batch_size, seq_len=TRAIN_LEN,
         same_batch_every_step=True, warmup_step=warm, steps=timed,
         mean_step_s=statistics.mean(r["seconds"] for r in timed),
-        tokens_per_s=tokens * TRAIN_STEPS
+        tokens_per_s=tokens * FAMILY_STEPS
         / sum(r["seconds"] for r in timed),
         loss_falls_every_step=falls, grad_norm_bounded=norm_bounded,
         launches=launches, peak_device_gib=peak_gib,
@@ -3618,13 +3691,18 @@ def mamba1_xla_scan_phase(torch, np, counters):
 # in-process: DRIVER_ARGS into a directory under build/, then the last
 # checkpoint deleted and the run resumed from the one before it.
 DRIVER_ARCH = "qwen3_0_6b"
-DRIVER_ARGS = ["--arch", DRIVER_ARCH, "--steps", "8", "--seq-len", "1024",
-               "--batch", "8", "--ckpt-every", "4", "--eval-every", "8"]
+# cut for the smoke's time from 8 steps, a checkpoint every 4 and all
+# 28 layers; the driver's config is cut to DRIVER_LAYERS (full width)
+DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_LAYERS = 4, 2, 2
+DRIVER_ARGS = ["--arch", DRIVER_ARCH, "--steps", str(DRIVER_STEPS),
+               "--seq-len", "1024", "--batch", "8", "--ckpt-every",
+               str(DRIVER_CKPT_EVERY), "--eval-every", str(DRIVER_STEPS)]
 
 
 def driver_phase(torch, np, counters):
     """Phase 6e: ``repro_torch.launch.train.main`` twice (straight, then
-    resumed after the step-8 checkpoint is deleted): the resumed run's
+    resumed after the last checkpoint is deleted), on its config cut to
+    DRIVER_LAYERS layers: the resumed run's
     losses and final parameters against the straight run's (bit for bit
     expected), the eval's certificate against the eval set's full mean,
     ``compress_roundtrip`` of one step's gradients on the card against
@@ -3639,7 +3717,10 @@ def driver_phase(torch, np, counters):
     shutil.rmtree(work, ignore_errors=True)
     args = DRIVER_ARGS + ["--ckpt-dir", str(work)]
     losses, reports = [], []
-    build_step, run_eval = drv.build_train_step, drv.run_eval
+    build_step, run_eval, get = drv.build_train_step, drv.run_eval, drv.get
+
+    def cut_config(arch_id):
+        return dataclasses.replace(get(arch_id), n_layers=DRIVER_LAYERS)
 
     def recording_step(model, ocfg):
         fn = build_step(model, ocfg)
@@ -3660,6 +3741,7 @@ def driver_phase(torch, np, counters):
     for c in counters.values():
         c.launches = 0
     drv.build_train_step, drv.run_eval = recording_step, recording_eval
+    drv.get = cut_config
     try:
         losses.append([])
         t0 = time.perf_counter()
@@ -3667,13 +3749,14 @@ def driver_phase(torch, np, counters):
         straight_s = time.perf_counter() - t0
         ckpt_dir = work / DRIVER_ARCH
         steps_saved = sorted(p.name for p in ckpt_dir.glob("step_*"))
-        shutil.rmtree(ckpt_dir / "step_00000008")
+        shutil.rmtree(ckpt_dir / f"step_{DRIVER_STEPS:08d}")
         losses.append([])
         t0 = time.perf_counter()
         resumed = drv.main(args + ["--resume"])
         resumed_s = time.perf_counter() - t0
     finally:
         drv.build_train_step, drv.run_eval = build_step, run_eval
+        drv.get = get
     handler_restored = signal.getsignal(signal.SIGTERM) is handler
     launches = {k: c.launches for k, c in counters.items()}
     a = dict(straight["params"].named_parameters())
@@ -3719,8 +3802,10 @@ def driver_phase(torch, np, counters):
     stray = [k for k, v in launches.items() if v]
     ok = (bitwise and losses[0][-1] == losses[1][-1] and covers
           and rep.stopped_early and handler_restored and compress_bitwise
-          and steps_saved == ["step_00000004", "step_00000008"]
-          and len(losses[0]) == 8 and len(losses[1]) == 4
+          and steps_saved == [f"step_{DRIVER_CKPT_EVERY * i:08d}" for i in
+                              (1, 2)]
+          and len(losses[0]) == DRIVER_STEPS
+          and len(losses[1]) == DRIVER_STEPS - DRIVER_CKPT_EVERY
           and all(np.isfinite(losses[0])) and not stray)
     return dict(
         arch=DRIVER_ARCH, argv=args, straight_s=straight_s,
@@ -3733,8 +3818,11 @@ def driver_phase(torch, np, counters):
         compress=dict(bitwise=compress_bitwise, card_s=card_s, cpu_s=cpu_s,
                       leaves=len(names), leaves_differing=differ[:8]),
         sigterm_handler_restored=handler_restored, launches=launches,
-        reduced={"steps": "a run of 200 (the driver's default) -> 8, and "
-                          "4 resumed"},
+        reduced={"n_layers": f"28 -> {DRIVER_LAYERS} (the smoke's time)",
+                 "steps": f"a run of 200 (the driver's default) -> "
+                          f"{DRIVER_STEPS} (8 before), a checkpoint "
+                          f"every {DRIVER_CKPT_EVERY}, and "
+                          f"{DRIVER_STEPS - DRIVER_CKPT_EVERY} resumed"},
         ok=bool(ok)), launches
 
 
@@ -3744,7 +3832,7 @@ def driver_phase(torch, np, counters):
 # 20 steps), LAYOUT_BATCH x LAYOUT_LEN tokens (of train_4k's 256 x 4096:
 # the phase's time and four ranks' memory on one card).
 LAYOUT_ARCH = "qwen3_0_6b"
-LAYOUT_LAYERS = 4
+LAYOUT_LAYERS = 2      # cut from 4 for the smoke's time
 LAYOUT_BATCH, LAYOUT_LEN = 8, 512
 LAYOUT_RANKS = 4
 LAYOUT_MESHES = ((2, 2), (4, 1))
@@ -3754,9 +3842,12 @@ LAYOUT_JOIN_TIMEOUT_S = 400
 # their leaf's largest
 LAYOUT_LOSS_TOL, LAYOUT_RTOL, LAYOUT_ATOL = 1e-4, 2e-4, 2e-5
 # full-size dry-run cells (both production meshes), run beside the gloo
-# ranks: every id's decode_32k, both long_500k, four prefill_32k and one
-# train_4k, the cells whose meta step takes seconds (it is host-bound:
-# zamba2's and falcon-mamba's train_4k and prefill_32k take 4-6 min)
+# ranks: every id's decode_32k, both long_500k, four prefill_32k (the
+# enc-dec's tensor-parallel encoder and decoder; dbrx's experts; arctic's
+# 56 q heads over 16 "model" ranks, blocks of whole and split heads) and
+# one train_4k, the cells whose meta step takes seconds (it is
+# host-bound: zamba2's and falcon-mamba's train_4k and prefill_32k take
+# 4-6 min)
 LAYOUT_DRYRUN_CELLS = (
     ("qwen3_0_6b", "train_4k"),
     ("qwen3_0_6b", "prefill_32k"), ("seamless_m4t_large_v2", "prefill_32k"),
@@ -3896,7 +3987,7 @@ def layout_rank_main(a: dict) -> None:
     dist.init_process_group(
         "gloo", store=dist.FileStore(a["store"], LAYOUT_RANKS), rank=rank,
         world_size=LAYOUT_RANKS,
-        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=a["group_timeout_s"]))
     rec = dict(rank=rank, fails=[])
     cfg, model, ocfg, shape = layout_setup(torch)
     batch = make_batch(cfg, shape, seed=0, device=dev)
@@ -3992,7 +4083,7 @@ def layout_nccl_world1(torch, host: dict, store: str) -> dict:
     dev = torch.device("cuda", 0)
     dist.init_process_group(
         "nccl", store=dist.FileStore(store, 1), rank=0, world_size=1,
-        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=capped(SHARD_GROUP_TIMEOUT_S)))
     try:
         cfg, model, ocfg, shape = layout_setup(torch)
         batch = make_batch(cfg, shape, seed=0, device=dev)
@@ -4067,12 +4158,14 @@ def layout_flops_on_card(torch, model, ocfg, cfg, shape) -> dict:
 
 def layout_dryrun_main(a: dict) -> None:
     """Phase 6f's dry runs (spawned: a ``fake``-backend group of 256, then
-    512 ranks): ``dryrun_aqp`` on both meshes on the card (``block_agg``
-    launched), then ``LAYOUT_DRYRUN_CELLS`` at full size on both."""
+    512 ranks): ``LAYOUT_DRYRUN_CELLS`` at full size on both meshes, on
+    meta, then ``dryrun_aqp`` on both meshes on the card (``block_agg``
+    launched): the card is touched last, once ``a["card_free"]`` is set
+    (phase 6c, which runs beside it, has freed it)."""
+    t_begin = time.perf_counter()
     import torch
     sys.path[:0] = [p for p in a["sys_path"] if p not in sys.path]
     from repro_torch.launch import dryrun, dryrun_aqp, step_cost
-    torch.cuda.set_device(0)
     # step_cost's predictions of the ranks' and NCCL's sharded steps, on
     # meta in fake groups of their sizes, as rank 0
     t0 = time.perf_counter()
@@ -4084,17 +4177,23 @@ def layout_dryrun_main(a: dict) -> None:
         del run, inputs
     pred_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    aqp = [dryrun_aqp.run(mp, device="cuda") for mp in (False, True)]
-    aqp_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     cells = dryrun.run_cells(list(LAYOUT_DRYRUN_CELLS), [False, True],
                              log=lambda s: None)
     for c in cells:
         c.pop("trace", None)
         c.pop("null_reason", None)
+    cells_s = time.perf_counter() - t0
+    left = a["wait_s"] - (time.perf_counter() - t_begin)
+    if not a["card_free"].wait(None if left == float("inf")
+                               else max(left, 1.0)):
+        raise RuntimeError("the card was not freed by the deadline")
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    aqp = [dryrun_aqp.run(mp, device="cuda") for mp in (False, True)]
+    aqp_s = time.perf_counter() - t0
     Path(a["out"], "layout_dryrun.json").write_text(json.dumps(dict(
         aqp=aqp, aqp_s=aqp_s, cells=cells, pred=pred, pred_s=pred_s,
-        cells_s=time.perf_counter() - t0)))
+        cells_s=cells_s)))
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -4110,20 +4209,27 @@ def _stop(proc) -> None:
             proc.join()
 
 
-def start_layout_dryruns():
+def start_layout_dryruns(card_free: bool = True):
     """Phase 6f's dry-run process (host-bound: meta steps), spawned ahead
-    of the phase so that it runs beside the phases before it too.
-    Returns ``(process, its start time)``."""
+    of the phase (before phase 5) so that it runs beside the phases
+    before it too. It touches the card only once the returned event is
+    set (at once with ``card_free``), waiting no later than the run's
+    deadline. Returns ``(process, its start time, the event)``."""
     import shutil
     import torch.multiprocessing as tmp
     work = ROOT / "build" / "smoke_layout"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    dry = tmp.get_context("spawn").Process(
+    ctx = tmp.get_context("spawn")
+    free = ctx.Event()
+    if card_free:
+        free.set()
+    dry = ctx.Process(
         target=layout_dryrun_main,
-        args=(dict(out=str(work), sys_path=list(sys.path)),))
+        args=(dict(out=str(work), sys_path=list(sys.path), card_free=free,
+                   wait_s=time_left()),))
     dry.start()
-    return dry, time.perf_counter()
+    return dry, time.perf_counter(), free
 
 
 def layout_phase(torch, np, counters, dry=None):
@@ -4141,7 +4247,7 @@ def layout_phase(torch, np, counters, dry=None):
     ctx = tmp.get_context("spawn")
     work = ROOT / "build" / "smoke_layout"
     # the dry runs (host-bound) start first and run beside everything
-    dry, t_dry = dry or start_layout_dryruns()
+    dry, t_dry, _ = dry or start_layout_dryruns()
     fails, rec = [], {}
     for c in counters.values():
         c.launches = 0
@@ -4179,15 +4285,15 @@ def layout_phase(torch, np, counters, dry=None):
         t0 = time.perf_counter()
         codes = _spawn_ranks(
             ctx, layout_rank_main,
-            [dict(base, rank=r) for r in range(LAYOUT_RANKS)],
-            LAYOUT_JOIN_TIMEOUT_S)
+            [dict(base, rank=r, group_timeout_s=capped(SHARD_GROUP_TIMEOUT_S))
+             for r in range(LAYOUT_RANKS)],
+            LAYOUT_JOIN_TIMEOUT_S, "layout", fails)
         rec["ranks_wall_s"] = time.perf_counter() - t0
     except BaseException:   # stopped, whatever ended the phase
         _stop(dry)
         raise
-    dry.join(max(LAYOUT_JOIN_TIMEOUT_S - (time.perf_counter() - t_dry),
-                 1.0))
-    _stop(dry)
+    join_all([dry], LAYOUT_JOIN_TIMEOUT_S - (time.perf_counter() - t_dry),
+             "layout", fails)
     rec["dryrun_wall_s"] = time.perf_counter() - t_dry
     rec["rank_exit_codes"], rec["dryrun_exit_code"] = codes, dry.exitcode
     shutil.rmtree(work / "ckpt", ignore_errors=True)
@@ -4314,17 +4420,20 @@ def layout_phase(torch, np, counters, dry=None):
 
 # -- phase 6g ----------------------------------------------------------------
 
-# Phase 6g: the sharded serving steps. Each run: (arch, layers, mesh),
-# float32 at full width (SERVE_SHARD_LAYERS' depth), a batch of
-# SERVE_SHARD_BATCH x SERVE_SHARD_LEN prompt positions, then
+# Phase 6g: the sharded serving steps, tensor parallel over "model".
+# Each run: (arch, layers, mesh), float32 at full width (cut in depth),
+# a batch of SERVE_SHARD_BATCH x SERVE_SHARD_LEN prompt positions, then
 # SERVE_SHARD_STEPS teacher-forced decode steps at a card-tensor
 # position. qwen2.5-3b's 2 kv heads divide the (2, 2) mesh's 2 "model"
 # ranks (the heads rule) and not the (1, 4) mesh's 4 (the sequence
-# rule); falcon-mamba-7b cuts its Mamba1 channels and launches the
-# selective-scan kernel in each rank's prefill; zamba2-7b cuts its
-# Mamba2 heads and its shared attention's 32 kv heads.
+# rule: its kv projections whole, its q heads cut); falcon-mamba-7b cuts
+# its Mamba1 channels and launches the selective-scan kernel on
+# d_inner / 2 of them in each rank's prefill; zamba2-7b cuts its Mamba2
+# heads and its shared attention's 32 kv heads; dbrx-132b cuts its 16
+# experts four ways (expert parallel) and its 8 kv heads.
 SERVE_SHARD_RUNS = (("qwen2_5_3b", 4, (2, 2)), ("qwen2_5_3b", 4, (1, 4)),
-                    ("falcon_mamba_7b", 4, (2, 2)), ("zamba2_7b", 7, (1, 4)))
+                    ("falcon_mamba_7b", 4, (2, 2)), ("zamba2_7b", 7, (1, 4)),
+                    ("dbrx_132b", 2, (1, 4)))
 SERVE_SHARD_BATCH, SERVE_SHARD_LEN, SERVE_SHARD_STEPS = 8, 2048, 32
 SERVE_SHARD_RANKS = 4
 SERVE_SHARD_JOIN_TIMEOUT_S = 600
@@ -4334,6 +4443,47 @@ SERVE_SHARD_JOIN_TIMEOUT_S = 600
 # sequence rule's softmax merged from four partials)
 SERVE_SHARD_TOL = 1e-4
 SERVE_SHARD_PEAK_TOL = 0.10
+
+
+def serve_shard_wide_matmul(torch) -> dict:
+    """A tensor-parallel rank's bfloat16 partial product
+    (``layers.wide_matmul``: a bf16 GEMM accumulating and writing
+    float32) at qwen2.5-3b's ``w_down`` cut on (1, 4), 8 x 2048 rows,
+    against the same product of float32 copies of the operands: within
+    1e-5 of the largest, with the time and the peak above the inputs of
+    each (Timer: median of 5 calls)."""
+    from repro_torch.configs import get
+    from repro_torch.models.layers import wide_matmul
+    cfg = get("qwen2_5_3b")
+    g = torch.Generator(device="cuda").manual_seed(MODEL_SEED)
+    ff = cfg.d_ff // 4
+    x = torch.randn((SERVE_SHARD_BATCH, SERVE_SHARD_LEN, ff), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    w = (torch.randn((ff, cfg.d_model), generator=g, device="cuda")
+         / ff ** 0.5).to(torch.bfloat16)
+    fns = {"wide": lambda: wide_matmul(x, w),
+           "widened": lambda: x.float() @ w.float()}
+    out, got = {}, {}
+    timer = Timer(torch)
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got[name] = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        out[f"{name}_ms"] = timer(fn, reps=5)
+    del timer
+    err = float((got["wide"] - got["widened"]).abs().max())
+    largest = float(got["widened"].abs().max())
+    out.update(shape=[list(x.shape), list(w.shape)],
+               out_dtype=str(got["wide"].dtype), max_abs_err=err,
+               largest=largest,
+               ok=got["wide"].dtype == torch.float32
+               and err <= 1e-5 * largest)
+    del x, w, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_shard_model(torch, arch: str, layers: int):
@@ -4433,6 +4583,34 @@ def _serve_inputs_bytes(torch, trees) -> int:
     return sum(n for _, n in seen.values())
 
 
+def model_cut_bytes(torch, cfg, mesh_shape, pspec) -> dict:
+    """What a rank of a ``("data", "model")`` mesh of ``mesh_shape``
+    holds and moves to hold it, from ``param_specs`` (``pspec``): the
+    bytes of its leaves' ``"model"`` cuts (``held``), the all-gathers
+    over ``"data"`` of the leaves ``"data"`` cuts (their shards' bytes)
+    and the all-to-alls over ``"model"`` of the leaves with a dim cut
+    over both (their cuts' bytes): ``[count, bytes]`` each."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build
+    rows, cols = mesh_shape
+    sizes = {"data": rows, "model": cols}
+    out = {"held": 0, "all-gather": [0, 0], "all-to-all": [0, 0]}
+    for name, p in build(cfg).init(0, device="meta").named_parameters():
+        axes = [sh._axes(e) for e in pspec[name]]
+        n = p.numel() * p.element_size()
+        cut = n // math.prod(cols for a in axes if "model" in a)
+        out["held"] += cut
+        if rows > 1 and any("data" in a for a in axes):
+            out["all-gather"][0] += 1
+            out["all-gather"][1] += n // math.prod(
+                sizes[x] for a in axes for x in a)
+        if rows > 1 and cols > 1 and any({"data", "model"} <= set(a)
+                                         for a in axes):
+            out["all-to-all"][0] += 1
+            out["all-to-all"][1] += cut
+    return out
+
+
 def _peak_of(torch, call, inputs) -> tuple:
     """``call()`` with the card's peak reset just before: (its result,
     the peak less the process's other tensors, i.e. the peak that the
@@ -4447,9 +4625,12 @@ def _peak_of(torch, call, inputs) -> tuple:
 
 def serve_shard_rank_main(a: dict) -> None:
     """Phase 6g's gloo rank ``a["rank"]`` of ``SERVE_SHARD_RANKS`` on the
-    card (spawned): each run of SERVE_SHARD_RUNS, its sharded prefill
-    (the ranks in turns: one card's memory) and decode steps held to the
-    single-card run's file. Writes its record to ``a["out"]``."""
+    card (spawned): each run of SERVE_SHARD_RUNS, its weights drawn (the
+    ranks in turns: one card's memory holds one whole model at a time)
+    and laid out by their specs, its ``"model"`` cut loaded, then its
+    sharded prefill (the ranks together: their partial sums meet in
+    all-reduces) and decode steps held to the single-card run's file.
+    Writes its record to ``a["out"]``."""
     import datetime
     import zlib
     import numpy as np
@@ -4459,6 +4640,7 @@ def serve_shard_rank_main(a: dict) -> None:
     from repro_torch.configs import ShapeConfig
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import _build
     from repro_torch.kernels import selective_scan as kscan
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import make_batch
@@ -4469,7 +4651,7 @@ def serve_shard_rank_main(a: dict) -> None:
     dist.init_process_group(
         "gloo", store=dist.FileStore(a["store"], SERVE_SHARD_RANKS),
         rank=rank, world_size=SERVE_SHARD_RANKS,
-        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=a["group_timeout_s"]))
     runs = []
 
     def crc(t):
@@ -4484,11 +4666,18 @@ def serve_shard_rank_main(a: dict) -> None:
         cfg, model = serve_shard_model(torch, arch, layers)
         mesh = make_host_mesh(mshape, ("data", "model"))
         S = SERVE_SHARD_LEN + SERVE_SHARD_STEPS
-        lm = model.init(MODEL_SEED, device=dev)
-        pspec = sh.param_specs(cfg, mesh, lm)
-        params = sh.distribute(mesh, pspec, lm)
-        del lm
-        torch.cuda.empty_cache()
+        pspec = sh.param_specs(cfg, mesh, model.init(0, device="meta"))
+        rec["card_free_gib_at_start"] = torch.cuda.mem_get_info(dev)[0] \
+            / 2**30
+        t0 = time.perf_counter()
+        for r in range(SERVE_SHARD_RANKS):
+            if r == rank:
+                lm = model.init(MODEL_SEED, device=dev)
+                params = sh.distribute(mesh, pspec, lm)
+                del lm
+                torch.cuda.empty_cache()
+            dist.barrier()
+        rec["init_s"] = time.perf_counter() - t0
         pre, toks = serve_shard_inputs(torch, np, cfg, dev)
         pshape = ShapeConfig("6g", SERVE_SHARD_LEN, SERVE_SHARD_BATCH,
                              "prefill")
@@ -4502,36 +4691,69 @@ def serve_shard_rank_main(a: dict) -> None:
             model, mesh, pspec,
             {**bspec, **sh.batch_specs(cfg, mesh, dshape, dbatch)}, cspec,
             max_len=S)
+        # this rank's "model" cut: gathered over "data" only
         c0 = coll.tally()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill.load(params)
+        module = prefill.load(params)
         torch.cuda.synchronize()
-        rec["gather_s"] = time.perf_counter() - t0
-        rec["gather_collectives"] = kinds(c0)
-        # the prefill, one rank at a time (one card's memory)
-        for r in range(SERVE_SHARD_RANKS):
-            if r == rank:
-                prefill(params, pre)       # warm-up, as the single card's
-                torch.cuda.empty_cache()
-                c0 = coll.tally()
-                scans = kscan.selective_scan.launches
-                inputs = _serve_inputs_bytes(torch, (params, pre,
-                                                     prefill.module))
-                t0 = time.perf_counter()
-                (logits, cache), peak = _peak_of(
-                    torch, lambda: prefill(params, pre), inputs)
-                rec["prefill_s"] = time.perf_counter() - t0
-                rec["prefill_peak_bytes"] = peak
-                rec["prefill_collectives"] = kinds(c0)
-                rec["scan_launches"] = kscan.selective_scan.launches - scans
-                torch.cuda.empty_cache()
-            dist.barrier()
+        rec["load_s"] = time.perf_counter() - t0
+        rec["load_collectives"] = kinds(c0)
+        rec["held_bytes"] = sum(t.numel() * t.element_size()
+                                for t in module.parameters())
+        want = model_cut_bytes(torch, cfg, mshape, pspec)
+        rec["model_cut_bytes"] = want["held"]
+        got = [[rec["load_collectives"][k][f] for f in ("count", "bytes")]
+               for k in ("all-gather", "all-to-all")]
+        if rec["held_bytes"] != want["held"] or got != [
+                want["all-gather"], want["all-to-all"]] or \
+                rec["load_collectives"]["all-reduce"]["count"]:
+            rec["fails"].append(dict(check="held parameters", got=got,
+                                     held=rec["held_bytes"], want=want))
+        if cfg.family == "moe":
+            rec["experts_held"] = int(module.layers[0].moe.w_gate.shape[0])
+            if rec["experts_held"] * mshape[1] != cfg.n_experts:
+                rec["fails"].append(dict(check="experts held",
+                                         got=rec["experts_held"]))
+        del module
         rows = sh.shard_slices(mesh, sh.P(*bspec["tokens"]).padded(2),
                                pre["tokens"].shape, mesh.get_coordinate())[0]
         rows = [rows.start or 0, SERVE_SHARD_BATCH if rows.stop is None
                 else rows.stop]
         rec["rows"] = rows
+        # the prefill, every rank at once (its partial sums meet the
+        # other "model" ranks' in all-reduces); no warm-up call (the
+        # smoke's time: a prefill of staged all-reduces takes seconds)
+        dist.barrier()
+        c0 = coll.tally()
+        scans = kscan.selective_scan.launches
+        reports = []
+
+        def seen(name, read, write, stand_in):
+            if name == "selective_scan" and not stand_in:
+                reports.append(read)
+        _build.LAUNCH_REPORTS.append(seen)
+        inputs = _serve_inputs_bytes(torch, (params, pre, prefill.module))
+        t0 = time.perf_counter()
+        try:
+            (logits, cache), peak = _peak_of(
+                torch, lambda: prefill(params, pre), inputs)
+        finally:
+            _build.LAUNCH_REPORTS.remove(seen)
+        rec["prefill_s"] = time.perf_counter() - t0
+        rec["prefill_peak_bytes"] = peak
+        rec["prefill_collectives"] = kinds(c0)
+        rec["scan_launches"] = kscan.selective_scan.launches - scans
+        if cfg.family == "ssm":
+            # the kernel ran on this rank's d_inner / n_model channels
+            rec["scan_d_inner"] = cfg.d_inner // mshape[1]
+            want = kscan.traffic(rows[1] - rows[0], SERVE_SHARD_LEN,
+                                 rec["scan_d_inner"], cfg.ssm_state, 512)[0]
+            if not reports or any(r != want for r in reports):
+                rec["fails"].append(dict(check="selective_scan shape",
+                                         read_bytes=reports, want=want))
+        torch.cuda.empty_cache()
+        dist.barrier()
         # the first step alone: its collectives and peak
         c0 = coll.tally()
         pos = torch.tensor(SERVE_SHARD_LEN, dtype=torch.int32, device=dev)
@@ -4590,17 +4812,12 @@ def serve_shard_predictions(torch) -> dict:
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import build
     dryrun.join_fake_group(SERVE_SHARD_RANKS)
     out = {}
     try:
         S = SERVE_SHARD_LEN + SERVE_SHARD_STEPS
         for i, (arch, layers, mshape) in enumerate(SERVE_SHARD_RUNS):
-            cfg, _ = serve_shard_model(torch, arch, layers)
-            # the Mamba1 kernel has no meta counterpart: its plain path
-            # (the same collectives: none in a prefill)
-            cfg = dataclasses.replace(cfg, ssm_impl="xla")
-            model = build(cfg)
+            cfg, model = serve_shard_model(torch, arch, layers)
             mesh = make_host_mesh(mshape, ("data", "model"),
                                   device_type="cpu")
             out[i] = {}
@@ -4635,7 +4852,7 @@ def serve_shard_nccl_world1(torch, np, singles: dict, store: str) -> list:
     dev = torch.device("cuda", 0)
     dist.init_process_group(
         "nccl", store=dist.FileStore(store, 1), rank=0, world_size=1,
-        timeout=datetime.timedelta(seconds=SHARD_GROUP_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=capped(SHARD_GROUP_TIMEOUT_S)))
     out = []
     try:
         S = SERVE_SHARD_LEN + SERVE_SHARD_STEPS
@@ -4701,7 +4918,8 @@ def serve_shard_phase(torch, np, counters):
         c.launches = 0
     base = dict(store=str(work / "store"), out=str(work),
                 refs=[str(work / f"{a}.pt") for a, _, _ in SERVE_SHARD_RUNS],
-                sys_path=list(sys.path))
+                sys_path=list(sys.path),
+                group_timeout_s=capped(SHARD_GROUP_TIMEOUT_S))
     t0 = time.perf_counter()
     procs = [ctx.Process(target=serve_shard_rank_main,
                          args=(dict(base, rank=r),))
@@ -4713,12 +4931,8 @@ def serve_shard_phase(torch, np, counters):
         pred = serve_shard_predictions(torch)
         rec["predictions_s"] = time.perf_counter() - t1
     finally:
-        codes = []
-        for p in procs:
-            p.join(max(SERVE_SHARD_JOIN_TIMEOUT_S
-                       - (time.perf_counter() - t0), 1.0))
-            _stop(p)
-            codes.append(p.exitcode)
+        codes = join_all(procs, SERVE_SHARD_JOIN_TIMEOUT_S
+                         - (time.perf_counter() - t0), "serve_sharded", fails)
     rec["ranks_wall_s"] = time.perf_counter() - t0
     rec["rank_exit_codes"] = codes
     launches = {k: 0 for k in counters}
@@ -4737,16 +4951,23 @@ def serve_shard_phase(torch, np, counters):
             run = dict(arch=arch, layers=layers, mesh=list(mshape),
                        single_prefill_s=single["prefill_s"],
                        single_decode_ms=single["decode_ms"],
+                       init_s=r0["init_s"],
+                       load_s=[x["load_s"] for x in per],
+                       held_bytes=[x["held_bytes"] for x in per],
+                       model_cut_bytes=r0["model_cut_bytes"],
+                       load_collectives=r0["load_collectives"],
                        prefill_s=[x["prefill_s"] for x in per],
                        decode_ms=[x["decode_ms"] for x in per],
-                       gather_s=r0["gather_s"],
                        max_abs_err=max(x["max_abs_err"] for x in per),
                        logits_max=r0["logits_max"],
                        cache_max_rel_err=max(x["cache_max_rel_err"]
                                              for x in per),
                        scan_launches=[x["scan_launches"] for x in per],
-                       decode_step_collectives=r0["decode_collectives"],
-                       gather_collectives=r0["gather_collectives"])
+                       prefill_collectives=r0["prefill_collectives"],
+                       decode_step_collectives=r0["decode_collectives"])
+            for key in ("experts_held", "scan_d_inner"):
+                if key in r0:
+                    run[key] = [x[key] for x in per]
             for k, x in enumerate(per):
                 fails += [dict(run=i, rank=k, fail=f) for f in x["fails"]]
                 if not x["finite"]:
@@ -4774,11 +4995,9 @@ def serve_shard_phase(torch, np, counters):
                 if got != want or others:
                     fails.append(dict(run=i, check=f"{kind} collectives",
                                       rank0=got, step_cost=want))
-            # the card's peak against the prediction (the Mamba1 prefill's
-            # kernel has no meta counterpart: its plain version's peak)
+            # the card's peak against the prediction (on meta the Mamba1
+            # scan kernel's outputs stand for it)
             for kind in ("prefill", "decode"):
-                if kind == "prefill" and arch == "falcon_mamba_7b":
-                    continue
                 want = p[kind]["peak_bytes"]
                 gap = want / r0[f"{kind}_peak_bytes"] - 1.0
                 run[f"{kind}_peak"] = dict(card=r0[f"{kind}_peak_bytes"],
@@ -4799,6 +5018,10 @@ def serve_shard_phase(torch, np, counters):
     for r in rec["nccl_world1"]:
         if not r["logits_bitwise"] or r["cache_leaves_differing"]:
             fails.append(dict(check="NCCL world 1 bit for bit", **r))
+    rec["wide_matmul_bf16"] = serve_shard_wide_matmul(torch)
+    if not rec["wide_matmul_bf16"]["ok"]:
+        fails.append(dict(check="bf16 partial product",
+                          **rec["wide_matmul_bf16"]))
     stray = [k for k in counters if counters[k].launches
              and k != "selective_scan"]
     if stray:
@@ -4810,7 +5033,9 @@ def serve_shard_phase(torch, np, counters):
         "layers": {f"{a} {m[0]}x{m[1]}": f"{n} layers"
                    for a, n, m in SERVE_SHARD_RUNS},
         "dtype": "float32 (a sharded step is held to the single card's)",
-        "why": "four ranks' weights, caches and prefills on one card"}
+        "why": "four ranks' weights, caches and prefills and one whole "
+               "model at a time (the single card's, a rank's draw) on "
+               "one card"}
     rec["ok"] = not fails
     return rec, launches
 
@@ -4870,9 +5095,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels import selective_scan as kscan
 
     t_start = time.perf_counter()
+    set_deadline(t_start + SMOKE_DEADLINE_S, t_start)
     kind = torch.cuda.get_device_name(0)
 
     # ---- 1. environment and build -------------------------------------------
+    t_phase = time.perf_counter()
     smi = nvidia_smi_line()
     print(smi, flush=True)
     name, power_limit = (s.strip() for s in smi.rsplit(",", 1))
@@ -4886,9 +5113,12 @@ def main(argv=None) -> int:
               python=sys.version.split()[0], torch=torch.__version__,
               cuda=torch.version.cuda, nvcc_build_s=build_s,
               ptxas=[ln.strip() for ln in log.splitlines()
-                     if "registers" in ln or "spill" in ln]))
+                     if "registers" in ln or "spill" in ln],
+              phase_s=time.perf_counter() - t_phase,
+              total_s=time.perf_counter() - t_start))
 
     # ---- 2. kernels against their plain versions ----------------------------
+    t_phase = time.perf_counter()
     timer = Timer(torch)
     agg = [check_block_agg(torch, timer, ref, kblock, G, exact,
                            nb=8192, block_rows=1024, budget=64, seed=G)
@@ -4928,10 +5158,13 @@ def main(argv=None) -> int:
                                     seed=10 + i)
            for i, shape in enumerate(SCAN_BWD_SHAPES)]
     emit(dict(phase="kernels_vs_plain", card=name, power_limit=power_limit,
+              reduced={"reps": f"30 -> {REPS} timed calls a measurement "
+                                "(the smoke's time)"},
               block_agg=agg, bitmap_active=bit, round_select=head,
               bitmap_active_multi=multi, round_select_stack=stacked,
               fused_fold=fus, grouped_hist=hst, selective_scan=scn,
-              selective_scan_bwd=sbw))
+              selective_scan_bwd=sbw, phase_s=time.perf_counter() - t_phase,
+              total_s=time.perf_counter() - t_start))
     bad = [r for r in agg + bit + head + multi + stacked + fus + hst + scn
            + sbw if not r["ok"]]
     if bad:
@@ -4941,7 +5174,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. the main paths at full size -------------------------------------
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     ds = flights.generate(n_rows=args.rows, seed=0)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5014,7 +5247,10 @@ def main(argv=None) -> int:
                   total_round_s=sum(r["steps_s"].get("round_s", 0.0)
                                     for r in records),
                   launches=launches, peak_device_gib=torch.cuda
-                  .max_memory_allocated() / 2**30, queries=records))
+                  .max_memory_allocated() / 2**30, queries=records,
+                  phase_s=time.perf_counter() - t_phase,
+                  total_s=time.perf_counter() - t_start))
+        t_phase = time.perf_counter()
         if failures:
             raise AssertionError(f"{path}: intervals miss the truth: "
                                  f"{failures}")
@@ -5124,6 +5360,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. the port on the card against the port on the CPU ----------------
+    t_phase = time.perf_counter()
     ds = flights.generate(n_rows=CPU_ROWS, seed=0)
     sc = T.build_scramble(ds.columns, catalog=ds.catalog, seed=1)
     f_gpu = T.FastFrame(sc, T.EngineConfig(device_loop=False), device="cuda")
@@ -5153,19 +5390,22 @@ def main(argv=None) -> int:
         if len(same) != len(DECISION_FIELDS) or rel > 1e-6:
             mismatch.append(qname)
     emit(dict(phase="card_vs_cpu", rows=CPU_ROWS, queries=compare,
+              phase_s=time.perf_counter() - t_phase,
               total_s=time.perf_counter() - t_start))
     if mismatch:
         raise AssertionError(f"card and CPU runs differ: {mismatch}")
     del f_gpu, f_cpu
 
     # ---- 3c, host pass loop: the serving batch on the card and the CPU ------
+    t_phase = time.perf_counter()
     for c in counters.values():
         c.launches = 0
     host_serving, mismatch = serving_host_loop(torch, np, T, sc, serve_batch)
     launches = {k: c.launches for k, c in counters.items()}
     path_launches["serving_host_loop"] = launches
     emit(dict(phase="serving_host_loop", rows=CPU_ROWS, launches=launches,
-              **host_serving, total_s=time.perf_counter() - t_start))
+              **host_serving, phase_s=time.perf_counter() - t_phase,
+              total_s=time.perf_counter() - t_start))
     if mismatch:
         raise AssertionError(f"served card and CPU runs differ: {mismatch}")
     idle_k = [k for k in ("bitmap_active_multi", "round_select", "block_agg",
@@ -5177,72 +5417,79 @@ def main(argv=None) -> int:
     del sc, ds
     torch.cuda.empty_cache()
 
-    # ---- 5. the Mamba1 serving path -----------------------------------------
-    serve, launches, (model, lm) = serve_phase(torch, np, counters)
-    path_launches["mamba1_serve"] = launches
-    emit(dict(phase="mamba1_serve", card=name, power_limit=power_limit,
-              **serve, total_s=time.perf_counter() - t_start))
-    if not serve["ok"]:
-        raise AssertionError(f"the Mamba1 serving path failed: {serve}")
-
-    # ---- 5b. CI-guaranteed early-stopped eval of the same model -----------
-    t0 = time.perf_counter()
-    ev, launches = eval_phase(torch, np, counters, model, lm, kscan)
-    path_launches["mamba1_eval"] = launches
-    del model, lm
-    torch.cuda.empty_cache()
-    emit(dict(phase="mamba1_eval", card=name, power_limit=power_limit,
-              **ev, phase_s=time.perf_counter() - t0,
-              total_s=time.perf_counter() - t_start))
-    if not ev["ok"]:
-        raise AssertionError(f"the Mamba1 eval path failed: {ev}")
-
-    # ---- 5c. the dense, vlm and MoE families' serving path -----------------
-    t0 = time.perf_counter()
-    dense, launches = dense_serve_phase(torch, np, counters)
-    path_launches["dense_serve"] = launches
-    emit(dict(phase="dense_serve", card=name, power_limit=power_limit,
-              **dense, phase_s=time.perf_counter() - t0,
-              total_s=time.perf_counter() - t_start))
-    if not dense["ok"]:
-        raise AssertionError(f"the dense serving path failed: {dense}")
-
-    # ---- 5d. the hybrid and enc-dec families' serving path ----------------
-    t0 = time.perf_counter()
-    hybrid, launches = hybrid_serve_phase(torch, np, counters)
-    path_launches["hybrid_serve"] = launches
-    emit(dict(phase="hybrid_serve", card=name, power_limit=power_limit,
-              **hybrid, phase_s=time.perf_counter() - t0,
-              total_s=time.perf_counter() - t_start))
-    if not hybrid["ok"]:
-        raise AssertionError(f"the hybrid / enc-dec serving path failed: "
-                             f"{hybrid}")
-
-    # ---- 6. the Mamba1 training path ----------------------------------------
-    train, launches = train_phase(torch, np, counters)
-    path_launches["mamba1_train"] = launches
-    emit(dict(phase="mamba1_train", card=name, power_limit=power_limit,
-              **train, total_s=time.perf_counter() - t_start))
-    if not train["ok"]:
-        raise AssertionError(f"the Mamba1 training path failed: {train}")
-    # ---- 6b. the monitors' decisions over phase 6's steps ------------------
-    emit(dict(phase="monitors", card=name, power_limit=power_limit,
-              steps=TRAIN_STEPS + 1, **train["monitors"]))
-
-    # ---- 6c. the dense, MoE, hybrid and enc-dec families' training path --
-    t0 = time.perf_counter()
-    fam, launches = family_train_phase(torch, np, counters)
-    path_launches["family_train"] = launches
-    emit(dict(phase="family_train", card=name, power_limit=power_limit,
-              **fam, phase_s=time.perf_counter() - t0,
-              total_s=time.perf_counter() - t_start))
-    if not fam["ok"]:
-        raise AssertionError(f"the families' training path failed: {fam}")
-
-    # phase 6f's dry runs (meta steps on the host) start here, beside 6d
-    # and 6e (6c's steps need the card's memory)
-    layout_dry = start_layout_dryruns()
+    # phase 6f's dry runs (meta steps on the host) start here, beside
+    # phases 5 to 6e; they touch the card only once 6c has freed it
+    layout_dry = start_layout_dryruns(card_free=False)
     try:
+        # ---- 5. the Mamba1 serving path -------------------------------------
+        t_phase = time.perf_counter()
+        serve, launches, (model, lm) = serve_phase(torch, np, counters)
+        path_launches["mamba1_serve"] = launches
+        emit(dict(phase="mamba1_serve", card=name, power_limit=power_limit,
+                  **serve, phase_s=time.perf_counter() - t_phase,
+                  total_s=time.perf_counter() - t_start))
+        if not serve["ok"]:
+            raise AssertionError(f"the Mamba1 serving path failed: {serve}")
+
+        # ---- 5b. CI-guaranteed early-stopped eval of the same model ---------
+        t0 = time.perf_counter()
+        ev, launches = eval_phase(torch, np, counters, model, lm, kscan)
+        path_launches["mamba1_eval"] = launches
+        del model, lm
+        torch.cuda.empty_cache()
+        emit(dict(phase="mamba1_eval", card=name, power_limit=power_limit,
+                  **ev, phase_s=time.perf_counter() - t0,
+                  total_s=time.perf_counter() - t_start))
+        if not ev["ok"]:
+            raise AssertionError(f"the Mamba1 eval path failed: {ev}")
+
+        # ---- 5c. the dense, vlm and MoE families' serving path --------------
+        t0 = time.perf_counter()
+        dense, launches = dense_serve_phase(torch, np, counters)
+        path_launches["dense_serve"] = launches
+        emit(dict(phase="dense_serve", card=name, power_limit=power_limit,
+                  **dense, phase_s=time.perf_counter() - t0,
+                  total_s=time.perf_counter() - t_start))
+        if not dense["ok"]:
+            raise AssertionError(f"the dense serving path failed: {dense}")
+
+        # ---- 5d. the hybrid and enc-dec families' serving path --------------
+        t0 = time.perf_counter()
+        hybrid, launches = hybrid_serve_phase(torch, np, counters)
+        path_launches["hybrid_serve"] = launches
+        emit(dict(phase="hybrid_serve", card=name, power_limit=power_limit,
+                  **hybrid, phase_s=time.perf_counter() - t0,
+                  total_s=time.perf_counter() - t_start))
+        if not hybrid["ok"]:
+            raise AssertionError(f"the hybrid / enc-dec serving path failed: "
+                                 f"{hybrid}")
+
+        # ---- 6. the Mamba1 training path ------------------------------------
+        t_phase = time.perf_counter()
+        train, launches = train_phase(torch, np, counters)
+        path_launches["mamba1_train"] = launches
+        emit(dict(phase="mamba1_train", card=name, power_limit=power_limit,
+                  **train, phase_s=time.perf_counter() - t_phase,
+                  total_s=time.perf_counter() - t_start))
+        if not train["ok"]:
+            raise AssertionError(f"the Mamba1 training path failed: {train}")
+        # ---- 6b. the monitors' decisions over phase 6's steps ---------------
+        emit(dict(phase="monitors", card=name, power_limit=power_limit,
+                  steps=TRAIN_STEPS + 1, **train["monitors"]))
+
+        # ---- 6c. the dense, MoE, hybrid and enc-dec families' training --
+        t0 = time.perf_counter()
+        fam, launches = family_train_phase(torch, np, counters)
+        path_launches["family_train"] = launches
+        emit(dict(phase="family_train", card=name, power_limit=power_limit,
+                  **fam, phase_s=time.perf_counter() - t0,
+                  total_s=time.perf_counter() - t_start))
+        if not fam["ok"]:
+            raise AssertionError(f"the families' training path failed: "
+                                 f"{fam}")
+        torch.cuda.empty_cache()
+        layout_dry[2].set()     # the card is free for the dry runs' end
+
         # ---- 6d. the Mamba1 xla path's chunked scan against the kernels ---
         t0 = time.perf_counter()
         scan, launches = mamba1_xla_scan_phase(torch, np, counters)
@@ -5377,6 +5624,9 @@ def main(argv=None) -> int:
              eval_launches=path_launches["mamba1_eval"]["selective_scan"],
              serve_sharded_launches=path_launches["serve_sharded"][
                  "selective_scan"],
+             serve_sharded_d_inner=sorted({d for r in serve_sh["runs"]
+                                           for d in r.get("scan_d_inner",
+                                                          [])}),
              max_abs_err=max(r["max_abs_err"] for r in scn),
              ms=sf["ms"], plain_ms=sf["plain_ms"], bound_ms=sf["bound_ms"],
              bound_by=sf["bound_by"], library_ms=None),

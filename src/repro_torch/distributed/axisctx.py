@@ -12,9 +12,11 @@ dropped, as in the reference), the counterpart of
 
 The port's sharded train step (:func:`repro_torch.train.trainer.
 build_sharded_train_step`) computes on plain tensors (data parallel over
-the dp axes, each rank's parameters gathered whole), so on its path
-every call is the identity; tensor-parallel activations are later
-layout work.
+the dp axes, each rank's parameters gathered whole), and its sharded
+serving steps (:mod:`repro_torch.models.zoo`) are tensor parallel on
+plain tensors too, each layer computing on the cut its parameters hold
+and adding its partial sums itself, so on both paths every call is the
+identity.
 """
 
 from __future__ import annotations

@@ -417,7 +417,10 @@ def distribute_leaf(mesh, spec: Sequence, t: torch.Tensor):
         coord = mesh.get_coordinate()
         local = t.detach()[shard_slices(mesh, spec, t.shape,
                                         coord)].contiguous()
-        if local.data_ptr() == t.data_ptr():
+        # a contiguous slice (a leaf cut on its first dim) is a view of
+        # t's storage: copy it, or the shard keeps the whole leaf alive
+        if local.untyped_storage().data_ptr() == \
+                t.untyped_storage().data_ptr():
             local = local.clone()
     return from_local(mesh, spec, local, tuple(t.shape))
 

@@ -140,13 +140,16 @@ def build() -> Path:
 LAUNCH_REPORTS: List = []
 
 
-def report(name: str, read_bytes: int, write_bytes: int) -> None:
+def report(name: str, read_bytes: int, write_bytes: int,
+           stand_in: bool = False) -> None:
     """Tell every running cost analysis that kernel ``name`` launched,
     reading ``read_bytes`` and writing ``write_bytes`` (each input read
     once, each output written once). A wrapper calls it where it counts
-    the launch: a ``ctypes`` call is out of the dispatcher's sight."""
+    the launch: a ``ctypes`` call is out of the dispatcher's sight. A
+    wrapper's stand-in on the meta device reports the launch it stands
+    for with ``stand_in`` and counts none."""
     for fn in LAUNCH_REPORTS:
-        fn(name, read_bytes, write_bytes)
+        fn(name, read_bytes, write_bytes, stand_in)
 
 
 def library() -> ctypes.CDLL:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.state import HistState, MomentState
+from repro_torch.kernels import _build
 from repro_torch.kernels import bitmap_active as _bitmap
 from repro_torch.kernels import block_agg as _block_agg
 from repro_torch.kernels import fused_fold as _fused_fold
@@ -223,7 +224,9 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     n), hseg (B, L / tc, din, n))`` float32, ``tc = min(time_chunk, L)``
     (:func:`repro_torch.kernels.ref.selective_scan_ref` says what it
     computes). Inputs are cast to float32, as the reference's ``_forward``
-    casts them.
+    casts them. On the meta device it returns the outputs' shapes and
+    reports the launch they stand for to a running cost analysis
+    (:func:`repro_torch.kernels._build.report`), counting none.
 
     The shape contract is the reference's (its grid is ``din / din_tile``
     by ``L / tc``): ``L`` must be a multiple of ``tc`` and ``din`` of
@@ -237,6 +240,16 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                          f"(L, tc, din, din_tile) = {(L, tc, din, din_tile)}")
     args = [t.to(torch.float32).contiguous()
             for t in (x, dt, b, c, a, d, h0)]
+    if x.device.type == "meta":
+        # a cost analysis on meta (launch/step_cost.py): the launch's
+        # outputs as it allocates them and the bytes it moves; nothing
+        # runs and no launch is counted
+        n = b.shape[-1]
+        _build.report("selective_scan", *_scan.traffic(B, L, din, n, tc),
+                      stand_in=True)
+        return tuple(torch.empty(s, dtype=torch.float32, device="meta")
+                     for s in ((B, L, din), (B, din, n),
+                               (B, L // tc, din, n)))
     if _on_cuda(x, "selective_scan"):
         return _scan.selective_scan(*args, time_chunk=tc)
     return _ref.selective_scan_ref(*args, time_chunk=tc)

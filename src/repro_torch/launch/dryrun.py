@@ -37,11 +37,14 @@ joined by this process, and each record has:
         of rank 0's :func:`repro_torch.models.zoo.build_sharded_prefill`
         / ``build_sharded_decode`` on meta DTensors laid out by the
         cell's parameter, batch and cache specs (the second call, once
-        the step holds the gathered parameters): the rank's dp slice of
-        the batch, its cache shard, and the all-gathers of small
-        activations over ``"model"``. It fills the same three fields;
-        the one-time gather of the parameters is beside it, as
-        ``step_cost.param_gather`` (its collectives and bytes);
+        the step holds its ``"model"`` cut of the parameters): tensor
+        parallel over ``"model"`` on the rank's dp slice of the batch
+        and its cache shard, with the all-reduces of partial sums and
+        the all-gathers of small activations. It fills the same three
+        fields; the one-time load of the rank's cut is beside it, as
+        ``step_cost.param_gather`` (its all-gathers over dp, its
+        all-to-alls over ``"model"`` where a dim is cut over both, and
+        their bytes);
   * ``seconds`` of the step and of the layout, and ``ok``; a failing
     cell records its error and the sweep goes on.
 
@@ -50,6 +53,8 @@ mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_0_6b \\
       --shape train_4k [--multi-pod | --both-meshes] [--out PATH]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --shape decode_32k \\
+      --both-meshes                     # every arch with the shape
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes
 
 ``--out`` (default ``build/dryrun/dryrun.json``) receives every record of
@@ -223,9 +228,10 @@ def sharded_serve_cost(cell: Cell, mesh, shape=None,
     """step_cost of a steady call of this rank's sharded prefill or
     decode on ``mesh`` (a mesh over the fake group): the cell's meta
     parameters (and decode cache) laid out by their specs as meta
-    DTensors, the whole meta batch. The step first holds the gathered
-    parameters (``step.load``, whose collectives and bytes come back
-    under ``param_gather``); the call measured is the next one.
+    DTensors, the whole meta batch. The step first holds its
+    ``"model"`` cut of the parameters (``step.load``, whose collectives
+    and bytes come back under ``param_gather``); the call measured is
+    the next one.
     ``shape``: the cell's ``ShapeConfig`` where it is not one of
     ``SHAPES``; ``max_len``: the prefill's room (its cache's slots)."""
     cfg, shape = cell.cfg, shape or SHAPES[cell.shape]
@@ -353,8 +359,11 @@ def main(argv=None) -> int:
         cells = [(a, s) for a in ARCH_IDS for s in get(a).shapes()]
     elif args.arch and args.shape:
         cells = [(args.arch, args.shape)]
+    elif args.shape:
+        cells = [(a, args.shape) for a in ARCH_IDS
+                 if args.shape in get(a).shapes()]
     else:
-        ap.error("give --arch and --shape, or --all")
+        ap.error("give --shape (with --arch for one cell), or --all")
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     records = run_cells(cells, meshes, overrides,
                         log=lambda s: print(s, flush=True))

@@ -61,9 +61,10 @@ dispatcher's sight: each wrapper reports its launch
 kernel reads and writes, as in phase 2's bounds of ``chip_smoke.py``)
 and it counts as one op of no FLOPs, as the reference counts a custom
 call that holds no dot. On the CPU the kernels' plain versions are
-dispatched op by op and counted as such. A wrapper whose ``launches``
-counter moves during ``run()`` with no report makes :func:`analyze`
-raise.
+dispatched op by op and counted as such; on the meta device a wrapper
+with a stand-in (the selective scan's forward) reports the launch it
+stands for and counts none. A wrapper whose ``launches`` counter moves
+during ``run()`` with no report makes :func:`analyze` raise.
 
   from repro_torch.launch import step_cost
   cost = step_cost.analyze(lambda: step(state, batch),
@@ -183,6 +184,16 @@ class _OpInfo(NamedTuple):
     counted: Optional[bool]      # bytes counted (None: by device)
 
 
+def _without_dtype(formula: Callable) -> Callable:
+    """``formula`` for a product's ``dtype`` overload (``mm`` / ``bmm``
+    with ``out_dtype``: a 16-bit GEMM writing float32), which passes the
+    dtype where the formula takes none: the same product's FLOPs."""
+    def flops(*args, **kwargs):
+        return formula(*(a for a in args if not isinstance(a, torch.dtype)),
+                       **kwargs)
+    return flops
+
+
 def _op_info(func) -> _OpInfo:
     """Classify ``func``; raises on a collective with no kind here."""
     ns, name = func.namespace, func._overloadpacket.__name__
@@ -199,6 +210,8 @@ def _op_info(func) -> _OpInfo:
         kind = _FUNCTIONAL[name]
         quiet = kind is None
     formula = flop_registry.get(func._overloadpacket)
+    if formula is not None and func._overloadname == "dtype":
+        formula = _without_dtype(formula)
     dk = torch._C.DispatchKey.CompositeImplicitAutograd
     decompose = (formula is None and func is not torch.ops.prim.device.default
                  and (dk in func.py_kernels
@@ -266,9 +279,13 @@ class _CostMode(TorchDispatchMode):
         self.flops = self.bytes = self.n_ops = 0
         self.colls = {k: {"bytes": 0, "count": 0} for k in COLLECTIVES}
         self.kernels: Dict[str, Dict[str, int]] = {}
+        self.stand_ins: Dict[str, int] = {}
         self._info: Dict[object, _OpInfo] = {}
 
-    def kernel(self, name: str, read_bytes: int, write_bytes: int) -> None:
+    def kernel(self, name: str, read_bytes: int, write_bytes: int,
+               stand_in: bool = False) -> None:
+        if stand_in:
+            self.stand_ins[name] = self.stand_ins.get(name, 0) + 1
         k = self.kernels.setdefault(name, {"count": 0, "bytes": 0})
         k["count"] += 1
         k["bytes"] += read_bytes + write_bytes
@@ -339,7 +356,8 @@ def analyze(run: Callable[[], object], inputs=()) -> Dict:
         mode.live.close()
     for name, f in counters.items():
         launched = f.launches - before[name]
-        reported = mode.kernels.get(name, {}).get("count", 0)
+        reported = (mode.kernels.get(name, {}).get("count", 0)
+                    - mode.stand_ins.get(name, 0))
         if launched != reported:
             raise RuntimeError(
                 f"step_cost: kernel {name} launched {launched} times in "

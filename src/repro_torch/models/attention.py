@@ -21,21 +21,30 @@ overwrites the last slot; the port raises ``ValueError`` for an int
 (a check would cost a sync). The hybrid's cache is a ring
 (``decode_attention(..., ring=True)``): every ``pos`` has its slot.
 
-Sharded decode (``decode_attention(..., shard=ModelShard)``, the sharded
-serving step's): the cache is this rank's shard, cut over the mesh's
-``"model"`` ranks by heads (``shard.cuts["k"]`` -2: this rank's kv heads
-and their q groups, the head outputs all-gathered before ``wo``) or by
-sequence (-3: slots ``[r S/M, (r+1) S/M)``, the owner of the new
+Tensor parallel (``attention(..., shard=ModelShard)`` and
+``decode_attention(..., shard=)``, the sharded serving steps'): a rank
+holds its ``"model"`` cut of ``wq`` / ``bq`` (a block of the H·hd
+columns), of ``wk`` / ``wv`` where the kv heads divide the ranks (else
+they are whole) and of ``wo`` (the same block of rows). It computes the
+heads of its block and multiplies their outputs by its rows of ``wo``:
+a partial sum, added over the ranks (``layers.cut_matmul``). Where the
+block does not hold whole heads (arctic's 56 heads over 16 ranks), the
+rank all-gathers q and computes every head its block touches, keeping
+its own columns. A decode cache is this rank's shard, cut over the
+mesh's ``"model"`` ranks by heads (``shard.cuts["k"]`` -2: this rank's
+kv heads, those of its q heads) or by sequence (-3: slots ``[r S/M,
+(r+1) S/M)``; q of every head all-gathered, the owner of the new
 position's slot writes it, each rank's softmax partials ``(m, l, o)``
-all-gathered and merged in rank order). No cache leaf is ever gathered.
-The heads rule and the whole cache run one code path (the whole cache's
-part is all of it, its gather none), so without a shard the step's bits
-are those of the single card.
+of every head all-gathered and merged in rank order, then the rank's
+own heads go through its rows of ``wo``). No cache leaf is ever
+gathered. One code path serves a cut and a whole layer (the whole
+layer's block is all of it, its reduce and gather none), so without a
+shard the step's bits are those of the single card.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -43,9 +52,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.axisctx import constrain
-from repro_torch.distributed.collectives import cut_of
-from repro_torch.models.layers import (dense_init, head_norm_apply,
-                                       param_dtype, rope_apply)
+from repro_torch.distributed.collectives import cut_for
+from repro_torch.models.layers import (cut_matmul, dense_init,
+                                       head_norm_apply, param_dtype,
+                                       rope_apply)
 
 _F32 = torch.float32
 
@@ -80,11 +90,45 @@ def attn_init(cfg: ArchConfig, generator: torch.Generator,
     return Attention(cfg, generator, device)
 
 
-def _project_q(p: Attention, cfg: ArchConfig, x: torch.Tensor):
+class _Heads(NamedTuple):
+    """The q heads ``[h0, h1)`` a rank computes (q all-gathered over
+    ``"model"`` first where ``gather``), the columns ``[c0, c1)`` of
+    their outputs that meet its rows of ``wo`` (counted from head
+    ``h0``'s first)."""
+    gather: bool
+    h0: int
+    h1: int
+    c0: int
+    c1: int
+
+
+def _heads(p: Attention, cfg: ArchConfig, shard, every: bool = False
+           ) -> _Heads:
+    """This rank's :class:`_Heads`: the heads of its block of ``wq``'s
+    columns, or, with ``every`` (the sequence rule's merge needs every
+    head's partials), all of them."""
+    hd, full = cfg.head_dim, cfg.n_heads * cfg.head_dim
+    shard = cut_for(shard, p.wq)
+    if shard is None:
+        return _Heads(False, 0, cfg.n_heads, 0, full)
+    width = p.wq.shape[1]
+    c0 = shard.index * width
+    c1 = c0 + width
+    if not every and c0 % hd == 0 and c1 % hd == 0:
+        return _Heads(False, c0 // hd, c1 // hd, 0, width)
+    h0, h1 = (0, cfg.n_heads) if every else (c0 // hd, -(-c1 // hd))
+    return _Heads(True, h0, h1, c0 - h0 * hd, c1 - h0 * hd)
+
+
+def _project_q(p: Attention, cfg: ArchConfig, x: torch.Tensor,
+               heads: Optional[_Heads] = None, shard=None):
     q = x @ p.wq
     if cfg.qkv_bias:
         q = q + p.bq
-    q = q.reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
+    if heads is not None and heads.gather:
+        q = shard.gather(q, -1)[..., heads.h0 * cfg.head_dim:
+                                heads.h1 * cfg.head_dim]
+    q = q.reshape(*x.shape[:-1], q.shape[-1] // cfg.head_dim, cfg.head_dim)
     q = constrain(q, "batch", "seq", "heads", None)
     if cfg.qk_norm:
         q = head_norm_apply(p.q_norm, q)
@@ -97,8 +141,8 @@ def _project_kv(p: Attention, cfg: ArchConfig, x: torch.Tensor):
     if cfg.qkv_bias:
         k = k + p.bk
         v = v + p.bv
-    k = k.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
+    k = k.reshape(*x.shape[:-1], k.shape[-1] // cfg.head_dim, cfg.head_dim)
+    v = v.reshape(*x.shape[:-1], v.shape[-1] // cfg.head_dim, cfg.head_dim)
     k = constrain(k, "batch", "seq", "kv_heads", None)
     v = constrain(v, "batch", "seq", "kv_heads", None)
     if cfg.qk_norm:
@@ -113,6 +157,32 @@ def _repeat_kv(cfg: ArchConfig, k: torch.Tensor) -> torch.Tensor:
         return k
     k = k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=-2)
     return constrain(k, "batch", "seq", "heads", None)
+
+
+def _kv_for(cfg: ArchConfig, k: torch.Tensor, heads: _Heads
+            ) -> torch.Tensor:
+    """``k`` (..., K_r, hd) repeated for the q heads of ``heads``: the
+    GQA repeat of every kv head here where they are those heads' own
+    (a whole layer, the heads rule's cut), else the kv heads of the
+    window ``[h0, h1)`` taken from every kv head, then repeated."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if k.shape[-2] * g == heads.h1 - heads.h0:
+        return _repeat_kv(cfg, k)
+    k0, k1 = heads.h0 // g, -(-heads.h1 // g)
+    kr = k[..., k0:k1, :]
+    if g > 1:
+        kr = kr.repeat_interleave(g, dim=-2)
+    return kr[..., heads.h0 - k0 * g:heads.h1 - k0 * g, :]
+
+
+def _wo(p: Attention, out: torch.Tensor, heads: _Heads, shard
+        ) -> torch.Tensor:
+    """The heads' outputs (..., (h1 - h0) hd) through this rank's rows of
+    ``wo``: its own columns kept, the partial sums added over the
+    ranks where the rows are cut."""
+    if heads.gather:
+        out = out[..., heads.c0:heads.c1]
+    return cut_matmul(out, p.wo, shard)
 
 
 def _sdpa(q, k, v, mask, head_dim: int) -> torch.Tensor:
@@ -160,15 +230,18 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
               window: Optional[int] = None,
               memory: Optional[torch.Tensor] = None,
-              return_kv: bool = False):
+              return_kv: bool = False, shard=None):
     """Full-sequence attention (train / prefill / encoder / cross).
 
     memory: (B, M, d) for cross-attention (keys/values from memory,
     bidirectional over memory, no RoPE). return_kv: also return the
-    ``{"k", "v"}`` pair (pre-GQA-repeat) so prefill can emit a decode
-    cache."""
+    ``{"k", "v"}`` pair (pre-GQA-repeat; a tensor-parallel rank's own
+    kv heads where they are cut, else every one) so prefill can emit a
+    decode cache. ``shard``: a tensor-parallel rank's (the module
+    docstring)."""
     B, T, _ = x.shape
-    q = _project_q(p, cfg, x)
+    heads = _heads(p, cfg, shard)
+    q = _project_q(p, cfg, x, heads, shard)
     chunked = (memory is None and cfg.attn_chunk != 0
                and T > cfg.attn_chunk and T % cfg.attn_chunk == 0)
     if memory is None:
@@ -189,14 +262,14 @@ def attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
         k, v = _project_kv(p, cfg, memory)
         mask = torch.ones((1, 1, T, memory.shape[1]), dtype=torch.bool,
                           device=x.device)
-    kr = _repeat_kv(cfg, k)
-    vr = _repeat_kv(cfg, v)
+    kr = _kv_for(cfg, k, heads)
+    vr = _kv_for(cfg, v, heads)
     if chunked:
         out = _sdpa_chunked(q, kr, vr, positions, causal, window,
                             cfg.head_dim, cfg.attn_chunk)
     else:
         out = _sdpa(q, kr, vr, mask, cfg.head_dim)
-    out = out.reshape(B, T, -1) @ p.wo
+    out = _wo(p, out.reshape(B, T, -1), heads, shard)
     out = constrain(out, "batch", "seq", "embed")
     if return_kv:
         return out, {"k": k, "v": v}
@@ -253,32 +326,34 @@ def decode_attention(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     where that position is >= 0 and inside the window. Below the wrap
     (``pos < S``) this is the plain cache's step.
 
-    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`
-    that cuts ``k`` over more than one rank): ``cache`` is this rank's
-    shard (the module docstring)."""
-    heads = cut_of(shard, "k")
-    if heads.cuts.get("k") == -3:
-        return _decode_seq(p, cfg, x, cache, pos, window, ring, heads)
+    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`):
+    the layer is this rank's cut and ``cache`` its shard (the module
+    docstring)."""
+    if shard is not None and shard.cuts.get("k") == -3:
+        return _decode_seq(p, cfg, x, cache, pos, window, ring, shard)
     B = x.shape[0]
     S = cache["k"].shape[1]
-    q, k_new, v_new = _new_qkv(p, cfg, x, pos)
+    heads = _heads(p, cfg, shard)
+    q, k_new, v_new = _new_qkv(p, cfg, x, pos, heads, shard)
     slot = pos % S if ring else pos
-    k_cache = write_slot(cache["k"], heads.part(k_new, 2), slot)
-    v_cache = write_slot(cache["v"], heads.part(v_new, 2), slot)
+    k_cache = write_slot(cache["k"], k_new, slot)
+    v_cache = write_slot(cache["v"], v_new, slot)
     kpos = torch.arange(S, dtype=torch.int32, device=x.device).view(
         1, 1, 1, S)
     mask = _slot_mask(kpos, pos, S, window, ring)
-    out = _sdpa(heads.part(q, 2), _repeat_kv(cfg, k_cache),
-                _repeat_kv(cfg, v_cache), mask, cfg.head_dim)
-    out = heads.gather(out, 2).reshape(B, 1, -1) @ p.wo
+    out = _sdpa(q, _kv_for(cfg, k_cache, heads),
+                _kv_for(cfg, v_cache, heads), mask, cfg.head_dim)
+    out = _wo(p, out.reshape(B, 1, -1), heads, shard)
     return out, {"k": k_cache, "v": v_cache}
 
 
-def _new_qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor, pos):
-    """The new token's q (B, 1, H, hd) and k / v (B, 1, K, hd), RoPE'd
-    at ``pos``."""
+def _new_qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor, pos,
+             heads: _Heads, shard):
+    """The new token's q (B, 1, h1 - h0, hd) of ``heads`` and k / v
+    (B, 1, K_r, hd) of this rank's kv heads, RoPE'd at ``pos``."""
     posb = positions_of(pos, x.shape[0], x.device)
-    q = rope_apply(_project_q(p, cfg, x), posb, cfg.rope_theta)
+    q = rope_apply(_project_q(p, cfg, x, heads, shard), posb,
+                   cfg.rope_theta)
     k_new, v_new = _project_kv(p, cfg, x)
     return q, rope_apply(k_new, posb, cfg.rope_theta), v_new
 
@@ -315,12 +390,14 @@ def _write_owned(buf: torch.Tensor, new: torch.Tensor, local):
 def _decode_seq(p: Attention, cfg: ArchConfig, x: torch.Tensor,
                 cache: Dict, pos, window, ring: bool, shard):
     """The sequence rule: every head of this rank's slots, the softmax
-    partials merged across ranks."""
+    partials merged across ranks, then this rank's heads through its
+    rows of ``wo``."""
     B = x.shape[0]
     S_r = cache["k"].shape[1]
     S = S_r * shard.count
     lo = shard.index * S_r
-    q, k_new, v_new = _new_qkv(p, cfg, x, pos)
+    heads = _heads(p, cfg, shard, every=True)
+    q, k_new, v_new = _new_qkv(p, cfg, x, pos, heads, shard)
     if ring:
         slot = pos % S
     elif isinstance(pos, torch.Tensor):
@@ -357,4 +434,5 @@ def _decode_seq(p: Attention, cfg: ArchConfig, x: torch.Tensor,
         l_sum = l_r if l_sum is None else l_sum + l_r
         o_sum = o_r if o_sum is None else o_sum + o_r
     out = (o_sum / l_sum).to(v_cache.dtype)             # (B, H, hd)
-    return out.reshape(B, 1, -1) @ p.wo, {"k": k_cache, "v": v_cache}
+    return (_wo(p, out.reshape(B, 1, -1), heads, shard),
+            {"k": k_cache, "v": v_cache})

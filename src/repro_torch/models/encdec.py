@@ -14,6 +14,11 @@ Parameters live in :class:`EncDec` under the reference's names
 always with the ``"nothing"`` policy, as the reference's ``_remat``.
 
 Decode cache: ``{"self": {"k", "v"}: (n_layers, B, S, K, hd)}``.
+
+``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`,
+the sharded serving steps'): every layer of the encoder and decoder,
+self- and cross-attention and MLP, is tensor parallel as in
+:mod:`repro_torch.models.lm`, and so are the embedding and the head.
 """
 
 from __future__ import annotations
@@ -27,9 +32,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import (attention, attn_init,
                                           decode_attention, init_cache,
                                           positions_of)
-from repro_torch.models.layers import (compute_dtype, dense_init, mlp_apply,
-                                       mlp_init, norm_apply, norm_init,
-                                       output_logits, param_dtype, remat)
+from repro_torch.models.layers import (compute_dtype, dense_init,
+                                       embed_lookup, mlp_apply, mlp_init,
+                                       norm_apply, norm_init, output_logits,
+                                       param_dtype, remat, vocab_gather)
 
 _F32 = torch.float32
 
@@ -100,58 +106,62 @@ def _positions(B: int, T: int, device) -> torch.Tensor:
 
 
 def _enc_layer(lp: EncLayer, cfg: ArchConfig, h: torch.Tensor,
-               pos: torch.Tensor) -> torch.Tensor:
+               pos: torch.Tensor, shard=None) -> torch.Tensor:
     h = h + attention(lp.attn, cfg, norm_apply(lp.ln1, h, cfg.norm), pos,
-                      causal=False)
-    return h + mlp_apply(lp.mlp, cfg, norm_apply(lp.ln2, h, cfg.norm))
+                      causal=False, shard=shard)
+    return h + mlp_apply(lp.mlp, cfg, norm_apply(lp.ln2, h, cfg.norm),
+                         shard)
 
 
-def encode(params: EncDec, cfg: ArchConfig,
-           frame_embeds: torch.Tensor) -> torch.Tensor:
+def encode(params: EncDec, cfg: ArchConfig, frame_embeds: torch.Tensor,
+           shard=None) -> torch.Tensor:
     """frame_embeds: (B, S_enc, d) stub frontend output -> the memory
     (B, S_enc, d) in the compute dtype."""
     h = frame_embeds.to(compute_dtype(cfg))
     pos = _positions(*h.shape[:2], h.device)
     layer = _remat(cfg, _enc_layer)
     for lp in params.enc_layers:
-        h = layer(lp, cfg, h, pos)
+        h = layer(lp, cfg, h, pos, shard)
     return norm_apply(params.enc_ln, h, cfg.norm)
 
 
 def _cross_mlp(lp: DecLayer, cfg: ArchConfig, h: torch.Tensor,
-               pos: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+               pos: torch.Tensor, memory: torch.Tensor,
+               shard=None) -> torch.Tensor:
     """The decoder layer after its self-attention: cross-attention on
     ``memory``, then the MLP."""
     h = h + attention(lp.cross_attn, cfg, norm_apply(lp.ln2, h, cfg.norm),
-                      pos, memory=memory)
-    return h + mlp_apply(lp.mlp, cfg, norm_apply(lp.ln3, h, cfg.norm))
+                      pos, memory=memory, shard=shard)
+    return h + mlp_apply(lp.mlp, cfg, norm_apply(lp.ln3, h, cfg.norm),
+                         shard)
 
 
 def _dec_layer(lp: DecLayer, cfg: ArchConfig, h: torch.Tensor,
-               pos: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+               pos: torch.Tensor, memory: torch.Tensor,
+               shard=None) -> torch.Tensor:
     h = h + attention(lp.self_attn, cfg, norm_apply(lp.ln1, h, cfg.norm),
-                      pos, causal=True)
-    return _cross_mlp(lp, cfg, h, pos, memory)
+                      pos, causal=True, shard=shard)
+    return _cross_mlp(lp, cfg, h, pos, memory, shard)
 
 
 def decode_train(params: EncDec, cfg: ArchConfig, tokens: torch.Tensor,
-                 memory: torch.Tensor, last_only: bool = False
-                 ) -> torch.Tensor:
+                 memory: torch.Tensor, last_only: bool = False,
+                 shard=None) -> torch.Tensor:
     """Teacher-forced decoder pass. tokens: (B, S_dec); memory (B, S_enc,
     d). Returns float32 logits (B, S_dec, V), or with ``last_only`` the
     last position's (B, 1, V): the norm and the head act a position at a
     time, so these are the same numbers."""
-    h = params.embed[tokens.long()].to(compute_dtype(cfg))
+    h = embed_lookup(params.embed, cfg, tokens, shard)
     pos = _positions(*h.shape[:2], h.device)
     layer = _remat(cfg, _dec_layer)
     for lp in params.dec_layers:
-        h = layer(lp, cfg, h, pos, memory)
-    return _logits(params, cfg, h[:, -1:] if last_only else h)
+        h = layer(lp, cfg, h, pos, memory, shard)
+    return _logits(params, cfg, h[:, -1:] if last_only else h, shard)
 
 
-def _logits(params: EncDec, cfg: ArchConfig, h: torch.Tensor):
-    return output_logits(params, params.final_ln, params.lm_head, h,
-                         cfg.norm)
+def _logits(params: EncDec, cfg: ArchConfig, h: torch.Tensor, shard=None):
+    return vocab_gather(params.lm_head, output_logits(
+        params, params.final_ln, params.lm_head, h, cfg.norm), shard)
 
 
 def encdec_forward(params: EncDec, cfg: ArchConfig,
@@ -174,9 +184,10 @@ def encdec_decode_step(params: EncDec, cfg: ArchConfig, token: torch.Tensor,
                        ) -> Tuple[torch.Tensor, Dict]:
     """token (B, 1); pos an int or a 0-d int tensor; memory (B, M, d) the
     precomputed encoder output. Returns (logits (B, 1, V) f32, ``{"self":
-    new cache}``). ``shard``: the self-attention cache is this rank's
-    shard (:func:`repro_torch.models.attention.decode_attention`)."""
-    h = params.embed[token.long()].to(compute_dtype(cfg))
+    new cache}``). ``shard``: the layers are this rank's cut and the
+    self-attention cache is its shard
+    (:func:`repro_torch.models.attention.decode_attention`)."""
+    h = embed_lookup(params.embed, cfg, token, shard)
     posb = positions_of(pos, h.shape[0], h.device)
     ks, vs = [], []
     for i, lp in enumerate(params.dec_layers):
@@ -184,8 +195,8 @@ def encdec_decode_step(params: EncDec, cfg: ArchConfig, token: torch.Tensor,
                                  norm_apply(lp.ln1, h, cfg.norm),
                                  {k: v[i] for k, v in cache["self"].items()},
                                  pos, shard=shard)
-        h = _cross_mlp(lp, cfg, h + a, posb, memory)
+        h = _cross_mlp(lp, cfg, h + a, posb, memory, shard)
         ks.append(kv["k"])
         vs.append(kv["v"])
-    return _logits(params, cfg, h), {"self": {"k": torch.stack(ks),
+    return _logits(params, cfg, h, shard), {"self": {"k": torch.stack(ks),
                                               "v": torch.stack(vs)}}

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.axisctx import constrain
+from repro_torch.distributed.collectives import cut_for
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -149,14 +150,51 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(p: MLP, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def wide_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with a float32 result: ``a`` (..., k) by ``b`` (k, n),
+    or batched, ``a`` (G, m, k) by ``b`` (G, k, n). From operands of one
+    16-bit dtype a card (and the meta device) runs that dtype's GEMM,
+    accumulating and writing float32 (``out_dtype``): the products of
+    two such values are exact in float32, and no operand is widened.
+    The CPU, which has no such kernel, does the same arithmetic on
+    float32 copies; so do operands of other dtypes."""
+    half = (torch.float16, torch.bfloat16)
+    if a.device.type == "cpu" or a.dtype not in half or b.dtype != a.dtype:
+        return a.to(torch.float32) @ b.to(torch.float32)
+    if b.dim() == 3:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def cut_matmul(x: torch.Tensor, w: torch.Tensor, shard) -> torch.Tensor:
+    """``x @ w`` for a tensor-parallel rank (``shard``, a
+    :class:`repro_torch.distributed.collectives.ModelShard`, or
+    ``None``) where it holds a cut of ``w``'s rows (the contraction; by
+    its spec, :func:`repro_torch.distributed.collectives.cut_for`): the
+    rank's partial product in float32 (:func:`wide_matmul`), added over
+    the ranks in float32 and rounded once to ``x``'s dtype, as one
+    card's matmul rounds its float32 sum. A whole ``w``: ``x @ w``."""
+    shard = cut_for(shard, w)
+    if shard is None:
+        return x @ w
+    return shard.reduce(wide_matmul(x, w)).to(x.dtype)
+
+
+def mlp_apply(p: MLP, cfg: ArchConfig, x: torch.Tensor,
+              shard=None) -> torch.Tensor:
+    """The MLP of ``x``. A tensor-parallel rank (``shard``, a
+    :class:`repro_torch.distributed.collectives.ModelShard`) holds a
+    block of the ``ff`` columns of ``w_gate`` / ``w_up`` and the same
+    rows of ``w_down``: its product is a partial sum, added over the
+    ranks (:func:`cut_matmul`)."""
     if cfg.act == "swiglu":
         h = F.silu(x @ p.w_gate) * (x @ p.w_up)
     else:
         h = gelu(x @ p.w_up)
     if x.dim() == 3:
         h = constrain(h, "batch", "seq", "ff")
-    out = h @ p.w_down
+    out = cut_matmul(h, p.w_down, shard)
     return constrain(out, "batch", "seq", "embed") if x.dim() == 3 else out
 
 
@@ -190,6 +228,34 @@ def output_logits(owner: nn.Module, final_ln: Norm, head: torch.Tensor,
     ``owner`` keeps the head's float32 copy."""
     h = norm_apply(final_ln, h, kind)
     return h.to(torch.float32) @ _head_f32(owner, head)
+
+
+def embed_lookup(embed: torch.Tensor, cfg: ArchConfig,
+                 tokens: torch.Tensor, shard=None) -> torch.Tensor:
+    """``embed[tokens]`` in the compute dtype. A tensor-parallel rank
+    holding block ``shard.index`` of the vocab rows looks up the tokens
+    of its block, zeros for the others, and adds the rows over the
+    ranks: one rank's row and zeros, so the sum is the row."""
+    shard = cut_for(shard, embed)
+    if shard is None:
+        return embed[tokens.long()].to(compute_dtype(cfg))
+    V_r = embed.shape[0]
+    t = tokens.long() - shard.index * V_r
+    mine = ((t >= 0) & (t < V_r))[..., None]
+    rows = embed[t.clamp(0, V_r - 1)]
+    rows = torch.where(mine, rows, torch.zeros((), dtype=rows.dtype,
+                                               device=rows.device))
+    return shard.reduce(rows).to(compute_dtype(cfg))
+
+
+def vocab_gather(head: torch.Tensor, logits: torch.Tensor,
+                 shard=None) -> torch.Tensor:
+    """The logits of ``head`` (the parameter holding the vocab: the
+    output head, or a tied embedding), all-gathered over a
+    tensor-parallel rank's ranks where it holds a block of the vocab;
+    whole ones as they are."""
+    shard = cut_for(shard, head)
+    return logits if shard is None else shard.gather(logits, -1)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

@@ -45,9 +45,10 @@ from repro_torch.distributed.axisctx import constrain
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention, attn_init,
                                           decode_attention, init_cache)
-from repro_torch.models.layers import (compute_dtype, dense_init, mlp_apply,
-                                       mlp_init, norm_apply, norm_init,
-                                       output_logits, param_dtype, remat)
+from repro_torch.models.layers import (compute_dtype, dense_init,
+                                       embed_lookup, mlp_apply, mlp_init,
+                                       norm_apply, norm_init, output_logits,
+                                       param_dtype, remat, vocab_gather)
 from repro_torch.models.moe import moe_apply, moe_init
 
 _F32 = torch.float32
@@ -152,15 +153,18 @@ def lm_init(cfg: ArchConfig, generator: torch.Generator, device=None) -> LM:
     return LM(cfg, generator, device)
 
 
-def _logits(params: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+def _logits(params: LM, cfg: ArchConfig, h: torch.Tensor,
+            shard=None) -> torch.Tensor:
+    vocab = params.embed if cfg.tie_embeddings else params.lm_head
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return constrain(output_logits(params, params.final_ln, head, h,
-                                   cfg.norm), "batch", "seq", "vocab")
+    logits = output_logits(params, params.final_ln, head, h, cfg.norm)
+    return constrain(vocab_gather(vocab, logits, shard), "batch", "seq",
+                     "vocab")
 
 
-def _embed(params: LM, cfg: ArchConfig, tokens, extra_embeds):
+def _embed(params: LM, cfg: ArchConfig, tokens, extra_embeds, shard=None):
     cdt = compute_dtype(cfg)
-    h = params.embed[tokens.long()].to(cdt)
+    h = embed_lookup(params.embed, cfg, tokens, shard)
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(cdt), h], dim=1)
     return constrain(h, "batch", "seq", "embed")
@@ -230,14 +234,14 @@ def _ssm_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor
 
 def _mix(lp: DenseLayer, cfg: ArchConfig, h: torch.Tensor, shard=None):
     """The layer's MLP or MoE on ``ln2(h)``: (delta, aux). ``shard``: a
-    sharded serving step's (:func:`_moe_of_slice`)."""
+    sharded serving step's (tensor parallel; :func:`_moe_of_slice`)."""
     x = norm_apply(lp.ln2, h, cfg.norm)
     if cfg.family == "moe":
         if shard is not None and shard.batch_groups:
             return _moe_of_slice(lp, cfg, x, shard)
-        return moe_apply(lp.moe, cfg, x)
-    return mlp_apply(lp.mlp, cfg, x), torch.zeros((), dtype=_F32,
-                                                  device=h.device)
+        return moe_apply(lp.moe, cfg, x, shard)
+    return mlp_apply(lp.mlp, cfg, x, shard), torch.zeros(
+        (), dtype=_F32, device=h.device)
 
 
 def _moe_of_slice(lp: DenseLayer, cfg: ArchConfig, x: torch.Tensor, shard):
@@ -253,7 +257,7 @@ def _moe_of_slice(lp: DenseLayer, cfg: ArchConfig, x: torch.Tensor, shard):
         n_dp *= torch.distributed.get_world_size(g)
     Sg = min(cfg.moe_group_size, B_r * n_dp * T)
     if (B_r * T) % Sg == 0:
-        return moe_apply(lp.moe, cfg, x)
+        return moe_apply(lp.moe, cfg, x, shard)
     every = shard.gather_batch(x).reshape(-1, d)
     idx = 0
     for g in shard.batch_groups:    # this rank's place in the gather
@@ -261,7 +265,7 @@ def _moe_of_slice(lp: DenseLayer, cfg: ArchConfig, x: torch.Tensor, shard):
             torch.distributed.get_rank(g)
     t0, t1 = idx * B_r * T, (idx + 1) * B_r * T
     a, b = t0 // Sg * Sg, -(-t1 // Sg) * Sg
-    out, aux = moe_apply(lp.moe, cfg, every[a:b][None])
+    out, aux = moe_apply(lp.moe, cfg, every[a:b][None], shard)
     return out[0, t0 - a:t1 - a].reshape(B_r, T, d), aux
 
 
@@ -278,11 +282,12 @@ def _shared_in(sp: SharedBlock, h: torch.Tensor, emb: torch.Tensor):
 
 
 def _shared_out(sp: SharedBlock, cfg: ArchConfig, h: torch.Tensor,
-                u: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+                u: torch.Tensor, a: torch.Tensor, shard=None
+                ) -> torch.Tensor:
     """The shared block after its attention: ``h + u'`` where ``u' = u +
     a`` plus the MLP of ``ln2(u')``."""
     u = u + a
-    u = u + mlp_apply(sp.mlp, cfg, norm_apply(sp.ln2, u, cfg.norm))
+    u = u + mlp_apply(sp.mlp, cfg, norm_apply(sp.ln2, u, cfg.norm), shard)
     return h + u
 
 
@@ -313,15 +318,18 @@ def lm_prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
     attention families, the final recurrent states and conv tails for the
     ssm family, both for the hybrid). Returns (last-position logits (B,
     1, V), cache). ``shard``: a sharded prefill's
-    :class:`repro_torch.distributed.collectives.ModelShard`, whose
-    ``batch_groups`` an MoE layer reads (:func:`_moe_of_slice`); the
-    rest of the pass runs on this rank's rows as they are."""
-    h = _embed(params, cfg, tokens, extra_embeds)
+    :class:`repro_torch.distributed.collectives.ModelShard`: its layers
+    are tensor parallel over the ``"model"`` ranks (each layer's
+    module docstring) on this rank's rows, the cache holds this rank's
+    cut of the heads and channels (every kv head where they are not
+    cut), and an MoE layer reads its ``batch_groups``
+    (:func:`_moe_of_slice`)."""
+    h = _embed(params, cfg, tokens, extra_embeds, shard)
     positions = _positions(h)
     if cfg.family == "ssm":
         caches = []
         for lp in params.layers:
-            y, c = _ssm_prefill_layer(lp, cfg, h)
+            y, c = _ssm_prefill_layer(lp, cfg, h, shard)
             h = h + y
             caches.append(c)
         new_cache = {"layers": _stack(caches)}
@@ -332,19 +340,19 @@ def lm_prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
             u = _shared_in(sp, h, emb0)
             a, kv = attention(sp.attn, cfg, norm_apply(sp.ln1, u, cfg.norm),
                               positions, causal=True, window=window,
-                              return_kv=True)
-            h = _shared_out(sp, cfg, h, u, a)
+                              return_kv=True, shard=shard)
+            h = _shared_out(sp, cfg, h, u, a, shard)
             kvs.append(kv)
             caches = []
             for lp in group:
-                y, c = _ssm_prefill_layer(lp, cfg, h)
+                y, c = _ssm_prefill_layer(lp, cfg, h, shard)
                 h = h + y
                 caches.append(c)
             groups.append(_stack(caches))
         new_cache = {"attn": _stack(kvs), "mamba": _stack(groups)}
         caches = []
         for lp in _tail_layers(params):
-            y, c = _ssm_prefill_layer(lp, cfg, h)
+            y, c = _ssm_prefill_layer(lp, cfg, h, shard)
             h = h + y
             caches.append(c)
         if caches:
@@ -354,19 +362,21 @@ def lm_prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
         for lp in params.layers:
             a, kv = attention(lp.attn, cfg, norm_apply(lp.ln1, h, cfg.norm),
                               positions, causal=True, window=window,
-                              return_kv=True)
+                              return_kv=True, shard=shard)
             h = h + a
             h = h + _mix(lp, cfg, h, shard)[0]
             kvs.append(kv)
         new_cache = {"layers": _stack(kvs)}
-    return _logits(params, cfg, h[:, -1:]), new_cache
+    return _logits(params, cfg, h[:, -1:], shard), new_cache
 
 
-def _ssm_prefill_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor):
+def _ssm_prefill_layer(lp: SSMLayer, cfg: ArchConfig, h: torch.Tensor,
+                       shard=None):
     """Run the ssm layer, returning (delta, decode cache) — the cache is
     the scan's final carry (conv tails + recurrent state)."""
     xin = norm_apply(lp.ln, h, cfg.norm)
-    return _ssm_apply(cfg)(lp.mamba, cfg, xin, return_cache=True)
+    return _ssm_apply(cfg)(lp.mamba, cfg, xin, return_cache=True,
+                           shard=shard)
 
 
 # -- decode -------------------------------------------------------------------
@@ -410,10 +420,11 @@ def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
     :func:`repro_torch.models.attention.decode_attention`; the hybrid's
     attention cache is a ring). Returns (logits (B, 1, V) f32, new
     cache). ``shard`` (a :class:`repro_torch.distributed.collectives.
-    ModelShard`): ``cache`` is this rank's shard, every leaf keeping
-    its stack dims whole, and each layer works on its part
+    ModelShard`): the layers are tensor parallel, as in
+    :func:`lm_prefill`, and ``cache`` is this rank's shard, every leaf
+    keeping its stack dims whole, which each layer works on
     (``decode_attention``, ``mamba1_decode``, ``mamba2_decode``)."""
-    h = params.embed[token.long()].to(compute_dtype(cfg))
+    h = embed_lookup(params.embed, cfg, token, shard)
     if cfg.family == "ssm":
         layers, caches = cache["layers"], []
         for i, lp in enumerate(params.layers):
@@ -432,7 +443,7 @@ def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
                                      norm_apply(sp.ln1, u, cfg.norm),
                                      _index(cache["attn"], g), pos,
                                      window=window, ring=True, shard=shard)
-            h = _shared_out(sp, cfg, h, u, a)
+            h = _shared_out(sp, cfg, h, u, a, shard)
             kvs.append(kv)
             caches = []
             for i, lp in enumerate(group):
@@ -463,4 +474,4 @@ def lm_decode_step(params: LM, cfg: ArchConfig, token: torch.Tensor, pos,
             h = h + _mix(lp, cfg, h, shard)[0]
             kvs.append(kv)
         new_cache = {"layers": _stack(kvs)}
-    return _logits(params, cfg, h), new_cache
+    return _logits(params, cfg, h, shard), new_cache

@@ -8,6 +8,15 @@ A layer's parameters live in :class:`MoE` under the reference's names:
 ``router`` (d, E) in float32 whatever the param dtype, the stacked
 experts ``w_gate`` / ``w_up`` (E, d, ff) and ``w_down`` (E, ff, d), and
 for arctic the dense residual MLP ``dense``.
+
+Expert parallel (``moe_apply(..., shard=ModelShard)``, the sharded
+serving steps'): a rank holds block ``shard.index`` of the experts
+(the router and, for arctic, the dense residual MLP as the specs leave
+them). The dispatch and combine masks are computed once for the whole
+group from the whole router, the rank runs its experts' slices of them,
+and the combined outputs, partial sums over the experts, are added over
+the ranks (in float32, rounded once: ``layers.cut_matmul``'s rule)
+before the residual MLP joins.
 """
 
 from __future__ import annotations
@@ -20,8 +29,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.axisctx import constrain
+from repro_torch.distributed.collectives import cut_for
 from repro_torch.models.layers import (dense_init, gelu, mlp_apply, mlp_init,
-                                       param_dtype)
+                                       param_dtype, wide_matmul)
 
 _F32 = torch.float32
 
@@ -84,10 +94,11 @@ def _dispatch_masks(gates: torch.Tensor, top_k: int, capacity: int
     return dispatch, combine, aux
 
 
-def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
+def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor, shard=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (out, aux_loss). ``B·T`` must be a multiple of the
-    dispatch group, ``min(moe_group_size, B·T)`` tokens."""
+    dispatch group, ``min(moe_group_size, B·T)`` tokens. ``shard``: an
+    expert-parallel rank's (the module docstring)."""
     B, T, d = x.shape
     Sg = min(cfg.moe_group_size, B * T)
     if (B * T) % Sg:
@@ -102,6 +113,12 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
     dispatch, combine, aux = _dispatch_masks(gates, k, capacity)
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
+    ep = cut_for(shard, p.w_up)          # an expert-parallel rank's
+    E_r = p.w_up.shape[0]
+    if ep is not None:                    # its block of experts
+        e0 = ep.index * E_r
+        dispatch = dispatch[:, :, e0:e0 + E_r]
+        combine = combine[:, :, e0:e0 + E_r]
 
     xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)
     xin = constrain(xin, "batch", "experts", None, None)
@@ -113,8 +130,13 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
     h = constrain(h, "batch", "experts", None, None)
     hout = torch.einsum("gecf,efd->gecd", h, p.w_down)
     hout = constrain(hout, "batch", "experts", None, None)
-    out = torch.einsum("gecd,gsec->gsd", hout, combine).reshape(B, T, d)
+    if ep is None:
+        out = torch.einsum("gecd,gsec->gsd", hout, combine)
+    else:   # a partial sum over this rank's experts, as cut_matmul's
+        out = ep.reduce(wide_matmul(combine.reshape(G, Sg, -1),
+                                    hout.reshape(G, -1, d))).to(x.dtype)
+    out = out.reshape(B, T, d)
     out = constrain(out, "batch", "seq", "embed")
     if cfg.moe_dense_residual:
-        out = out + mlp_apply(p.dense, cfg, x)
+        out = out + mlp_apply(p.dense, cfg, x, shard)
     return out, aux.to(_F32)

@@ -28,6 +28,22 @@ kernel): :func:`mamba2_apply` is the chunked SSD form, a quadratic
 intra-chunk product plus a float32 state carried from chunk to chunk,
 and :func:`mamba2_decode` its O(1) recurrence.
 
+Tensor parallel (``shard=ModelShard``, the sharded serving steps'): a
+rank holds its ``"model"`` cut of a block, a block of the ``d_inner``
+channels (Mamba1) or of the heads and their channels (Mamba2). Mamba1
+runs its channels' conv, ``dt_proj`` and scan (the selective-scan
+kernel on ``d_inner / n_model`` channels); ``proj_dt`` / ``proj_B`` /
+``proj_C`` contract over the channels, so their products are partial
+sums: computed in float32, added over the ranks in float32 (one
+all-reduce of the small ``(B, L, dt_rank + 2n)`` product) and only then
+rounded to the param dtype, once, as one card rounds the whole
+product. Mamba2's B and C convs run on
+the rank's state channels where ``n`` is cut and are all-gathered; its
+gated norm adds each rank's sum of squares before ``rsqrt``. Both
+finish with the rank's rows of ``out_proj``, a partial sum added over
+the ranks. A decode cache is the rank's shard of the same channels and
+heads.
+
 Caches: Mamba1 ``{"conv": (B, K-1, din), "h": (B, din, n) float32}``;
 Mamba2 ``{"conv_x": (B, K-1, din), "conv_B" / "conv_C": (B, K-1, n),
 "h": (B, nh, hd, n) float32}``. Conv tails are copies, never views of a
@@ -45,9 +61,10 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.axisctx import constrain
-from repro_torch.distributed.collectives import cut_of
+from repro_torch.distributed.collectives import cut_for
 from repro_torch.kernels.selective_scan import make_trainable_scan
-from repro_torch.models.layers import dense_init, param_dtype
+from repro_torch.models.layers import (cut_matmul, dense_init, param_dtype,
+                                       wide_matmul)
 
 _F32 = torch.float32
 
@@ -113,15 +130,27 @@ def mamba1_init(cfg: ArchConfig, generator: torch.Generator,
     return Mamba1Block(cfg, generator, device)
 
 
-def _projections(p: Mamba1Block, conv_out: torch.Tensor):
+def _projections(p: Mamba1Block, conv_out: torch.Tensor, shard=None):
     """dt (post-softplus), B, C and A of the scan from the post-conv
     activations, all float32. The three small projections round to the
     param dtype first, as the reference's do; ``dt_proj`` runs in
-    float32."""
+    float32. ``shard``: a rank of cut channels, whose three products
+    are partial sums, added over the ranks (the module docstring)."""
     cv = conv_out.to(p.in_x.dtype)
-    dt_low = (cv @ p.proj_dt).to(_F32)
-    Bm = (cv @ p.proj_B).to(_F32)
-    Cm = (cv @ p.proj_C).to(_F32)
+    if shard is None:
+        dt_low = (cv @ p.proj_dt).to(_F32)
+        Bm = (cv @ p.proj_B).to(_F32)
+        Cm = (cv @ p.proj_C).to(_F32)
+    else:
+        # the partial products in float32 (those of two param-dtype
+        # values are exact), summed over the ranks, then rounded once to
+        # the param dtype: one card's rounding of the whole product
+        low = shard.reduce(torch.cat(
+            [wide_matmul(cv, p.proj_dt), wide_matmul(cv, p.proj_B),
+             wide_matmul(cv, p.proj_C)], dim=-1)).to(cv.dtype)
+        dt_low, Bm, Cm = low.to(_F32).split(
+            [p.proj_dt.shape[1], p.proj_B.shape[1], p.proj_C.shape[1]],
+            dim=-1)
     dt = _softplus(dt_low @ p.dt_proj.to(_F32) + p.dt_bias)   # (B, L, din)
     A = -torch.exp(p.A_log)                                    # (din, n)
     return dt, Bm, Cm, A
@@ -185,7 +214,8 @@ def _comb(a, b):
 
 
 def _mamba1_core(p: Mamba1Block, cfg: ArchConfig, conv_out: torch.Tensor,
-                 h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                 h: torch.Tensor, shard=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """conv_out: (B, L, din) f32 post-conv/silu; h: (B, din, n) carry.
     Returns (y (B,L,din) f32, h_new).
 
@@ -196,14 +226,14 @@ def _mamba1_core(p: Mamba1Block, cfg: ArchConfig, conv_out: torch.Tensor,
     states multiplies the states and ``C``, each rounded to the scan
     dtype, in float32 (the reference's einsum with
     ``preferred_element_type=float32``, which rounds no product)."""
-    dt, Bm, Cm, A = _projections(p, conv_out)
+    dt, Bm, Cm, A = _projections(p, conv_out, shard)
     return _scan_core(cfg, conv_out, dt, Bm, Cm, A, p.D, h)
 
 
 def _scan_core(cfg: ArchConfig, conv_out, dt, Bm, Cm, A, D, h):
     """:func:`_mamba1_core` after its projections: ``conv_out``, ``dt``,
-    ``A``, ``D`` and ``h`` of any set of channels (a sharded decode's),
-    ``Bm`` / ``Cm`` of every channel."""
+    ``A``, ``D`` and ``h`` of any set of channels (a tensor-parallel
+    rank's), ``Bm`` / ``Cm`` of the whole block."""
     sdt = torch.bfloat16 if cfg.ssm_scan_dtype == "bfloat16" else _F32
     decay = torch.exp((dt[..., None] * A).to(_F32)).to(sdt)
     u = (dt * conv_out)[..., None].to(sdt) * Bm[:, :, None, :].to(sdt)
@@ -215,17 +245,19 @@ def _scan_core(cfg: ArchConfig, conv_out, dt, Bm, Cm, A, D, h):
 
 
 def mamba1_apply(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
-                 return_cache: bool = False):
+                 return_cache: bool = False, shard=None):
     """x: (B, L, d) -> (B, L, d); L must divide by min(cfg.ssm_chunk, L).
     With return_cache=True also returns the decode cache (final conv tail
-    + recurrent state) from the scan carry.
+    + recurrent state) from the scan carry. ``shard``: a
+    tensor-parallel rank's (the module docstring).
 
     cfg.ssm_impl == "pallas" routes the recurrence through the
     hand-written selective-scan kernels (forward and backward)."""
+    shard = cut_for(shard, p.in_x)
     if cfg.ssm_impl == "pallas":
-        return _mamba1_apply_pallas(p, cfg, x, return_cache)
+        return _mamba1_apply_pallas(p, cfg, x, return_cache, shard)
     B, L, d = x.shape
-    din, K = cfg.d_inner, cfg.ssm_conv
+    din, K = p.in_x.shape[1], cfg.ssm_conv
     Lc = min(cfg.ssm_chunk, L)
     if L % Lc:
         raise ValueError(f"mamba1_apply: L={L} is not a multiple of the "
@@ -238,12 +270,13 @@ def mamba1_apply(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
     for s in range(0, L, Lc):
         xin = torch.cat([tail, xs[:, s:s + Lc]], dim=1)
         conv = F.silu(_causal_conv_chunk(xin, p.conv_w, p.conv_b))
-        y, h = _mamba1_core(p, cfg, conv, h)
+        y, h = _mamba1_core(p, cfg, conv, h, shard)
         y = y * F.silu(z[:, s:s + Lc].to(_F32))
         ys.append(y.to(x.dtype))
         tail = xin[:, -(K - 1):]
     y = constrain(torch.cat(ys, dim=1), "batch", "seq", "inner")
-    out = constrain(y @ p.out_proj, "batch", "seq", "embed")
+    out = constrain(cut_matmul(y, p.out_proj, shard), "batch", "seq",
+                    "embed")
     if return_cache:
         # a copy: the view would keep the last chunk's whole input alive
         return out, {"conv": tail.clone(), "h": h}
@@ -265,47 +298,44 @@ def mamba1_decode(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, 1, d) one token.
 
-    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`)
-    that cuts ``h`` (``cache_specs``' rule; the conv tail's channels,
-    of the same width, with it): the cache holds this rank's channels
-    ``[lo, hi)``; the rank steps their conv tail and state, and
-    all-gathers the activations that need every channel, the conv
-    output before the projections and ``y`` before ``out_proj``.
-    Without one ``[lo, hi)`` is every channel and nothing is
-    gathered."""
-    ch = cut_of(shard, "h")
-    lo, hi = ch.bounds(cfg.d_inner)
+    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`):
+    a tensor-parallel rank whose block holds its channels, and whose
+    cache holds the same channels' conv tail and state
+    (``cache_specs``' rule); it steps them, adding the projections'
+    and ``out_proj``'s partial sums over the ranks (the module
+    docstring)."""
+    shard = cut_for(shard, p.in_x)
     K = cfg.ssm_conv
-    xin = torch.cat([cache["conv"], (x @ p.in_x)[..., lo:hi]], dim=1)
-    conv = F.silu(_causal_conv_chunk(xin, p.conv_w[:, lo:hi],
-                                     p.conv_b[lo:hi]))  # (B, 1, hi - lo)
-    dt, Bm, Cm, A = _projections(p, ch.gather(conv, -1))
-    y, h_new = _scan_core(cfg, conv, dt[..., lo:hi], Bm, Cm, A[lo:hi],
-                          p.D[lo:hi], cache["h"])
-    y = y * F.silu((x @ p.in_z)[..., lo:hi].to(_F32))
-    out = ch.gather(y.to(x.dtype), -1) @ p.out_proj
+    xin = torch.cat([cache["conv"], x @ p.in_x], dim=1)
+    conv = F.silu(_causal_conv_chunk(xin, p.conv_w, p.conv_b))  # (B, 1, din)
+    dt, Bm, Cm, A = _projections(p, conv, shard)
+    y, h_new = _scan_core(cfg, conv, dt, Bm, Cm, A, p.D, cache["h"])
+    y = y * F.silu((x @ p.in_z).to(_F32))
+    out = cut_matmul(y.to(x.dtype), p.out_proj, shard)
     return out, {"conv": xin[:, -(K - 1):], "h": h_new}
 
 
 def _mamba1_apply_pallas(p: Mamba1Block, cfg: ArchConfig, x: torch.Tensor,
-                         return_cache: bool = False):
+                         return_cache: bool = False, shard=None):
     """The hand-written selective-scan path: one kernel call for the whole
-    sequence, the state carried on chip; under autograd the scan's
-    gradient is one call of the backward kernel, which recomputes each
-    512-step chunk from the chunk-start states the forward saved."""
+    sequence (a tensor-parallel rank's channels), the state carried on
+    chip; under autograd the scan's gradient is one call of the backward
+    kernel, which recomputes each 512-step chunk from the chunk-start
+    states the forward saved."""
     B, L, d = x.shape
-    din, K, n = cfg.d_inner, cfg.ssm_conv, cfg.ssm_state
+    din, K, n = p.in_x.shape[1], cfg.ssm_conv, cfg.ssm_state
     xs = constrain(x @ p.in_x, "batch", "seq", "inner")
     z = constrain(x @ p.in_z, "batch", "seq", "inner")
     xin = torch.cat([torch.zeros((B, K - 1, din), dtype=xs.dtype,
                                  device=x.device), xs], dim=1)
     conv = F.silu(_causal_conv_chunk(xin, p.conv_w, p.conv_b))
-    dt, Bm, Cm, A = _projections(p, conv)
+    dt, Bm, Cm, A = _projections(p, conv, shard)
     h0 = torch.zeros((B, din, n), dtype=_F32, device=x.device)
     scan = make_trainable_scan(din_tile=min(128, din), time_chunk=512)
     y, h_fin = scan(conv, dt, Bm, Cm, A, p.D.to(_F32), h0)
     y = y * F.silu(z.to(_F32))
-    out = constrain(y.to(x.dtype) @ p.out_proj, "batch", "seq", "embed")
+    out = constrain(cut_matmul(y.to(x.dtype), p.out_proj, shard), "batch",
+                    "seq", "embed")
     if return_cache:
         # a copy: a view of the tail would keep the layer's whole
         # (B, K-1+L, din) input alive with the cache (17 GB over 64 layers
@@ -359,19 +389,32 @@ def mamba2_init(cfg: ArchConfig, generator: torch.Generator,
 
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
+                   eps: float = 1e-5, shard=None,
+                   d_inner: int = 0) -> torch.Tensor:
     """``y * silu(z)`` RMS-normalised over all of ``d_inner``, in
-    float32 (``y`` is float32)."""
+    float32 (``y`` is float32). ``shard``: a rank of cut channels, whose
+    sum of squares is added over the ranks before the mean."""
     y = y * F.silu(z.to(_F32))
-    ms = (y * y).mean(dim=-1, keepdim=True)
+    if shard is None:
+        ms = (y * y).mean(dim=-1, keepdim=True)
+    else:
+        ms = shard.reduce((y * y).sum(dim=-1, keepdim=True)) / d_inner
     return y * torch.rsqrt(ms + eps) * scale.to(_F32)
 
 
-def _mamba2_convs(p: Mamba2Block, xin_x, xin_b, xin_c):
-    """The three causal depthwise convs and their SiLU, in float32."""
-    return (F.silu(_causal_conv_chunk(xin_x, p.conv_x_w, p.conv_x_b)),
-            F.silu(_causal_conv_chunk(xin_b, p.conv_B_w, p.conv_B_b)),
-            F.silu(_causal_conv_chunk(xin_c, p.conv_C_w, p.conv_C_b)))
+def _state_conv(p: Mamba2Block, cfg: ArchConfig, name: str,
+                new: torch.Tensor, tail: torch.Tensor, shard):
+    """Mamba2's B or C conv (``name``) and its SiLU, float32, on the
+    left-extended ``cat(tail, new)`` (B, K-1+L, n_r): ``(out (B, L, n) of
+    every state channel, the extended input, whose last K-1 rows are the
+    new cache tail)``. A rank whose ``in_B`` / ``in_C`` hold a cut of
+    the channels all-gathers the outputs."""
+    xin = torch.cat([tail, new], dim=1)
+    out = F.silu(_causal_conv_chunk(xin, getattr(p, f"conv_{name}_w"),
+                                    getattr(p, f"conv_{name}_b")))
+    if cut_for(shard, getattr(p, f"in_{name}")) is not None:
+        out = shard.gather(out, -1)
+    return out, xin
 
 
 def _tail(xin: torch.Tensor, K: int) -> torch.Tensor:
@@ -380,10 +423,12 @@ def _tail(xin: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def mamba2_apply(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
-                 return_cache: bool = False):
+                 return_cache: bool = False, shard=None):
     """Chunked SSD. x: (B, L, d) -> (B, L, d); L must divide by
     min(cfg.ssm_chunk, L). With return_cache=True also returns the decode
-    cache (final conv tails + state) from the chunk carry.
+    cache (final conv tails + state) from the chunk carry. ``shard``: a
+    tensor-parallel rank's (the module docstring; a rank of cut state
+    channels gathers each chunk's B and C conv outputs).
 
     Each chunk of Lc steps: ``y = (C Bᵀ ∘ seg ∘ dt) x`` within the chunk
     plus ``C S exp(cum)`` from the carried state ``S``, which then decays
@@ -392,8 +437,9 @@ def mamba2_apply(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
     above the diagonal get -30 before the ``exp`` (then times the mask),
     so that none can overflow and poison a gradient with ``0 * inf``."""
     B, L, d = x.shape
-    din, n = cfg.d_inner, cfg.ssm_state
-    nh, hd, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
+    shard = cut_for(shard, p.in_x)
+    din, n = p.in_x.shape[1], cfg.ssm_state
+    nh, hd, K = p.in_dt.shape[1], cfg.ssm_head_dim, cfg.ssm_conv
     Lc = min(cfg.ssm_chunk, L)
     if L % Lc:
         raise ValueError(f"mamba2_apply: L={L} is not a multiple of the "
@@ -408,14 +454,15 @@ def mamba2_apply(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
     tri = (idx[:, None] >= idx[None, :])[None, :, :, None]   # (1,Lc,Lc,1)
     S = torch.zeros((B, nh, hd, n), dtype=_F32, device=x.device)
     tx = torch.zeros((B, K - 1, din), dtype=x.dtype, device=x.device)
-    tb = torch.zeros((B, K - 1, n), dtype=x.dtype, device=x.device)
-    tc = torch.zeros((B, K - 1, n), dtype=x.dtype, device=x.device)
+    tb = torch.zeros((B, K - 1, Bm.shape[-1]), dtype=x.dtype,
+                     device=x.device)
+    tc = torch.zeros_like(tb)
     ys = []
     for s in range(0, L, Lc):
         xin_x = torch.cat([tx, xr[:, s:s + Lc]], dim=1)
-        xin_b = torch.cat([tb, Bm[:, s:s + Lc]], dim=1)
-        xin_c = torch.cat([tc, Cm[:, s:s + Lc]], dim=1)
-        xconv, Bc, Cc = _mamba2_convs(p, xin_x, xin_b, xin_c)
+        xconv = F.silu(_causal_conv_chunk(xin_x, p.conv_x_w, p.conv_x_b))
+        Bc, xin_b = _state_conv(p, cfg, "B", Bm[:, s:s + Lc], tb, shard)
+        Cc, xin_c = _state_conv(p, cfg, "C", Cm[:, s:s + Lc], tc, shard)
         xc = xconv.reshape(B, Lc, nh, hd)
         # bf16 + float32 promotes to float32, as in the reference
         dt = _softplus(dt_raw[:, s:s + Lc] + p.dt_bias)     # (B, Lc, nh)
@@ -440,8 +487,9 @@ def mamba2_apply(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
             xin_c[:, -(K - 1):]
     y = constrain(ys[0] if len(ys) == 1 else torch.cat(ys, dim=1),
                   "batch", "seq", "inner")
-    y = _gated_rmsnorm(y, z, p.norm_scale)
-    out = constrain(y.to(x.dtype) @ p.out_proj, "batch", "seq", "embed")
+    y = _gated_rmsnorm(y, z, p.norm_scale, shard=shard, d_inner=cfg.d_inner)
+    out = constrain(cut_matmul(y.to(x.dtype), p.out_proj, shard), "batch",
+                    "seq", "embed")
     if return_cache:
         return out, {"conv_x": tx.clone(), "conv_B": tb.clone(),
                      "conv_C": tc.clone(), "h": S}
@@ -461,55 +509,38 @@ def mamba2_cache(cfg: ArchConfig, batch: int, dtype: torch.dtype,
     }
 
 
-def _conv_step(tail: torch.Tensor, new: torch.Tensor, w: torch.Tensor,
-               b: torch.Tensor, ch):
-    """One step of a Mamba2 depthwise conv on the channels of ``ch``
-    (:func:`repro_torch.distributed.collectives.cut_of` of the tail's
-    leaf), whose outputs it all-gathers: ``(out (B, 1, C) float32 of
-    every channel, the left-extended input whose tail is the new cache
-    leaf)``."""
-    lo, hi = ch.bounds(new.shape[-1])
-    xin = torch.cat([tail, new[..., lo:hi]], dim=1)
-    out = F.silu(_causal_conv_chunk(xin, w[:, lo:hi], b[lo:hi]))
-    return ch.gather(out, -1), xin
-
-
 def mamba2_decode(p: Mamba2Block, cfg: ArchConfig, x: torch.Tensor,
                   cache: Dict[str, torch.Tensor], shard=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, 1, d) one token; one step of the recurrence
     ``h = exp(dt A) h + dt B x``, ``y = C h + D x``.
 
-    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`)
-    that cuts cache leaves (``cache_specs``' rule: ``h``'s heads, each
-    conv tail's channels where they divide): the rank steps its heads
-    and channels and all-gathers the activations that need all of them,
-    each conv's output and ``y`` before the gated norm. Without one it
-    steps all of them and gathers nothing."""
+    ``shard`` (a :class:`repro_torch.distributed.collectives.ModelShard`):
+    a tensor-parallel rank whose block holds its heads and their
+    channels, and whose cache holds the same heads' state and channels'
+    conv tails (``cache_specs``' rule; B's and C's where ``n`` is cut);
+    it steps them (the module docstring)."""
     B = x.shape[0]
-    din = cfg.d_inner
-    nh, hd, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_conv
+    shard = cut_for(shard, p.in_x)
+    din = p.in_x.shape[1]
+    nh, hd, K = p.in_dt.shape[1], cfg.ssm_head_dim, cfg.ssm_conv
     z = x @ p.in_z
-    xconv, xin_x = _conv_step(cache["conv_x"], x @ p.in_x, p.conv_x_w,
-                              p.conv_x_b, cut_of(shard, "conv_x"))
-    Bc, xin_b = _conv_step(cache["conv_B"], x @ p.in_B, p.conv_B_w,
-                           p.conv_B_b, cut_of(shard, "conv_B"))
-    Cc, xin_c = _conv_step(cache["conv_C"], x @ p.in_C, p.conv_C_w,
-                           p.conv_C_b, cut_of(shard, "conv_C"))
+    xin_x = torch.cat([cache["conv_x"], x @ p.in_x], dim=1)
+    xconv = F.silu(_causal_conv_chunk(xin_x, p.conv_x_w, p.conv_x_b))
+    Bc, xin_b = _state_conv(p, cfg, "B", x @ p.in_B, cache["conv_B"], shard)
+    Cc, xin_c = _state_conv(p, cfg, "C", x @ p.in_C, cache["conv_C"], shard)
     dt_raw = x @ p.in_dt
-    heads = cut_of(shard, "h")
-    lo, hi = heads.bounds(nh)
-    xc = xconv[:, 0].reshape(B, nh, hd)[:, lo:hi]
-    dt = _softplus(dt_raw[:, 0] + p.dt_bias)[:, lo:hi]     # (B, nh_r)
-    A = -torch.exp(p.A_log.to(_F32))[lo:hi]
+    xc = xconv[:, 0].reshape(B, nh, hd)
+    dt = _softplus(dt_raw[:, 0] + p.dt_bias)               # (B, nh_r)
+    A = -torch.exp(p.A_log.to(_F32))
     decay = torch.exp(dt * A)                              # (B, nh_r)
     contrib = dt[:, :, None, None] * Bc[:, 0, None, None, :] \
         * xc[:, :, :, None]                                # (B, nh_r, hd, n)
     h_new = decay[:, :, None, None] * cache["h"] + contrib
     y = torch.einsum("bn,bhpn->bhp", Cc[:, 0], h_new) \
-        + p.D[lo:hi][None, :, None] * xc
-    y = heads.gather(y, 1)                                 # (B, nh, hd)
-    y = _gated_rmsnorm(y.reshape(B, 1, din), z, p.norm_scale)
-    out = y.to(x.dtype) @ p.out_proj
+        + p.D[None, :, None] * xc
+    y = _gated_rmsnorm(y.reshape(B, 1, din), z, p.norm_scale, shard=shard,
+                       d_inner=cfg.d_inner)
+    out = cut_matmul(y.to(x.dtype), p.out_proj, shard)
     return out, {"conv_x": _tail(xin_x, K), "conv_B": _tail(xin_b, K),
                  "conv_C": _tail(xin_c, K), "h": h_new}

@@ -37,7 +37,8 @@ with ``in_shardings`` from its parameter, batch and cache specs):
   decode = build_sharded_decode(model, mesh, pspec, bspec, cspec)
   logits, cache = decode(params, cache, batch)
 
-``build_sharded_serve`` builds the two on one held copy of the weights.
+``build_sharded_serve`` builds the two on one held copy of the weights:
+each rank's ``"model"`` cut of them, computed on tensor parallel.
 
 ``cache_with_room`` puts a prefill's cache in the slots of a longer one.
 """
@@ -56,7 +57,8 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.state import moments_of_batch
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as sh
-from repro_torch.distributed.collectives import ModelShard
+from repro_torch.distributed.collectives import (ModelShard, all_gather,
+                                                 all_to_all)
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import compute_dtype
@@ -218,11 +220,13 @@ def cache_with_room(cfg: ArchConfig, cache: Dict, max_len: int) -> Dict:
         return cache
     k = cache[key]["k"]
     B, T = k.shape[-4], k.shape[-3]
-    room = lm_mod.lm_init_cache(cfg, B, max_len, k.device)[key]
-    S = room["k"].shape[-3]
+    S = lm_mod.lm_init_cache(cfg, B, max_len, "meta")[key]["k"].shape[-3]
     if S == max_len and T > S:            # not a ring: no room
         raise ValueError(f"a prefill of {T} positions does not fit a "
                          f"cache of {max_len}")
+    # the prefill's own kv heads (a tensor-parallel rank's cut)
+    room = {name: k.new_zeros((*k.shape[:-3], S, *k.shape[-2:]))
+            for name in ("k", "v")}
     first = max(T - S, 0)
     pos = torch.arange(first, T, device=k.device)
     for name in ("k", "v"):
@@ -251,10 +255,16 @@ def _map(fn, tree: Dict, *others: Dict) -> Dict:
             else fn(k, v, *(o[k] for o in others)) for k, v in tree.items()}
 
 
+def _owner(module: nn.Module, name: str) -> Tuple[nn.Module, str]:
+    """The submodule holding parameter ``name`` and its attribute."""
+    path, _, attr = name.rpartition(".")
+    return (module.get_submodule(path) if path else module), attr
+
+
 class _ServeOnMesh:
     """What the sharded prefill and decode share: the mesh and its
-    groups, the parameters gathered whole into a module held here, and
-    this rank's dp slice of a batch."""
+    groups, this rank's ``"model"`` cut of the parameters in a module
+    held here, and this rank's dp slice of a batch."""
 
     def __init__(self, model: Model, mesh, param_spec: Dict,
                  batch_spec: Dict, window: Optional[int],
@@ -280,7 +290,7 @@ class _ServeOnMesh:
 
     @property
     def module(self) -> Optional[nn.Module]:
-        """The parameters gathered whole (``None`` before the first
+        """This rank's cut of the parameters (``None`` before the first
         call)."""
         return self._held.get("module")
 
@@ -290,13 +300,23 @@ class _ServeOnMesh:
         cuts = {name: d for name, s in _leaves(cache_spec or {})
                 if (d := _model_dim(s)) is not None}
         return ModelShard(self.model_index, self.n_model, self.model_group,
-                          cuts, self.batch_groups)
+                          cuts, self.batch_groups, self._held["cut"])
 
     def load(self, params: Dict) -> nn.Module:
-        """The module of the whole parameters: on the first call each
-        DTensor of ``params`` is checked against its spec and gathered
-        whole (``sharding.full_tensors``) into a module held here; later
-        calls return it as it is."""
+        """The module of this rank's ``"model"`` cut of the parameters:
+        on the first call each DTensor of ``params`` is checked against
+        its spec and gathered over the dp axes that cut it, its
+        ``"model"`` coordinate's shards (:meth:`_model_cut`), into a
+        module of those local shapes held here; nothing is all-gathered
+        over ``"model"`` (a dim cut over ``"model"`` and dp together is
+        put in block order by one all-to-all over ``"model"``:
+        :meth:`_model_block`). A leaf the specs leave uncut over
+        ``"model"`` (a
+        norm, the router, kv projections whose heads do not divide the
+        ranks) is held whole; one that no dp axis cuts is this rank's
+        shard itself, not a copy. Later calls return the module as it
+        is: a server's weights do not change between calls (the
+        reference's jitted step gathers over dp on every call)."""
         if self.module is not None:
             return self.module
         for n, p in params.items():
@@ -305,15 +325,93 @@ class _ServeOnMesh:
                 raise ValueError(f"{n} is laid out {p.placements}, not by "
                                  f"its spec {want}")
         names = list(params)
-        dev = params[names[0]].to_local().device
-        module = self.model.init(0, device="meta").to_empty(device=dev)
-        named = dict(module.named_parameters())
-        if list(named) != names:
+        module = self.model.init(0, device="meta")
+        if [n for n, _ in module.named_parameters()] != names:
             raise ValueError("the parameters are not the model's")
-        sh.full_tensors([params[n] for n in names],
-                        out=[named[n].data for n in names])
+        cut = {}
+        for n in names:
+            owner, attr = _owner(module, n)
+            held = nn.Parameter(self._model_cut(n, params[n]),
+                                requires_grad=False)
+            setattr(owner, attr, held)
+            d = _model_dim(sh.P(*self.param_spec[n]).padded(held.dim()))
+            if d is not None and self.n_model > 1:
+                cut[id(held)] = d
+        # the held leaves cut over "model", from the specs alone: what a
+        # layer asks of its shard (collectives.cut_for)
+        self._held["cut"] = cut
         self._held["module"] = module
         return module
+
+    def _model_cut(self, name: str, p) -> torch.Tensor:
+        """This rank's ``"model"`` cut of DTensor ``p``: its shard joined
+        with those of the ranks that differ from it only on the dp axes
+        cutting a dim (an all-gather an axis, the innermost first, so
+        that the chunks fall in DTensor's mesh-dim-major order), then
+        each dim cut over ``"model"`` and dp together put in the block
+        order of the dims cut over ``"model"`` alone
+        (:meth:`_model_block`)."""
+        loc = p.to_local()
+        spec = sh.P(*self.param_spec[name]).padded(loc.dim())
+        sizes = sh.axis_sizes(self.mesh)
+        for a in reversed(list(sizes)):
+            d = next((d for d, e in enumerate(spec) if a in sh._axes(e)),
+                     None)
+            if a == "model" or sizes[a] == 1 or d is None:
+                continue
+            every = all_gather(loc, group=self.mesh.get_group(a))
+            loc = torch.cat(every.unbind(0), dim=d)
+        for d, e in enumerate(spec):
+            axes = [a for a in sizes if a in sh._axes(e)]
+            if "model" in axes and len(axes) > 1:
+                loc = self._model_block(loc, d, axes)
+        return loc
+
+    def _model_block(self, loc: torch.Tensor, d: int, axes) -> torch.Tensor:
+        """Dim ``d`` of ``loc``, cut over ``axes`` (mesh order) of which
+        ``"model"`` is one and whose dp chunks are gathered, as block
+        ``model_index`` of the dim cut ``n_model`` ways: the block that
+        the same rank's leaves cut over ``"model"`` alone meet (``wq``'s
+        and ``wo``'s heads, ``w_up``'s and ``w_down``'s ff). DTensor
+        orders a dim's chunks mesh-dim-major, so with ``"model"`` the
+        inner axis the ranks of one ``"model"`` coordinate hold every
+        ``n_model``-th chunk; the block's other chunks come from the
+        other ``"model"`` ranks (one all-to-all over the ``"model"``
+        subgroup, of the bytes held). The reference's mesh orders them
+        model-major, where the dp gather is the block."""
+        sizes = sh.axis_sizes(self.mesh)
+        M = sizes["model"]
+        dps = [a for a in axes if a != "model"]
+        D = math.prod(sizes[a] for a in dps)
+
+        def chunk(j: int, m: int) -> int:
+            """The dim's chunk at dp index ``j``, ``"model"`` coord ``m``."""
+            digit = {"model": m}
+            for a in reversed(dps):
+                j, digit[a] = divmod(j, sizes[a])
+            c = 0
+            for a in axes:
+                c = c * sizes[a] + digit[a]
+            return c
+        m = self.model_index
+        if M == 1 or D == 1 or all(chunk(j, m) == m * D + j
+                                   for j in range(D)):
+            return loc
+        x = loc.movedim(d, 0)
+        rows = x.reshape(D, x.shape[0] // D, *x.shape[1:])
+        dest = [chunk(j, m) // D for j in range(D)]
+        send = sorted(range(D), key=lambda j: (dest[j], j))
+        w = rows.shape[1]
+        arrive = [chunk(j, s) for s in range(M) for j in range(D)
+                  if chunk(j, s) // D == m]
+        got = all_to_all(
+            rows[send].reshape(x.shape),
+            [dest.count(r) * w for r in range(M)],
+            [sum(chunk(j, s) // D == m for j in range(D)) * w
+             for s in range(M)], group=self.model_group)
+        got = got.reshape(rows.shape)[[arrive.index(m * D + j)
+                                       for j in range(D)]]
+        return got.reshape(x.shape).movedim(0, d).contiguous()
 
     def local_batch(self, batch: Dict) -> Dict:
         """This rank's dp slice of each entry: a DTensor's shard, a whole
@@ -330,12 +428,15 @@ class _ServeOnMesh:
                 out[k] = v
         return out
 
-    def part_of(self, spec: sh.P, local: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a cache leaf that holds this rank's rows
-        whole: the dims ``spec`` cuts over ``"model"`` narrowed (a copy,
-        so that the whole leaf can go)."""
+    def part_of(self, name: str, spec: sh.P,
+                local: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of prefill cache leaf ``name`` of this
+        rank's rows. The layers make their own cut of a leaf's heads or
+        channels; the sequence rule's KV (``k`` / ``v`` cut over
+        ``"model"`` on the slots, dim -3) is made whole, and its slots
+        are narrowed here (a copy, so that the whole leaf can go)."""
         d = _model_dim(spec)
-        if d is None or self.n_model == 1:
+        if self.n_model == 1 or name not in ("k", "v") or d != -3:
             return local
         return self.shard().part(local, d).clone()
 
@@ -361,21 +462,26 @@ def build_sharded_prefill(model: Model, mesh, param_spec: Dict,
     out by ``param_spec`` (DTensors, :func:`repro_torch.distributed.
     sharding.distribute`), and the same whole ``batch``:
 
-      * the parameters are checked against their specs and gathered whole
-        into a module held by the step on its first call
+      * the parameters are checked against their specs and this rank's
+        ``"model"`` cut of them (gathered over dp only) is held by the
+        step in a module of those local shapes on its first call
         (``prefill.load(params)`` does only that); later calls reuse it.
         A server's weights do not change between calls: after they do,
         build a new step;
       * the rank's dp slice of the batch (``batch_spec``; ranks of one dp
         coordinate take the same one, and every rank the whole batch
-        where ``batch_axis`` gives ``None``) runs through the
-        single-card prefill (``lm_prefill``; the enc-dec's encoder and
-        ``decode_train``), its MoE layers on the whole batch's dispatch
-        groups;
+        where ``batch_axis`` gives ``None``) runs through the prefill
+        tensor parallel over the ``"model"`` ranks (``lm_prefill``; the
+        enc-dec's encoder and ``decode_train``, with this rank's
+        :class:`~repro_torch.distributed.collectives.ModelShard`): each
+        layer on its cut of heads, MLP columns, experts, SSM channels or
+        vocab, the partial sums added over the ranks, its MoE layers on
+        the whole batch's dispatch groups;
       * its cache, given ``max_len`` slots by :func:`cache_with_room`
-        when asked (the room to decode into), is cut to this rank's
-        shard by ``sharding.cache_specs`` of the whole batch: the whole
-        slice's cache exists only inside the call.
+        when asked (the room to decode into), is this rank's shard by
+        ``sharding.cache_specs`` of the whole batch: the layers make
+        their cut of heads and channels, and a cache they make whole
+        (the sequence rule's KV) is cut inside the call.
 
     Returns the slice's last-position logits (B_r, 1, V) and the cache
     as DTensors of the global shapes, each holding this rank's shard.
@@ -398,17 +504,20 @@ class _ShardedPrefill(_ServeOnMesh):
         module = self.load(params)
         cfg = self.cfg
         mine = self.local_batch(batch)
+        shard = self.shard()
         with torch.no_grad():
             if cfg.family == "encdec":
-                memory = encdec_mod.encode(module, cfg, mine["frame_embeds"])
+                memory = encdec_mod.encode(module, cfg, mine["frame_embeds"],
+                                           shard)
                 logits = encdec_mod.decode_train(module, cfg, mine["tokens"],
-                                                 memory, last_only=True)
+                                                 memory, last_only=True,
+                                                 shard=shard)
                 cache = {"memory": memory}
             else:
                 logits, cache = lm_mod.lm_prefill(
                     module, cfg, mine["tokens"],
                     extra_embeds=mine.get("extra_embeds"),
-                    window=self.window, shard=self.shard())
+                    window=self.window, shard=shard)
                 if self.max_len is not None:
                     cache = cache_with_room(cfg, cache, self.max_len)
             B = next(v.shape[0] for v in batch.values() if v.dim())
@@ -421,7 +530,7 @@ class _ShardedPrefill(_ServeOnMesh):
                 cfg, self.mesh, ShapeConfig("prefill", T, B, "prefill"),
                 like)
             cache = _map(lambda k, v, s: self.part_of(
-                sh.P(*s).padded(v.dim()), v), cache, self.cache_spec)
+                k, sh.P(*s).padded(v.dim()), v), cache, self.cache_spec)
         return logits, _map(lambda k, v, s: self.distributed(
             sh.P(*s).padded(v.dim()), v), cache, self.cache_spec)
 
@@ -446,11 +555,16 @@ def build_sharded_decode(model: Model, mesh, param_spec: Dict,
     and heads over ``"model"``) and the same whole batch (a DTensor
     entry, the prefill's ``memory``, is taken as its shard).
 
-    No cache leaf is gathered. Each layer works on its shard
+    No cache leaf is gathered. Each layer is tensor parallel on its
+    cut of the parameters and its shard of the cache
     (:func:`repro_torch.models.attention.decode_attention`,
-    :func:`repro_torch.models.ssm.mamba1_decode` / ``mamba2_decode``
-    with a :class:`repro_torch.distributed.collectives.ModelShard`) and
-    all-gathers small activations over the mesh's ``"model"`` subgroup,
+    :func:`repro_torch.models.ssm.mamba1_decode` / ``mamba2_decode``,
+    :func:`repro_torch.models.layers.mlp_apply`,
+    :func:`repro_torch.models.moe.moe_apply` with a
+    :class:`repro_torch.distributed.collectives.ModelShard`): it adds
+    its partial sums over the mesh's ``"model"`` subgroup (an
+    all-reduce, whose result every rank gets bit for bit) and
+    all-gathers the small activations that need every head or channel,
     merged in rank order, so that every rank of one dp coordinate ends
     with the same bits. Returns the slice's logits (B_r, 1, V) and the
     new cache, laid out as the old."""

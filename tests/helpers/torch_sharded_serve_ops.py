@@ -9,11 +9,12 @@ served) on a ``("data", "model")`` mesh: the prefill of
 teacher-forced steps of its decode from the weights the test saved, beside the single-process
 ``prefill`` + ``decode`` of the same weights and tokens. Each rank holds
 its cache shards to the slices of the single-process cache (local
-shapes and values), records the collectives that a steady prefill and
-a steady decode call make (``collectives.tally``) and the shape of
-every collective operand of the decode steps, and returns its logits
-and their checksums for the test to hold against the reference and
-across replicas.
+shapes and values), records the collectives of the one-time load, of
+a steady prefill and of a steady decode call (``collectives.tally``),
+the bytes of the parameters it holds (its ``"model"`` cut) and the
+shape of every collective operand of the decode steps, and returns its
+logits and their checksums for the test to hold against the reference
+(single-process and partitioned) and across replicas.
 
 ``case_config`` and ``PREFILL`` are shared with the test (which builds
 the reference's config from the same fields) and with
@@ -182,7 +183,11 @@ def op_sharded_serve(arch: str, mesh_shape, weights: str, ring: bool = False,
         single = model.init_cache(B, S, device="cpu")
     else:
         single = cache_with_room(cfg, want_c, S)
+    c0 = coll.tally()
     prefill.load(params)
+    rec["load_collectives"] = _since(c0)
+    rec["held_bytes"] = sum(t.numel() * t.element_size()
+                            for t in prefill.module.parameters())
     c0 = coll.tally()
     got_l, got_c = prefill(params, pre)
     rec["prefill_collectives"] = _since(c0)
@@ -228,6 +233,16 @@ def op_sharded_serve(arch: str, mesh_shape, weights: str, ring: bool = False,
         rec["f32_err"] = float((got - truth).abs().max())
         rec["single_f32_err"] = float((want - truth).abs().max())
     rec["decode_shards"] = _hold_shards(mesh, cache, single, cspec)
+    if mesh_shape[1] == 1 and cfg.family == "moe":
+        # "model" of one rank; an MoE's dispatch groups span the whole
+        # batch (the rank gathers their rows): the full batch's program
+        rec["rows_single_err"] = rec["single_err"]
+        rec["rows_cache_err"] = max(e for _, e, _ in
+                                    rec["decode_shards"].values())
+    elif mesh_shape[1] == 1:
+        # "model" of one rank: the single process on this rank's rows
+        rec["rows_single_err"], rec["rows_cache_err"] = _rows_single(
+            model, lm, pre, toks, rows, window, got, cache, extra, start)
     rec["logits"] = got.tolist()
     rec["logits_crc"] = _crc(got)
     rec["shard_crcs"] = {n: [[[s.start, s.stop] for s in sh.shard_slices(
@@ -243,6 +258,33 @@ def op_sharded_serve(arch: str, mesh_shape, weights: str, ring: bool = False,
                                   if tuple(s) in leaf_shapes]
     rec["n_operands"] = len(operands)
     return rec
+
+
+def _rows_single(model, lm, pre, toks, rows, window, got, cache, extra,
+                 start):
+    """The single-process prefill and decode steps on this rank's rows
+    alone (a batch of B_r: the port's matmuls of another batch size may
+    round otherwise): the largest differences of the rank's logits and
+    final cache leaves from that run's."""
+    cfg = model.cfg
+    mine = {k: v[rows] for k, v in pre.items()}
+    lg, c = model.prefill(lm, mine, window)
+    if cfg.family == "encdec":
+        extra = {"memory": c["memory"]}
+        c = model.init_cache(rows.stop - rows.start, decode_len(cfg),
+                             device="cpu")
+    else:
+        c = cache_with_room(cfg, c, decode_len(cfg, window is not None))
+    out = [lg]
+    for i in range(STEPS):
+        lg, c = model.decode(lm, c, {"token": toks[rows, i:i + 1],
+                                     "pos": start + i, **extra}, window)
+        out.append(lg)
+    err = float((got - torch.cat(out, dim=1)).abs().max())
+    flat = dict(_leaves(c))
+    cache_err = max(float((t.to_local().float() - flat[n].float()).abs()
+                          .max()) for n, t in _leaves(cache))
+    return err, cache_err
 
 
 def _float32_logits(arch: str, ring: bool, lm, pre: dict, toks):

@@ -18,11 +18,16 @@
     the three terms, on both meshes;
   * each record's ``step_cost``, per device: a train cell's the sharded
     step's (its all-reduce and all-gather bytes by the arithmetic of
-    the step), a serving cell's a steady call of the sharded decode's,
-    with the per-device memory fields filled and the one-time parameter
-    gather beside it; qwen3-0.6b's ``decode_32k`` on 16 x 16 takes the
-    sequence rule (8 kv heads do not divide 16) and its steady decode
-    call's collective bytes stay under 5 % of the device's cache shard.
+    the step), a serving cell's a steady call of the tensor-parallel
+    sharded decode's, with the per-device memory fields filled and the
+    one-time load of the rank's "model" cut beside it (all-gathers over
+    dp, an all-to-all over "model" a leaf cut over both, by the
+    arithmetic of the port's specs); qwen3-0.6b's ``decode_32k`` on 16
+    x 16 takes the sequence rule (8 kv heads do not divide 16), and its
+    steady decode call's collectives (q and the softmax partials
+    all-gathered a layer, the partial sums of ``wo`` and ``w_down``
+    all-reduced, the embedding's rows added, the logits' vocab
+    gathered) stay under 5 % of the device's cache shard.
 """
 
 import json
@@ -47,6 +52,7 @@ from repro.train import optimizer as jopt
 from repro_torch.configs import ShapeConfig, get
 from repro_torch.launch import dryrun, step_cost
 from repro_torch.models import build
+from tests.helpers.sharded_load import load_arithmetic
 from tests.helpers.torch_parity import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -147,9 +153,12 @@ def test_qwen3_cells_ok_with_reference_bytes(qwen_records, shape, mesh):
         # a rank decodes its dp slice (8 of 128 rows on the dp axes):
         # fewer FLOPs than the global step's share of the model axis
         assert 0 < cost["flops"] < rec["flops"]
-        gather = cost["param_gather"]
-        assert gather["collectives"]["all-gather"]["bytes"] == \
-            mem["param_bytes"]
+        colls = cost["param_gather"]["collectives"]
+        want = load_arithmetic(fm, get("qwen3_0_6b"))
+        for kind in ("all-gather", "all-to-all"):
+            assert [colls[kind]["count"], colls[kind]["bytes"]] == \
+                want[kind], (kind, colls, want)
+        assert colls["all-reduce"]["count"] == 0
 
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
@@ -178,18 +187,30 @@ def test_qwen3_decode_collectives_are_a_small_share_of_the_cache(
     """qwen3-0.6b's ``decode_32k`` on 16 x 16 (a meta run in the fake
     group): its 8 kv heads do not divide the 16 "model" ranks, so the
     cache is cut by sequence, and a steady decode call all-gathers each
-    layer's softmax partials, never a cache leaf: its collective bytes,
-    the one-time parameter gather apart, are under 5 % of the device's
-    cache shard (gathering a leaf would move 16 times its shard)."""
+    layer's q (each rank computes one of the 16 heads) and softmax
+    partials, never a cache leaf, and all-reduces the float32 partial
+    sums of ``wo`` and ``w_down`` a layer and of the embedding's rows;
+    the logits' vocab blocks are gathered once. Its collective bytes,
+    the one-time load apart, are under 5 % of the device's cache shard
+    (gathering a leaf would move 16 times its shard)."""
     rec = qwen_records[("decode_32k", "16x16")]
     cost = rec["step_cost"]
     cache = rec["memory"]["cache_bytes"]
     colls = cost["collectives"]
-    assert colls["all-gather"]["count"] == 28    # one a layer
-    assert all(colls[k]["count"] == 0 for k in colls if k != "all-gather")
+    cfg = get("qwen3_0_6b")
+    B_r, L, H, hd = 8, cfg.n_layers, cfg.n_heads, cfg.head_dim
+    assert colls["all-gather"]["count"] == 2 * L + 1
+    assert colls["all-reduce"]["count"] == 2 * L + 1
+    assert all(colls[k]["count"] == 0 for k in colls
+               if k not in ("all-gather", "all-reduce"))
     assert 0 < rec["collective_bytes"] < 0.05 * cache
-    # the partials of one layer: (m, l, o) of B_r 8 rows x 16 heads
-    assert rec["collective_bytes"] == 28 * 8 * 16 * (128 + 2) * 4
+    # a layer's q (bf16, one head a rank) and partials (m, l, o) of B_r
+    # rows x 16 heads; the rank's vocab block of the logits (float32)
+    assert colls["all-gather"]["bytes"] == L * (
+        B_r * hd * 2 + B_r * H * (hd + 2) * 4) + \
+        B_r * cfg.vocab_padded // 16 * 4
+    # float32 partial sums of (B_r, 1, d)
+    assert colls["all-reduce"]["bytes"] == (2 * L + 1) * B_r * cfg.d_model * 4
 
 
 @pytest.mark.parametrize("arch,kind", [

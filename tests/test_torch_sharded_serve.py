@@ -1,8 +1,10 @@
 """The port's sharded serving steps (``build_sharded_serve``: the
-prefill and decode steps on one held module) on a gloo world of 4 CPU ranks
+prefill and decode steps on one held module, tensor parallel over the
+mesh's "model" ranks) on a gloo world of 4 CPU ranks
 (``tests/helpers/torch_dist_world.py``; the commands are
 ``tests/helpers/torch_sharded_serve_ops.py``), against the
-single-process port and the reference.
+single-process port, the reference, and the reference's partitioned
+program.
 
 One reduced float32 config a family, each with 2 kv heads of 4 where it
 has attention: qwen3-0.6b (dense), pixtral-12b (vlm), dbrx-132b (MoE),
@@ -10,13 +12,28 @@ zamba2-7b (hybrid: Mamba2 and the shared attention), falcon-mamba-7b
 (ssm: Mamba1) and seamless-m4t-large-v2 (enc-dec). On the ("data",
 "model") mesh (2, 2) the 2 kv heads divide the 2 "model" ranks: the
 heads rule; on (1, 4) they do not divide 4: the sequence rule
-(``sharding.cache_specs``). Each case prefills 8 x 32 positions (the
+(``sharding.cache_specs``); on (4, 1) "model" has one rank and nothing
+is cut but the batch. Each case prefills 8 x 32 positions (the
 enc-dec 16 frames and 16 tokens) with room for 8 teacher-forced decode
 steps, and holds:
 
   * every rank's logits (its dp rows, prefill and each step) to the
     single-process port's and to the reference's ``prefill`` /
-    ``decode`` on the same weights at 1e-5 of the largest;
+    ``decode`` on the same weights at 1e-5 of the largest, and on (4, 1)
+    (logits and final cache) to the single-process port's bit for bit:
+    on the rank's rows (a batch of another size may round otherwise:
+    zamba2's does), an MoE's on the whole batch (its dispatch groups
+    span the batch);
+  * in float32 on (2, 2) and (1, 4), every rank's logits to the
+    reference's own partitioned program (its prefill and decode jitted
+    with ``in_shardings`` from its specs under its activation rules, on
+    4 fake CPU devices: ``tests/helpers/ref_sharded_serve.py``) at 1e-5
+    of the largest;
+  * each rank's held parameters: their bytes the sum of its leaves'
+    "model" cuts by ``param_specs``, loaded by all-gathers over "data"
+    alone (the bytes of the leaves "data" cuts) and, where a dim is cut
+    over "model" and "data" together, one all-to-all a leaf over
+    "model" (DTensor's chunk order to the block order);
   * every rank's cache shards, after the prefill and after the last
     step, to ``sharding.local_shape`` of their spec and to the slices
     of the single-process cache at 1e-5 of the leaf's largest;
@@ -25,7 +42,8 @@ steps, and holds:
   * rank 0's collectives of a steady prefill and decode call, by kind
     (``collectives.tally``), to the meta prediction of
     ``dryrun.sharded_serve_cost`` in a fake group of 4
-    (``tests/helpers/torch_serve_cost_fake.py``);
+    (``tests/helpers/torch_serve_cost_fake.py``); a cut decode step
+    all-reduces its partial sums and permutes nothing;
   * no collective of a decode step has the shape of a cache leaf (the
     caches are never gathered).
 
@@ -37,14 +55,16 @@ cache on (1, 4), where three of the four sequence shards are fully
 masked, at an int and a tensor position.
 
 In bfloat16, as the configs serve: qwen3-0.6b on both meshes,
-falcon-mamba-7b on (2, 2) and zamba2-7b on (1, 4). The heads rule and
-the Mamba1 / Mamba2 paths give the single-process port's logits and
-cache bit for bit. The sequence rule's merge rounds each rank's softmax
-weights (not the normalized probabilities) before multiplying by v, so
-it differs from the single card by rounding: its logits are held to lie
-no further from the reference, and from the float32 run of the same
-weights, than 1.5x the single-process port's distance
-(``BF16_SPREAD``), and its cache shards within ``TOL_BF16_CACHE``.
+falcon-mamba-7b on (2, 2) and zamba2-7b on (1, 4). A tensor-parallel
+step sums partial products, each rounded to bfloat16, as the
+reference's partitioned program does, and the sequence rule's merge
+rounds each rank's softmax weights (not the normalized probabilities)
+before multiplying by v, so neither gives the single card's bits: the
+logits (prefill and steps) are held to lie no further from the
+reference, and from the float32 run of the same weights, than 1.5x the
+single-process port's distance (``BF16_SPREAD``), and the cache shards
+within ``TOL_BF16_CACHE``. On (4, 1) bfloat16 is the single process's
+bits.
 """
 
 import collections
@@ -66,8 +86,12 @@ from repro.models import build as jax_build
 from repro.models import make_batch as jax_make_batch
 from repro.configs import ShapeConfig as JShapeConfig
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import build, convert
+from repro_torch.launch import dryrun
+from repro_torch.models import layers
 from tests.helpers import torch_sharded_serve_ops as ops
+from tests.helpers.sharded_load import load_arithmetic
 from tests.helpers.torch_dist_world import DistWorld
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,30 +99,32 @@ ARCHS = ["qwen3_0_6b", "pixtral_12b", "dbrx_132b", "zamba2_7b",
          "falcon_mamba_7b", "seamless_m4t_large_v2"]
 MESHES = [(2, 2), (1, 4)]
 F32, BF16 = "float32", "bfloat16"
+#: "model" of one rank: the batch cut four ways and nothing else
+WHOLE_MODEL = (4, 1)
 CASES = [(a, m, False, F32) for a in ARCHS for m in MESHES] + [
     ("zamba2_7b", m, True, F32) for m in MESHES] + [
     ("qwen3_0_6b", (2, 2), False, BF16), ("qwen3_0_6b", (1, 4), False, BF16),
     ("falcon_mamba_7b", (2, 2), False, BF16),
-    ("zamba2_7b", (1, 4), False, BF16)]
+    ("zamba2_7b", (1, 4), False, BF16)] + [
+    (a, WHOLE_MODEL, False, F32) for a in ARCHS] + [
+    ("qwen3_0_6b", WHOLE_MODEL, False, BF16)]
+#: the cases held to the reference's partitioned program: float32, one
+#: reduced config a family, on both meshes that cut "model"
+PARTITIONED = [c for c in CASES if c[3] == F32 and not c[2]
+               and c[1] in MESHES]
 CASE_TIMEOUT_S = 120
 TOL = 1e-5
-#: bfloat16 under the sequence rule (whose merge rounds each rank's own
-#: weights; every other path gives the single card's bits): the logits
+#: bfloat16 where "model" is cut (partial sums rounded to bf16, the
+#: sequence rule's merge rounding each rank's own weights): the logits
 #: no further from the reference, and from the float32 run of the same
 #: weights, than 1.5x the single-process port's distance (the bf16
-#: hybrid's precedent in test_torch_hybrid_encdec.py; measured 1.02x and
-#: 1.22x to the reference, 0.87x and 0.78x to float32, for qwen3 and
-#: zamba2); the cache shards within 6e-2 of a leaf's largest value
-#: (1.5x the largest reading: 1.4e-2 qwen3, 4.1e-2 zamba2)
+#: hybrid's precedent in test_torch_hybrid_encdec.py; the sequence rule
+#: measured 1.02x and 1.22x to the reference, 0.87x and 0.78x to
+#: float32, for qwen3 and zamba2); the cache shards within 6e-2 of a
+#: leaf's largest value (1.5x the sequence rule's largest reading:
+#: 1.4e-2 qwen3, 4.1e-2 zamba2)
 BF16_SPREAD = 1.5
 TOL_BF16_CACHE = 6e-2
-
-
-def _seq_rule(case) -> bool:
-    """Whether the case's attention cache is cut over the sequence (the
-    kv heads, 2, do not divide the mesh's "model" ranks)."""
-    arch, mesh, _, _ = case
-    return arch != "falcon_mamba_7b" and 2 % mesh[1] != 0
 
 
 def _case_id(case) -> str:
@@ -108,6 +134,11 @@ def _case_id(case) -> str:
 
 
 IDS = [_case_id(c) for c in CASES]
+
+
+def _model_cut(case) -> bool:
+    """Whether the case's mesh cuts "model" (more than one rank)."""
+    return case[1][1] > 1
 
 
 @pytest.fixture(scope="module")
@@ -158,10 +189,34 @@ def _reference(arch: str, ring: bool, dtype: str,
 
 
 @pytest.fixture(scope="module")
-def runs(world, tmp_path_factory):
+def partitioned(tmp_path_factory):
+    """The reference's partitioned program's logits of every PARTITIONED
+    case, from one subprocess (4 fake CPU devices), started with the
+    module's first case and read when a case needs it."""
+    out = tmp_path_factory.mktemp("partitioned")
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}",
+           "OMP_NUM_THREADS": "1", "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tests.helpers.ref_sharded_serve", str(out),
+         *[_case_id(c) for c in PARTITIONED]], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def get(case):
+        if proc.returncode is None:
+            _, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-3000:]
+        return np.load(out / f"{_case_id(case).replace(':', '_')}.npy")
+    yield get
+    if proc.returncode is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def runs(world, partitioned, tmp_path_factory):
     """Each case's ranks' records and the reference's logits, once a
     module (the ranks' checks run there; a failing case fails each of
-    its tests)."""
+    its tests). The reference's partitioned program runs beside them."""
     done, refs = {}, {}
     tmp = tmp_path_factory.mktemp("serve")
 
@@ -203,14 +258,16 @@ def test_logits_match_single_process_and_reference(runs, case):
         assert got.shape == (hi - lo, 1 + ops.STEPS, ref.shape[-1])
         assert np.isfinite(got).all()
         assert rec["one_module"]        # the prefill's and decode's weights
-        assert rec["prefill_err"] <= TOL * scale
         err = float(np.abs(got - ref[lo:hi]).max())
+        if not _model_cut(case):
+            # the single process's bits, on the rank's rows
+            assert rec["rows_single_err"] == 0.0, rec["rows_single_err"]
+            assert rec["rows_cache_err"] == 0.0, rec["rows_cache_err"]
         if case[3] == F32:
+            assert rec["prefill_err"] <= TOL * scale
             assert rec["single_err"] <= TOL * rec["single_max"], \
                 rec["single_err"]
             assert err <= TOL * scale, (rec["rank"], err, scale)
-        elif not _seq_rule(case):
-            assert rec["single_err"] == 0.0, rec["single_err"]
         else:
             single = np.asarray(rec["single_logits"], np.float32)
             assert err <= BF16_SPREAD * float(np.abs(single - ref[lo:hi])
@@ -219,11 +276,41 @@ def test_logits_match_single_process_and_reference(runs, case):
                 (rec["f32_err"], rec["single_f32_err"])
 
 
+@pytest.mark.parametrize("case", PARTITIONED,
+                         ids=[_case_id(c) for c in PARTITIONED])
+def test_logits_match_the_reference_partitioned_program(runs, partitioned,
+                                                         case):
+    out, _ = runs(case)
+    want = partitioned(case)
+    scale = float(np.abs(want).max())
+    for rec in out:
+        lo, hi = rec["rows"]
+        got = np.asarray(rec["logits"], np.float32)
+        err = float(np.abs(got - want[lo:hi]).max())
+        assert err <= TOL * scale, (rec["rank"], err, scale)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_held_parameters_are_the_model_cut(runs, case):
+    """No rank holds more than its "model" cut, and none was gathered
+    over "model" to make it."""
+    out, _ = runs(case)
+    arch, (rows, cols), ring, dtype = case
+    want = load_arithmetic(dryrun.MeshShape((rows, cols), ("data", "model")),
+                           ops.case_config(arch, ring, dtype))
+    for rec in out:
+        assert rec["held_bytes"] == want["held"], (rec["rank"],)
+        got = rec["load_collectives"]
+        for kind in ("all-gather", "all-to-all"):
+            assert [got[kind]["count"], got[kind]["bytes"]] == want[kind], \
+                (rec["rank"], kind, got, want)
+        assert got["all-reduce"]["count"] == 0
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_cache_shards_are_slices_of_the_single_process_cache(runs, case):
     out, _ = runs(case)
-    tol = (TOL_BF16_CACHE if case[3] == BF16 and _seq_rule(case)
-           else TOL if case[3] == F32 else 0.0)
+    tol = TOL if case[3] == F32 else TOL_BF16_CACHE
     for rec in out:
         for when in ("prefill_shards", "decode_shards"):
             for leaf, (shape_ok, err, top) in rec[when].items():
@@ -257,16 +344,19 @@ def test_collectives_equal_the_meta_prediction(runs, predicted, case):
         colls = want[kind]["collectives"]
         assert got == {k: colls[k] for k in got}, (kind, got, colls)
         assert all(colls[k]["count"] == 0 for k in colls if k not in got)
-    # a decode step gathers over "model" (and the MoE over dp) only
-    assert rank0["decode_collectives"]["all-gather"]["count"] > 0
-    assert rank0["decode_collectives"]["all-reduce"]["count"] == 0
+    # a decode step adds its partial sums over "model" (all-reduces) and
+    # gathers small activations (over "model", the MoE's rows over dp);
+    # only the one-time load permutes parameter blocks
+    if _model_cut(case):
+        assert rank0["decode_collectives"]["all-reduce"]["count"] > 0
+    assert rank0["decode_collectives"]["all-to-all"]["count"] == 0
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_decode_gathers_no_cache_leaf(runs, case):
     out, _ = runs(case)
     for rec in out:
-        assert rec["n_operands"] > 0
+        assert rec["n_operands"] > 0 or not _model_cut(case)
         assert rec["cache_leaf_operands"] == [], rec["cache_leaf_operands"]
 
 
@@ -284,3 +374,37 @@ def test_fully_masked_sequence_shards_at_position_zero(world, tmp_path):
         assert max(rec["errs"]) <= TOL * rec["scale"], rec["errs"]
         for leaf, (shape_ok, err, top) in rec["shards"].items():
             assert shape_ok and err <= TOL * max(top, 1e-30), leaf
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["mm", "bmm"])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_wide_matmul_is_the_float32_product(batched, device):
+    """A rank's partial product of bf16 operands has a float32 result:
+    on the CPU the product of float32 copies bit for bit; on meta (as on
+    a card) the bf16 GEMM writing float32, of the same shape."""
+    g = torch.Generator().manual_seed(0)
+    shape_a, shape_b = ((3, 5, 64), (3, 64, 7)) if batched else \
+        ((2, 5, 64), (64, 7))
+    a = torch.randn(shape_a, generator=g).to(torch.bfloat16).to(device)
+    b = torch.randn(shape_b, generator=g).to(torch.bfloat16).to(device)
+    got = layers.wide_matmul(a, b)
+    assert got.dtype == torch.float32
+    assert got.shape == (*shape_a[:-1], shape_b[-1])
+    if device == "cpu":
+        assert torch.equal(got, a.float() @ b.float())
+
+
+def test_cut_is_read_from_the_specs_not_the_shapes():
+    """``cut_matmul`` reduces only a parameter its shard names as cut
+    (``ModelShard.held``, from the specs): a leaf of any width that the
+    shard does not name is whole."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 3, 16), generator=g).to(torch.bfloat16)
+    w = torch.randn((16, 8), generator=g).to(torch.bfloat16)
+    assert coll.cut_for(coll.ModelShard(count=4), w) is None
+    assert torch.equal(layers.cut_matmul(x, w, coll.ModelShard(count=4)),
+                       x @ w)
+    named = coll.ModelShard(held={id(w): -2})
+    assert coll.cut_for(named, w) is named
+    assert torch.equal(layers.cut_matmul(x, w, named),
+                       (x.float() @ w.float()).to(torch.bfloat16))

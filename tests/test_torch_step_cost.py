@@ -32,6 +32,7 @@
     an unreported one (a stub counter: no kernel runs here) raises.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -459,6 +460,39 @@ def test_unreported_launch_raises(monkeypatch):
 
     with pytest.raises(RuntimeError, match="selective_scan launched 1"):
         step_cost.analyze(launch)
+    assert not _build.LAUNCH_REPORTS
+
+
+def test_products_with_out_dtype_count_their_flops():
+    """``mm`` / ``bmm`` of bf16 operands writing float32 (a
+    tensor-parallel rank's partial products on a card and on meta)
+    count the product's FLOPs, and read and write their bytes."""
+    def t(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    a, b, a2, b2 = t(3, 5, 64), t(3, 64, 7), t(10, 64), t(64, 7)
+    cost = step_cost.analyze(lambda: (
+        torch.bmm(a, b, out_dtype=torch.float32),
+        torch.mm(a2, b2, out_dtype=torch.float32)), inputs=(a, b, a2, b2))
+    assert cost["flops"] == 2 * 3 * 5 * 64 * 7 + 2 * 10 * 64 * 7
+    assert cost["bytes_accessed"] == 2 * (a.numel() + b.numel() + a2.numel()
+                                          + b2.numel()) + 4 * (3 * 5 * 7
+                                                               + 10 * 7)
+
+
+def test_meta_scan_reports_its_launch_without_counting(monkeypatch):
+    """falcon-mamba's prefill through the hand-written scan on meta: each
+    layer's stand-in reports the kernel's bytes (``traffic``), counting
+    no launch."""
+    monkeypatch.setattr(kscan.selective_scan, "launches", 0)
+    cfg = dataclasses.replace(get("falcon_mamba_7b", reduced=True),
+                              ssm_impl="pallas")
+    trees, run = dryrun.step_trees(build(cfg), ShapeConfig(
+        "t", T, B, "prefill"), "meta")
+    cost = step_cost.analyze(run, inputs=trees)
+    one = sum(kscan.traffic(B, T, cfg.d_inner, cfg.ssm_state, min(512, T)))
+    assert cost["kernels"] == {"selective_scan": {
+        "count": cfg.n_layers, "bytes": cfg.n_layers * one}}
+    assert kscan.selective_scan.launches == 0
     assert not _build.LAUNCH_REPORTS
 
 
